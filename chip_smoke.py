@@ -5,10 +5,15 @@
 
 Phases (any failure raises and exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit.
-  2. build: compiles the port's CUDA kernels from sealdnerf_tpu_torch/ops/csrc.
+  2. build: compiles the port's CUDA kernels from sealdnerf_tpu_torch/ops/csrc
+     (one nvcc per source, all at once, then one link).
   3. kernel vs plain: the field kernel (K1) against its plain PyTorch
      version at the full default CPConfig on 2^20 + 37 samples, in three
      variants (full, density_only, lod_skip=(3,)), with timings.
+  3b. backward kernel vs plain: the field backward kernel (K2) against its
+     plain version at the full default CPConfig on 4096 * 64 + 37 samples
+     (one train step's worth plus a ragged tail), per param leaf within
+     1e-2 * max |plain|, with timings.
   4. served path: cli.build_trainer on `synthetic -O --bound 1 --dt_gamma 0
      --test --synthetic_res 800` (seeded init, or --ckpt), frustum marking
      and two full 128^3 occupancy sweeps (the first is timed cold, the
@@ -16,7 +21,19 @@ Phases (any failure raises and exits non-zero):
      the kernel must have been launched in the sweep and in the render, the
      frames must be finite, and one view rendered through the plain field
      must agree with the kernel frame to >= 40 dB PSNR.
-The line before last is a JSON record of the kernels; the last line is
+  5. training: cli.build_trainer on `synthetic -O --bound 1 --dt_gamma 0
+     --iters 512 --ckpt scratch` and FastTrainer.train on phase 4's 48
+     train views (800x800 RGBA) at 4096 rays per step, then evaluate on the
+     val views. Losses must be finite, K2 must launch at least once per
+     step, the mean loss of the last 64 steps must be below half that of
+     the first 64, and the val PSNR at least 5 dB above phase 4's.
+  5b. one train step, kernel vs plain: the same rays, background and noise
+     through K1/K2 and through their plain versions on the card; loss
+     within rtol 1e-4, grads per leaf within 1e-2 * max |plain|, and the
+     plain run launches no kernel.
+The launch counts of the kernels record are read from the main paths'
+runs (phases 4 and 5), with the counters set to 0 just before each. The
+line before last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -33,6 +50,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # (rtol, atol) per output: sigma, rgb -- the reference package's own
 # tolerances for this kernel (bf16 rounding and summation order)
 TOL = {"sigma": (2e-2, 1e-4), "rgb": (2e-2, 1e-3)}
+# K2 vs plain, per grad leaf relative to max |plain|: atomics change the
+# order of the f32 sums, and 1-ulp differences in exp, sigmoid, sin and cos
+# can flip single bf16 roundings
+GRAD_TOL = 1e-2
+TRAIN_STEPS = 512
 
 
 def _cuda_ms(fn, reps):
@@ -95,6 +117,64 @@ def phase_kernel_vs_plain():
             rec = {"ms": ms, "plain_ms": pms}
     rec["max_abs_err"] = max_err
     return rec
+
+
+def _grad_errs(got, ref):
+    """Max |got - ref| / max |ref| per leaf group, and the largest
+    absolute difference of any leaf."""
+    from sealdnerf_tpu_torch.models.cp import param_leaves
+    groups = {"lines": ("lines",), "planes": ("planes",),
+              "vm_lines": ("vm_lines",), "towers": ("sigma_mlp", "color_mlp")}
+    ratios, max_abs = {}, 0.0
+    for name, keys in groups.items():
+        for k in keys:
+            for a, b in zip(param_leaves(got.get(k, [])),
+                            param_leaves(ref.get(k, []))):
+                if a.shape != b.shape:
+                    raise AssertionError(f"{k}: shape {tuple(a.shape)} != "
+                                         f"{tuple(b.shape)}")
+                diff = (a - b).abs().max().item()
+                max_abs = max(max_abs, diff)
+                ratios[name] = max(ratios.get(name, 0.0),
+                                   diff / max(b.abs().max().item(), 1e-30))
+    return ratios, max_abs
+
+
+def phase_backward_vs_plain():
+    import torch
+    from sealdnerf_tpu_torch.models.cp import CPConfig, init_cp
+    from sealdnerf_tpu_torch.ops.field import (field_backward,
+                                               field_backward_plain,
+                                               pack_tables)
+    cfg = CPConfig()
+    tables = pack_tables(init_cp(torch.Generator().manual_seed(0), cfg,
+                                 "cuda"), cfg)
+    m = 4096 * 64 + 37
+    rng = np.random.default_rng(1)
+    x3 = rng.uniform(-1.0, 1.0, (3, m)).astype(np.float32)
+    d3 = rng.normal(size=(3, m)).astype(np.float32)
+    d3 /= np.linalg.norm(d3, axis=0, keepdims=True)
+    g = rng.normal(size=(4, m)).astype(np.float32)
+    x3, d3, g = (torch.from_numpy(a).cuda() for a in (x3, d3, g))
+    before = field_backward.launches
+    got = field_backward(tables, cfg, x3, d3, g)
+    ref = field_backward_plain(tables, cfg, x3, d3, g)
+    torch.cuda.synchronize()
+    if field_backward.launches != before + 1:
+        raise AssertionError("K2 did not launch exactly once")
+    ratios, max_abs = _grad_errs(got, ref)
+    ms = _cuda_ms(lambda: field_backward(tables, cfg, x3, d3, g), 10)
+    pms = _cuda_ms(lambda: field_backward_plain(tables, cfg, x3, d3, g), 3)
+    print(f"K2: M={m} max|k-p|/max|p| "
+          + " ".join(f"{k} {v:.3g}" for k, v in ratios.items())
+          + f"; max|err| {max_abs:.3g}; kernel {ms:.3f} ms "
+          f"({m / ms * 1e3:.4g} samples/s), plain {pms:.3f} ms "
+          f"({m / pms * 1e3:.4g} samples/s); launches "
+          f"{field_backward.launches}", flush=True)
+    bad = {k: v for k, v in ratios.items() if not v <= GRAD_TOL}
+    if bad:
+        raise AssertionError(f"K2 vs plain beyond {GRAD_TOL}: {bad}")
+    return {"ms": ms, "plain_ms": pms, "max_abs_err": max_abs}
 
 
 def phase_served_path(ckpt):
@@ -192,7 +272,92 @@ def phase_served_path(ckpt):
           f"{ms_p:.2f} ms/frame", flush=True)
     if p < 40.0:
         raise AssertionError(f"kernel vs plain frame PSNR {p:.2f} < 40 dB")
-    return launches
+    return {"launches": launches, "psnr": result, "train": train, "val": val}
+
+
+def phase_training(served):
+    import torch
+    from sealdnerf_tpu_torch.cli import base_parser, build_trainer, postprocess
+    from sealdnerf_tpu_torch.ops.field import field_backward, field_forward
+
+    train, val = served["train"], served["val"]
+    argv = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--iters",
+            str(TRAIN_STEPS), "--ckpt", "scratch", "--workspace",
+            os.path.join(REPO, "workspace", "chip_smoke_train")]
+    opt = postprocess(base_parser().parse_args(argv))
+    trainer, _ = build_trainer(opt, name="ngp")
+    steps_per_epoch = max(len(train), trainer.opt.segment_steps)
+    field_forward.launches = 0
+    field_backward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(train, None, int(np.ceil(opt.iters / len(train))))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = field_forward.launches, field_backward.launches
+    hist = trainer.history
+    losses = np.asarray(hist["loss"])
+    steps = len(losses)
+    if steps != TRAIN_STEPS or trainer.global_step != TRAIN_STEPS:
+        raise AssertionError(f"trained {steps} steps, not {TRAIN_STEPS}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite training loss")
+    if k2 < steps:
+        raise AssertionError(f"K2 launched {k2} times in {steps} steps")
+    warm_s = sum(hist["epoch_s"][1:])
+    warm_steps = steps - steps_per_epoch
+    ms_step = warm_s / warm_steps * 1e3
+    first, last = losses[:64].mean(), losses[-64:].mean()
+    occ = trainer.grid_state["occ"].float().mean().item()
+    print(f"train: {steps} steps x {trainer.opt.num_rays} rays in {wall:.2f} s"
+          f" ({len(hist['epoch_s'])} epochs of {steps_per_epoch}); "
+          f"{ms_step:.3f} ms/step, "
+          f"{trainer.opt.num_rays * 1e3 / ms_step:.1f} rays/s over epochs "
+          f"2-{len(hist['epoch_s'])}; first epoch {hist['epoch_s'][0]:.2f} s;"
+          f" mean n_samples/step {np.mean(hist['n_samples']):.1f}; occupancy "
+          f"{occ:.4f}; launches K1 {k1} K2 {k2}; loss first 64 {first:.6f} "
+          f"last 64 {last:.6f}", flush=True)
+    if not last < 0.5 * first:
+        raise AssertionError(f"loss did not halve: {first} -> {last}")
+    psnr = trainer.evaluate(val)
+    print(f"train: val PSNR {psnr:.3f} dB after {steps} steps (seeded field "
+          f"{served['psnr']:.3f} dB)", flush=True)
+    if not psnr >= served["psnr"] + 5.0:
+        raise AssertionError(f"val PSNR {psnr:.3f} not 5 dB above the seeded "
+                             f"field's {served['psnr']:.3f}")
+    return trainer, k1, k2
+
+
+def phase_one_step(trainer, train):
+    import torch
+    from sealdnerf_tpu_torch.models.cp import param_leaves, unflatten_like
+    from sealdnerf_tpu_torch.ops.field import field_backward, field_forward
+
+    batch = trainer.sample_batch(train.device("cuda"), train.h, train.w)
+    out = []
+    for plain in (False, True):
+        for p in param_leaves(trainer.params):
+            p.grad = None
+        k1, k2 = field_forward.launches, field_backward.launches
+        loss, n = trainer.loss_on(*batch, plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (field_forward.launches - k1, field_backward.launches - k2)
+        if launched != ((0, 0) if plain else (1, 1)):
+            raise AssertionError(f"plain={plain}: kernel launches {launched}")
+        out.append((loss.item(), unflatten_like(
+            trainer.params, [p.grad.clone()
+                             for p in param_leaves(trainer.params)])))
+    (lk, gk), (lp, gp) = out
+    ratios, max_abs = _grad_errs(gk, gp)
+    print(f"one step: {int(n)} samples; loss kernel {lk:.8f} plain {lp:.8f};"
+          f" grads max|k-p|/max|p| "
+          + " ".join(f"{k} {v:.3g}" for k, v in ratios.items()), flush=True)
+    if abs(lk - lp) > 1e-4 * abs(lp):
+        raise AssertionError(f"loss kernel {lk} vs plain {lp}")
+    bad = {k: v for k, v in ratios.items() if not v <= GRAD_TOL}
+    if bad:
+        raise AssertionError(f"train-step grads beyond {GRAD_TOL}: {bad}")
 
 
 def main():
@@ -219,20 +384,30 @@ def main():
     lib = build.build()
     build.load_library()
     regs = [l.strip() for l in (lib.parent / "nvcc.log").read_text()
-            .splitlines() if "registers" in l or "spill" in l]
+            .splitlines()
+            if l.startswith("== ") or "registers" in l or "spill" in l]
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.name}; "
           + " | ".join(regs), flush=True)
 
     rec = phase_kernel_vs_plain()
-    launches = phase_served_path(args.ckpt)
+    rec_bwd = phase_backward_vs_plain()
+    served = phase_served_path(args.ckpt)
+    trainer, k1_train, k2_train = phase_training(served)
+    phase_one_step(trainer, served["train"])
 
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "field_fwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:185",
-        "launches": launches, "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"], "plain_ms": rec["plain_ms"]}]}))
+        "launches": served["launches"] + k1_train,
+        "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"]}, {
+        "name": "field_bwd", "route": "cuda",
+        "source": "sealdnerf_tpu_torch/ops/csrc/field_bwd.cu",
+        "replaces": "sealdnerf_tpu/ops/pallas_field.py:574",
+        "launches": k2_train, "max_abs_err": rec_bwd["max_abs_err"],
+        "ms": rec_bwd["ms"], "plain_ms": rec_bwd["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

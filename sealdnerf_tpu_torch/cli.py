@@ -3,7 +3,9 @@ sealdnerf_tpu/cli.py).
 
 `base_parser` keeps every flag of the reference parser, plus --device.
 Flags of parts that are not ported yet parse but nothing reads them;
-`build_trainer` raises for backbones that are not ported.
+`build_trainer` raises for backbones that are not ported, and the
+FastTrainer it builds for training options that are not (--error_map,
+--patch_size > 1, --no_preload).
 """
 
 import argparse
@@ -118,9 +120,12 @@ def resolve_device(name: str) -> torch.device:
 
 def to_train_options(opt, name="ngp", **overrides) -> TrainOptions:
     kw = dict(
-        workspace=opt.workspace, name=name, bound=opt.bound,
-        dt_gamma=opt.dt_gamma, min_near=opt.min_near,
-        density_thresh=opt.density_thresh, seed=opt.seed,
+        workspace=opt.workspace, name=name, iters=opt.iters, lr=opt.lr,
+        num_rays=opt.num_rays, bound=opt.bound, dt_gamma=opt.dt_gamma,
+        min_near=opt.min_near, density_thresh=opt.density_thresh,
+        update_extra_interval=opt.update_extra_interval,
+        error_map=opt.error_map, patch_size=opt.patch_size, seed=opt.seed,
+        preload=not getattr(opt, "no_preload", False),
     )
     kw.update(overrides)
     return TrainOptions(**kw)

@@ -8,7 +8,8 @@ sealdnerf_tpu/data/provider.py).
 - alpha-channel images kept as RGBA; intrinsics from fl_x/fl_y or
   camera_angle_x/y; downscale support.
 
-Host-side numpy. cv2 is imported only when an image file is read.
+Host-side numpy; `NeRFDataset.device` puts the training data on a torch
+device. cv2 is imported only when an image file is read.
 
 Time values (D-NeRF datasets): per-frame `time` field if present, else the
 frame index normalized to [0, 1].
@@ -68,6 +69,27 @@ class NeRFDataset:
 
     def __len__(self):
         return self.poses.shape[0]
+
+    def device(self, torch_device):
+        """Put the training data on `torch_device` once: images as
+        [n, h*w, c] f32, poses [n, 4, 4] and intrinsics [4]. This is the
+        reference's preload mode; its host-resident batches (--no_preload)
+        are not ported."""
+        import torch
+        if self.images is None:
+            raise ValueError("the dataset has no images to train on")
+        n = len(self)
+        out = {
+            "images": torch.as_tensor(
+                np.ascontiguousarray(self.images, dtype=np.float32).reshape(
+                    n, self.h * self.w, -1), device=torch_device),
+            "poses": torch.as_tensor(self.poses, dtype=torch.float32,
+                                     device=torch_device),
+            "intrinsics": torch.as_tensor(self.intrinsics,
+                                          dtype=torch.float32,
+                                          device=torch_device),
+        }
+        return out
 
     @classmethod
     def load(cls, root_path: str, split: str = "train", downscale: int = 1,

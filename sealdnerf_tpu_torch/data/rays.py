@@ -25,7 +25,7 @@ def get_rays(poses, intrinsics, h: int, w: int, n: int = -1,
       poses: [B, 4, 4] cam2world. intrinsics: [4] (fx, fy, cx, cy).
       h, w: image size. n: rays per image; -1 = every pixel in raster
         order, n > 0 = n uniform random pixels (shared by the batch) drawn
-        from `generator`.
+        on the poses' device from `generator`, which must live there.
       inds: optional [B, N] flat pixel indices to use instead.
 
     Returns dict(rays_o [B,N,3], rays_d [B,N,3], inds [B,N] or None).
@@ -35,8 +35,8 @@ def get_rays(poses, intrinsics, h: int, w: int, n: int = -1,
     out = {"inds": None}
     if inds is None and n > 0:
         n = min(n, h * w)
-        inds = torch.randint(0, h * w, (n,), generator=generator)
-        inds = inds.to(dev).expand(b, n)
+        inds = torch.randint(0, h * w, (n,), generator=generator,
+                             device=dev).expand(b, n)
     if inds is not None:
         i = (inds % w).float() + 0.5
         j = torch.div(inds, w, rounding_mode="floor").float() + 0.5

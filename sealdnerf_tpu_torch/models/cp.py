@@ -147,6 +147,30 @@ def map_params(fn, tree):
     return fn(tree)
 
 
+def param_leaves(tree):
+    """Leaves of a params tree, dict keys in sorted order and lists in
+    order: the leaf order of JAX's tree_leaves, so that leaf lists (the
+    optimizer's, a checkpoint's) line up between the two packages."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in param_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in param_leaves(v)]
+    return [tree]
+
+
+def unflatten_like(tree, leaves):
+    """Inverse of param_leaves: a tree shaped like `tree` holding `leaves`."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return next(it)
+    return build(tree)
+
+
 def params_from_jax(tree, device=None):
     """Reference params pytree (numpy leaves) -> dict of tensors with the
     same names and layouts."""
@@ -225,22 +249,35 @@ def cp_forward(params, cfg: CPConfig, x, d, chunk: int = 1 << 18):
     return torch.cat(sig), torch.cat(rgb)
 
 
+def _params_version(params):
+    """Identity of a params tree and of the values of its leaves: every
+    in-place update of a tensor (an optimizer or EMA step) bumps its
+    version counter."""
+    return (id(params),) + tuple(t._version for t in param_leaves(params))
+
+
 class CPField:
     """Params + config of a CP field, with the kernel's packed bf16 tables
-    cached per parameter version. Params dicts are treated as immutable:
-    assign a new dict to change them."""
+    cached per parameter version. The cache key holds the params dict's
+    identity and the version counter of every leaf, so both a new dict and
+    an in-place update of its tensors repack."""
 
     def __init__(self, params, cfg: CPConfig):
         self.params = params
         self.cfg = cfg
-        self._tables = None
+        self._tables = {}
 
     def kernel_tables(self, params):
-        """Packed kernel operands of `params`, built once per params dict."""
-        if self._tables is None or self._tables[0] is not params:
+        """Packed kernel operands of `params`, built once per version. Up to
+        two versions are kept: the training params and the EMA params."""
+        key = _params_version(params)
+        if key not in self._tables:
             from ..ops.field import pack_tables
-            self._tables = (params, pack_tables(params, self.cfg))
-        return self._tables[1]
+            if len(self._tables) >= 2:
+                self._tables.pop(next(iter(self._tables)))
+            # the entry holds `params`, so its id is not reused while cached
+            self._tables[key] = (params, pack_tables(params, self.cfg))
+        return self._tables[key][1]
 
 
 def make_cp_field(generator: torch.Generator, cfg: CPConfig, device=None):

@@ -6,11 +6,15 @@ sees), occ bool [CAS, H, H, H], mean_density, iter_density. Raster (x, y, z)
 cell order.
 
 - mark_untrained_grid: camera-frustum coverage; uncovered cells get -1.
-- update_density_grid: density re-query of every cell (full=True) or of
-  H^3/2 random cells, EMA max(grid * decay, new), mean-density threshold,
-  occupancy refresh. The jitter inside each cell is drawn on the grid's
-  device from a torch.Generator, or passed in as `noise_u` (uniform draws)
-  so that a test can hand both packages the same numbers.
+- update_density_grid: density re-query of every cell (full=True), of
+  given cells (`indices`) or of H^3/2 random cells, EMA max(grid * decay,
+  new), mean-density threshold, occupancy refresh. The jitter inside each
+  cell is drawn on the grid's device from a torch.Generator, or passed in
+  as `noise_u` (uniform draws) so that a test can hand both packages the
+  same numbers.
+- refresh_indices: the cells of one in-loop refresh of training (the
+  reference FastTrainer's grid_update): deterministic half-grid slabs for
+  the first WARMUP_CALLS calls, then H^3/2 random cells.
 """
 
 from dataclasses import dataclass
@@ -40,10 +44,33 @@ def init_grid_state(cfg: GridConfig, device=None):
     }
 
 
+# refresh calls that sweep deterministic half-grid slabs: two calls are one
+# full sweep, 32 calls the reference's 16 full sweeps
+WARMUP_CALLS = 32
+
+
+def _coords_of(idx, h: int):
+    """Raster-order cell indices -> [N, 3] int64 cell coords."""
+    return torch.stack([idx // (h * h), (idx // h) % h, idx % h], dim=-1)
+
+
 def _cell_coords(h: int, device):
     """[H^3, 3] int64 raster-order cell coords."""
-    idx = torch.arange(h ** 3, device=device)
-    return torch.stack([idx // (h * h), (idx // h) % h, idx % h], dim=-1)
+    return _coords_of(torch.arange(h ** 3, device=device), h)
+
+
+def refresh_indices(iter_density: int, cfg: GridConfig,
+                    generator: Optional[torch.Generator] = None,
+                    device=None):
+    """Cells of one training refresh call: while iter_density <
+    WARMUP_CALLS the slab (it % 2) * H^3/2 + arange(H^3/2), after that
+    H^3/2 cells drawn uniformly from [0, H^3), duplicates allowed."""
+    h3 = cfg.grid_size ** 3
+    if iter_density < WARMUP_CALLS:
+        return (iter_density % 2) * (h3 // 2) + torch.arange(h3 // 2,
+                                                             device=device)
+    return torch.randint(0, h3, (h3 // 2,), generator=generator,
+                         device=device)
 
 
 def _cas_bound(cfg: GridConfig, cas: int) -> float:
@@ -79,11 +106,14 @@ def mark_untrained_grid(state, poses, intrinsics, cfg: GridConfig,
 
 
 def update_density_grid(state, density_fn: Callable, cfg: GridConfig,
-                        full: bool, generator: Optional[torch.Generator] = None,
-                        noise_u=None):
+                        full: bool = False,
+                        generator: Optional[torch.Generator] = None,
+                        noise_u=None, indices=None):
     """One density-grid refresh. density_fn(x [N, 3]) -> sigma [N].
 
-    full=True sweeps every cell; full=False queries H^3/2 random cells.
+    full=True sweeps every cell; otherwise the cells `indices` [N] (raster
+    order; duplicates allowed) are queried, or H^3/2 random cells when
+    indices is None.
     generator: draws the cells and the in-cell jitter; it lives on the
     grid's device, so that the draws are made there.
     noise_u: optional [CAS, N, 3] uniform draws in [0, 1) that replace the
@@ -95,12 +125,12 @@ def update_density_grid(state, density_fn: Callable, cfg: GridConfig,
     dev = grid.device
     tmp = torch.full_like(grid, -1.0)
     if full:
-        coords = _cell_coords(h, dev)
         indices = torch.arange(h3, device=dev)
-    else:
-        coords = torch.randint(0, h, (h3 // 2, 3), generator=generator,
-                               device=dev)
-        indices = (coords[:, 0] * h + coords[:, 1]) * h + coords[:, 2]
+    elif indices is None:
+        indices = torch.randint(0, h3, (h3 // 2,), generator=generator,
+                                device=dev)
+    indices = indices.to(dev)
+    coords = _coords_of(indices, h)
     n_pts = coords.shape[0]
     xyz01 = 2.0 * coords.float() / (h - 1) - 1.0
     for cas in range(cfg.cascades):

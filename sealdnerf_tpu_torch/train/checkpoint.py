@@ -18,6 +18,7 @@ single-file, portable, and dependency-free.
 import glob
 import json
 import os
+import re
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -110,3 +111,12 @@ def resolve_checkpoint(workspace: str, name: str, selector: str) -> Optional[str
                                              f"{name}_ep*.npz")))
         return pats[-1] if pats else None
     return selector if os.path.exists(selector) else None
+
+
+def prune_checkpoints(workspace: str, name: str, max_keep: int):
+    """Keep the newest `max_keep` {name}_ep{N}.npz files (by epoch)."""
+    pats = sorted(glob.glob(os.path.join(workspace, "checkpoints",
+                                         f"{name}_ep*.npz")),
+                  key=lambda p: int(re.search(r"_ep(\d+)", p).group(1)))
+    for p in pats[:-max_keep] if max_keep > 0 else []:
+        os.remove(p)

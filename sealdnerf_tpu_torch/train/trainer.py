@@ -1,8 +1,11 @@
 """Training options (port of `TrainOptions` in
 sealdnerf_tpu/train/trainer.py).
 
-Only the fields that the ported serving path reads: the grid, march and
-render settings. Training fields come with the code that reads them.
+Only the fields that the ported paths read: the grid, march and render
+settings of serving, and the static trainer's settings (step count,
+learning rate and schedule, rays per step, grid-refresh interval, EMA,
+epochs, evaluation and checkpoint cadence). The other training fields of
+the reference come with the code that reads them.
 """
 
 import math
@@ -15,6 +18,18 @@ class TrainOptions:
 
     workspace: str = "workspace"
     name: str = "ngp"
+    iters: int = 30000               # schedule length: lr * 0.1**(step/iters)
+    lr: float = 1e-2
+    num_rays: int = 4096             # rays per training step
+    update_extra_interval: int = 16  # steps between grid refreshes
+    ema_decay: float = 0.95
+    eval_interval: int = 50          # epochs between evaluations
+    segment_steps: int = 128         # floor of the steps of an epoch
+    max_keep_ckpt: int = 2
+    # not ported yet: FastTrainer raises when they are on
+    error_map: bool = False
+    patch_size: int = 1
+    preload: bool = True
     bound: float = 1.0
     dt_gamma: float = 1.0 / 128
     min_near: float = 0.2

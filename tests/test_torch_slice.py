@@ -154,8 +154,15 @@ def test_slim_checkpoint_rebuilds_grid(trained, tmp_path):
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     from sealdnerf_tpu_torch.main_nerf import main
-    with pytest.raises(SystemExit, match="training is not yet ported"):
-        main(["synthetic", "--device", "cpu", "--workspace", str(tmp_path)])
+    with pytest.raises(SystemExit, match="GUI is not yet ported"):
+        main(["synthetic", "--gui", "--device", "cpu", "--workspace",
+              str(tmp_path)])
+    for flag in (["--error_map"], ["--patch_size", "2"], ["--no_preload"]):
+        opt = postprocess(base_parser().parse_args(
+            ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0",
+             "--device", "cpu", "--workspace", str(tmp_path), *flag]))
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            build_trainer(opt)
     opt = postprocess(base_parser().parse_args(
         ["synthetic", "--test", "--device", "cpu", "--backbone", "ngp",
          "--workspace", str(tmp_path)]))
