@@ -14,6 +14,14 @@ Phases (any failure raises and exits non-zero):
      plain version at the full default CPConfig on 4096 * 64 + 37 samples
      (one train step's worth plus a ragged tail), per param leaf within
      1e-2 * max |plain|, with timings.
+  3c. dynamic kernel vs plain: the dynamic field kernel (K3: deform tower,
+     then the canonical field at the warped point) against its plain version
+     at the full default CPDNeRFConfig on 2^20 + 37 samples, at t = 0, 0.37
+     and 1 in three variants each (full, density_only, lod_skip=(3,)), within
+     K1's tolerances, with timings. The seeded deform tower is re-gained
+     (see _dyn_seeded_params) so that it warps by ~0.1: the mean |dx| of the
+     plain version at t = 0.37 must exceed 1e-2. K3 at t = 0 must equal K1
+     on the same canonical params bit for bit.
   4. served path: cli.build_trainer on `synthetic -O --bound 1 --dt_gamma 0
      --test --synthetic_res 800` (seeded init, or --ckpt), frustum marking
      and two full 128^3 occupancy sweeps (the first is timed cold, the
@@ -31,10 +39,22 @@ Phases (any failure raises and exits non-zero):
      through K1/K2 and through their plain versions on the card; loss
      within rtol 1e-4, grads per leaf within 1e-2 * max |plain|, and the
      plain run launches no kernel.
+  6. dynamic served path: a checkpoint of the seeded, re-gained dynamic field
+     is written to a temporary directory; main_dnerf's parser and
+     cli.build_trainer(dynamic=True) on `synthetic -O --bound 1 --dt_gamma 0
+     --test --synthetic_res 800 --ckpt <it>`; frustum marking; a rebuild of
+     all 64 time bins of the 128^3 grid through K3 density-only, timed;
+     evaluate on the 6 val views at 800x800, each at its own time, timed per
+     frame. K3 must have been launched in the rebuild and in the render and
+     K1 not at all; every time bin must hold occupied cells; frames finite;
+     one view through the plain field must agree with the kernel frame to
+     >= 40 dB; one pose rendered at two times must differ.
 The launch counts of the kernels record are read from the main paths'
-runs (phases 4 and 5), with the counters set to 0 just before each. The
-line before last is a JSON record of the kernels; the last line is
-{"ok": true, "device": {...}}.
+runs (phases 4, 5 and 6), with the counters set to 0 just before each. Each
+kernel's bound_ms is the least time the card could take for the work of its
+vs-plain phase: the larger of bytes moved over the memory rate and
+operations over the peak rate of their type (PEAK). The line before last is
+a JSON record of the kernels; the last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -42,6 +62,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -55,6 +76,62 @@ TOL = {"sigma": (2e-2, 1e-4), "rgb": (2e-2, 1e-3)}
 # can flip single bf16 roundings
 GRAD_TOL = 1e-2
 TRAIN_STEPS = 512
+# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores (the towers' bf16 x
+# bf16 -> f32 products), the FP32 pipe (taps, encodings, activations), HBM3
+PEAK = {"tensor_flops": 989e12, "fp32_flops": 67e12, "bytes": 3.35e12}
+# hidden deform matrices x sqrt(6): keeps the activations' variance through
+# the bias-free relu tower (its U(+-1/sqrt(n)) init shrinks it by 6 a layer)
+DEFORM_GAIN = 6.0 ** 0.5
+
+
+def _field_work(cfg, m, mode="fwd", density_only=False):
+    """Bytes moved (each input read once, each output written once) and
+    operations, by type, of one field call on m samples. mode: "fwd" (K1),
+    "bwd" (K2: recompute, then dX and dW of every product) or "dyn" (K3)."""
+    from sealdnerf_tpu_torch.models.cp import _deform_dims, _tower_dims
+    sigma, color = _tower_dims(cfg)
+    towers = [sigma] if density_only else [sigma, color]
+    macs = sum(a * b for dims in towers for a, b in zip(dims[:-1], dims[1:]))
+    # gathers: per line rank 3 lerps (3 flops each) and 2 products; per plane
+    # channel and pair two 2-tap rows, the cross lerp, the line lerp, 1 product
+    taps = 11 * sum(r for _, r in cfg.scales) \
+        + 13 * sum(3 * c for _, c in cfg.planes)
+    enc = 2 * 6 * cfg.freq_degree + (0 if density_only else 60)
+    tab_elems = sum(3 * res * r for res, r in cfg.scales) + sum(
+        3 * (p * p * c + p * c) for p, c in cfg.planes)
+    w_elems = sum(a * b for dims in (sigma, color)
+                  for a, b in zip(dims[:-1], dims[1:]))
+    nbytes = m * (12 + (0 if density_only else 12) + 16) \
+        + 2 * (tab_elems + w_elems)
+    tensor, fp32 = 2 * macs * m, (taps + enc) * m
+    if mode == "bwd":
+        tensor, fp32 = 3 * tensor, 3 * fp32
+        nbytes += m * 16 + 4 * (tab_elems + w_elems)      # g_out in, grads out
+    if mode == "dyn":
+        dd = _deform_dims(cfg)
+        nx = cfg.deform_space_dim
+        dmacs = nx * dd[1] + sum(a * b for a, b in zip(dd[1:-1], dd[2:]))
+        tensor += 2 * dmacs * m
+        fp32 += 2 * 6 * cfg.multires_deform * m
+        nbytes += 2 * (dmacs + (dd[0] - nx) * dd[1])
+    return nbytes, tensor, fp32
+
+
+def _bound(cfg, m, **kw):
+    nbytes, tensor, fp32 = _field_work(cfg, m, **kw)
+    t_bytes = nbytes / PEAK["bytes"] * 1e3
+    t_ops = (tensor / PEAK["tensor_flops"] + fp32 / PEAK["fp32_flops"]) * 1e3
+    # beside it: every operation on the FP32 pipe, where K1, K2 and K3's
+    # canonical half run today
+    t_fp32 = (tensor + fp32) / PEAK["fp32_flops"] * 1e3
+    print(f"bound ({kw.get('mode', 'fwd')}, M={m}): {nbytes / 1e6:.2f} MB -> "
+          f"{t_bytes:.4f} ms; {tensor / 1e9:.2f} GFLOP bf16 x bf16 -> f32 + "
+          f"{fp32 / 1e9:.2f} GFLOP f32 -> {t_ops:.4f} ms at the tensor-core "
+          f"peak, {t_fp32:.4f} ms with all of it on the FP32 pipe",
+          flush=True)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
 
 
 def _cuda_ms(fn, reps):
@@ -116,6 +193,98 @@ def phase_kernel_vs_plain():
         if tag == "full":
             rec = {"ms": ms, "plain_ms": pms}
     rec["max_abs_err"] = max_err
+    rec.update(_bound(cfg, m))
+    print(f"K1 bound: {rec['bound_ms']:.4f} ms by {rec['bound_by']}",
+          flush=True)
+    return rec
+
+
+def _dyn_seeded_params(seed, cfg, device, gain=DEFORM_GAIN):
+    """init_cp_dnerf from a seed with the deform tower re-gained: the last
+    matrix multiplied back by 1e3 (undoing its damping) and the hidden
+    matrices by `gain`. The undamped init alone (gain 1) warps by only
+    ~6e-4 (the bias-free tower shrinks its input sixfold in variance per
+    layer); re-gained it warps by ~0.1, so the tower matters to the
+    output."""
+    import torch
+    from sealdnerf_tpu_torch.models.cp import init_cp_dnerf
+    params = init_cp_dnerf(torch.Generator().manual_seed(seed), cfg, device)
+    wd = params["deform_mlp"]["w"]
+    wd[-1] = wd[-1] * 1e3
+    for k in range(1, len(wd) - 1):
+        wd[k] = wd[k] * gain
+    return params
+
+
+def phase_dyn_kernel_vs_plain():
+    import torch
+    from sealdnerf_tpu_torch.models.cp import CPDNeRFConfig
+    from sealdnerf_tpu_torch.ops.field import (dyn_field_forward,
+                                               dyn_field_forward_plain,
+                                               field_forward, pack_tables)
+    cfg = CPDNeRFConfig()
+    tables = pack_tables(_dyn_seeded_params(0, cfg, "cuda"), cfg)
+    m = (1 << 20) + 37
+    rng = np.random.default_rng(0)
+    x3 = rng.uniform(-1.0, 1.0, (3, m)).astype(np.float32)
+    d3 = rng.normal(size=(3, m)).astype(np.float32)
+    d3 /= np.linalg.norm(d3, axis=0, keepdims=True)
+    x3, d3 = torch.from_numpy(x3).cuda(), torch.from_numpy(d3).cuda()
+    max_err, rec = 0.0, {}
+    for t in (0.0, 0.37, 1.0):
+        for tag, kw in (("full", {}), ("density_only", {"density_only": True}),
+                        ("lod_skip=(3,)", {"lod_skip": (3,)})):
+            out = dyn_field_forward(tables, cfg, x3, d3, t, **kw)
+            ref, dx = dyn_field_forward_plain(tables, cfg, x3, d3, t,
+                                              return_deform=True, **kw)
+            torch.cuda.synchronize()
+            e_s = _check_close("sigma", out[0], ref[0])
+            e_c = 0.0 if kw.get("density_only") else \
+                _check_close("rgb", out[1:4], ref[1:4])
+            max_err = max(max_err, e_s, e_c)
+            mean_dx = dx.abs().mean().item()
+            line = (f"K3 t={t} {tag}: M={m} max|err| sigma {e_s:.3g} rgb "
+                    f"{e_c:.3g}; mean|dx| {mean_dx:.4g}")
+            if t == 0.37:
+                ms = _cuda_ms(lambda: dyn_field_forward(tables, cfg, x3, d3,
+                                                        t, **kw), 10)
+                pms = _cuda_ms(lambda: dyn_field_forward_plain(
+                    tables, cfg, x3, d3, t, **kw), 2)
+                line += (f"; kernel {ms:.3f} ms ({m / ms * 1e3:.4g} "
+                         f"samples/s), plain {pms:.3f} ms "
+                         f"({m / pms * 1e3:.4g} samples/s)")
+                if tag == "full":
+                    rec = {"ms": ms, "plain_ms": pms}
+                    if not mean_dx > 1e-2:
+                        raise AssertionError(
+                            f"mean |dx| {mean_dx} <= 1e-2: the deform tower "
+                            "does not matter to the output")
+            print(line, flush=True)
+            if t == 0.0 and dx.abs().max().item() != 0.0:
+                raise AssertionError("the plain version warps at t == 0")
+    k3 = dyn_field_forward(tables, cfg, x3, d3, 0.0)
+    k1 = field_forward(tables, cfg, x3, d3)
+    t_dev = dyn_field_forward(tables, cfg, x3, d3,
+                              torch.tensor(0.37, device="cuda"))
+    t_host = dyn_field_forward(tables, cfg, x3, d3, 0.37)
+    torch.cuda.synchronize()
+    if not torch.equal(k3, k1):
+        raise AssertionError("K3 at t = 0 differs from K1: max |diff| "
+                             f"{(k3 - k1).abs().max().item():.3g}")
+    if not torch.equal(t_dev, t_host):
+        raise AssertionError("K3 with t on the card differs from t on the "
+                             "host")
+    _, dx = dyn_field_forward_plain(
+        pack_tables(_dyn_seeded_params(0, cfg, "cuda", gain=1.0), cfg), cfg,
+        x3[:, :1 << 16].contiguous(), None, 0.37, density_only=True,
+        return_deform=True)
+    print(f"the undamped tower without the hidden gain warps by mean|dx| "
+          f"{dx.abs().mean().item():.4g} at t = 0.37", flush=True)
+    rec["max_abs_err"] = max_err
+    rec.update(_bound(cfg, m, mode="dyn"))
+    print(f"K3 at t = 0 equals K1 bit for bit; t read from the card equals t "
+          f"from the host; bound {rec['bound_ms']:.4f} ms by "
+          f"{rec['bound_by']}", flush=True)
     return rec
 
 
@@ -174,7 +343,11 @@ def phase_backward_vs_plain():
     bad = {k: v for k, v in ratios.items() if not v <= GRAD_TOL}
     if bad:
         raise AssertionError(f"K2 vs plain beyond {GRAD_TOL}: {bad}")
-    return {"ms": ms, "plain_ms": pms, "max_abs_err": max_abs}
+    rec = {"ms": ms, "plain_ms": pms, "max_abs_err": max_abs}
+    rec.update(_bound(cfg, m, mode="bwd"))
+    print(f"K2 bound: {rec['bound_ms']:.4f} ms by {rec['bound_by']}",
+          flush=True)
+    return rec
 
 
 def phase_served_path(ckpt):
@@ -360,6 +533,136 @@ def phase_one_step(trainer, train):
         raise AssertionError(f"train-step grads beyond {GRAD_TOL}: {bad}")
 
 
+def phase_dynamic_served_path():
+    import torch
+    from sealdnerf_tpu_torch import main_dnerf
+    from sealdnerf_tpu_torch.cli import build_trainer, load_datasets
+    from sealdnerf_tpu_torch.models.cp import CPDNeRFConfig
+    from sealdnerf_tpu_torch.ops.field import (dyn_field_forward,
+                                               dyn_field_forward_plain,
+                                               field_forward)
+    from sealdnerf_tpu_torch.ops.marching_dense import downsample_occ
+    from sealdnerf_tpu_torch.render.dynamic_grid import time_slice_index
+    from sealdnerf_tpu_torch.render.fast_image import render_image_tiled
+    from sealdnerf_tpu_torch.train.checkpoint import save_checkpoint
+    from sealdnerf_tpu_torch.train.metrics import psnr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "dyn_seeded.npz")
+        save_checkpoint(ckpt, {"model": {
+            "params": _dyn_seeded_params(0, CPDNeRFConfig(bound=1.0), "cpu"),
+            "ema": None}}, {"epoch": 0, "global_step": 0})
+        argv = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0",
+                "--test", "--synthetic_res", "800", "--ckpt", ckpt,
+                "--workspace", os.path.join(REPO, "workspace",
+                                            "chip_smoke_dyn")]
+        opt = main_dnerf.parse_args(argv)
+        t0 = time.perf_counter()
+        train, _, val = load_datasets(opt, with_time=True)
+        print(f"dynamic data: {len(train)} train / {len(val)} val views at "
+              f"{val.h}x{val.w}, val times "
+              f"{[round(float(t), 4) for t in val.times]} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        dyn_field_forward.launches = 0
+        field_forward.launches = 0
+        trainer, field = build_trainer(opt, name="ngp", dynamic=True,
+                                       lr_net=opt.lr_net)
+    if not trainer.time_conditioned or bool(trainer.grid_state["occ"].any()):
+        raise AssertionError("expected a dynamic trainer with an empty grid")
+    trainer.mark_untrained_grid(train.poses, train.intrinsics)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.rebuild_grid()
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    n_rebuild = dyn_field_forward.launches
+    occ = trainer.grid_state["occ"]
+    per_bin = occ.reshape(occ.shape[0], -1).float().mean(dim=1)
+    gcfg = trainer.dyn_grid_cfg
+    print(f"dynamic grid rebuild: {gcfg.time_size} bins x "
+          f"{gcfg.grid_size}^3 cells in {rebuild_s:.3f} s, {n_rebuild} kernel "
+          f"launches, occupancy per bin min {per_bin.min().item():.4f} mean "
+          f"{per_bin.mean().item():.4f} max {per_bin.max().item():.4f}",
+          flush=True)
+    if n_rebuild < gcfg.time_size:
+        raise AssertionError(f"K3 launched {n_rebuild} times in the rebuild "
+                             f"of {gcfg.time_size} bins")
+    if not bool((per_bin > 0).all()):
+        raise AssertionError("a time bin holds no occupied cell")
+
+    result = trainer.evaluate(val)
+    times, frames = [], []
+    for i in range(len(val)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, _ = trainer.render_image(val.poses[i], val.intrinsics, val.h,
+                                      val.w, time=val.times[i])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        frames.append(img)
+    launches = dyn_field_forward.launches
+    n_render = launches - n_rebuild
+    if n_render < 2 * len(val):
+        raise AssertionError(f"K3 launched {n_render} times in "
+                             f"{2 * len(val)} frames")
+    if field_forward.launches != 0:
+        raise AssertionError(f"the dynamic path launched K1 "
+                             f"{field_forward.launches} times")
+    for img in frames:
+        if img.shape != (val.h, val.w, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"bad frame {img.shape}")
+    if not np.isfinite(result):
+        raise AssertionError(f"evaluate PSNR {result}")
+    spf = val.h * val.w * trainer.render_cfg.samples_per_ray
+    print(f"dynamic render: {len(val)} frames at {val.h}x{val.w}, tile "
+          f"{trainer._pick_tile(val.h, val.w)}, {spf} field samples/frame, "
+          f"kernel path {float(np.mean(times)):.2f} ms/frame (min "
+          f"{min(times):.2f}, max {max(times):.2f}), {n_render} kernel "
+          f"launches in {2 * len(val)} frames, K1 launches "
+          f"{field_forward.launches}; PSNR vs GT {result:.3f} dB (seeded "
+          f"field)", flush=True)
+
+    # the same pose at another time (not counted as the main path)
+    other, _ = trainer.render_image(val.poses[0], val.intrinsics, val.h,
+                                    val.w, time=0.9)
+    d_time = float(np.abs(other - frames[0]).max())
+    if not d_time > 1e-2:
+        raise AssertionError(f"view 0 at t={val.times[0]} and at t=0.9 "
+                             f"differ by only {d_time}")
+
+    # view 0 through the plain field
+    cfg, rcfg, dev = field.cfg, trainer.render_cfg, trainer.device
+    t = float(val.times[0])
+    occ_m = downsample_occ(occ[time_slice_index(t, gcfg), 0], rcfg.march_res)
+    tables = field.kernel_tables(trainer._infer_params())
+    before = dyn_field_forward.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        img_p, _ = render_image_tiled(
+            tables, occ_m, torch.as_tensor(val.poses[0], device=dev),
+            torch.as_tensor(val.intrinsics, device=dev), val.h, val.w, rcfg,
+            lambda tb, x3, d3, tt: dyn_field_forward_plain(tb, cfg, x3, d3,
+                                                           tt),
+            torch.ones(3, device=dev),
+            tile_px=trainer._pick_tile(val.h, val.w),
+            dilate=trainer.opt.render_dilate,
+            density_scale=trainer.opt.density_scale,
+            t_thresh=trainer.opt.t_thresh, extra=(t,))
+    img_p = img_p.cpu().numpy()
+    ms_p = (time.perf_counter() - t0) * 1e3
+    if dyn_field_forward.launches != before:
+        raise AssertionError("the plain render launched the kernel")
+    p = psnr(frames[0], img_p)
+    print(f"dynamic kernel frame vs plain frame: PSNR {p:.2f} dB, max|diff| "
+          f"{np.abs(frames[0] - img_p).max():.3g}; plain path {ms_p:.2f} "
+          f"ms/frame; the same pose at t={t:.4f} and t=0.9 differs by "
+          f"{d_time:.3g}", flush=True)
+    if p < 40.0:
+        raise AssertionError(f"kernel vs plain frame PSNR {p:.2f} < 40 dB")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ckpt", default=None,
@@ -391,23 +694,27 @@ def main():
 
     rec = phase_kernel_vs_plain()
     rec_bwd = phase_backward_vs_plain()
+    rec_dyn = phase_dyn_kernel_vs_plain()
     served = phase_served_path(args.ckpt)
     trainer, k1_train, k2_train = phase_training(served)
     phase_one_step(trainer, served["train"])
+    del trainer, served["train"], served["val"]
+    k3_served = phase_dynamic_served_path()
 
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "field_fwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:185",
-        "launches": served["launches"] + k1_train,
-        "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"], "plain_ms": rec["plain_ms"]}, {
+        "launches": served["launches"] + k1_train, **rec}, {
         "name": "field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:574",
-        "launches": k2_train, "max_abs_err": rec_bwd["max_abs_err"],
-        "ms": rec_bwd["ms"], "plain_ms": rec_bwd["plain_ms"]}]}))
+        "launches": k2_train, **rec_bwd}, {
+        "name": "dyn_field_fwd", "route": "cuda",
+        "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_fwd.cu",
+        "replaces": "sealdnerf_tpu/ops/pallas_field.py:200",
+        "launches": k3_served, **rec_dyn}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,17 +1,23 @@
 """Where the time of one served 800x800 frame and of one full occupancy-grid
 sweep goes, for the PyTorch/CUDA port on one GPU.
 
-    python3 profiling/torch_render_profile.py
+    python3 profiling/torch_render_profile.py [--dynamic]
 
 Serves the seeded field as chip_smoke.py does (synthetic -O --bound 1
 --dt_gamma 0 --test --synthetic_res 800) and rebuilds the occupancy grid.
 For the 128^3 grid sweep and for one frame it times one warm unprofiled
 run, then profiles one more with torch.profiler and prints device time by
-kernel and the idle share (1 - device busy time of the profiled run / wall
-time of the unprofiled one). The first line is the card's name and power
-limit.
+kernel, the field kernels' share of it, and the idle share (1 - device busy
+time of the profiled run / wall time of the unprofiled one). The first line
+is the card's name and power limit.
+
+--dynamic does the same for the time-conditioned field of chip_smoke.py's
+dynamic phases (the seeded field with its deform tower re-gained): one
+rebuild of all 64 time bins of the grid, and one frame at the first val
+view's time.
 """
 
+import argparse
 import os
 import subprocess
 import sys
@@ -41,15 +47,42 @@ def report(label, fn, top=15):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     events.sort(key=lambda e: e.device_time_total, reverse=True)
     busy_ms = sum(e.device_time_total for e in events) / 1e3
+    field_ms = sum(e.device_time_total for e in events
+                   if "field_fwd_kernel" in e.key) / 1e3
     print(f"{label}: wall {wall_ms:.2f} ms (unprofiled), device busy "
           f"{busy_ms:.2f} ms (profiled run), idle share "
-          f"{1 - busy_ms / wall_ms:.3f}")
+          f"{1 - busy_ms / wall_ms:.3f}; field kernel {field_ms:.2f} ms "
+          f"({field_ms / busy_ms:.3f} of device busy)")
     for e in events[:top]:
         print(f"{e.device_time_total / 1e3:10.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
 
 
+def dynamic(ws):
+    import chip_smoke
+    from sealdnerf_tpu_torch import main_dnerf
+    opt = main_dnerf.parse_args(
+        ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--test",
+         "--synthetic_res", "800", "--ckpt", "scratch", "--workspace", ws])
+    train, _, val = load_datasets(opt, with_time=True)
+    trainer, field = build_trainer(opt, dynamic=True, lr_net=opt.lr_net)
+    trainer._set_params(chip_smoke._dyn_seeded_params(0, field.cfg, "cuda"))
+    trainer.ema_params = None
+    trainer.mark_untrained_grid(train.poses, train.intrinsics)
+    g = trainer.dyn_grid_cfg
+    report(f"dynamic grid rebuild {g.time_size} x {g.grid_size}^3",
+           trainer.rebuild_grid, top=10)
+    t = float(val.times[0])
+    report(f"dynamic frame {val.h}x{val.w} at t={t:.4f}",
+           lambda: trainer.render_image(val.poses[0], val.intrinsics, val.h,
+                                        val.w, time=t))
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dynamic", action="store_true",
+                    help="profile the time-conditioned field instead")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -58,6 +91,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     ws = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "workspace", "render_profile")
+    if args.dynamic:
+        return dynamic(ws + "_dyn")
     opt = postprocess(base_parser().parse_args(
         ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--test",
          "--synthetic_res", "800", "--ckpt", "scratch", "--workspace", ws]))

@@ -3,9 +3,10 @@ sealdnerf_tpu/cli.py).
 
 `base_parser` keeps every flag of the reference parser, plus --device.
 Flags of parts that are not ported yet parse but nothing reads them;
-`build_trainer` raises for backbones that are not ported, and the
-FastTrainer it builds for training options that are not (--error_map,
---patch_size > 1, --no_preload).
+`build_trainer` raises for backbones that are not ported (--backbone ngp,
+--bg_radius, --basis, --hyper), and the FastTrainer it builds for training
+options that are not (--error_map, --patch_size > 1, --no_preload) and for
+training a dynamic scene.
 """
 
 import argparse
@@ -156,25 +157,38 @@ def load_datasets(opt, with_time=False):
 
 def build_trainer(opt, name="ngp", dynamic=False, metrics=None,
                   use_checkpoint=None, **topt_overrides):
-    """Build the static CP field (seeded from --seed) and its FastTrainer
-    on --device. Every other backbone is not ported yet and raises."""
-    from .models.cp import CPConfig, make_cp_field, parse_planes
+    """Build the CP field (seeded from --seed) and its FastTrainer on
+    --device: the static field, or with dynamic=True the time-conditioned
+    one (bound <= 1). Every other backbone is not ported yet and raises."""
+    from .models.cp import (CPConfig, CPDNeRFConfig, make_cp_dnerf_field,
+                            make_cp_field, parse_planes)
     from .train.fast import FastTrainer
     backbone = getattr(opt, "backbone", "auto")
-    eligible = opt.bg_radius <= 0
-    if dynamic:
-        raise NotImplementedError("dynamic scenes are not yet ported")
+    variant = dynamic and (getattr(opt, "basis", False)
+                           or getattr(opt, "hyper", False))
+    if variant:
+        raise NotImplementedError("--basis and --hyper (the NGP dynamic "
+                                  "variants) are not yet ported")
+    eligible = opt.bg_radius <= 0 and not (dynamic and opt.bound > 1.0)
+    if backbone == "cp" and not eligible:
+        raise SystemExit("--backbone cp needs no --bg_radius (and "
+                         "--bound <= 1 for dynamic scenes)")
     if backbone == "ngp" or not eligible:
-        raise NotImplementedError("the NGP backbone (and --bg_radius) is "
-                                  "not yet ported")
+        raise NotImplementedError(
+            "the NGP backbone (--backbone ngp, --bg_radius, dynamic scenes "
+            "at --bound > 1) is not yet ported")
     device = resolve_device(getattr(opt, "device", "cuda"))
     topt = to_train_options(opt, name=name, **topt_overrides)
     planes = parse_planes(getattr(opt, "planes", "auto"), opt.bound)
     gen = torch.Generator().manual_seed(opt.seed)
-    field = make_cp_field(gen, CPConfig(bound=opt.bound, planes=planes),
-                          device)
+    if dynamic:
+        field = make_cp_dnerf_field(
+            gen, CPDNeRFConfig(bound=opt.bound, planes=planes), device)
+    else:
+        field = make_cp_field(gen, CPConfig(bound=opt.bound, planes=planes),
+                              device)
     trainer = FastTrainer(name, topt, field, metrics=metrics,
                           workspace=opt.workspace,
                           use_checkpoint=use_checkpoint or opt.ckpt,
-                          device=device)
+                          device=device, time_conditioned=dynamic)
     return trainer, field

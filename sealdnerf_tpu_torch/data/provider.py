@@ -72,8 +72,8 @@ class NeRFDataset:
 
     def device(self, torch_device):
         """Put the training data on `torch_device` once: images as
-        [n, h*w, c] f32, poses [n, 4, 4] and intrinsics [4]. This is the
-        reference's preload mode; its host-resident batches (--no_preload)
+        [n, h*w, c] f32, poses [n, 4, 4], intrinsics [4] and, for a dynamic
+        set, times [n]. This is the reference's preload mode; its host-resident batches (--no_preload)
         are not ported."""
         import torch
         if self.images is None:
@@ -89,6 +89,9 @@ class NeRFDataset:
                                           dtype=torch.float32,
                                           device=torch_device),
         }
+        if self.times is not None:
+            out["times"] = torch.as_tensor(self.times, dtype=torch.float32,
+                                           device=torch_device)
         return out
 
     @classmethod

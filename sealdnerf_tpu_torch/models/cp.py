@@ -1,5 +1,5 @@
-"""Multiscale CP/VM factorized radiance field, static part (port of
-sealdnerf_tpu/models/cp.py).
+"""Multiscale CP/VM factorized radiance field, static and time-conditioned
+(port of sealdnerf_tpu/models/cp.py).
 
   per scale s:  f_axis = lerp(line_axis[s], x_axis)        [S, R_s]
                 feat_s = f_x * f_y * f_z                    (CP product)
@@ -16,9 +16,15 @@ tensors with the reference pytree's names and layouts, so that
 lines[s][a] [res, rank], planes[s][p] [P, P, C], vm_lines[s][p] [P, C],
 sigma_mlp/color_mlp["w"][i] [in, out].
 
+The time-conditioned variant (CPDNeRFConfig) puts a D-NeRF deformation tower
+in front of the canonical field: freq(x) ++ freq(t) -> 128 x 7 -> dx, zero at
+t == 0, and the canonical field is read at x + dx. deform_mlp["w"][i] is
+[in, out] like the other towers.
+
 This module is the plain PyTorch version of the reference's XLA path (the
-sigma tower reads every feature in bf16). The kernel's semantics, with the
-frequency features kept in f32, live in ops/field.py.
+sigma tower reads every feature in bf16, the deform tower its 13 time inputs
+too). The kernels' semantics, with the frequency features and the time bias
+kept in f32, live in ops/field.py.
 """
 
 from dataclasses import dataclass, replace
@@ -128,7 +134,32 @@ def config_from_params(params, base: CPConfig) -> CPConfig:
     scales = tuple(tuple(ax[0].shape) for ax in params["lines"])
     planes = tuple((ps[0].shape[0], ps[0].shape[2])
                    for ps in params.get("planes", ()))
-    cfg = replace(base, scales=scales, planes=planes)
+    if "deform_mlp" in params:
+        # a time-conditioned checkpoint: depth and width of the deform tower
+        # come off the shapes; multires_deform and multires_time cannot be
+        # told apart from the input width, so `base` (or the defaults) must
+        # already agree with it
+        dw = params["deform_mlp"]["w"]
+        fields = {k: getattr(base, k) for k in base.__dataclass_fields__}
+        fields.update(scales=scales, planes=planes,
+                      num_layers_deform=len(dw),
+                      hidden_dim_deform=int(dw[0].shape[1]))
+        cfg = CPDNeRFConfig(**fields)
+        if int(dw[0].shape[0]) != cfg.deform_in_dim:
+            raise ValueError(
+                f"deform_mlp takes {int(dw[0].shape[0])} inputs, but "
+                f"multires_deform={cfg.multires_deform} and multires_time="
+                f"{cfg.multires_time} give {cfg.deform_in_dim}")
+        got = [tuple(w.shape) for w in dw]
+        dims = _deform_dims(cfg)
+        if got != list(zip(dims[:-1], dims[1:])):
+            raise ValueError(f"deform_mlp shapes {got} do not match the "
+                             f"field config (expected {dims})")
+    elif isinstance(base, CPDNeRFConfig):
+        raise ValueError("a time-conditioned field needs params with a "
+                         "deform_mlp; these have none")
+    else:
+        cfg = replace(base, scales=scales, planes=planes)
     sigma_dims, color_dims = _tower_dims(cfg)
     for name, dims in (("sigma_mlp", sigma_dims), ("color_mlp", color_dims)):
         got = [tuple(w.shape) for w in params[name]["w"]]
@@ -288,13 +319,130 @@ def flops_per_sample(cfg: CPConfig) -> int:
     """Matmul FLOPs (2 x MACs) of one forward field evaluation per sample,
     counted as the reference's hat-basis matmul formulation does (the
     gather formulation here does far fewer table MACs; the towers are the
-    same)."""
+    same). A CPDNeRFConfig adds its deform tower."""
     macs = 0
     for res, rank in cfg.scales:
         macs += 3 * res * rank
     for pres, ch in cfg.planes:
         macs += 3 * (pres * pres * ch + pres * ch + pres * ch)
     sigma_dims, color_dims = _tower_dims(cfg)
-    for dims in (sigma_dims, color_dims):
+    towers = [sigma_dims, color_dims]
+    if isinstance(cfg, CPDNeRFConfig):
+        towers.append(_deform_dims(cfg))
+    for dims in towers:
         macs += sum(a * b for a, b in zip(dims[:-1], dims[1:]))
     return 2 * macs
+
+
+# ----------------------------------------------------------- dynamic variant
+@dataclass(frozen=True)
+class CPDNeRFConfig(CPConfig):
+    """Time-conditioned CP field: a D-NeRF deformation tower in front of a
+    canonical CP field."""
+
+    num_layers_deform: int = 8
+    hidden_dim_deform: int = 128
+    multires_deform: int = 10
+    multires_time: int = 6
+    # The warp's gradient flows only through scales with res <= this cutoff:
+    # the fine tables' piecewise-linear d(feat)/dx is large and flips sign,
+    # and would drown the warp in noise. Fine scales are still read at the
+    # warped point; they just do not drive the warp.
+    deform_grad_res_cutoff: int = 256
+
+    @property
+    def deform_space_dim(self) -> int:
+        """Inputs of the deform tower that come from the position."""
+        return freq_output_dim(3, self.multires_deform)
+
+    @property
+    def deform_in_dim(self) -> int:
+        return self.deform_space_dim + freq_output_dim(1, self.multires_time)
+
+
+def _deform_dims(cfg: CPDNeRFConfig):
+    return [cfg.deform_in_dim] \
+        + [cfg.hidden_dim_deform] * (cfg.num_layers_deform - 1) + [3]
+
+
+def init_cp_dnerf(generator: torch.Generator, cfg: CPDNeRFConfig,
+                  device=None):
+    """init_cp plus the deform tower, whose last matrix is scaled by 1e-3:
+    the default init warps by O(0.3) units, which pollutes the canonical
+    field for thousands of steps."""
+    params = init_cp(generator, cfg)
+    params["deform_mlp"] = init_mlp(generator, _deform_dims(cfg))
+    params["deform_mlp"]["w"][-1] = params["deform_mlp"]["w"][-1] * 1e-3
+    return map_params(lambda t: t.to(device), params) if device else params
+
+
+def _as_time(t, like):
+    """Scalar time (float or 0-d/1-element tensor) as a 0-d f32 tensor on
+    `like`'s device, without a host round trip for a tensor."""
+    return torch.as_tensor(t, dtype=torch.float32,
+                           device=like.device).reshape(())
+
+
+def cp_dnerf_deform_raw(params, cfg: CPDNeRFConfig, x, t):
+    """Raw output of the deform tower [S, 3], without the t == 0 gate."""
+    t = _as_time(t, x)
+    ex = freq_encode(x, degree=cfg.multires_deform)
+    et = freq_encode(t.expand(x.shape[0], 1), degree=cfg.multires_time)
+    return apply_mlp(params["deform_mlp"], torch.cat([ex, et], dim=-1))
+
+
+def cp_dnerf_deform(params, cfg: CPDNeRFConfig, x, t):
+    """Deform tower; t == 0 forces dx = 0 (the canonical frame)."""
+    t = _as_time(t, x)
+    h = cp_dnerf_deform_raw(params, cfg, x, t)
+    return torch.where(t == 0.0, torch.zeros_like(h), h)
+
+
+def _warped_density(params, cfg: CPDNeRFConfig, x, deform):
+    """Canonical density at x + deform. The warp's gradient reaches only the
+    scales and planes with res <= deform_grad_res_cutoff, and the frequency
+    features; the finer ones are read at the detached point."""
+    xw_grad = x + deform
+    xw_stop = x + deform.detach()
+    cut = cfg.deform_grad_res_cutoff
+    x01g = (xw_grad + cfg.bound) / (2.0 * cfg.bound)
+    x01s = (xw_stop + cfg.bound) / (2.0 * cfg.bound)
+    feats = []
+    for s, (res, _) in enumerate(cfg.scales):
+        x01 = x01g if res <= cut else x01s
+        prod = None
+        for a in range(3):
+            f = line_interp(x01[:, a], params["lines"][s][a])
+            prod = f if prod is None else prod * f
+        feats.append(prod)
+    for s, (pres, _) in enumerate(cfg.planes):
+        x01 = x01g if pres <= cut else x01s
+        for p, (a, b, e) in enumerate(VM_PAIRS):
+            f = _plane_interp(params["planes"][s][p], x01[:, a], x01[:, b])
+            l = line_interp(x01[:, e], params["vm_lines"][s][p])
+            feats.append(f * l)
+    feats.append(freq_encode(xw_grad, degree=cfg.freq_degree))
+    h = apply_mlp(params["sigma_mlp"], torch.cat(feats, dim=-1))
+    return trunc_exp(h[:, 0]), h[:, 1:]
+
+
+def cp_dnerf_forward(params, cfg: CPDNeRFConfig, x, d, t):
+    """(sigma [S], rgb [S, 3], deform [S, 3]) at scalar time t."""
+    deform = cp_dnerf_deform(params, cfg, x, t)
+    sigma, geo = _warped_density(params, cfg, x, deform)
+    return sigma, cp_color(params, cfg, d, geo), deform
+
+
+def cp_dnerf_density(params, cfg: CPDNeRFConfig, x, t):
+    """(sigma [S], geo_feat [S, geo_feat_dim]) at scalar time t."""
+    deform = cp_dnerf_deform(params, cfg, x, t)
+    return _warped_density(params, cfg, x, deform)
+
+
+def make_cp_dnerf_field(generator: torch.Generator, cfg: CPDNeRFConfig,
+                        device=None):
+    """CPField of a seeded time-conditioned field; `deform_raw(params, x,
+    t)` is the ungated tower output that the trainer regularises."""
+    f = CPField(init_cp_dnerf(generator, cfg, device), cfg)
+    f.deform_raw = lambda params, x, t: cp_dnerf_deform_raw(params, cfg, x, t)
+    return f

@@ -107,4 +107,9 @@ def load_library() -> ctypes.CDLL:
                                   ctypes.POINTER(ctypes.c_longlong), f32,
                                   vp, vp, vp]
     lib.sdn_field_bwd.restype = ctypes.c_int
+    lib.sdn_dyn_field_fwd.argtypes = [vp, vp, i64, vp, vp,
+                                      ctypes.POINTER(ctypes.c_longlong), f32,
+                                      vp, ctypes.POINTER(ctypes.c_longlong),
+                                      vp, i32, i32, vp, vp]
+    lib.sdn_dyn_field_fwd.restype = ctypes.c_int
     return lib

@@ -1,10 +1,14 @@
-"""Fused static CP/VM field: the wrappers of the Hopper kernels
-ops/csrc/field_fwd.cu (K1, port of the Pallas `_field_kernel`) and
-ops/csrc/field_bwd.cu (K2, port of `_field_bwd_kernel`), their plain
-PyTorch versions, and the autograd op that joins them.
+"""Fused CP/VM field: the wrappers of the Hopper kernels
+ops/csrc/field_fwd.cu (K1, port of the Pallas `_field_kernel`),
+ops/csrc/field_bwd.cu (K2, port of `_field_bwd_kernel`) and
+ops/csrc/dyn_field_fwd.cu (K3, port of `_dyn_field_kernel`), their plain
+PyTorch versions, and the autograd op that joins K1 and K2.
 
     field_forward(params, cfg, x3 [3, M], d3 [3, M]) -> out [4, M]
     rows: sigma, r, g, b (f32)
+    dyn_field_forward(params, cfg, x3, d3, t) -> out [4, M]
+    the time-conditioned field at scalar time t: deform tower, then the
+    canonical field at x + dx (no gradient: the render path)
     field_backward(tables, cfg, x3, d3, g_out [4, M]) -> grads
     grads: f32 dict in the params' names and layouts
     field_train_forward(params, cfg, x3, d3) -> out [4, M], differentiable
@@ -16,8 +20,9 @@ Packing costs a pass over ~1.5 MB of parameters, so callers that evaluate
 the field repeatedly pack once per parameter version (CPField.kernel_tables).
 
 Device dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes
-to the kernel, and a failed build or launch raises. `field_forward.launches`
-and `field_backward.launches` count kernel launches.
+to the kernel, and a failed build or launch raises. `field_forward.launches`,
+`field_backward.launches` and `dyn_field_forward.launches` count kernel
+launches.
 
 The plain versions reproduce the kernels' rounding points: table taps and
 hat weights in bf16, line/plane features rounded to bf16, frequency
@@ -25,21 +30,27 @@ features kept in f32 (the Pallas kernel's choice; the XLA path in
 models/cp.py rounds them), bf16 hidden activations, f32 sums. The backward
 rounds both operands of every weight-gradient product to bf16, except the
 frequency-feature rows of the first sigma matrix, which it sums in f32.
+The deform tower of the dynamic kernel rounds freq(x) and every hidden
+activation to bf16 and keeps the first layer's 13 time rows, and the bias
+they give, in f32 (the XLA path in models/cp.py rounds those too).
 """
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
-from ..models.cp import (VM_PAIRS, CPConfig, cp_color, cp_density,
-                         param_leaves)
+from ..models.cp import (VM_PAIRS, CPConfig, CPDNeRFConfig, cp_color,
+                         cp_density, param_leaves)
 from .freq_encode import freq_encode
 from .hat import bf16_round, hat_taps
 from .sh_encode import sh_encode
 
 _KERNEL_TOWERS = dict(num_layers=2, num_layers_color=3, hidden_dim=64,
                       hidden_dim_color=64, geo_feat_dim=15, sh_degree=4)
+# the dynamic kernel's deform tower: hidden width, rows of the padded last
+# matrix, most matrices
+_DEFORM_HID, _DEFORM_LAST_ROWS, _DEFORM_MAX_LAYERS = 128, 8, 16
 
 
 @dataclass
@@ -52,11 +63,22 @@ class FieldTables:
            w0 [feat, 64] | w1^T [16, 64] | wc0 [31, 64] | wc1^T [64, 64] |
            wc2 [64, 3], padded to a multiple of 8 elements.
     meta:  int64 layout description read by the kernel's C entry point.
+    Of a time-conditioned field also (plain then has "deform_mlp" too):
+    w0_time: f32 [time inputs, hidden], the first deform matrix's time rows.
+    wdef:  flat bf16 buffer of the deform matrices, output-major (W^T):
+           [hidden, in_pad] (spatial rows only, zero-padded to a multiple of
+           16) | hidden matrices [hidden, hidden] | last [8, hidden] (rows
+           3..7 zero). Empty when the tower is not one the kernel takes.
+    dmeta: int64 n_layers, hidden, in_dim, in_pad, multires_deform, then the
+           element offset of each matrix in wdef.
     """
     plain: dict
     tab: torch.Tensor
     wbuf: torch.Tensor
     meta: list
+    w0_time: torch.Tensor = None
+    wdef: torch.Tensor = None
+    dmeta: list = field(default_factory=list)
 
 
 @torch.no_grad()
@@ -107,7 +129,36 @@ def pack_tables(params, cfg: CPConfig) -> FieldTables:
     w_off += [0] * (5 - len(w_off))
     meta = [len(cfg.scales), len(cfg.planes), cfg.freq_degree, cfg.feat_dim,
             n + pad] + w_off + scale_meta + plane_meta
-    return FieldTables(plain=plain, tab=tab, wbuf=wbuf, meta=meta)
+    tables = FieldTables(plain=plain, tab=tab, wbuf=wbuf, meta=meta)
+    if isinstance(cfg, CPDNeRFConfig):
+        _pack_deform(tables, params, cfg)
+    return tables
+
+
+def _pack_deform(tables: FieldTables, params, cfg: CPDNeRFConfig):
+    """Add the deform tower's operands to `tables`."""
+    bf = torch.bfloat16
+    wd = params["deform_mlp"]["w"]
+    nx, hid = cfg.deform_space_dim, cfg.hidden_dim_deform
+    tables.plain["deform_mlp"] = {"w": [w.to(bf).contiguous() for w in wd]}
+    tables.w0_time = wd[0][nx:].detach().float().contiguous()
+    in_pad = -(-nx // 16) * 16
+    tables.wdef = tables.tab.new_zeros(0)
+    if hid != _DEFORM_HID or in_pad > hid or \
+            not 2 <= len(wd) <= _DEFORM_MAX_LAYERS:
+        return                      # the launch raises for such a tower
+    wb = tables.plain["deform_mlp"]["w"]
+    first = wb[0].new_zeros((hid, in_pad))
+    first[:, :nx] = wb[0][:nx].t()
+    last = wb[0].new_zeros((_DEFORM_LAST_ROWS, hid))
+    last[:3] = wb[-1].t()
+    mats = [first] + [w.t() for w in wb[1:-1]] + [last]
+    offs, n = [], 0
+    for mat in mats:
+        offs.append(n)
+        n += mat.numel()
+    tables.wdef = torch.cat([mat.contiguous().reshape(-1) for mat in mats])
+    tables.dmeta = [len(wd), hid, nx, in_pad, cfg.multires_deform] + offs
 
 
 def field_forward_plain(tables: FieldTables, cfg: CPConfig, x3, d3,
@@ -135,6 +186,25 @@ def _check_kernel_cfg(cfg: CPConfig):
     if len(cfg.scales) > 8 or len(cfg.planes) > 4:
         raise NotImplementedError("the field kernel takes at most 8 line "
                                   "scales and 4 plane scales")
+
+
+def _check_samples(x3, d3, density_only):
+    """Raise unless x3 (and d3, which may be None when density_only) are
+    f32 [3, M], contiguous, on one device."""
+    if d3 is None and not density_only:
+        raise ValueError("d3 is required unless density_only")
+    for name, t in (("x3", x3), ("d3", d3)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != 3:
+            raise ValueError(f"{name} must be f32 [3, M], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != x3.device:
+            raise ValueError("x3 and d3 must be on one device")
+    if d3 is not None and d3.shape != x3.shape:
+        raise ValueError(f"d3 {tuple(d3.shape)} != x3 {tuple(x3.shape)}")
 
 
 def _launch(tables: FieldTables, cfg: CPConfig, x3, d3, lod_skip,
@@ -181,20 +251,7 @@ def field_forward(params, cfg: CPConfig, x3, d3, lod_skip=(),
     """
     tables = params if isinstance(params, FieldTables) \
         else pack_tables(params, cfg)
-    if d3 is None and not density_only:
-        raise ValueError("d3 is required unless density_only")
-    for name, t in (("x3", x3), ("d3", d3)):
-        if t is None:
-            continue
-        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != 3:
-            raise ValueError(f"{name} must be f32 [3, M], got {t.dtype} "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != x3.device:
-            raise ValueError("x3 and d3 must be on one device")
-    if d3 is not None and d3.shape != x3.shape:
-        raise ValueError(f"d3 {tuple(d3.shape)} != x3 {tuple(x3.shape)}")
+    _check_samples(x3, d3, density_only)
     if x3.device.type == "cpu":
         return field_forward_plain(tables, cfg, x3, d3, lod_skip,
                                    density_only)
@@ -204,6 +261,120 @@ def field_forward(params, cfg: CPConfig, x3, d3, lod_skip=(),
 
 
 field_forward.launches = 0
+
+
+# ------------------------------------------------------------------ dynamic
+def _time_cond(tables: FieldTables, cfg: CPDNeRFConfig, t, device):
+    """The frame's conditioning: the first deform layer's time bias
+    W0[nx:]^T freq(t) [hidden] and the flag t != 0 [1], both f32 on
+    `device`, computed there from a float or from a tensor that holds t."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=device).reshape(1, 1)
+    tvec = freq_encode(t, degree=cfg.multires_time)[0]
+    return tvec @ tables.w0_time, (t != 0.0).float().reshape(1)
+
+
+def dyn_field_forward_plain(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3,
+                            t, lod_skip=(), density_only=False,
+                            chunk: int = 1 << 17, return_deform=False):
+    """Plain PyTorch version of the dynamic kernel, in chunks of `chunk`
+    samples. return_deform=True also returns the warp dx [3, M]."""
+    m = x3.shape[1]
+    out = x3.new_zeros((4, m))
+    dxs = x3.new_zeros((3, m)) if return_deform else None
+    tb, flag = _time_cond(tables, cfg, t, x3.device)
+    wd = [w.float() for w in tables.plain["deform_mlp"]["w"]]
+    nx = cfg.deform_space_dim
+    x = x3.t()
+    for i in range(0, m, chunk):
+        xc = x[i:i + chunk]
+        h = bf16_round(freq_encode(xc, degree=cfg.multires_deform)) \
+            @ wd[0][:nx] + tb
+        for w in wd[1:]:
+            h = bf16_round(torch.relu(h)) @ w
+        dx = torch.where(flag != 0.0, h, torch.zeros_like(h))
+        sigma, geo = cp_density(tables.plain, cfg, xc + dx,
+                                lod_skip=lod_skip, round_freq=False)
+        out[0, i:i + chunk] = sigma
+        if not density_only:
+            rgb = cp_color(tables.plain, cfg, d3.t()[i:i + chunk], geo)
+            out[1:4, i:i + chunk] = rgb.t()
+        if return_deform:
+            dxs[:, i:i + chunk] = dx.t()
+    return (out, dxs) if return_deform else out
+
+
+def _launch_dyn(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t, lod_skip,
+                density_only):
+    from .build import load_library
+    _check_kernel_cfg(cfg)
+    if not tables.dmeta:
+        raise NotImplementedError(
+            f"the dynamic field kernel is built for hidden_dim_deform="
+            f"{_DEFORM_HID}, 2..{_DEFORM_MAX_LAYERS} deform layers and at "
+            f"most {_DEFORM_HID} spatial inputs, got hidden "
+            f"{cfg.hidden_dim_deform}, {cfg.num_layers_deform} layers, "
+            f"{cfg.deform_space_dim} inputs")
+    for name, buf in (("tables", tables.tab), ("weights", tables.wbuf),
+                      ("deform weights", tables.wdef)):
+        if buf.device != x3.device or buf.dtype != torch.bfloat16:
+            raise ValueError(f"packed {name} must be bf16 on {x3.device}, "
+                             f"got {buf.dtype} on {buf.device}")
+    m = x3.shape[1]
+    out = torch.empty((4, m), dtype=torch.float32, device=x3.device)
+    if m == 0:
+        return out
+    tcond = torch.cat(_time_cond(tables, cfg, t, x3.device)).contiguous()
+    lib = load_library()
+    meta = (ctypes.c_longlong * len(tables.meta))(*tables.meta)
+    dmeta = (ctypes.c_longlong * len(tables.dmeta))(*tables.dmeta)
+    mask = 0
+    for s in lod_skip:
+        mask |= 1 << int(s)
+    stream = torch.cuda.current_stream(x3.device).cuda_stream
+    rc = lib.sdn_dyn_field_fwd(
+        x3.data_ptr(), (x3 if d3 is None else d3).data_ptr(), m,
+        tables.tab.data_ptr(), tables.wbuf.data_ptr(), meta,
+        float(cfg.bound), tables.wdef.data_ptr(), dmeta, tcond.data_ptr(),
+        mask, int(bool(density_only)), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"dynamic field kernel launch failed: CUDA error {rc}")
+    dyn_field_forward.launches += 1
+    return out
+
+
+def dyn_field_forward(params, cfg: CPDNeRFConfig, x3, d3, t, lod_skip=(),
+                      density_only=False):
+    """Time-conditioned field forward on planar samples (render path, no
+    gradient).
+
+    Args:
+      params: params dict or FieldTables (see pack_tables) of a field with
+        a deform tower.
+      x3, d3: [3, M] f32 contiguous positions and unit directions on one
+        device. d3 may be None when density_only.
+      t: the frame's time, a float or a tensor holding one value; a tensor
+        on x3's device is read there, without a host round trip.
+      lod_skip, density_only: as field_forward.
+
+    Returns out [4, M] f32, rows (sigma, r, g, b).
+    """
+    if not isinstance(cfg, CPDNeRFConfig):
+        raise TypeError("dyn_field_forward needs a CPDNeRFConfig")
+    tables = params if isinstance(params, FieldTables) \
+        else pack_tables(params, cfg)
+    if tables.w0_time is None:
+        raise ValueError("the tables hold no deform tower")
+    _check_samples(x3, d3, density_only)
+    if x3.device.type == "cpu":
+        return dyn_field_forward_plain(tables, cfg, x3, d3, t, lod_skip,
+                                       density_only)
+    if x3.device.type != "cuda":
+        raise ValueError(f"unsupported device {x3.device}")
+    return _launch_dyn(tables, cfg, x3, d3, t, lod_skip, density_only)
+
+
+dyn_field_forward.launches = 0
 
 
 # ------------------------------------------------------------------ backward

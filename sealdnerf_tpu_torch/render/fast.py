@@ -12,16 +12,20 @@ from ..ops.ray import near_far_from_aabb
 
 def render_dense(params, occ_m, rays_o, rays_d, cfg: DenseMarchConfig,
                  forward_fn: Callable, bg_color=None, noise=None,
-                 density_scale: float = 1.0, t_thresh: float = 1e-4):
+                 density_scale: float = 1.0, t_thresh: float = 1e-4,
+                 extra=()):
     """Render a flat ray batch.
 
     Args:
       params: field params, passed through to forward_fn.
       occ_m: bool [M, M, M] occupancy at march resolution.
       rays_o, rays_d: [N, 3].
-      forward_fn: (params, x [S, 3], d [S, 3]) -> (sigma [S], rgb [S, 3]).
+      forward_fn: (params, x [S, 3], d [S, 3], *extra) -> (sigma [S],
+        rgb [S, 3]).
       bg_color: [3] or [N, 3] tensor, or None for white.
       noise: optional [N] fine-phase jitter in [0, 1).
+      extra: further arguments of forward_fn: (t,) for a time-conditioned
+        field, whose occ_m is then the slice of that time.
 
     Returns dict(image [N,3], depth [N], weights_sum [N], n_samples).
     """
@@ -36,7 +40,8 @@ def render_dense(params, occ_m, rays_o, rays_d, cfg: DenseMarchConfig,
     pos = (rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :]).clamp(
         -b, b)
     dirs = rays_d[:, None, :].expand(n, s, 3)
-    sigma, rgb = forward_fn(params, pos.reshape(-1, 3), dirs.reshape(-1, 3))
+    sigma, rgb = forward_fn(params, pos.reshape(-1, 3), dirs.reshape(-1, 3),
+                            *extra)
     sigma = torch.where(valid, sigma.reshape(n, s) * density_scale,
                         torch.zeros_like(ts))
     comp = composite_rays(sigma, rgb.reshape(n, s, 3), dts, ts=ts,

@@ -40,7 +40,8 @@ def _march_tiles(to, td, tnear, tfar, occ_m, cfg: DenseMarchConfig,
 def render_image_tiled(params, occ_m, pose, intr, rh: int, rw: int,
                        cfg: DenseMarchConfig, forward_fn: Callable, bg_color,
                        tile_px: int = 8, dilate: int = 1,
-                       density_scale: float = 1.0, t_thresh: float = 1e-4):
+                       density_scale: float = 1.0, t_thresh: float = 1e-4,
+                       extra=()):
     """Render a full image.
 
     Args:
@@ -48,9 +49,11 @@ def render_image_tiled(params, occ_m, pose, intr, rh: int, rw: int,
       occ_m: bool [M, M, M] occupancy at cfg.march_res.
       pose: [4, 4] cam2world. intr: [4] fx fy cx cy (at render res).
       rh, rw: render resolution, multiples of tile_px.
-      forward_fn: (params, x3 [3, M], d3 [3, M]) -> out [>= 4, M] with
-        rows (sigma, r, g, b).
+      forward_fn: (params, x3 [3, M], d3 [3, M], *extra) -> out [>= 4, M]
+        with rows (sigma, r, g, b).
       bg_color: [3] tensor.
+      extra: further arguments of forward_fn: (t,) for a time-conditioned
+        field, whose occ_m is then the slice of that time.
 
     Returns (image [rh, rw, 3], depth [rh, rw]).
     """
@@ -88,7 +91,7 @@ def render_image_tiled(params, occ_m, pose, intr, rh: int, rw: int,
         da = rd[:, a]
         x3[a] = (ro[:, a][:, None] + ts * da[:, None]).clamp(-b, b).reshape(-1)
         d3[a] = da[:, None].expand(n, s).reshape(-1)
-    out = forward_fn(params, x3, d3)
+    out = forward_fn(params, x3, d3, *extra)
     del x3, d3
     sigma = torch.where(valid, out[0].reshape(n, s) * density_scale,
                         torch.zeros_like(ts))

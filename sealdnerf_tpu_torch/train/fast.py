@@ -1,4 +1,6 @@
-"""FastTrainer for the static CP field (port of sealdnerf_tpu/train/fast.py).
+"""FastTrainer for the CP field (port of sealdnerf_tpu/train/fast.py):
+training and serving of the static field, serving of the time-conditioned
+one.
 
 Training: a plain per-step loop (the reference's fori_loop segments only
 amortised host-device transfers). One step refreshes the occupancy grid
@@ -13,10 +15,18 @@ Serving: checkpoint loading, occupancy-grid rebuild and frustum marking,
 whole-frame rendering through the tiled renderer, the evaluate/test loops.
 On CPU tensors the field runs through the kernels' plain versions.
 
-Not ported yet: error-map and patch sampling, host-resident images
-(preload=False), train_gui, the bucketed renderer (the reference switches
-to it below 15 % occupancy; this port always renders tiled, the exact one
-of the two), dynamic scenes and the cascade march for bound > 1.
+Time-conditioned fields (time_conditioned=True, a CPDNeRFConfig) are served
+only: the [T, CAS, H^3] grid of render/dynamic_grid.py, frustum marking,
+checkpoint loading, a rebuild of every time bin through the dynamic kernel
+(density only), and frames at a scalar time through the same tiled
+renderer. Training one raises.
+
+Not ported yet: dynamic training (the dynamic backward kernel, the anneal
+mask, the time curriculum, deform_zero_reg, lr_net), error-map and patch
+sampling, host-resident images (preload=False), train_gui, the bucketed
+renderer (the reference switches to it below 15 % occupancy; this port
+always renders tiled, the exact one of the two) and the cascade march for
+bound > 1.
 """
 
 import os
@@ -27,11 +37,17 @@ import numpy as np
 import torch
 
 from ..data.rays import get_rays
-from ..models.cp import (CPConfig, config_from_params, map_params,
-                         param_leaves, params_from_jax, unflatten_like)
-from ..ops.field import field_forward, field_train_forward
+from ..models.cp import (CPConfig, CPDNeRFConfig, config_from_params,
+                         map_params, param_leaves, params_from_jax,
+                         unflatten_like)
+from ..ops.field import (dyn_field_forward, field_forward,
+                         field_train_forward)
 from ..ops.marching_dense import DenseMarchConfig, downsample_occ
 from ..render.fast import render_dense
+from ..render.dynamic_grid import (DynGridConfig, init_dyn_grid_state,
+                                   mark_untrained_dyn_grid,
+                                   rebuild_dyn_density_grid,
+                                   time_slice_index)
 from ..render.fast_image import render_image_tiled
 from ..render.grid import (GridConfig, init_grid_state, mark_untrained_grid,
                            refresh_indices, update_density_grid)
@@ -41,14 +57,25 @@ from .checkpoint import (load_checkpoint, prune_checkpoints,
 from .metrics import PSNRMeter
 from .trainer import TrainOptions, cascades_for
 
+DYNAMIC_TRAINING_MSG = "dynamic training is not yet ported (K4)"
+
 
 class FastTrainer:
     def __init__(self, name: str, opt: TrainOptions, field,
                  metrics: Optional[Sequence] = None,
                  workspace: Optional[str] = None,
-                 use_checkpoint: str = "latest", device=None):
+                 use_checkpoint: str = "latest", device=None,
+                 time_conditioned: bool = False):
         if not isinstance(field.cfg, CPConfig):
-            raise NotImplementedError("only the static CP field is ported")
+            raise NotImplementedError("only the CP field is ported")
+        if time_conditioned != isinstance(field.cfg, CPDNeRFConfig):
+            raise ValueError("time_conditioned goes with a CPDNeRFConfig "
+                             "field, and only with one")
+        if time_conditioned and opt.bound > 1.0:
+            # the dynamic grid is single-cascade (D-NeRF recipes use bound 1)
+            raise ValueError("the dynamic fast path serves bound <= 1 "
+                             f"recipes (got bound={opt.bound})")
+        self.time_conditioned = time_conditioned
         cascades = cascades_for(opt.bound)
         if cascades > 1 or opt.dt_gamma > 0.0:
             raise NotImplementedError(
@@ -86,7 +113,11 @@ class FastTrainer:
                                     field.params))
         self.ema_params = map_params(lambda t: t.detach().clone(),
                                      self.params)
-        self.grid_state = init_grid_state(self.grid_cfg, self.device)
+        self.dyn_grid_cfg = DynGridConfig(
+            bound=opt.bound, cascades=cascades, grid_size=opt.grid_size,
+            density_thresh=opt.density_thresh,
+            density_scale=opt.density_scale) if time_conditioned else None
+        self.grid_state = self._init_grid_state()
         self.generator = torch.Generator(self.device).manual_seed(opt.seed)
         self._occ_m = None
         self.epoch = 0
@@ -112,6 +143,11 @@ class FastTrainer:
         print(text, flush=True)
         with open(self.log_path, "a") as f:
             f.write(text + "\n")
+
+    def _init_grid_state(self):
+        if self.time_conditioned:
+            return init_dyn_grid_state(self.dyn_grid_cfg, self.device)
+        return init_grid_state(self.grid_cfg, self.device)
 
     def _infer_params(self):
         return self.ema_params if self.ema_params is not None else self.params
@@ -206,13 +242,25 @@ class FastTrainer:
         self._ema_update()
 
     def _density_fn(self, params):
+        """The grid's density query on `params`: (pts [N, 3]) -> sigma [N],
+        with a second argument t for a time-conditioned field."""
         tables = self.field.kernel_tables(params)
         cfg = self.field.cfg
 
-        def density(pts):                  # [N, 3] -> sigma [N]
-            return field_forward(tables, cfg, pts.t().contiguous(), None,
-                                 density_only=True)[0]
-        return density
+        if self.time_conditioned:
+            return lambda pts, t: dyn_field_forward(
+                tables, cfg, pts.t().contiguous(), None, t,
+                density_only=True)[0]
+        return lambda pts: field_forward(tables, cfg, pts.t().contiguous(),
+                                         None, density_only=True)[0]
+
+    def _render_forward(self):
+        """The tiled renderer's forward_fn: (tables, x3, d3[, t]) -> out."""
+        cfg = self.field.cfg
+        if self.time_conditioned:
+            return lambda tabs, x3, d3, t: dyn_field_forward(tabs, cfg, x3,
+                                                             d3, t)
+        return lambda tabs, x3, d3: field_forward(tabs, cfg, x3, d3)
 
     # ------------------------------------------------------------- grid
     @torch.no_grad()
@@ -220,6 +268,8 @@ class FastTrainer:
         """One in-loop grid refresh of training: the warm-up slab or the
         random cells (render.grid.refresh_indices), queried on the current
         params (not the EMA), then the march-resolution occupancy."""
+        if self.time_conditioned:
+            raise NotImplementedError(DYNAMIC_TRAINING_MSG)
         idx = refresh_indices(int(self.grid_state["iter_density"]),
                               self.grid_cfg, self.generator, self.device)
         self.grid_state = update_density_grid(
@@ -230,7 +280,13 @@ class FastTrainer:
 
     @torch.no_grad()
     def rebuild_grid(self):
-        """Full-sweep occupancy rebuild from the inference params."""
+        """Full-sweep occupancy rebuild from the inference params; of a
+        time-conditioned grid, of every time bin."""
+        if self.time_conditioned:
+            self.grid_state = rebuild_dyn_density_grid(
+                self.grid_state, self._density_fn(self._infer_params()),
+                self.dyn_grid_cfg, generator=self.generator)
+            return
         self.grid_state = update_density_grid(
             self.grid_state, self._density_fn(self._infer_params()),
             self.grid_cfg, full=True, generator=self.generator)
@@ -239,6 +295,10 @@ class FastTrainer:
     def mark_untrained_grid(self, poses, intrinsics):
         t = lambda a: torch.as_tensor(np.asarray(a, np.float32),
                                       device=self.device)
+        if self.time_conditioned:
+            self.grid_state = mark_untrained_dyn_grid(
+                self.grid_state, t(poses), t(intrinsics), self.dyn_grid_cfg)
+            return
         self.grid_state = mark_untrained_grid(
             self.grid_state, t(poses), t(intrinsics), self.grid_cfg)
 
@@ -287,6 +347,8 @@ class FastTrainer:
 
     def train_step(self, data, h: int, w: int):
         """One training step -> (loss, n_samples) as device tensors."""
+        if self.time_conditioned:
+            raise NotImplementedError(DYNAMIC_TRAINING_MSG)
         if self.global_step % self.opt.update_extra_interval == 0:
             self.refresh_grid()
         loss, n_samples = self.loss_on(*self.sample_batch(data, h, w))
@@ -300,6 +362,8 @@ class FastTrainer:
         """Epochs of max(n_images, segment_steps) steps until opt.iters;
         evaluation and the best checkpoint every eval_interval epochs, a
         full checkpoint after every epoch."""
+        if self.time_conditioned:
+            raise NotImplementedError(DYNAMIC_TRAINING_MSG)
         self.mark_untrained_grid(train_dataset.poses,
                                  train_dataset.intrinsics)
         data = train_dataset.device(self.device)
@@ -348,15 +412,19 @@ class FastTrainer:
 
     @torch.no_grad()
     def render_image(self, pose, intrinsics, h, w, bg_color=None,
-                     downscale: int = 1, params=None):
+                     downscale: int = 1, params=None, time=None):
         """Whole-frame render -> (rgb f32 [rh, rw, 3], depth f32 [rh, rw])
-        as numpy arrays."""
+        as numpy arrays. A time-conditioned field renders at `time` (None:
+        0), marching the occupancy of that time's bin."""
         rh, rw = int(h // downscale), int(w // downscale)
         dev = self.device
         params = params if params is not None else self._infer_params()
-        cfg = self.field.cfg
-        occ_m = downsample_occ(self.grid_state["occ"][0],
-                               self.render_cfg.march_res)
+        occ, extra = self.grid_state["occ"], ()
+        if self.time_conditioned:
+            t = 0.0 if time is None else float(time)
+            occ = occ[time_slice_index(t, self.dyn_grid_cfg)]
+            extra = (t,)
+        occ_m = downsample_occ(occ[0], self.render_cfg.march_res)
         pose_t = torch.as_tensor(np.asarray(pose, np.float32), device=dev)
         intr = torch.as_tensor(np.asarray(intrinsics, np.float32),
                                device=dev) / downscale
@@ -364,11 +432,17 @@ class FastTrainer:
             torch.as_tensor(np.asarray(bg_color, np.float32), device=dev)
         img, depth = render_image_tiled(
             self.field.kernel_tables(params), occ_m, pose_t, intr, rh, rw,
-            self.render_cfg,
-            lambda tabs, x3, d3: field_forward(tabs, cfg, x3, d3), bg,
+            self.render_cfg, self._render_forward(), bg,
             tile_px=self._pick_tile(rh, rw), dilate=self.opt.render_dilate,
-            density_scale=self.opt.density_scale, t_thresh=self.opt.t_thresh)
+            density_scale=self.opt.density_scale, t_thresh=self.opt.t_thresh,
+            extra=extra)
         return img.cpu().numpy(), depth.cpu().numpy()
+
+    def _time_of(self, dataset, i):
+        """The i-th view's time for a time-conditioned field, else None."""
+        if self.time_conditioned and dataset.times is not None:
+            return dataset.times[i]
+        return None
 
     def evaluate_one_epoch(self, dataset, name: Optional[str] = None):
         self.log(f"++> Evaluate at epoch {self.epoch}")
@@ -381,7 +455,8 @@ class FastTrainer:
         for i in range(len(dataset)):
             img, depth = self.render_image(dataset.poses[i],
                                            dataset.intrinsics, dataset.h,
-                                           dataset.w)
+                                           dataset.w,
+                                           time=self._time_of(dataset, i))
             gt = dataset.images[i]
             if gt.shape[-1] == 4:
                 gt = gt[..., :3] * gt[..., 3:] + 1.0 * (1 - gt[..., 3:])
@@ -410,7 +485,8 @@ class FastTrainer:
         os.makedirs(save_path, exist_ok=True)
         for i in range(len(dataset)):
             img, _ = self.render_image(dataset.poses[i], dataset.intrinsics,
-                                       dataset.h, dataset.w)
+                                       dataset.h, dataset.w,
+                                       time=self._time_of(dataset, i))
             write_png(os.path.join(save_path, f"{name}_{i:04d}_rgb.png"),
                       (np.clip(img, 0, 1) * 255).astype(np.uint8))
         self.log(f"==> Saved test results to {save_path}")
@@ -456,26 +532,42 @@ class FastTrainer:
     def load_checkpoint(self, path: str, model_only: bool = False):
         state, meta = load_checkpoint(path)
         dev = self.device
-        self.field.cfg = config_from_params(state["model"]["params"],
-                                            self.field.cfg)
+        cfg = config_from_params(state["model"]["params"], self.field.cfg)
+        if isinstance(cfg, CPDNeRFConfig) != self.time_conditioned:
+            raise ValueError(
+                f"{path} holds a "
+                f"{'time-conditioned' if isinstance(cfg, CPDNeRFConfig) else 'static'}"
+                " field, which this trainer does not serve")
+        self.field.cfg = cfg
         self._set_params(params_from_jax(state["model"]["params"], dev))
         if state["model"].get("ema") is not None:
             self.ema_params = params_from_jax(state["model"]["ema"], dev)
         else:
             self.ema_params = None
         if "grid" in state:
-            g = init_grid_state(self.grid_cfg, dev)
+            # a grid of this trainer's kind: [T, CAS, H^3] for a
+            # time-conditioned field, [CAS, H^3] for a static one
+            g = self._init_grid_state()
+            has_grid = "density_grid" in state["grid"]
+            if has_grid and tuple(state["grid"]["density_grid"].shape) \
+                    != tuple(g["density_grid"].shape):
+                raise ValueError(
+                    f"checkpoint density grid "
+                    f"{tuple(state['grid']['density_grid'].shape)} does not "
+                    f"fit this trainer's {tuple(g['density_grid'].shape)}")
             g.update({k: torch.as_tensor(np.asarray(v), device=dev)
-                      for k, v in state["grid"].items()})
-            if "density_grid" in state["grid"]:
+                      for k, v in state["grid"].items()
+                      if k in g and k != "occ"})
+            if has_grid:
                 thresh = torch.clamp(g["mean_density"],
                                      max=self.grid_cfg.density_thresh)
                 g["occ"] = (g["density_grid"] > thresh).reshape(
                     g["occ"].shape)
             self.grid_state = g
-            if "density_grid" not in state["grid"]:
+            if not has_grid:
                 # slim checkpoints strip the grid: rebuild it from the
-                # loaded params with a full density sweep
+                # loaded params with a full density sweep (of every time
+                # bin, for a time-conditioned field)
                 self.rebuild_grid()
         if not model_only:
             self.epoch = meta.get("epoch", 0)
@@ -483,7 +575,10 @@ class FastTrainer:
             if "stats" in meta:
                 self.stats.update(meta["stats"])
                 self.stats.setdefault("best_result", None)
-            if "optimizer" in state:
+            if "optimizer" in state and self.time_conditioned:
+                self.log("[INFO] optimizer state not loaded: "
+                         + DYNAMIC_TRAINING_MSG)
+            elif "optimizer" in state:
                 self._load_optimizer_state(state["optimizer"])
         self.log(f"[INFO] loaded checkpoint {path} "
                  f"(epoch {self.epoch}, step {self.global_step})")

@@ -4,12 +4,14 @@ sealdnerf_tpu/train/trainer.py).
 Only the fields that the ported paths read: the grid, march and render
 settings of serving, and the static trainer's settings (step count,
 learning rate and schedule, rays per step, grid-refresh interval, EMA,
-epochs, evaluation and checkpoint cadence). The other training fields of
-the reference come with the code that reads them.
+epochs, evaluation and checkpoint cadence), plus `lr_net`, which the
+dynamic CLI sets as the reference's does. The other training fields of the
+reference come with the code that reads them.
 """
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass
@@ -20,6 +22,7 @@ class TrainOptions:
     name: str = "ngp"
     iters: int = 30000               # schedule length: lr * 0.1**(step/iters)
     lr: float = 1e-2
+    lr_net: Optional[float] = None   # MLP lr of dynamic training (not ported)
     num_rays: int = 4096             # rays per training step
     update_extra_interval: int = 16  # steps between grid refreshes
     ema_decay: float = 0.95

@@ -12,12 +12,18 @@ import torch
 from sealdnerf_tpu_torch.cli import base_parser, build_trainer, postprocess
 from sealdnerf_tpu_torch.data.rays import get_rays
 from sealdnerf_tpu_torch.data.synthetic import make_synthetic_scene
-from sealdnerf_tpu_torch.models.cp import (CPConfig, CPField, init_cp,
+from sealdnerf_tpu_torch.models.cp import (CPConfig, CPDNeRFConfig, CPField,
+                                           init_cp, init_cp_dnerf,
                                            param_leaves)
-from sealdnerf_tpu_torch.ops.field import (field_backward,
+from sealdnerf_tpu_torch.ops.field import (dyn_field_forward,
+                                           dyn_field_forward_plain,
+                                           field_backward,
                                            field_backward_plain,
                                            field_forward, field_forward_plain,
                                            field_train_forward, pack_tables)
+from sealdnerf_tpu_torch.render.dynamic_grid import (DynGridConfig,
+                                                     init_dyn_grid_state,
+                                                     rebuild_dyn_density_grid)
 from sealdnerf_tpu_torch.render.grid import (GridConfig, init_grid_state,
                                              update_density_grid)
 
@@ -178,3 +184,82 @@ def test_get_rays_with_a_card_generator(card):
                     generator=torch.Generator(card).manual_seed(3))
     assert rays["inds"].device.type == "cuda"
     assert rays["rays_d"].shape == (1, 100, 3)
+
+
+def _dyn_tables(card, layers=8):
+    """The full-width dynamic field from a seed, its deform tower re-gained
+    so that it warps by ~0.1 (the seeded tower alone warps by ~6e-4)."""
+    cfg = CPDNeRFConfig(num_layers_deform=layers)
+    params = init_cp_dnerf(torch.Generator().manual_seed(0), cfg, card)
+    wd = params["deform_mlp"]["w"]
+    wd[-1] = wd[-1] * 1e3
+    for k in range(1, len(wd) - 1):
+        wd[k] = wd[k] * 6.0 ** 0.5
+    return cfg, pack_tables(params, cfg)
+
+
+@pytest.mark.parametrize("kw", [{}, {"density_only": True},
+                                {"lod_skip": (3,)}])
+@pytest.mark.parametrize("t", [0.0, 0.37, 1.0])
+def test_dyn_field_kernel_matches_plain(card, t, kw):
+    """K3 against its plain version at the full default config, on a sample
+    count that is ragged against its 256-sample tile; at t = 0 it equals K1
+    bit for bit."""
+    cfg, tables = _dyn_tables(card)
+    rng = np.random.default_rng(2)
+    m = 5 * 256 + 37
+    x3 = rng.uniform(-1, 1, (3, m)).astype(np.float32)
+    d3 = rng.normal(size=(3, m)).astype(np.float32)
+    d3 /= np.linalg.norm(d3, axis=0, keepdims=True)
+    x3, d3 = torch.from_numpy(x3).to(card), torch.from_numpy(d3).to(card)
+    before, k1_before = dyn_field_forward.launches, field_forward.launches
+    out = dyn_field_forward(tables, cfg, x3, d3, t, **kw)
+    assert dyn_field_forward.launches == before + 1
+    assert field_forward.launches == k1_before
+    ref, dx = dyn_field_forward_plain(tables, cfg, x3, d3, t,
+                                      return_deform=True, **kw)
+    assert (dx.abs().mean().item() > 1e-2) == (t != 0.0)
+    np.testing.assert_allclose(out[0].cpu(), ref[0].cpu(), **SIGMA_TOL)
+    np.testing.assert_allclose(out[1:4].cpu(), ref[1:4].cpu(), **RGB_TOL)
+    if t == 0.0:
+        assert torch.equal(out, field_forward(tables, cfg, x3, d3, **kw))
+    on_card = dyn_field_forward(tables, cfg, x3, d3,
+                                torch.tensor(t, device=card), **kw)
+    assert torch.equal(out, on_card)
+
+
+def test_dyn_field_kernel_other_depths_and_refusals(card):
+    """Two deform matrices (no hidden one) and a ragged tail shorter than a
+    warp; a tower the kernel is not built for raises instead of falling
+    back."""
+    cfg, tables = _dyn_tables(card, layers=2)
+    x3 = torch.rand((3, 19), device=card) * 2 - 1
+    out = dyn_field_forward(tables, cfg, x3, None, 0.5, density_only=True)
+    ref = dyn_field_forward_plain(tables, cfg, x3, None, 0.5,
+                                  density_only=True)
+    np.testing.assert_allclose(out[0].cpu(), ref[0].cpu(), **SIGMA_TOL)
+    small = CPDNeRFConfig(hidden_dim_deform=64)
+    ts = pack_tables(init_cp_dnerf(torch.Generator().manual_seed(0), small,
+                                   card), small)
+    with pytest.raises(NotImplementedError, match="hidden_dim_deform=128"):
+        dyn_field_forward(ts, small, x3, None, 0.5, density_only=True)
+
+
+def test_dyn_grid_rebuild_through_the_kernel(card):
+    """A rebuild of a small dynamic grid on the card: one K3 launch per time
+    bin, every bin occupied, no K1 launch."""
+    cfg, tables = _dyn_tables(card)
+    gcfg = DynGridConfig(grid_size=16, time_size=16, density_thresh=10.0)
+
+    def density(pts, t):
+        return dyn_field_forward(tables, cfg, pts.t().contiguous(), None, t,
+                                 density_only=True)[0]
+
+    before, k1_before = dyn_field_forward.launches, field_forward.launches
+    st = rebuild_dyn_density_grid(
+        init_dyn_grid_state(gcfg, card), density, gcfg,
+        generator=torch.Generator(card).manual_seed(0))
+    assert dyn_field_forward.launches == before + 16
+    assert field_forward.launches == k1_before
+    occ = st["occ"].reshape(16, -1)
+    assert bool(occ.any(dim=1).all()) and int(st["iter_density"]) == 1

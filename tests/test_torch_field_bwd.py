@@ -253,7 +253,8 @@ def test_build_compiles_sources_in_parallel(monkeypatch, tmp_path, fail):
     assert n_src >= 2
     for k, v in (("SDN_LOG", tmp_path / "calls.log"),
                  ("SDN_MARK", tmp_path / "mark"), ("SDN_NSRC", n_src),
-                 ("SDN_FAIL", fail or "no-such-source")):
+                 # "/name": dyn_field_fwd.cu also ends in field_fwd.cu
+                 ("SDN_FAIL", f"/{fail}" if fail else "no-such-source")):
         monkeypatch.setenv(k, str(v))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
     monkeypatch.setattr(build, "find_nvcc", lambda: str(nvcc))
