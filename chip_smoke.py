@@ -22,6 +22,27 @@ Phases (any failure raises and exits non-zero):
      (see _dyn_seeded_params) so that it warps by ~0.1: the mean |dx| of the
      plain version at t = 0.37 must exceed 1e-2. K3 at t = 0 must equal K1
      on the same canonical params bit for bit.
+  3d. dynamic backward kernel vs plain: the dynamic field backward kernel
+     (K4: deform tower recomputed, canonical backward at the warped point,
+     tower backward) against its plain version at the full default
+     CPDNeRFConfig on 4096 * 64 + 37 samples, with random cotangents of
+     which 30 % of the columns are all zero, at t = 0.37 and t = 0. With the
+     merely undamped tower (warp 6e-4): per param leaf within 1e-2 * max
+     |plain| (the first deform matrix's 13 time rows are under the same
+     limit: both round the sum over all samples once). With the re-gained
+     tower (warp 0.1) the tower's bf16 noise moves a few positions by up to
+     half a cell of the finest tables, so end to end it is held to 0.35
+     (the reference's envelope for its dynamic kernels against its XLA
+     model). With either tower each stage is held on the kernel's own
+     input: the warp; the canonical backward and g_x at the kernel's warped
+     positions (1e-2); the activations that the tower's backward recomputed
+     (at most 2e-3 of the entries differ from the plain chain's at all and
+     at most 5e-3 of the samples hold a relu mask that differs); the
+     tower's backward on the kernel's own g_x and activations (1e-3 per
+     matrix; the time rows, rounded to bf16 after the sum, 1e-2). At t = 0
+     every deform gradient must be exactly 0 and the canonical gradients
+     within 1e-2 of K2's on the same inputs. Timings of K4, its plain
+     version and K2.
   4. served path: cli.build_trainer on `synthetic -O --bound 1 --dt_gamma 0
      --test --synthetic_res 800` (seeded init, or --ckpt), frustum marking
      and two full 128^3 occupancy sweeps (the first is timed cold, the
@@ -49,8 +70,32 @@ Phases (any failure raises and exits non-zero):
      K1 not at all; every time bin must hold occupied cells; frames finite;
      one view through the plain field must agree with the kernel frame to
      >= 40 dB; one pose rendered at two times must differ.
+  7. dynamic training: main_dnerf's parser and cli.build_trainer(
+     dynamic=True) on `synthetic -O --bound 1 --dt_gamma 0 --iters 512
+     --synthetic_res 800 --ckpt scratch` with the reference's defaults (lr
+     1e-2, lr_net 1e-3, time curriculum auto = 512 steps, anneal 1024,
+     deform_zero_reg 1e-3) and FastTrainer.train on phase 6's 48 train views
+     at 4096 rays per step: the full width, the depth cut from 300,000 steps
+     to 512. Losses must be finite; K4 must launch once per step and K2 and
+     K1 not at all; K3 once per step and 8 times per grid refresh; the
+     number of refresh calls must be what the reference's cadence gives for
+     512 steps (192); the mean loss of the last 64 steps below half that of
+     the first 64; the val PSNR (each view at its own time) at least 3 dB
+     above the seeded field's; and the deform tower alive: mean
+     |deform(x, 0.7)| over 4096 scene points larger after training than
+     before and above 1e-3. Prints ms/step and rays/s without the first
+     epoch, the refreshes' share of the time, the occupancy per bin and the
+     ms of one trained 800x800 frame.
+  7b. one dynamic train step, kernel vs plain: the same rays, time,
+     background, noise and regulariser points through K3/K4 and through
+     their plain versions on the card, twice: on the seeded field mid-anneal
+     (before phase 7's training; the damped tower warps by 1e-6), loss
+     within rtol 1e-4 and grads per leaf within 1e-2 * max |plain|; and on
+     the trained field, whose tower warps by ~0.08, so that the tower's
+     bf16 noise reaches the finest line tables (see 3d): 5e-2 there. The
+     plain runs launch no kernel.
 The launch counts of the kernels record are read from the main paths'
-runs (phases 4, 5 and 6), with the counters set to 0 just before each. Each
+runs (phases 4, 5, 6 and 7), with the counters set to 0 just before each. Each
 kernel's bound_ms is the least time the card could take for the work of its
 vs-plain phase: the larger of bytes moved over the memory rate and
 operations over the peak rate of their type (PEAK). The line before last is
@@ -75,6 +120,24 @@ TOL = {"sigma": (2e-2, 1e-4), "rgb": (2e-2, 1e-3)}
 # order of the f32 sums, and 1-ulp differences in exp, sigmoid, sin and cos
 # can flip single bf16 roundings
 GRAD_TOL = 1e-2
+# K4 against its plain version end to end with a tower that warps by 0.1:
+# the reference's own envelope for its dynamic kernels against its XLA model
+# (see phase_dyn_backward_vs_plain)
+REGAINED_TOL = 0.35
+# K4's tower backward against its plain version on the kernel's own position
+# gradient and recomputed activations, per deform matrix relative to max
+# |plain| (measured 1.4e-4 to 4.9e-4 over seeds, sizes and towers:
+# profiling/torch_dyn_bwd_seeds.py); the time rows apart, see phase 3d
+TOWER_STAGE_TOL = 1e-3
+# the share of the recomputed hidden activations that may differ at all from
+# the plain chain's (measured up to 7.1e-4), and the share of samples that
+# may hold a relu mask that differs (measured up to 1.5e-3)
+ACT_DIFFER_TOL = 2e-3
+ACT_MASK_TOL = 5e-3
+# One train step, kernel vs plain, on the TRAINED dynamic field, whose tower
+# warps by ~0.08: the same noise, on the few thousand samples of a step that
+# carry weight; it shows in the finest line tables only (measured 0.019)
+TRAINED_STEP_TOL = 5e-2
 TRAIN_STEPS = 512
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores (the towers' bf16 x
 # bf16 -> f32 products), the FP32 pipe (taps, encodings, activations), HBM3
@@ -84,10 +147,13 @@ PEAK = {"tensor_flops": 989e12, "fp32_flops": 67e12, "bytes": 3.35e12}
 DEFORM_GAIN = 6.0 ** 0.5
 
 
-def _field_work(cfg, m, mode="fwd", density_only=False):
+def _field_work(cfg, m, mode="fwd", density_only=False, m_live=None):
     """Bytes moved (each input read once, each output written once) and
     operations, by type, of one field call on m samples. mode: "fwd" (K1),
-    "bwd" (K2: recompute, then dX and dW of every product) or "dyn" (K3)."""
+    "bwd" (K2: recompute, then dX and dW of every product), "dyn" (K3) or
+    "dyn_bwd" (K4: K2's work plus the deform tower's recompute, dX and dW).
+    m_live: the samples whose cotangent is not all zero, which alone cost a
+    backward kernel operations (default: all)."""
     from sealdnerf_tpu_torch.models.cp import _deform_dims, _tower_dims
     sigma, color = _tower_dims(cfg)
     towers = [sigma] if density_only else [sigma, color]
@@ -104,16 +170,25 @@ def _field_work(cfg, m, mode="fwd", density_only=False):
     nbytes = m * (12 + (0 if density_only else 12) + 16) \
         + 2 * (tab_elems + w_elems)
     tensor, fp32 = 2 * macs * m, (taps + enc) * m
-    if mode == "bwd":
-        tensor, fp32 = 3 * tensor, 3 * fp32
+    if mode in ("bwd", "dyn_bwd"):
+        live = m if m_live is None else m_live
+        tensor, fp32 = 3 * 2 * macs * live, 3 * (taps + enc) * live
         nbytes += m * 16 + 4 * (tab_elems + w_elems)      # g_out in, grads out
-    if mode == "dyn":
+    if mode in ("dyn", "dyn_bwd"):
         dd = _deform_dims(cfg)
         nx = cfg.deform_space_dim
         dmacs = nx * dd[1] + sum(a * b for a, b in zip(dd[1:-1], dd[2:]))
-        tensor += 2 * dmacs * m
-        fp32 += 2 * 6 * cfg.multires_deform * m
-        nbytes += 2 * (dmacs + (dd[0] - nx) * dd[1])
+        d_elems = dmacs + (dd[0] - nx) * dd[1]
+        if mode == "dyn":
+            tensor += 2 * dmacs * m
+            fp32 += 2 * 6 * cfg.multires_deform * m
+            nbytes += 2 * d_elems
+        else:
+            # the warp's recompute, dX and dW, each of the live samples only:
+            # a sample whose cotangent is all zero needs no warp either
+            tensor += 2 * dmacs * 3 * live
+            fp32 += 2 * 6 * cfg.multires_deform * 2 * live
+            nbytes += (2 + 4) * d_elems
     return nbytes, tensor, fp32
 
 
@@ -293,7 +368,8 @@ def _grad_errs(got, ref):
     absolute difference of any leaf."""
     from sealdnerf_tpu_torch.models.cp import param_leaves
     groups = {"lines": ("lines",), "planes": ("planes",),
-              "vm_lines": ("vm_lines",), "towers": ("sigma_mlp", "color_mlp")}
+              "vm_lines": ("vm_lines",), "towers": ("sigma_mlp", "color_mlp"),
+              "deform": ("deform_mlp",)}
     ratios, max_abs = {}, 0.0
     for name, keys in groups.items():
         for k in keys:
@@ -304,8 +380,10 @@ def _grad_errs(got, ref):
                                          f"{tuple(b.shape)}")
                 diff = (a - b).abs().max().item()
                 max_abs = max(max_abs, diff)
+                ref_max = b.abs().max().item()
                 ratios[name] = max(ratios.get(name, 0.0),
-                                   diff / max(b.abs().max().item(), 1e-30))
+                                   diff / max(ref_max, 1e-30)
+                                   if diff > 0.0 else 0.0)
     return ratios, max_abs
 
 
@@ -346,6 +424,165 @@ def phase_backward_vs_plain():
     rec = {"ms": ms, "plain_ms": pms, "max_abs_err": max_abs}
     rec.update(_bound(cfg, m, mode="bwd"))
     print(f"K2 bound: {rec['bound_ms']:.4f} ms by {rec['bound_by']}",
+          flush=True)
+    return rec
+
+
+def phase_dyn_backward_vs_plain():
+    import torch
+    from sealdnerf_tpu_torch.models.cp import CPDNeRFConfig
+    from sealdnerf_tpu_torch.ops.field import (dyn_canonical_backward_plain,
+                                               dyn_field_backward,
+                                               dyn_field_backward_plain,
+                                               dyn_tower_backward_plain,
+                                               dyn_warp_plain, field_backward,
+                                               pack_tables)
+    cfg = CPDNeRFConfig()
+    m = 4096 * 64 + 37
+    rng = np.random.default_rng(2)
+    x3 = rng.uniform(-1.0, 1.0, (3, m)).astype(np.float32)
+    d3 = rng.normal(size=(3, m)).astype(np.float32)
+    d3 /= np.linalg.norm(d3, axis=0, keepdims=True)
+    g = rng.normal(size=(4, m)).astype(np.float32)
+    g[:, rng.random(m) < 0.3] = 0.0            # samples the march left empty
+    m_live = int((np.abs(g).max(axis=0) > 0).sum())
+    x3, d3, g = (torch.from_numpy(a).cuda() for a in (x3, d3, g))
+    nx = cfg.deform_space_dim
+
+    def check(tag, ratios, tol):
+        print(f"K4 {tag}: max|k-p|/max|p| "
+              + " ".join(f"{k} {v:.3g}" for k, v in ratios.items()),
+              flush=True)
+        bad = {k: v for k, v in ratios.items() if not v <= tol}
+        if bad:
+            raise AssertionError(f"K4 {tag} beyond {tol}: {bad}")
+
+    def rel(a, b):
+        return ((a - b).abs().max().item()
+                / max(b.abs().max().item(), 1e-30))
+
+    max_abs = 0.0
+    for tower, gain in (("undamped", 1.0), ("re-gained", DEFORM_GAIN)):
+        tables = pack_tables(_dyn_seeded_params(0, cfg, "cuda", gain=gain),
+                             cfg)
+        for t in (0.37, 0.0):
+            before = dyn_field_backward.launches
+            parts = {}
+            got = dyn_field_backward(tables, cfg, x3, d3, t, g, parts=parts)
+            ref = dyn_field_backward_plain(tables, cfg, x3, d3, t, g)
+            xw_p, acts_p = dyn_warp_plain(tables, cfg, x3, t)
+            torch.cuda.synchronize()
+            if dyn_field_backward.launches != before + 1:
+                raise AssertionError("K4 did not launch exactly once")
+            ratios, err = _grad_errs(got, ref)
+            gt, rt = (q["deform_mlp"]["w"][0][nx:] for q in (got, ref))
+            ratios["time rows"] = (rel(gt, rt) if t != 0.0
+                                   else gt.abs().max().item())
+            dmax = max(w.abs().max().item() for w in got["deform_mlp"]["w"])
+            dxw = (parts["xw"] - xw_p).abs()
+            warp = (xw_p - x3).abs().mean().item()
+            print(f"K4, {tower} tower, t={t}: M={m} ({m_live} with a "
+                  f"cotangent); mean |dx| {warp:.3g}; warped positions kernel "
+                  f"vs plain: mean |diff| {dxw.mean().item():.3g}, max "
+                  f"{dxw.max().item():.3g}, share above 1e-3 "
+                  f"{(dxw > 1e-3).float().mean().item():.3g}; max |deform "
+                  f"grad| {dmax:.3g}", flush=True)
+            if t == 0.0:
+                check(f"{tower} t=0 vs plain", ratios, GRAD_TOL)
+                max_abs = max(max_abs, err)
+                if dmax != 0.0 or dxw.max().item() != 0.0:
+                    raise AssertionError(f"deform gradient {dmax}, warp "
+                                         f"{dxw.max().item()} at t == 0")
+                k2 = field_backward(tables, cfg, x3, d3, g)
+                r2, _ = _grad_errs({k: got[k] for k in k2}, k2)
+                check(f"{tower} t=0 vs K2", r2, GRAD_TOL)
+                continue
+            if not dmax > 0.0:
+                raise AssertionError("no deform gradient at t = 0.37")
+            if gain == 1.0:
+                check(f"{tower} vs plain", ratios, GRAD_TOL)
+                max_abs = max(max_abs, err)
+            else:
+                # The re-gained tower warps by 0.1, and the bf16 noise of
+                # its eight layers moves a few positions by up to half a
+                # cell of the 1024 tables. With random cotangents every
+                # gradient entry is a random-walk sum, which such samples
+                # shift by about the root of their share. So the whole is
+                # held to the reference's own envelope for its kernel
+                # against its XLA model.
+                check(f"{tower} vs plain, end to end", ratios, REGAINED_TOL)
+            # Each stage, tightly, on the kernel's own input (both towers).
+            # 1. The warp.
+            if not (dxw.mean().item() <= 1e-5
+                    and (dxw > 1e-3).float().mean().item() <= 1e-3):
+                raise AssertionError("the kernel's warp is off the plain one")
+            # 2. The canonical backward and g_x at the kernel's positions.
+            ref2, gx2 = dyn_canonical_backward_plain(tables, cfg, parts["xw"],
+                                                     d3, t, g)
+            r2, err = _grad_errs({k: got[k] for k in ref2}, ref2)
+            max_abs = max(max_abs, err)
+            r2["g_x"] = rel(parts["g_x"], gx2)
+            check(f"{tower}, canonical stage at the kernel's warp", r2,
+                  GRAD_TOL)
+            # 3. The activations that the tower's backward recomputed. An
+            # mma sums in another order than a matmul, so of the hidden
+            # activations a few in ten thousand round to the neighbouring
+            # bf16 and about one in a million lands on the other side of
+            # the relu (measured: 3.8e-4 to 7.1e-4 differ, 3.7e-4 to 1.5e-3
+            # of the samples hold a differing mask;
+            # profiling/torch_dyn_bwd_seeds.py). The f32 plain chain lies as
+            # far from the same chain with f64 sums.
+            live = parts["live"]
+            acts_k = [a.float() for a in parts["acts"]]
+            acts_p = [a[live] for a in acts_p]
+            hid_k, hid_p = torch.cat(acts_k[1:], 1), torch.cat(acts_p[1:], 1)
+            differ = (hid_k != hid_p).float().mean().item()
+            masks = ((hid_k > 0) != (hid_p > 0)).any(dim=1).float().mean() \
+                .item()
+            print(f"K4 {tower}, recomputed activations kernel vs plain: the "
+                  f"encoded position differs in "
+                  f"{int((acts_k[0] != acts_p[0]).sum())} entries; of the "
+                  f"hidden entries {differ:.3g} differ; {masks:.3g} of the "
+                  f"{live.numel()} samples hold a relu mask that differs",
+                  flush=True)
+            if not (differ <= ACT_DIFFER_TOL and masks <= ACT_MASK_TOL):
+                raise AssertionError(
+                    f"recomputed activations off the plain chain: {differ} "
+                    f"of the entries (limit {ACT_DIFFER_TOL}), {masks} of "
+                    f"the samples by a mask (limit {ACT_MASK_TOL})")
+            # 4. The tower's backward (input gradients, outer products) on
+            # the kernel's own g_x AND activations: no mask can differ, so
+            # this holds the arithmetic itself. The time rows are rounded
+            # to bf16 after the sum over all samples: one rounding that
+            # differs moves them by up to 2^-7 of themselves.
+            ref3 = dyn_tower_backward_plain(tables, cfg, t, acts_k,
+                                            parts["g_x"][:, live])["w"]
+            got3 = got["deform_mlp"]["w"]
+            r3 = {f"matrix {k}": rel(a[:nx] if k == 0 else a,
+                                     b[:nx] if k == 0 else b)
+                  for k, (a, b) in enumerate(zip(got3, ref3))}
+            check(f"{tower}, tower stage on the kernel's g_x and "
+                  "activations", r3, TOWER_STAGE_TOL)
+            check(f"{tower}, the same, time rows",
+                  {"time rows": rel(got3[0][nx:], ref3[0][nx:])}, GRAD_TOL)
+            # beside it, not held: the same stage on the PLAIN activations,
+            # which the differing masks move by the root of their share
+            ref4 = dyn_tower_backward_plain(tables, cfg, t, acts_p,
+                                            parts["g_x"][:, live])["w"]
+            print(f"K4 {tower}, tower stage on the plain activations (shown, "
+                  "not held): " + " ".join(
+                      f"{rel(a, b):.3g}" for a, b in zip(got3, ref4)),
+                  flush=True)
+    ms = _cuda_ms(lambda: dyn_field_backward(tables, cfg, x3, d3, 0.37, g), 10)
+    pms = _cuda_ms(lambda: dyn_field_backward_plain(tables, cfg, x3, d3, 0.37,
+                                                    g), 3)
+    ms2 = _cuda_ms(lambda: field_backward(tables, cfg, x3, d3, g), 10)
+    print(f"K4: M={m} kernel {ms:.3f} ms ({m / ms * 1e3:.4g} samples/s), "
+          f"plain {pms:.3f} ms ({m / pms * 1e3:.4g} samples/s); K2 on the "
+          f"same samples and cotangents {ms2:.3f} ms", flush=True)
+    rec = {"ms": ms, "plain_ms": pms, "max_abs_err": max_abs}
+    rec.update(_bound(cfg, m, mode="dyn_bwd", m_live=m_live))
+    print(f"K4 bound: {rec['bound_ms']:.4f} ms by {rec['bound_by']}",
           flush=True)
     return rec
 
@@ -660,7 +897,213 @@ def phase_dynamic_served_path():
           f"{d_time:.3g}", flush=True)
     if p < 40.0:
         raise AssertionError(f"kernel vs plain frame PSNR {p:.2f} < 40 dB")
-    return launches
+    return launches, train, val
+
+
+def _expected_refreshes(steps, upd=2, warmup=128, freeze=592):
+    """Refresh calls of `steps` dynamic training steps by the reference's
+    rule at its defaults: a chance every `upd` steps, taken at each while
+    fewer than `warmup` calls were made and at every other one after that,
+    until `freeze` calls (128 + (1600 + 512 - 256) / 4)."""
+    calls = 0
+    for step in range(steps):
+        if step % upd == 0 and calls < freeze and (
+                calls < warmup or step % (2 * upd) == 0):
+            calls += 1
+    return calls
+
+
+def _mean_deform(trainer, t=0.7, n=4096):
+    """mean |deform(x, t)| of the inference params at n seeded scene
+    points."""
+    import torch
+    from sealdnerf_tpu_torch.models.cp import cp_dnerf_deform
+    x = torch.from_numpy(np.random.default_rng(7).uniform(
+        -1.0, 1.0, (n, 3)).astype(np.float32)).to(trainer.device)
+    with torch.no_grad():
+        return cp_dnerf_deform(trainer._infer_params(), trainer.field.cfg, x,
+                               t).abs().mean().item()
+
+
+def phase_dynamic_training(train, val):
+    import torch
+    from sealdnerf_tpu_torch import main_dnerf
+    from sealdnerf_tpu_torch.cli import build_trainer
+    from sealdnerf_tpu_torch.ops.field import (dyn_field_backward,
+                                               dyn_field_forward,
+                                               field_backward, field_forward)
+
+    def make(tag):
+        argv = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0",
+                "--iters", str(TRAIN_STEPS), "--synthetic_res", "800",
+                "--ckpt", "scratch", "--workspace",
+                os.path.join(REPO, "workspace", tag)]
+        opt = main_dnerf.parse_args(argv)
+        return opt, build_trainer(opt, name="ngp", dynamic=True,
+                                  lr_net=opt.lr_net)[0]
+
+    # the seeded field, served as `--test` serves it: the floor of the PSNR
+    _, seeded = make("chip_smoke_dyn_seeded")
+    seeded.mark_untrained_grid(train.poses, train.intrinsics)
+    seeded.rebuild_grid()
+    psnr0 = seeded.evaluate(val)
+    deform0 = _mean_deform(seeded)
+    seeded.global_step = 300                          # mid-anneal
+    phase_one_dyn_step(seeded, train, "seeded field", GRAD_TOL)
+    del seeded
+    torch.cuda.empty_cache()
+
+    opt, trainer = make("chip_smoke_dyn_train")
+    topt = trainer.opt
+    if (topt.lr, topt.lr_net, topt.time_curriculum_steps,
+            topt.dyn_anneal_steps, topt.deform_zero_reg) != (
+            1e-2, 1e-3, -1, 1024, 1e-3):
+        raise AssertionError(f"not the reference's defaults: {topt}")
+    refresh_ev, refresh_host = [], []
+    inner = trainer.refresh_grid
+
+    def timed_refresh(*a, **kw):
+        # device time between two events; host time to enqueue the call (the
+        # host does not wait for the device inside it)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        ev[0].record()
+        inner(*a, **kw)
+        ev[1].record()
+        refresh_host.append((time.perf_counter() - t0) * 1e3)
+        refresh_ev.append(ev)
+
+    trainer.refresh_grid = timed_refresh
+    steps_per_epoch = max(len(train), topt.segment_steps)
+    for fn in (dyn_field_forward, dyn_field_backward, field_forward,
+               field_backward):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(train, None, int(np.ceil(opt.iters / len(train))))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3, k4 = dyn_field_forward.launches, dyn_field_backward.launches
+    k1, k2 = field_forward.launches, field_backward.launches
+    del trainer.refresh_grid
+    hist = trainer.history
+    losses = np.asarray(hist["loss"])
+    steps = len(losses)
+    if steps != TRAIN_STEPS or trainer.global_step != TRAIN_STEPS:
+        raise AssertionError(f"trained {steps} steps, not {TRAIN_STEPS}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite training loss")
+    if topt.time_curriculum_steps != 512 or not trainer._time_sorted:
+        raise AssertionError("the time curriculum did not resolve to 512 "
+                             f"steps: {topt.time_curriculum_steps}")
+    calls = int(trainer.grid_state["iter_density"])
+    want = _expected_refreshes(steps)
+    if calls != want or len(refresh_ev) != want:
+        raise AssertionError(f"{calls} refresh calls in the grid state, "
+                             f"{len(refresh_ev)} made, {want} expected")
+    bins = trainer.dyn_grid_cfg.bins_per_call
+    if k4 != steps or k3 != steps + bins * calls or k1 or k2:
+        raise AssertionError(
+            f"launches in {steps} steps and {calls} refreshes: K4 {k4}, K3 "
+            f"{k3} (expected {steps + bins * calls}), K1 {k1}, K2 {k2}")
+    refresh_ms = [a.elapsed_time(b) for a, b in refresh_ev]
+    warm_s = sum(hist["epoch_s"][1:])
+    ms_step = warm_s / (steps - steps_per_epoch) * 1e3
+    first, last = losses[:64].mean(), losses[-64:].mean()
+    occ = trainer.grid_state["occ"]
+    per_bin = occ.reshape(occ.shape[0], -1).float().mean(dim=1)
+    print(f"dynamic train: {steps} steps x {topt.num_rays} rays in "
+          f"{wall:.2f} s ({len(hist['epoch_s'])} epochs of {steps_per_epoch}:"
+          f" {' '.join(f'{e:.2f}' for e in hist['epoch_s'])} s); "
+          f"{ms_step:.3f} ms/step, {topt.num_rays * 1e3 / ms_step:.1f} rays/s"
+          f" over epochs 2-{len(hist['epoch_s'])}; mean n_samples/step "
+          f"{np.mean(hist['n_samples']):.1f} (last 64: "
+          f"{np.mean(hist['n_samples'][-64:]):.1f}); launches K3 {k3} K4 {k4} "
+          f"K1 {k1} K2 {k2}; {calls} grid refreshes, {np.mean(refresh_ms):.3f}"
+          f" ms each on the device (warm-up {np.mean(refresh_ms[:128]):.3f}, "
+          f"after {np.mean(refresh_ms[128:]):.3f}) and "
+          f"{np.mean(refresh_host):.3f} ms of host time to enqueue, "
+          f"{sum(refresh_ms) / (sum(hist['epoch_s']) * 1e3):.4f} of the "
+          f"epochs' time; loss first 64 {first:.6f} last 64 {last:.6f}",
+          flush=True)
+    print(f"dynamic train: occupancy per bin min {per_bin.min().item():.4f} "
+          f"mean {per_bin.mean().item():.4f} max {per_bin.max().item():.4f}; "
+          "bins 0, 16, 32, 48, 63: "
+          + " ".join(f"{per_bin[b].item():.4f}" for b in (0, 16, 32, 48, 63)),
+          flush=True)
+    if not last < 0.5 * first:
+        raise AssertionError(f"loss did not halve: {first} -> {last}")
+    psnr = trainer.evaluate(val)
+    deform1 = _mean_deform(trainer)
+    times = []
+    for i in (0, len(val) // 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, _ = trainer.render_image(val.poses[i], val.intrinsics, val.h,
+                                      val.w, time=val.times[i])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if img.shape != (val.h, val.w, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"bad trained frame {img.shape}")
+    print(f"dynamic train: val PSNR {psnr:.3f} dB after {steps} steps (seeded "
+          f"field {psnr0:.3f} dB); mean |deform(x, 0.7)| {deform1:.4g} "
+          f"(seeded {deform0:.4g}); one trained {val.h}x{val.w} frame "
+          + " ".join(f"{t:.2f}" for t in times) + " ms", flush=True)
+    if not psnr >= psnr0 + 3.0:
+        raise AssertionError(f"val PSNR {psnr:.3f} not 3 dB above the seeded "
+                             f"field's {psnr0:.3f}")
+    if not (deform1 > deform0 and deform1 > 1e-3):
+        raise AssertionError(f"the deform tower is dead: mean |deform| "
+                             f"{deform0} -> {deform1}")
+    return trainer, k3, k4
+
+
+def phase_one_dyn_step(trainer, train, tag, tol):
+    import torch
+    from sealdnerf_tpu_torch.models.cp import param_leaves, unflatten_like
+    from sealdnerf_tpu_torch.ops.field import (dyn_field_backward,
+                                               dyn_field_forward)
+    from sealdnerf_tpu_torch.ops.marching_dense import downsample_occ
+
+    data = train.device("cuda")
+    if trainer._time_sorted:                         # as the trainer sorted
+        order = torch.as_tensor(np.argsort(train.times, kind="stable"),
+                                device="cuda")
+        data = {k: (v[order] if k in ("images", "poses", "times") else v)
+                for k, v in data.items()}
+    if trainer._occ_m is None:
+        trainer._occ_m = downsample_occ(trainer.grid_state["occ"][:, 0],
+                                        trainer.march_cfg.march_res)
+    batch = trainer.sample_batch(data, train.h, train.w)
+    out = []
+    for plain in (False, True):
+        for p in param_leaves(trainer.params):
+            p.grad = None
+        k3, k4 = dyn_field_forward.launches, dyn_field_backward.launches
+        loss, n = trainer.loss_on(*batch, plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (dyn_field_forward.launches - k3,
+                    dyn_field_backward.launches - k4)
+        if launched != ((0, 0) if plain else (1, 1)):
+            raise AssertionError(f"plain={plain}: kernel launches {launched}")
+        out.append((loss.item(), unflatten_like(
+            trainer.params, [p.grad.clone()
+                             for p in param_leaves(trainer.params)])))
+    (lk, gk), (lp, gp) = out
+    ratios, _ = _grad_errs(gk, gp)
+    print(f"one dynamic step, {tag}, at t={batch[5].item():.4f}, anneal ramp "
+          f"{trainer._anneal_ramp(trainer.global_step):.3f}: {int(n)} "
+          f"samples; loss kernel {lk:.8f} plain {lp:.8f}; grads "
+          "max|k-p|/max|p| "
+          + " ".join(f"{k} {v:.3g}" for k, v in ratios.items()), flush=True)
+    if abs(lk - lp) > 1e-4 * abs(lp):
+        raise AssertionError(f"loss kernel {lk} vs plain {lp}")
+    bad = {k: v for k, v in ratios.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"dynamic train-step grads ({tag}) beyond "
+                             f"{tol}: {bad}")
 
 
 def main():
@@ -695,11 +1138,14 @@ def main():
     rec = phase_kernel_vs_plain()
     rec_bwd = phase_backward_vs_plain()
     rec_dyn = phase_dyn_kernel_vs_plain()
+    rec_dbwd = phase_dyn_backward_vs_plain()
     served = phase_served_path(args.ckpt)
     trainer, k1_train, k2_train = phase_training(served)
     phase_one_step(trainer, served["train"])
     del trainer, served["train"], served["val"]
-    k3_served = phase_dynamic_served_path()
+    k3_served, dtrain, dval = phase_dynamic_served_path()
+    dtrainer, k3_train, k4_train = phase_dynamic_training(dtrain, dval)
+    phase_one_dyn_step(dtrainer, dtrain, "trained field", TRAINED_STEP_TOL)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -714,7 +1160,11 @@ def main():
         "name": "dyn_field_fwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:200",
-        "launches": k3_served, **rec_dyn}]}))
+        "launches": k3_served + k3_train, **rec_dyn}, {
+        "name": "dyn_field_bwd", "route": "cuda",
+        "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_bwd.cu",
+        "replaces": "sealdnerf_tpu/ops/pallas_field.py:805",
+        "launches": k4_train, **rec_dbwd}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,6 +2,7 @@
 PyTorch/CUDA port on one GPU.
 
     python3 profiling/torch_train_profile.py [--steps 16] [--at 64 448]
+                                             [--dynamic]
 
 Builds the trainer as chip_smoke.py's training phase does (synthetic -O
 --bound 1 --dt_gamma 0 --iters 512, seeded init, 48 train views at
@@ -15,6 +16,15 @@ the window), ray and pixel sampling, the forward (march, K1, compositing),
 the backward (K2 and the autograd of the march and compositing ops), Adam,
 the lr schedule and the EMA -- then the top kernels by device time. The
 first line is the card's name and power limit.
+
+--dynamic profiles dynamic (CP-D-NeRF) training instead: the trainer of
+chip_smoke.py's dynamic training phase (main_dnerf's defaults: two learning
+rates, time curriculum, anneal, deform regulariser). The forward is then
+the march, K3 and compositing, the backward holds K4 (its four device
+kernels are listed one by one), a grid refresh is 8 time bins through K3
+density-only and fires every 2 steps until step 256 and every 4 after it,
+and the regulariser's tower (plain PyTorch) has a range of its own for its
+forward; its backward is in the backward's rest.
 """
 
 import argparse
@@ -35,7 +45,9 @@ from sealdnerf_tpu_torch.cli import (base_parser, build_trainer,  # noqa: E402
 
 # disjoint ranges of a step; march and composite lie inside forward
 STEP_PARTS = ("grid_refresh", "sample", "forward", "adam", "schedule", "ema")
-SUB_PARTS = ("march", "composite")
+SUB_PARTS = ("march", "composite", "zero_reg")
+K4_KERNELS = ("warp_kernel", "field_bwd_kernel", "tower_bwd_kernel",
+              "time_rows_kernel")
 
 
 def _ranged(name, fn):
@@ -48,15 +60,22 @@ def _ranged(name, fn):
 def step(trainer, data, h, w):
     """One training step, as FastTrainer.train_step runs it, with a
     profiler range around each part. Returns the step's field samples."""
-    if trainer.global_step % trainer.opt.update_extra_interval == 0:
+    params = None
+    if trainer.time_conditioned:
+        params = trainer._anneal_params(trainer.params, trainer.global_step)
+        if trainer.dyn_refresh_due(trainer.global_step,
+                                   trainer._dyn_host_counts()[0]):
+            with record_function("grid_refresh"):
+                trainer.refresh_grid(params)
+    elif trainer.global_step % trainer.opt.update_extra_interval == 0:
         with record_function("grid_refresh"):
             trainer.refresh_grid()
     with record_function("sample"):
         batch = trainer.sample_batch(data, h, w)
     with record_function("forward"):
-        loss, n_samples = trainer.loss_on(*batch)
+        loss, n_samples = trainer.loss_on(*batch, params=params)
     trainer.optimizer.zero_grad(set_to_none=True)
-    loss.backward()           # K2 launches from the autograd thread
+    loss.backward()           # K2 / K4 launch from the autograd thread
     with record_function("adam"):
         trainer.optimizer.step()
     with record_function("schedule"):
@@ -101,30 +120,43 @@ def window(trainer, data, h, w, steps):
         if e.device_type != dev and e.name in STEP_PARTS + SUB_PARTS:
             ranges[e.name] = ranges.get(e.name, 0.0) + \
                 per_step(e.device_time_total)
-    # the refresh launches K1 through ctypes under no torch op, so no CPU
-    # event claims it: take the K1 launches inside the refresh's device span
+    # the refresh launches the forward kernel (K1, or K3 of a dynamic field)
+    # through ctypes under no torch op, so no CPU event claims it: take its
+    # launches inside the refresh's device span
+    dyn = trainer.time_conditioned
+    fwd_name = "dyn_field_fwd_kernel" if dyn else "field_fwd_kernel"
     spans = [(e.time_range.start, e.time_range.end) for e in events
              if e.device_type == dev and e.name == "grid_refresh"]
-    ranges["grid_refresh"] = ranges.get("grid_refresh", 0.0) + per_step(sum(
+    in_refresh = per_step(sum(
         e.time_range.elapsed_us() for e in events
-        if e.device_type == dev and "field_fwd_kernel" in e.name
+        if e.device_type == dev and fwd_name in e.name
         and any(a <= e.time_range.start < b for a, b in spans)))
+    ranges["grid_refresh"] = ranges.get("grid_refresh", 0.0) + in_refresh
     k1 = per_step(sum(e.device_time_total for e in kernels
-                      if "field_fwd_kernel" in e.key))
+                      if fwd_name in e.key))
     k2 = per_step(sum(e.device_time_total for e in kernels
-                      if "field_bwd_kernel" in e.key))
+                      if any(k in e.key for k in K4_KERNELS)))
     backward = busy - sum(ranges.get(p, 0.0) for p in STEP_PARTS)
     occ = trainer.grid_state["occ"].float().mean().item()
+    n_refresh = len(spans)
     print(f"train step at step {trainer.global_step - 2 * steps} "
           f"({trainer.opt.num_rays} rays, windows of {steps} steps): wall "
           f"{wall:.3f} ms/step (unprofiled), device busy {busy:.3f} ms/step "
           f"(profiled), idle share {1 - busy / wall:.3f}; mean field "
-          f"samples {n_mean:.0f}/step; occupancy {occ:.4f}", flush=True)
+          f"samples {n_mean:.0f}/step; occupancy {occ:.4f}; {n_refresh} "
+          f"grid refreshes in the profiled window", flush=True)
     for part in STEP_PARTS[:3] + SUB_PARTS + STEP_PARTS[3:]:
         print(f"  {part:13s} {ranges.get(part, 0.0):9.3f} ms/step")
-    print(f"  {'K1 (all)':13s} {k1:9.3f} ms/step (forward and grid refresh)")
-    print(f"  {'backward':13s} {backward:9.3f} ms/step, of it K2 {k2:.3f} "
+    fwd, bwd = ("K3", "K4") if dyn else ("K1", "K2")
+    print(f"  {fwd + ' (all)':13s} {k1:9.3f} ms/step: forward "
+          f"{k1 - in_refresh:.3f}, grid refresh {in_refresh:.3f}")
+    print(f"  {'backward':13s} {backward:9.3f} ms/step, of it {bwd} {k2:.3f} "
           f"ms/step ({n_mean / max(k2, 1e-9) * 1e3:.4g} samples/s)")
+    if dyn:
+        for name in K4_KERNELS:
+            t = per_step(sum(e.device_time_total for e in kernels
+                             if name in e.key))
+            print(f"    K4 {name:18s} {t:9.3f} ms/step")
     for e in kernels[:12]:
         print(f"{per_step(e.device_time_total):10.3f} ms/step "
               f"{e.count:6d}x  {e.key[:90]}")
@@ -135,6 +167,8 @@ def main():
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--at", type=int, nargs="+", default=[64, 448],
                     help="step counts at which a window starts")
+    ap.add_argument("--dynamic", action="store_true",
+                    help="profile dynamic (CP-D-NeRF) training")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -144,15 +178,30 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     ws = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "workspace", "train_profile")
-    opt = postprocess(base_parser().parse_args(
-        ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--iters",
-         "512", "--synthetic_res", "800", "--ckpt", "scratch",
-         "--workspace", ws]))
-    train, _, _ = load_datasets(opt)
-    trainer, _ = build_trainer(opt)
+    argv = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--iters",
+            "512", "--synthetic_res", "800", "--ckpt", "scratch",
+            "--workspace", ws]
+    if args.dynamic:
+        from sealdnerf_tpu_torch import main_dnerf
+        opt = main_dnerf.parse_args(argv)
+        train, _, _ = load_datasets(opt, with_time=True)
+        trainer, field = build_trainer(opt, dynamic=True, lr_net=opt.lr_net)
+        # what FastTrainer.train does before its first step
+        trainer.opt.time_curriculum_steps = trainer.resolve_time_curriculum(
+            trainer.opt.time_curriculum_steps, train.times)
+        train = trainer.enable_time_curriculum(train)
+        field.deform_raw = _ranged("zero_reg", field.deform_raw)
+    else:
+        opt = postprocess(base_parser().parse_args(argv))
+        train, _, _ = load_datasets(opt)
+        trainer, _ = build_trainer(opt)
     trainer.mark_untrained_grid(train.poses, train.intrinsics)
     data = train.device(trainer.device)
     h, w = train.h, train.w
+    if args.dynamic:
+        from sealdnerf_tpu_torch.ops.marching_dense import downsample_occ
+        trainer._occ_m = downsample_occ(trainer.grid_state["occ"][:, 0],
+                                        trainer.march_cfg.march_res)
     render_fast.march_dense = _ranged("march", render_fast.march_dense)
     render_fast.composite_rays = _ranged("composite",
                                          render_fast.composite_rays)

@@ -5,8 +5,7 @@ sealdnerf_tpu/cli.py).
 Flags of parts that are not ported yet parse but nothing reads them;
 `build_trainer` raises for backbones that are not ported (--backbone ngp,
 --bg_radius, --basis, --hyper), and the FastTrainer it builds for training
-options that are not (--error_map, --patch_size > 1, --no_preload) and for
-training a dynamic scene.
+options that are not (--error_map, --patch_size > 1, --no_preload).
 """
 
 import argparse
@@ -127,6 +126,7 @@ def to_train_options(opt, name="ngp", **overrides) -> TrainOptions:
         update_extra_interval=opt.update_extra_interval,
         error_map=opt.error_map, patch_size=opt.patch_size, seed=opt.seed,
         preload=not getattr(opt, "no_preload", False),
+        time_curriculum_steps=getattr(opt, "time_curriculum_steps", 0),
     )
     kw.update(overrides)
     return TrainOptions(**kw)

@@ -2,20 +2,24 @@
 main_dnerf.py).
 
     python -m sealdnerf_tpu_torch.main_dnerf synthetic -O --bound 1 \\
-        --dt_gamma 0 --test [--ckpt PATH] [--device cpu]
+        --dt_gamma 0 [--iters N] [--test] [--ckpt PATH] [--device cpu]
 
-Serving (--test): builds the time-conditioned CP field and its trainer
-(the checkpoint that --ckpt selects, or the seeded init with --ckpt
-scratch), rebuilds every time bin of the occupancy grid when the checkpoint
-has none, evaluates PSNR on the test views when they have images, each at
-its own time, and writes the rendered frames as PNG.
+Builds the time-conditioned CP field and its trainer (the checkpoint that
+--ckpt selects, or the seeded init with --ckpt scratch).
 
-Not ported yet: training (without --test this raises), the GUI, --basis
-and --hyper, and the mp4 export.
+Training (the default): ceil(iters / n_train) epochs of FastTrainer.train
+(which stops at --iters steps), then PSNR on the test views when they have
+images, each at its own time, and the rendered frames as PNG.
+
+Serving (--test): rebuilds every time bin of the occupancy grid when the
+checkpoint has none, evaluates and writes the frames.
+
+Not ported yet: the GUI, --basis and --hyper, and the mp4 export.
 """
 
+import math
+
 from .cli import base_parser, build_trainer, load_datasets, postprocess
-from .train.fast import DYNAMIC_TRAINING_MSG
 from .train.metrics import PSNRMeter
 
 
@@ -58,12 +62,12 @@ def main(argv=None):
     if opt.gui:
         raise SystemExit("the GUI is not yet ported")
     print(opt)
-    if not opt.test:
-        raise NotImplementedError(DYNAMIC_TRAINING_MSG)
     trainer, _ = build_trainer(opt, name="ngp", dynamic=True,
                                metrics=[PSNRMeter()], lr_net=opt.lr_net)
-    train, _, test = load_datasets(opt, with_time=True)
-    if not bool(trainer.grid_state["occ"].any()):
+    train, val, test = load_datasets(opt, with_time=True)
+    if not opt.test:
+        trainer.train(train, val, math.ceil(opt.iters / len(train)))
+    elif not bool(trainer.grid_state["occ"].any()):
         # a seeded field: mark the training cameras' frusta and sweep the
         # density of every time bin into the grid
         trainer.mark_untrained_grid(train.poses, train.intrinsics)

@@ -2,10 +2,10 @@
 
 At first use each source `ops/csrc/*.cu` is compiled with its own nvcc
 for sm_90a, all of them at once, and the objects are linked into one shared
-library with a plain C interface, which is loaded with ctypes. The library goes to `sealdnerf_tpu_torch/_build/<hash>/`, keyed by a
-hash of the flags and of every file under `ops/csrc/` (sources and the
-headers they include), so an unchanged tree builds once and an edited
-header rebuilds.
+library with a plain C interface, which is loaded with ctypes. The library
+goes to `sealdnerf_tpu_torch/_build/<hash>/`, keyed by a hash of the flags
+and of every file under `ops/csrc/` (sources and the headers they include),
+so an unchanged tree builds once and an edited header rebuilds.
 
 nvcc is looked up on PATH, then under $CUDA_HOME (default /usr/local/cuda).
 A missing compiler or a failed build raises: there is no fallback.
@@ -112,4 +112,8 @@ def load_library() -> ctypes.CDLL:
                                       vp, ctypes.POINTER(ctypes.c_longlong),
                                       vp, i32, i32, vp, vp]
     lib.sdn_dyn_field_fwd.restype = ctypes.c_int
+    lib.sdn_dyn_field_bwd.argtypes = (
+        [vp, vp, vp, i64, vp, vp, ctypes.POINTER(ctypes.c_longlong), f32, vp,
+         vp, ctypes.POINTER(ctypes.c_longlong), vp, i32, i32] + [vp] * 11)
+    lib.sdn_dyn_field_bwd.restype = ctypes.c_int
     return lib

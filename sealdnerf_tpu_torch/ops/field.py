@@ -1,8 +1,9 @@
 """Fused CP/VM field: the wrappers of the Hopper kernels
 ops/csrc/field_fwd.cu (K1, port of the Pallas `_field_kernel`),
-ops/csrc/field_bwd.cu (K2, port of `_field_bwd_kernel`) and
-ops/csrc/dyn_field_fwd.cu (K3, port of `_dyn_field_kernel`), their plain
-PyTorch versions, and the autograd op that joins K1 and K2.
+ops/csrc/field_bwd.cu (K2, port of `_field_bwd_kernel`),
+ops/csrc/dyn_field_fwd.cu (K3, port of `_dyn_field_kernel`) and
+ops/csrc/dyn_field_bwd.cu (K4, port of `_dyn_field_bwd_kernel`), their plain
+PyTorch versions, and the autograd ops that join K1 with K2 and K3 with K4.
 
     field_forward(params, cfg, x3 [3, M], d3 [3, M]) -> out [4, M]
     rows: sigma, r, g, b (f32)
@@ -13,6 +14,11 @@ PyTorch versions, and the autograd op that joins K1 and K2.
     grads: f32 dict in the params' names and layouts
     field_train_forward(params, cfg, x3, d3) -> out [4, M], differentiable
     in the params (K1 forward, K2 backward; x3 and d3 get no gradient)
+    dyn_field_backward(tables, cfg, x3, d3, t, g_out) -> grads, with the
+    deform tower's ("deform_mlp")
+    dyn_field_train_forward(params, cfg, x3, d3, t) -> out [4, M],
+    differentiable in the params (K3 forward, K4 backward; x3, d3 and t get
+    no gradient)
 
 `params` is either a params dict or the `FieldTables` that `pack_tables`
 builds from one: the bf16 tables and tower weights in the kernel's layouts.
@@ -21,8 +27,8 @@ the field repeatedly pack once per parameter version (CPField.kernel_tables).
 
 Device dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes
 to the kernel, and a failed build or launch raises. `field_forward.launches`,
-`field_backward.launches` and `dyn_field_forward.launches` count kernel
-launches.
+`field_backward.launches`, `dyn_field_forward.launches` and
+`dyn_field_backward.launches` count kernel launches.
 
 The plain versions reproduce the kernels' rounding points: table taps and
 hat weights in bf16, line/plane features rounded to bf16, frequency
@@ -33,6 +39,11 @@ frequency-feature rows of the first sigma matrix, which it sums in f32.
 The deform tower of the dynamic kernel rounds freq(x) and every hidden
 activation to bf16 and keeps the first layer's 13 time rows, and the bias
 they give, in f32 (the XLA path in models/cp.py rounds those too).
+The dynamic backward sends the warp's gradient only through the line scales
+and planes with res <= cfg.deform_grad_res_cutoff and through the frequency
+features; it rounds both operands of the tower's products to bf16, and the
+sum over all samples that feeds the first matrix's time rows once, after
+summing in f32 (the Pallas kernel rounds it once per tile of its grid).
 """
 
 import ctypes
@@ -43,7 +54,7 @@ import torch
 from ..models.cp import (VM_PAIRS, CPConfig, CPDNeRFConfig, cp_color,
                          cp_density, param_leaves)
 from .freq_encode import freq_encode
-from .hat import bf16_round, hat_taps
+from .hat import bf16_round, hat_slopes, hat_taps
 from .sh_encode import sh_encode
 
 _KERNEL_TOWERS = dict(num_layers=2, num_layers_color=3, hidden_dim=64,
@@ -69,6 +80,8 @@ class FieldTables:
            [hidden, in_pad] (spatial rows only, zero-padded to a multiple of
            16) | hidden matrices [hidden, hidden] | last [8, hidden] (rows
            3..7 zero). Empty when the tower is not one the kernel takes.
+    wdef_in: the hidden matrices once more, input-major [hidden, hidden],
+           for the backward kernel's input gradients.
     dmeta: int64 n_layers, hidden, in_dim, in_pad, multires_deform, then the
            element offset of each matrix in wdef.
     """
@@ -78,6 +91,7 @@ class FieldTables:
     meta: list
     w0_time: torch.Tensor = None
     wdef: torch.Tensor = None
+    wdef_in: torch.Tensor = None
     dmeta: list = field(default_factory=list)
 
 
@@ -143,7 +157,7 @@ def _pack_deform(tables: FieldTables, params, cfg: CPDNeRFConfig):
     tables.plain["deform_mlp"] = {"w": [w.to(bf).contiguous() for w in wd]}
     tables.w0_time = wd[0][nx:].detach().float().contiguous()
     in_pad = -(-nx // 16) * 16
-    tables.wdef = tables.tab.new_zeros(0)
+    tables.wdef = tables.wdef_in = tables.tab.new_zeros(0)
     if hid != _DEFORM_HID or in_pad > hid or \
             not 2 <= len(wd) <= _DEFORM_MAX_LAYERS:
         return                      # the launch raises for such a tower
@@ -158,6 +172,8 @@ def _pack_deform(tables: FieldTables, params, cfg: CPDNeRFConfig):
         offs.append(n)
         n += mat.numel()
     tables.wdef = torch.cat([mat.contiguous().reshape(-1) for mat in mats])
+    tables.wdef_in = torch.cat([w.reshape(-1) for w in wb[1:-1]]) \
+        if len(wb) > 2 else tables.wdef.new_zeros(8)
     tables.dmeta = [len(wd), hid, nx, in_pad, cfg.multires_deform] + offs
 
 
@@ -268,9 +284,16 @@ def _time_cond(tables: FieldTables, cfg: CPDNeRFConfig, t, device):
     """The frame's conditioning: the first deform layer's time bias
     W0[nx:]^T freq(t) [hidden] and the flag t != 0 [1], both f32 on
     `device`, computed there from a float or from a tensor that holds t."""
+    tb, flag, _ = _time_cond_vec(tables, cfg, t, device)
+    return tb, flag
+
+
+def _time_cond_vec(tables: FieldTables, cfg: CPDNeRFConfig, t, device):
+    """_time_cond plus freq(t) itself [time inputs], which the backward's
+    time rows need."""
     t = torch.as_tensor(t, dtype=torch.float32, device=device).reshape(1, 1)
     tvec = freq_encode(t, degree=cfg.multires_time)[0]
-    return tvec @ tables.w0_time, (t != 0.0).float().reshape(1)
+    return tvec @ tables.w0_time, (t != 0.0).float().reshape(1), tvec
 
 
 def dyn_field_forward_plain(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3,
@@ -378,6 +401,18 @@ dyn_field_forward.launches = 0
 
 
 # ------------------------------------------------------------------ backward
+def _check_backward_inputs(x3, d3, g_out):
+    for name, t, rows in (("x3", x3, 3), ("d3", d3, 3), ("g_out", g_out, 4)):
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != rows \
+                or t.shape[1] != x3.shape[1]:
+            raise ValueError(f"{name} must be f32 [{rows}, M], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != x3.device:
+            raise ValueError("x3, d3 and g_out must be on one device")
+
+
 def _zero_grads(plain, device):
     """f32 zeros shaped like the params (plain is the bf16 params dict)."""
     def z(t):
@@ -395,10 +430,17 @@ def _lerp(t, i0, w0, w1):
     return w0[:, None] * t[i0] + w1[:, None] * t[i0 + 1]
 
 
-def _bwd_chunk(tp, cfg: CPConfig, x, d, g_out, grads):
+def _bwd_chunk(tp, cfg: CPConfig, x, d, g_out, grads, grad_x_cutoff=None):
     """Recompute the forward on x, d [S, 3] and add the param grads of the
-    cotangent g_out [4, S] into `grads`."""
+    cotangent g_out [4, S] into `grads`. With grad_x_cutoff also returns
+    g_x [S, 3] = d(loss)/dx through the line scales and planes with
+    res <= grad_x_cutoff (the hat taps' slopes times (res - 1) / (2 bound),
+    zero outside |x| < bound) and through the frequency features."""
     x01 = (x + cfg.bound) / (2.0 * cfg.bound)
+    want_gx = grad_x_cutoff is not None
+    if want_gx:
+        g_x = torch.zeros_like(x)
+        inb = (x.abs() < cfg.bound).float()
     feats, lines, vms = [], [], []
     for s, (res, _) in enumerate(cfg.scales):
         taps = [hat_taps(x01[:, a], res) for a in range(3)]
@@ -452,15 +494,21 @@ def _bwd_chunk(tp, cfg: CPConfig, x, d, g_out, grads):
     g_grid = g_h0b @ w0[:n_grid].t()                         # [S, G]
 
     row = 0
-    for s, (_, rank) in enumerate(cfg.scales):
+    for s, (res, rank) in enumerate(cfg.scales):
         taps, f = lines[s]
         g_prod = g_grid[:, row:row + rank]
         for a in range(3):
-            g_f = bf16_round(g_prod * (f[(a + 1) % 3] * f[(a + 2) % 3]))
+            g_fr = g_prod * (f[(a + 1) % 3] * f[(a + 2) % 3])
+            g_f = bf16_round(g_fr)
             i0, u0, u1 = taps[a]
             gt = grads["lines"][s][a]
             gt.index_add_(0, i0, g_f * u0[:, None])
             gt.index_add_(0, i0 + 1, g_f * u1[:, None])
+            if want_gx and res <= grad_x_cutoff:
+                d0, d1 = hat_slopes(x01[:, a], res, i0)
+                dfa = _lerp(tp["lines"][s][a].float(), i0, d0, d1)
+                g_x[:, a] += (g_fr * dfa).sum(-1) \
+                    * ((res - 1.0) / (2.0 * cfg.bound)) * inb[:, a]
         row += rank
     k = 0
     for s, (pres, ch) in enumerate(cfg.planes):
@@ -475,10 +523,38 @@ def _bwd_chunk(tp, cfg: CPConfig, x, d, g_out, grads):
             gl.index_add_(0, ie + 1, g_l * ue1[:, None])
             g_f = g_vm * lv
             gp = grads["planes"][s][p].view(pres * pres, ch)
+            g_qs = []
             for jb, ub in ((ib, ub0), (ib + 1, ub1)):
                 g_q = bf16_round(g_f * ub[:, None])
+                g_qs.append(g_q)
                 gp.index_add_(0, ia * pres + jb, g_q * ua0[:, None])
                 gp.index_add_(0, (ia + 1) * pres + jb, g_q * ua1[:, None])
+            if want_gx and pres <= grad_x_cutoff:
+                # cotangents of the two hat taps of each of the pair's axes
+                a, b, e = VM_PAIRS[p]
+                pl = tp["planes"][s][p].float()
+                vl = tp["vm_lines"][s][p].float()
+                g_ua = [(pl[ia + k, ib] * g_qs[0]
+                         + pl[ia + k, ib + 1] * g_qs[1]).sum(-1)
+                        for k in (0, 1)]
+                q = [ua0[:, None] * pl[ia, ib + k]
+                     + ua1[:, None] * pl[ia + 1, ib + k] for k in (0, 1)]
+                g_ub = [(g_f * q[k]).sum(-1) for k in (0, 1)]
+                g_ue = [(vl[ie + k] * g_l).sum(-1) for k in (0, 1)]
+                sc = (pres - 1.0) / (2.0 * cfg.bound)
+                for ax, i_ax, gv in ((a, ia, g_ua), (b, ib, g_ub),
+                                     (e, ie, g_ue)):
+                    d0, d1 = hat_slopes(x01[:, ax], pres, i_ax)
+                    g_x[:, ax] += (gv[0] * d0 + gv[1] * d1) * sc * inb[:, ax]
+    if want_gx:
+        gp = g_h0b @ w0[n_grid:].t()                 # [S, 3 + 6 * freq_degree]
+        g_x += gp[:, :3]
+        for fd in range(cfg.freq_degree):
+            k = 3 + 6 * fd
+            g_x += (2.0 ** fd) * (gp[:, k:k + 3] * freq[:, k + 3:k + 6]
+                                  - gp[:, k + 3:k + 6] * freq[:, k:k + 3])
+        return g_x
+    return None
 
 
 def field_backward_plain(tables: FieldTables, cfg: CPConfig, x3, d3, g_out,
@@ -570,15 +646,7 @@ def field_backward(tables, cfg: CPConfig, x3, d3, g_out):
     """
     tables = tables if isinstance(tables, FieldTables) \
         else pack_tables(tables, cfg)
-    for name, t, rows in (("x3", x3, 3), ("d3", d3, 3), ("g_out", g_out, 4)):
-        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != rows \
-                or t.shape[1] != x3.shape[1]:
-            raise ValueError(f"{name} must be f32 [{rows}, M], got {t.dtype} "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != x3.device:
-            raise ValueError("x3, d3 and g_out must be on one device")
+    _check_backward_inputs(x3, d3, g_out)
     if x3.device.type == "cpu":
         return field_backward_plain(tables, cfg, x3, d3, g_out)
     if x3.device.type != "cuda":
@@ -623,3 +691,247 @@ def field_train_forward(params, cfg: CPConfig, x3, d3, tables=None,
         tables = pack_tables(params, cfg)
     return FieldTrainFn.apply(tables, cfg, plain, x3, d3,
                               *param_leaves(params))
+
+
+# --------------------------------------------------------- dynamic backward
+def dyn_warp_plain(tables: FieldTables, cfg: CPDNeRFConfig, x3, t):
+    """First stage of K4's plain version: the deform tower's forward with
+    every activation kept. Returns (xw [3, M] = x + dx, acts): acts[0] is
+    bf16(freq(x)) [M, spatial inputs] and acts[l] the relu'd, bf16-rounded
+    output [M, hidden] of matrix l - 1, all held in f32. At t == 0 the flag
+    gates dx off."""
+    wd = [w.float() for w in tables.plain["deform_mlp"]["w"]]
+    tb, flag, _ = _time_cond_vec(tables, cfg, t, x3.device)
+    with torch.no_grad():
+        acts = [bf16_round(freq_encode(x3.t(), degree=cfg.multires_deform))]
+        h = acts[0] @ wd[0][:cfg.deform_space_dim] + tb
+        for w in wd[1:]:
+            acts.append(bf16_round(torch.relu(h)))
+            h = acts[-1] @ w
+        xw = x3 + torch.where(flag != 0.0, h, torch.zeros_like(h)).t()
+    return xw.contiguous(), acts
+
+
+def dyn_canonical_backward_plain(tables: FieldTables, cfg: CPDNeRFConfig, xw3,
+                                 d3, t, g_out, chunk: int = 1 << 16):
+    """Second stage: the canonical backward at the warped positions xw3
+    [3, M], in chunks of `chunk` samples (_bwd_chunk). Returns (grads of the
+    tables and the canonical towers, g_x [3, M]), g_x being the position
+    gradient that enters the tower's backward: 0 at t == 0."""
+    grads = _zero_grads(tables.plain, xw3.device)
+    flag = _time_cond_vec(tables, cfg, t, xw3.device)[1]
+    g_x = torch.zeros_like(xw3)
+    xw, d = xw3.t(), d3.t()
+    with torch.no_grad():
+        for i in range(0, xw3.shape[1], chunk):
+            g_x[:, i:i + chunk] = (_bwd_chunk(
+                tables.plain, cfg, xw[i:i + chunk], d[i:i + chunk],
+                g_out[:, i:i + chunk], grads,
+                grad_x_cutoff=cfg.deform_grad_res_cutoff) * flag).t()
+    return grads, g_x
+
+
+def dyn_tower_backward_plain(tables: FieldTables, cfg: CPDNeRFConfig, t, acts,
+                             g_x):
+    """Third stage: back through the tower from g_x [3, M] over the kept
+    activations (see dyn_warp_plain): g_W[l] = acts[l]^T bf16(g_h) and
+    g_h = (bf16(g_h) W[l]^T) * (acts[l] > 0), f32 sums. The first matrix's
+    time rows are bf16(freq(t)) (x) bf16(sum of g_h over all samples).
+    Returns the deform tower's grads {"w": [...]}."""
+    wd = [w.float() for w in tables.plain["deform_mlp"]["w"]]
+    tvec = _time_cond_vec(tables, cfg, t, g_x.device)[2]
+    gd = [None] * len(wd)
+    with torch.no_grad():
+        g_h = g_x.t()
+        for li in range(len(wd) - 1, 0, -1):
+            gb = bf16_round(g_h)
+            gd[li] = acts[li].t() @ gb
+            g_h = (gb @ wd[li].t()) * (acts[li] > 0)
+        gd[0] = torch.cat([
+            acts[0].t() @ bf16_round(g_h),
+            bf16_round(tvec)[:, None] * bf16_round(g_h.sum(dim=0))[None, :]])
+    return {"w": gd}
+
+
+def dyn_field_backward_plain(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3,
+                             t, g_out, chunk: int = 1 << 16):
+    """Plain PyTorch version of K4: the explicit chain with the kernel's
+    rounding points, in the kernel's three stages (dyn_warp_plain,
+    dyn_canonical_backward_plain, dyn_tower_backward_plain). At t == 0 the
+    flag zeroes g_x before the tower, so every deform gradient is exactly
+    0."""
+    xw, acts = dyn_warp_plain(tables, cfg, x3, t)
+    grads, g_x = dyn_canonical_backward_plain(tables, cfg, xw, d3, t, g_out,
+                                              chunk)
+    grads["deform_mlp"] = dyn_tower_backward_plain(tables, cfg, t, acts, g_x)
+    return grads
+
+
+def _unpack_deform_grads(tables: FieldTables, cfg: CPDNeRFConfig, g_wdef,
+                         g_wtime):
+    """The kernel's deform-gradient buffers (g_wdef laid out like
+    tables.wdef, g_wtime [time inputs, hidden]) in the params' layouts."""
+    n_layers, hid, nx, in_pad = tables.dmeta[:4]
+    offs = tables.dmeta[5:]
+    first = g_wdef[offs[0]:offs[0] + hid * in_pad].view(hid, in_pad)
+    out = [torch.cat([first[:, :nx].t(), g_wtime], dim=0)]
+    for l in range(1, n_layers - 1):
+        out.append(g_wdef[offs[l]:offs[l] + hid * hid].view(hid, hid).t())
+    last = g_wdef[offs[-1]:offs[-1] + _DEFORM_LAST_ROWS * hid]
+    out.append(last.view(_DEFORM_LAST_ROWS, hid)[:3].t())
+    return {"w": out}
+
+
+def _launch_dyn_bwd(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t,
+                    g_out, parts=None):
+    from .build import load_library
+    _check_kernel_cfg(cfg)
+    if not tables.dmeta:
+        raise NotImplementedError(
+            f"the dynamic field kernels are built for hidden_dim_deform="
+            f"{_DEFORM_HID}, 2..{_DEFORM_MAX_LAYERS} deform layers and at "
+            f"most {_DEFORM_HID} spatial inputs, got hidden "
+            f"{cfg.hidden_dim_deform}, {cfg.num_layers_deform} layers, "
+            f"{cfg.deform_space_dim} inputs")
+    for name, buf in (("tables", tables.tab), ("weights", tables.wbuf),
+                      ("deform weights", tables.wdef),
+                      ("deform weights", tables.wdef_in)):
+        if buf.device != x3.device or buf.dtype != torch.bfloat16:
+            raise ValueError(f"packed {name} must be bf16 on {x3.device}, "
+                             f"got {buf.dtype} on {buf.device}")
+    m, dev = x3.shape[1], x3.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    tdim = tables.w0_time.shape[0]
+    # zeroed on the launch stream: the kernel only adds into them
+    g_tab = torch.zeros(tables.tab.numel(), **f32)
+    g_w = torch.zeros(tables.wbuf.numel(), **f32)
+    g_wdef = torch.zeros(tables.wdef.numel(), **f32)
+    g_tsum = torch.zeros(_DEFORM_HID, **f32)
+    g_wtime = torch.zeros((tdim, _DEFORM_HID), **f32)
+    if m > 0:
+        count = torch.zeros(1, dtype=torch.int32, device=dev)
+        xw = torch.empty((3, m), **f32)
+        gx = torch.empty((3, m), **f32)
+        idx = torch.empty(m, dtype=torch.int32, device=dev)
+        tcond = torch.cat(_time_cond_vec(tables, cfg, t, dev)).contiguous()
+        n_layers = tables.dmeta[0]
+        acts = None if parts is None else torch.zeros(
+            (n_layers, m, _DEFORM_HID), dtype=torch.bfloat16, device=dev)
+        lib = load_library()
+        meta = (ctypes.c_longlong * len(tables.meta))(*tables.meta)
+        dmeta = (ctypes.c_longlong * len(tables.dmeta))(*tables.dmeta)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdn_dyn_field_bwd(
+            x3.data_ptr(), d3.data_ptr(), g_out.data_ptr(), m,
+            tables.tab.data_ptr(), tables.wbuf.data_ptr(), meta,
+            float(cfg.bound), tables.wdef.data_ptr(),
+            tables.wdef_in.data_ptr(), dmeta, tcond.data_ptr(), tdim,
+            int(cfg.deform_grad_res_cutoff), xw.data_ptr(), count.data_ptr(),
+            idx.data_ptr(), gx.data_ptr(), g_tab.data_ptr(), g_w.data_ptr(),
+            g_wdef.data_ptr(), g_tsum.data_ptr(), g_wtime.data_ptr(),
+            None if acts is None else acts.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"dynamic field backward kernel launch failed: CUDA error "
+                f"{rc}")
+        dyn_field_backward.launches += 1
+        if parts is not None:
+            # the compact list back in sample order (reading its length
+            # waits for the kernel)
+            live = idx[:int(count)].long()
+            g_x = torch.zeros((3, m), **f32)
+            g_x[:, live] = gx[:, :live.numel()]
+            nx = cfg.deform_space_dim
+            parts.update(xw=xw, g_x=g_x, live=live, acts=[
+                a[:live.numel(), :nx if l == 0 else None]
+                for l, a in enumerate(acts)])
+    grads = _unpack_grads(tables, cfg, g_tab, g_w)
+    grads["deform_mlp"] = _unpack_deform_grads(tables, cfg, g_wdef, g_wtime)
+    return grads
+
+
+def dyn_field_backward(tables, cfg: CPDNeRFConfig, x3, d3, t, g_out,
+                       parts=None):
+    """Param gradients of the time-conditioned field at planar samples.
+
+    Args:
+      tables: params dict or FieldTables (see pack_tables) of a field with
+        a deform tower.
+      x3, d3: [3, M] f32 contiguous positions and unit directions.
+      t: the frame's time, a float or a tensor holding one value; a tensor
+        on x3's device is read there, without a host round trip.
+      g_out: [4, M] f32 contiguous cotangent of dyn_field_forward's output
+        (rows sigma, r, g, b).
+      parts: an optional dict that receives the stages between the kernel's
+        phases (CUDA only), for holding them against the plain version's
+        stages one by one: "xw" [3, M], the warped positions; "g_x" [3, M],
+        the position gradient that entered the tower's backward (0 where
+        the cotangent is all zero); "live" [L], the samples that carry a
+        cotangent, in the order the tower's backward walked them; "acts",
+        the activations it recomputed for them, bf16, laid out as
+        dyn_warp_plain's ([L, spatial inputs], then [L, hidden] a matrix).
+        Filling it waits for the kernel.
+
+    Returns an f32 dict in the params' names and layouts, "deform_mlp"
+    included. The warp's gradient reaches the tower only through the line
+    scales and planes with res <= cfg.deform_grad_res_cutoff and through
+    the frequency features. At t == 0 every deform gradient is exactly 0.
+    Samples whose four cotangents are zero add nothing.
+    """
+    if not isinstance(cfg, CPDNeRFConfig):
+        raise TypeError("dyn_field_backward needs a CPDNeRFConfig")
+    tables = tables if isinstance(tables, FieldTables) \
+        else pack_tables(tables, cfg)
+    if tables.w0_time is None:
+        raise ValueError("the tables hold no deform tower")
+    _check_backward_inputs(x3, d3, g_out)
+    if x3.device.type == "cpu":
+        if parts is not None:
+            raise ValueError("parts holds the kernel's stages: on the CPU "
+                             "call the plain version's stages instead")
+        return dyn_field_backward_plain(tables, cfg, x3, d3, t, g_out)
+    if x3.device.type != "cuda":
+        raise ValueError(f"unsupported device {x3.device}")
+    return _launch_dyn_bwd(tables, cfg, x3, d3, t, g_out, parts)
+
+
+dyn_field_backward.launches = 0
+
+
+class DynFieldTrainFn(torch.autograd.Function):
+    """Dynamic field forward (K3) whose backward is K4, the port of the
+    reference's custom VJP `cp_dnerf_train_fused`. Inputs: the packed tables
+    of the current param values, the config, whether to run the plain
+    versions instead of the kernels (for comparisons on the card), x3, d3,
+    the time t (a float or a one-element tensor, which stays on its device)
+    and the f32 param leaves in `param_leaves` order. A leaf may be a
+    function of a trained tensor (the annealed first sigma matrix): autograd
+    carries its gradient on. Positions, directions and t get no gradient, as
+    in the reference."""
+
+    @staticmethod
+    def forward(ctx, tables, cfg, plain, x3, d3, t, *leaves):
+        ctx.tables, ctx.cfg, ctx.plain, ctx.t = tables, cfg, plain, t
+        ctx.save_for_backward(x3, d3)
+        if plain:
+            return dyn_field_forward_plain(tables, cfg, x3, d3, t)
+        return dyn_field_forward(tables, cfg, x3, d3, t)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        x3, d3 = ctx.saved_tensors
+        bwd = dyn_field_backward_plain if ctx.plain else dyn_field_backward
+        grads = bwd(ctx.tables, ctx.cfg, x3, d3, ctx.t, g_out.contiguous())
+        return (None,) * 6 + tuple(param_leaves(grads))
+
+
+def dyn_field_train_forward(params, cfg: CPDNeRFConfig, x3, d3, t,
+                            tables=None, plain: bool = False):
+    """Differentiable dynamic field forward: out [4, M] (rows sigma, r, g,
+    b) at time t. `tables` must be packed from the current values of
+    `params`; None packs them here. plain=True runs the plain versions on
+    any device (no kernel launch)."""
+    if tables is None:
+        tables = pack_tables(params, cfg)
+    return DynFieldTrainFn.apply(tables, cfg, plain, x3, d3, t,
+                                 *param_leaves(params))

@@ -32,6 +32,20 @@ def hat_taps(x01, res: int):
     return i0.long(), w0, w1
 
 
+def hat_slopes(x01, res: int, i0):
+    """Derivatives of the two hat weights of `hat_taps` with respect to the
+    scaled coordinate xa = x01 * (res - 1): -sign(xa - i) on the open
+    support |xa - i| < 1 and 0 elsewhere (so 0 at an integer xa), for the
+    taps i0 and i0 + 1. The reference's d(hat)/dx."""
+    xa = x01.clamp(0.0, 1.0) * (res - 1)
+
+    def slope(diff):
+        return torch.where(diff.abs() < 1.0, -torch.sign(diff),
+                           torch.zeros_like(diff))
+    i0 = i0.to(xa.dtype)
+    return slope(xa - i0), slope(xa - (i0 + 1.0))
+
+
 def line_interp(x01, table):
     """Interpolate table [res, R] (read in bf16) at x01 [S] -> [S, R] f32."""
     i0, w0, w1 = hat_taps(x01, table.shape[0])

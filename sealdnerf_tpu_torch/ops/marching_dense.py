@@ -58,7 +58,8 @@ class DenseMarchConfig:
 
 
 def downsample_occ(occ, march_res: int):
-    """Max-pool a bool occupancy grid [H, H, H] to [M, M, M] (M <= H)."""
+    """Max-pool a bool occupancy grid [..., H, H, H] to [..., M, M, M]
+    (M <= H); leading dimensions (time bins) are kept."""
     h = occ.shape[-1]
     if h == march_res:
         return occ
@@ -66,8 +67,8 @@ def downsample_occ(occ, march_res: int):
     if f * march_res != h:
         raise ValueError(f"grid {h} is not a multiple of march_res "
                          f"{march_res}")
-    return occ.reshape(march_res, f, march_res, f, march_res, f).any(
-        dim=5).any(dim=3).any(dim=1)
+    return occ.reshape(occ.shape[:-3] + (march_res, f) * 3).any(
+        dim=-1).any(dim=-2).any(dim=-3)
 
 
 def march_intervals(rays_o, rays_d, nears, fars, occ_m,

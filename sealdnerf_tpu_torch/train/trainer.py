@@ -2,11 +2,12 @@
 sealdnerf_tpu/train/trainer.py).
 
 Only the fields that the ported paths read: the grid, march and render
-settings of serving, and the static trainer's settings (step count,
-learning rate and schedule, rays per step, grid-refresh interval, EMA,
-epochs, evaluation and checkpoint cadence), plus `lr_net`, which the
-dynamic CLI sets as the reference's does. The other training fields of the
-reference come with the code that reads them.
+settings of serving, the static trainer's settings (step count, learning
+rate and schedule, rays per step, grid-refresh interval, EMA, epochs,
+evaluation and checkpoint cadence), and the dynamic trainer's (the MLP
+learning rate, the time curriculum, the coarse-to-fine anneal and the
+deform regulariser). The other training fields of the reference come with
+the code that reads them.
 """
 
 import math
@@ -22,7 +23,22 @@ class TrainOptions:
     name: str = "ngp"
     iters: int = 30000               # schedule length: lr * 0.1**(step/iters)
     lr: float = 1e-2
-    lr_net: Optional[float] = None   # MLP lr of dynamic training (not ported)
+    lr_net: Optional[float] = None   # separate lr of the MLP towers (D-NeRF)
+    # Dynamic training. The time curriculum trains on a growing window of
+    # the time-sorted frames that reaches the full range after this many
+    # steps: 0 off, -1 resolved from the data by FastTrainer.train (512 for
+    # one camera per timestamp, else off).
+    time_curriculum_steps: int = 0
+    # Coarse-to-fine: the sigma tower's input rows of line scales and planes
+    # with res > dyn_anneal_res ramp from 0 to 1 over dyn_anneal_steps steps
+    # (0 off). Without it the canonical field bakes in motion ghosts before
+    # the warp locks on.
+    dyn_anneal_steps: int = 1024
+    dyn_anneal_res: int = 256
+    # Weight of mean |deform_raw(x, 0)|^2 at random scene points. It must
+    # stay tiny: at 0.1 it pins the near-zero-initialised deform output at
+    # zero and the tower never comes alive.
+    deform_zero_reg: float = 1e-3
     num_rays: int = 4096             # rays per training step
     update_extra_interval: int = 16  # steps between grid refreshes
     ema_decay: float = 0.95

@@ -15,8 +15,13 @@ from sealdnerf_tpu_torch.data.synthetic import make_synthetic_scene
 from sealdnerf_tpu_torch.models.cp import (CPConfig, CPDNeRFConfig, CPField,
                                            init_cp, init_cp_dnerf,
                                            param_leaves)
-from sealdnerf_tpu_torch.ops.field import (dyn_field_forward,
+from sealdnerf_tpu_torch.ops.field import (dyn_canonical_backward_plain,
+                                           dyn_field_backward,
+                                           dyn_field_backward_plain,
+                                           dyn_field_forward,
                                            dyn_field_forward_plain,
+                                           dyn_tower_backward_plain,
+                                           dyn_warp_plain,
                                            field_backward,
                                            field_backward_plain,
                                            field_forward, field_forward_plain,
@@ -186,15 +191,16 @@ def test_get_rays_with_a_card_generator(card):
     assert rays["rays_d"].shape == (1, 100, 3)
 
 
-def _dyn_tables(card, layers=8):
+def _dyn_tables(card, layers=8, gain=6.0 ** 0.5):
     """The full-width dynamic field from a seed, its deform tower re-gained
-    so that it warps by ~0.1 (the seeded tower alone warps by ~6e-4)."""
+    so that it warps by ~0.1 (the undamped tower alone, gain 1, warps by
+    ~6e-4)."""
     cfg = CPDNeRFConfig(num_layers_deform=layers)
     params = init_cp_dnerf(torch.Generator().manual_seed(0), cfg, card)
     wd = params["deform_mlp"]["w"]
     wd[-1] = wd[-1] * 1e3
     for k in range(1, len(wd) - 1):
-        wd[k] = wd[k] * 6.0 ** 0.5
+        wd[k] = wd[k] * gain
     return cfg, pack_tables(params, cfg)
 
 
@@ -263,3 +269,175 @@ def test_dyn_grid_rebuild_through_the_kernel(card):
     assert field_forward.launches == k1_before
     occ = st["occ"].reshape(16, -1)
     assert bool(occ.any(dim=1).all()) and int(st["iter_density"]) == 1
+
+
+def _leaf_errs(got, ref):
+    out = []
+    for a, b in zip(param_leaves(got), param_leaves(ref)):
+        assert a.shape == b.shape
+        diff = (a - b).abs().max().item()
+        out.append(diff / max(b.abs().max().item(), 1e-30) if diff else 0.0)
+    return out
+
+
+def _rel(a, b):
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def _hold_k4_stages(tables, cfg, x3, d3, g, got, parts):
+    """K4's stages, each on the kernel's own input, against the plain
+    version's stages. The limits come from profiling/torch_dyn_bwd_seeds.py
+    (three seeds, 8,229 and 262,181 samples, towers of eight and two
+    matrices, undamped and re-gained).
+
+    The activations that the tower's backward recomputes: an mma sums in
+    another order than a matmul, so 3.8e-4 to 7.1e-4 of the hidden entries
+    round to the neighbouring bf16 and about 1e-6 of them land on the other
+    side of the relu, which 3.7e-4 to 1.5e-3 of the samples then hold. Such a
+    sample's share of every earlier matrix's gradient changes as a whole, and
+    with random cotangents an entry is a random-walk sum, so those samples
+    move a leaf by about the root of their share whatever the sample count:
+    2e-3 to 1.1e-2 of its maximum (2.1e-2 re-gained), the same distance at
+    which the f32 plain chain lies from itself with f64 sums. On the
+    kernel's own activations no mask can differ, and the tower's backward
+    then lies 1.4e-4 to 4.9e-4 from the plain stage, with two matrices below
+    3e-6. The time rows are rounded to bf16 after the sum over all samples:
+    one rounding that differs moves them by up to 2^-7 (measured up to
+    4.1e-3)."""
+    nx = cfg.deform_space_dim
+    xw, acts_p = dyn_warp_plain(tables, cfg, x3, 0.37)
+    dxw = (parts["xw"] - xw).abs()
+    ref, g_x = dyn_canonical_backward_plain(tables, cfg, parts["xw"], d3,
+                                            0.37, g)
+    assert max(_leaf_errs({k: got[k] for k in ref}, ref)) <= GRAD_TOL
+    assert _rel(parts["g_x"], g_x) <= GRAD_TOL
+    live = parts["live"]
+    assert torch.equal(live.sort().values,
+                       torch.nonzero(g.abs().amax(dim=0) > 0)[:, 0])
+    acts_k = [a.float() for a in parts["acts"]]
+    acts_p = [a[live] for a in acts_p]
+    assert torch.equal(acts_k[0], acts_p[0])
+    hid_k, hid_p = torch.cat(acts_k[1:], 1), torch.cat(acts_p[1:], 1)
+    assert (hid_k != hid_p).float().mean().item() <= 2e-3
+    assert ((hid_k > 0) != (hid_p > 0)).any(dim=1).float().mean().item() \
+        <= 5e-3
+    ref = dyn_tower_backward_plain(tables, cfg, 0.37, acts_k,
+                                   parts["g_x"][:, live])["w"]
+    kern = got["deform_mlp"]["w"]
+    assert _rel(kern[0][nx:], ref[0][nx:]) <= GRAD_TOL
+    errs = [_rel(kern[0][:nx], ref[0][:nx])] + [
+        _rel(a, b) for a, b in zip(kern[1:], ref[1:])]
+    assert max(errs) <= 1e-3, errs
+    return xw, dxw
+
+
+@pytest.mark.parametrize("layers", [8, 2])
+def test_dyn_field_backward_kernel_matches_plain(card, layers):
+    """K4 against its plain version at the full default config on a train
+    step's sample count, ragged against all its tiles (64 and 256), a third
+    of the cotangents zero, with the undamped tower, and with a tower of two
+    matrices (no hidden one, warp 0.11).
+
+    Each stage is held on the kernel's own input (_hold_k4_stages). End to
+    end the whole is held to 5e-2: over three seeds the worst leaf lies up to
+    1.4e-2 and, with the two-matrix tower's warp of 0.11, 2.4e-2 away."""
+    cfg, tables = _dyn_tables(card, layers=layers, gain=1.0)
+    x3, d3, g = _samples(card, 4096 * 64 + 37, 4)
+    before = dyn_field_backward.launches
+    parts = {}
+    got = dyn_field_backward(tables, cfg, x3, d3, 0.37, g, parts=parts)
+    assert dyn_field_backward.launches == before + 1
+    assert all(w.abs().max().item() > 0 for w in got["deform_mlp"]["w"])
+    assert parts["g_x"][:, ::3].abs().max().item() == 0.0
+    ref = dyn_field_backward_plain(tables, cfg, x3, d3, 0.37, g)
+    assert max(_leaf_errs(got, ref)) <= 5e-2, _leaf_errs(got, ref)
+    _, dxw = _hold_k4_stages(tables, cfg, x3, d3, g, got, parts)
+    assert dxw.max().item() <= 1e-3 and dxw.mean().item() <= 1e-6
+    on_card = dyn_field_backward(tables, cfg, x3, d3,
+                                 torch.tensor(0.37, device=card), g)
+    assert max(_leaf_errs(on_card, got)) <= 1e-4     # atomics reorder sums
+
+
+def test_dyn_field_backward_stages_with_a_warping_tower(card):
+    """The re-gained tower (warp 0.1) at a train step's sample count: every
+    stage on the kernel's own input."""
+    cfg, tables = _dyn_tables(card)
+    x3, d3, g = _samples(card, 4096 * 64 + 37, 5)
+    parts = {}
+    got = dyn_field_backward(tables, cfg, x3, d3, 0.37, g, parts=parts)
+    xw, dxw = _hold_k4_stages(tables, cfg, x3, d3, g, got, parts)
+    assert (xw - x3).abs().mean().item() > 1e-2
+    assert dxw.mean().item() <= 1e-5
+
+
+def test_dyn_field_backward_at_t0_and_zero_cotangents(card):
+    """At t = 0 every deform gradient is exactly 0 and the canonical ones are
+    K2's; all-zero cotangents give all-zero gradients; an empty input gives
+    zeros of the params' shapes."""
+    cfg, tables = _dyn_tables(card)
+    x3, d3, g = _samples(card, 4096 + 37, 6)
+    got = dyn_field_backward(tables, cfg, x3, d3, 0.0, g)
+    assert all(w.abs().max().item() == 0.0 for w in got["deform_mlp"]["w"])
+    k2 = field_backward(tables, cfg, x3, d3, g)
+    assert max(_leaf_errs({k: got[k] for k in k2}, k2)) <= GRAD_TOL
+    zero = dyn_field_backward(tables, cfg, x3, d3, 0.37, torch.zeros_like(g))
+    assert all(w.abs().max().item() == 0.0 for w in param_leaves(zero))
+    e = torch.zeros((3, 0), device=card)
+    before = dyn_field_backward.launches
+    empty = dyn_field_backward(tables, cfg, e, e, 0.37,
+                               torch.zeros((4, 0), device=card))
+    assert dyn_field_backward.launches == before
+    assert [tuple(w.shape) for w in empty["deform_mlp"]["w"]] == \
+        [(76, 128)] + [(128, 128)] * 6 + [(128, 3)]
+
+
+def test_field_backward_unchanged_by_the_shared_body(card):
+    """K2 after its per-sample body moved into a header shared with K4: the
+    same gradients as the plain version at a train step's sample count, and
+    K4 at t = 0 runs that body to K2's results."""
+    cfg = CPConfig()
+    tables = pack_tables(init_cp(torch.Generator().manual_seed(0), cfg, card),
+                         cfg)
+    x3, d3, g = _samples(card, 4096 * 16 + 5, 7)
+    got = field_backward(tables, cfg, x3, d3, g)
+    ref = field_backward_plain(tables, cfg, x3, d3, g)
+    assert max(_leaf_errs(got, ref)) <= 1e-3, _leaf_errs(got, ref)
+
+
+def test_one_dynamic_train_step_kernel_matches_plain(card, tmp_path):
+    """One dynamic step's loss and grads through K3/K4 and through their
+    plain versions on the same rays, time, background, noise and regulariser
+    points, mid-anneal."""
+    from sealdnerf_tpu_torch import main_dnerf
+    opt = main_dnerf.parse_args(
+        ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--ckpt",
+         "scratch", "--workspace", str(tmp_path), "--num_rays", "1024"])
+    trainer, _ = build_trainer(opt, name="card", dynamic=True,
+                               lr_net=opt.lr_net)
+    _, train, _ = make_synthetic_scene(n_train=4, n_val=1, res=64,
+                                       dynamic=True)
+    trainer.mark_untrained_grid(train.poses, train.intrinsics)
+    trainer.global_step = 300
+    trainer.refresh_grid()
+    k3 = dyn_field_forward.launches
+    trainer.refresh_grid()
+    assert dyn_field_forward.launches == k3 + 8
+    assert trainer._dyn_host_counts() == (2, 16)
+    batch = trainer.sample_batch(train.device(card), train.h, train.w)
+    out = []
+    for plain in (False, True):
+        for p in param_leaves(trainer.params):
+            p.grad = None
+        k3, k4 = dyn_field_forward.launches, dyn_field_backward.launches
+        loss, _ = trainer.loss_on(*batch, plain=plain)
+        loss.backward()
+        launched = (dyn_field_forward.launches - k3,
+                    dyn_field_backward.launches - k4)
+        assert launched == ((0, 0) if plain else (1, 1)), launched
+        out.append((loss.item(), [p.grad.clone()
+                                  for p in param_leaves(trainer.params)]))
+    (lk, gk), (lp, gp) = out
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+    for a, b in zip(gk, gp):
+        err = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+        assert err <= GRAD_TOL, (tuple(a.shape), err)

@@ -147,9 +147,10 @@ def test_training_matches_jax_band(jax_runs, tmp_path):
           f"{jax_runs['psnrs']}")
     assert lo <= psnr <= hi, (psnr, jax_runs["psnrs"])
     assert psnr >= psnr0 + 4.0, (psnr, psnr0)
-    # a full checkpoint per epoch, pruned to max_keep_ckpt
+    # a full checkpoint at the end; before it at most one a minute (a slow
+    # host may have written one), pruned to max_keep_ckpt
     ckpts = sorted(os.listdir(tmp_path / "p1" / "checkpoints"))
-    assert ckpts == ["t_ep0002.npz", "t_ep0003.npz"]
+    assert ckpts[-1] == "t_ep0003.npz" and len(ckpts) <= 2, ckpts
 
 
 def test_adam_schedule_and_ema_match_optax(jax_runs, tmp_path):
