@@ -8,8 +8,13 @@ Phases (any failure raises and exits non-zero):
   2. build: compiles the port's CUDA kernels from sealdnerf_tpu_torch/ops/csrc
      (one nvcc per source, all at once, then one link).
   3. kernel vs plain: the field kernel (K1) against its plain PyTorch
-     version at the full default CPConfig on 2^20 + 37 samples, in three
-     variants (full, density_only, lod_skip=(3,)), with timings.
+     version at the full default CPConfig on 2^20 + 37 random samples, in
+     three variants (full, density_only, lod_skip=(3,)), with timings; the
+     features that enter its first product against the plain version's, bit
+     for bit; then at the main paths' own shapes, each with its bound: 2^20
+     density-only queries of a grid slab in cell order (the unit of a grid
+     refresh) and 8,388,608 ray-coherent samples of a pinhole frame (a tenth
+     of a served frame).
   3b. backward kernel vs plain: the field backward kernel (K2) against its
      plain version at the full default CPConfig on 4096 * 64 + 37 samples
      (one train step's worth plus a ragged tail), per param leaf within
@@ -21,7 +26,8 @@ Phases (any failure raises and exits non-zero):
      K1's tolerances, with timings. The seeded deform tower is re-gained
      (see _dyn_seeded_params) so that it warps by ~0.1: the mean |dx| of the
      plain version at t = 0.37 must exceed 1e-2. K3 at t = 0 must equal K1
-     on the same canonical params bit for bit.
+     on the same canonical params bit for bit, in all three variants. Then
+     the main paths' shapes as in phase 3.
   3d. dynamic backward kernel vs plain: the dynamic field backward kernel
      (K4: deform tower recomputed, canonical backward at the warped point,
      tower backward) against its plain version at the full default
@@ -147,21 +153,25 @@ PEAK = {"tensor_flops": 989e12, "fp32_flops": 67e12, "bytes": 3.35e12}
 DEFORM_GAIN = 6.0 ** 0.5
 
 
-def _field_work(cfg, m, mode="fwd", density_only=False, m_live=None):
+def _field_work(cfg, m, mode="fwd", density_only=False, m_live=None,
+                lod_skip=()):
     """Bytes moved (each input read once, each output written once) and
     operations, by type, of one field call on m samples. mode: "fwd" (K1),
     "bwd" (K2: recompute, then dX and dW of every product), "dyn" (K3) or
     "dyn_bwd" (K4: K2's work plus the deform tower's recompute, dX and dW).
     m_live: the samples whose cotangent is not all zero, which alone cost a
-    backward kernel operations (default: all)."""
+    backward kernel operations (default: all). lod_skip: line scales whose
+    features are zero, which need no taps and no rows of the first matrix."""
     from sealdnerf_tpu_torch.models.cp import _deform_dims, _tower_dims
     sigma, color = _tower_dims(cfg)
+    ranks = sum(r for s, (_, r) in enumerate(cfg.scales) if s not in lod_skip)
+    skipped = sum(r for _, r in cfg.scales) - ranks
     towers = [sigma] if density_only else [sigma, color]
-    macs = sum(a * b for dims in towers for a, b in zip(dims[:-1], dims[1:]))
+    macs = sum(a * b for dims in towers for a, b in zip(dims[:-1], dims[1:])) \
+        - skipped * sigma[1]
     # gathers: per line rank 3 lerps (3 flops each) and 2 products; per plane
     # channel and pair two 2-tap rows, the cross lerp, the line lerp, 1 product
-    taps = 11 * sum(r for _, r in cfg.scales) \
-        + 13 * sum(3 * c for _, c in cfg.planes)
+    taps = 11 * ranks + 13 * sum(3 * c for _, c in cfg.planes)
     enc = 2 * 6 * cfg.freq_degree + (0 if density_only else 60)
     tab_elems = sum(3 * res * r for res, r in cfg.scales) + sum(
         3 * (p * p * c + p * c) for p, c in cfg.planes)
@@ -196,8 +206,8 @@ def _bound(cfg, m, **kw):
     nbytes, tensor, fp32 = _field_work(cfg, m, **kw)
     t_bytes = nbytes / PEAK["bytes"] * 1e3
     t_ops = (tensor / PEAK["tensor_flops"] + fp32 / PEAK["fp32_flops"]) * 1e3
-    # beside it: every operation on the FP32 pipe, where K1, K2 and K3's
-    # canonical half run today
+    # beside it: every operation on the FP32 pipe, where K2 and K4's
+    # canonical half run (and K1 and K3's did before their redesign)
     t_fp32 = (tensor + fp32) / PEAK["fp32_flops"] * 1e3
     print(f"bound ({kw.get('mode', 'fwd')}, M={m}): {nbytes / 1e6:.2f} MB -> "
           f"{t_bytes:.4f} ms; {tensor / 1e9:.2f} GFLOP bf16 x bf16 -> f32 + "
@@ -234,12 +244,72 @@ def _check_close(name, got, ref):
     return err.max().item()
 
 
+def _slab_samples(h=128, bound=1.0, seed=0):
+    """x3 [3, h^3 / 2]: the queries of one bin of a dynamic grid refresh
+    while it warms up, cell by cell in grid order, jittered inside the cell
+    (render/dynamic_grid.py refresh_dyn_density_grid)."""
+    import torch
+    from sealdnerf_tpu_torch.render.grid import _coords_of
+    half = bound / h
+    idx = torch.arange(h ** 3 // 2, device="cuda")
+    centres = (2.0 * _coords_of(idx, h).float() / (h - 1) - 1.0) \
+        * (bound - half)
+    u = torch.rand(centres.shape, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(seed))
+    return (centres + (u * 2.0 - 1.0) * half).t().contiguous(), None
+
+
+def _frame_samples(res=256, n_steps=128):
+    """x3, d3 [3, res^2 * n_steps] of a pinhole frame seen from
+    (0.3, 0.2, -2.5) towards the box, each ray sampled in order from 1.5 to
+    3.5 and clipped to the box, in the tiled renderer's order (pixel-major):
+    ray-coherent, as a served frame's samples are."""
+    import torch
+    px = (np.arange(res, dtype=np.float32) + 0.5) / res - 0.5
+    u, v = np.meshgrid(px, px, indexing="xy")
+    d = np.stack([u, v, np.ones_like(u)], axis=-1).reshape(-1, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.array([0.3, 0.2, -2.5], np.float32)
+    ts = np.linspace(1.5, 3.5, n_steps, dtype=np.float32)
+    x = np.clip(o + ts[None, :, None] * d[:, None, :], -1, 1)
+    x3 = np.ascontiguousarray(x.reshape(-1, 3).T.astype(np.float32))
+    d3 = np.ascontiguousarray(np.repeat(d, n_steps, axis=0).T)
+    return torch.from_numpy(x3).cuda(), torch.from_numpy(d3).cuda()
+
+
+def _main_path_shapes(name, kernel, plain, cfg, mode):
+    """Hold kernel(x3, d3, **kw) against plain(...) and time it at the two
+    shapes the main paths give it; the bound of each from this run's
+    inputs."""
+    import torch
+    worst = 0.0
+    for label, (x3, d3), kw in (
+            ("coherent density-only slab queries", _slab_samples(),
+             {"density_only": True}),
+            ("frame-like samples", _frame_samples(), {})):
+        m = x3.shape[1]
+        out = kernel(x3, d3, **kw)
+        ref = plain(x3, d3, **kw)
+        torch.cuda.synchronize()
+        e_s = _check_close("sigma", out[0], ref[0])
+        e_c = 0.0 if kw else _check_close("rgb", out[1:4], ref[1:4])
+        worst = max(worst, e_s, e_c)
+        del out, ref
+        ms = _cuda_ms(lambda: kernel(x3, d3, **kw), 5)
+        b = _bound(cfg, m, mode=mode, **kw)
+        print(f"{name} on {m} {label}: max|err| sigma {e_s:.3g} rgb "
+              f"{e_c:.3g}; kernel {ms:.3f} ms ({m / ms * 1e3:.4g} samples/s); "
+              f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}", flush=True)
+    return worst
+
+
 def phase_kernel_vs_plain():
     import torch
     from sealdnerf_tpu_torch.models.cp import CPConfig, init_cp
     from sealdnerf_tpu_torch.ops.field import (field_forward,
                                                field_forward_plain,
-                                               pack_tables)
+                                               pack_tables,
+                                               tile_features_plain)
     cfg = CPConfig()
     tables = pack_tables(init_cp(torch.Generator().manual_seed(0), cfg,
                                  "cuda"), cfg)
@@ -262,15 +332,32 @@ def phase_kernel_vs_plain():
         pms = _cuda_ms(lambda: field_forward_plain(tables, cfg, x3, d3, **kw),
                        3)
         max_err = max(max_err, e_s, e_c)
+        b = _bound(cfg, m, **kw)
         print(f"K1 {tag}: M={m} max|err| sigma {e_s:.3g} rgb {e_c:.3g}; "
               f"kernel {ms:.3f} ms ({m / ms * 1e3:.4g} samples/s), plain "
-              f"{pms:.3f} ms ({m / pms * 1e3:.4g} samples/s)", flush=True)
+              f"{pms:.3f} ms ({m / pms * 1e3:.4g} samples/s); bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']}", flush=True)
         if tag == "full":
-            rec = {"ms": ms, "plain_ms": pms}
+            rec = {"ms": ms, "plain_ms": pms, **b}
+    # stage A: what enters the first sigma product, on the first 2^16 samples
+    parts = {}
+    xs = x3[:, :1 << 16].contiguous()
+    field_forward(tables, cfg, xs, None, density_only=True, parts=parts)
+    grid, freq, cols = tile_features_plain(tables, cfg, xs.t())
+    feats, g = parts["features"].float(), cfg.grid_feat_dim
+    differ = int((feats[:, cols[:g, 0]] != grid).sum())
+    e_f = (feats[:, cols[g:, 0]] + feats[:, cols[g:, 1]] - freq).abs().max() \
+        .item()
+    print(f"K1 features: {differ} of {grid.numel()} line and plane features "
+          f"differ from the plain version's bf16 ones; frequency rows as "
+          f"hi + lo pairs: max |hi + lo - f32| {e_f:.3g}", flush=True)
+    if differ or not e_f <= 2.0 ** -15:
+        raise AssertionError("the kernel's features are off the plain ones")
+    max_err = max(max_err, _main_path_shapes(
+        "K1", lambda a, b, **kw: field_forward(tables, cfg, a, b, **kw),
+        lambda a, b, **kw: field_forward_plain(tables, cfg, a, b, **kw),
+        cfg, "fwd"))
     rec["max_abs_err"] = max_err
-    rec.update(_bound(cfg, m))
-    print(f"K1 bound: {rec['bound_ms']:.4f} ms by {rec['bound_by']}",
-          flush=True)
     return rec
 
 
@@ -325,11 +412,13 @@ def phase_dyn_kernel_vs_plain():
                                                         t, **kw), 10)
                 pms = _cuda_ms(lambda: dyn_field_forward_plain(
                     tables, cfg, x3, d3, t, **kw), 2)
+                b = _bound(cfg, m, mode="dyn", **kw)
                 line += (f"; kernel {ms:.3f} ms ({m / ms * 1e3:.4g} "
                          f"samples/s), plain {pms:.3f} ms "
-                         f"({m / pms * 1e3:.4g} samples/s)")
+                         f"({m / pms * 1e3:.4g} samples/s); bound "
+                         f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
                 if tag == "full":
-                    rec = {"ms": ms, "plain_ms": pms}
+                    rec = {"ms": ms, "plain_ms": pms, **b}
                     if not mean_dx > 1e-2:
                         raise AssertionError(
                             f"mean |dx| {mean_dx} <= 1e-2: the deform tower "
@@ -337,15 +426,16 @@ def phase_dyn_kernel_vs_plain():
             print(line, flush=True)
             if t == 0.0 and dx.abs().max().item() != 0.0:
                 raise AssertionError("the plain version warps at t == 0")
-    k3 = dyn_field_forward(tables, cfg, x3, d3, 0.0)
-    k1 = field_forward(tables, cfg, x3, d3)
+    for kw in ({}, {"density_only": True}, {"lod_skip": (3,)}):
+        k3 = dyn_field_forward(tables, cfg, x3, d3, 0.0, **kw)
+        k1 = field_forward(tables, cfg, x3, d3, **kw)
+        if not torch.equal(k3, k1):
+            raise AssertionError(f"K3 at t = 0 differs from K1 ({kw}): max "
+                                 f"|diff| {(k3 - k1).abs().max().item():.3g}")
     t_dev = dyn_field_forward(tables, cfg, x3, d3,
                               torch.tensor(0.37, device="cuda"))
     t_host = dyn_field_forward(tables, cfg, x3, d3, 0.37)
     torch.cuda.synchronize()
-    if not torch.equal(k3, k1):
-        raise AssertionError("K3 at t = 0 differs from K1: max |diff| "
-                             f"{(k3 - k1).abs().max().item():.3g}")
     if not torch.equal(t_dev, t_host):
         raise AssertionError("K3 with t on the card differs from t on the "
                              "host")
@@ -355,11 +445,15 @@ def phase_dyn_kernel_vs_plain():
         return_deform=True)
     print(f"the undamped tower without the hidden gain warps by mean|dx| "
           f"{dx.abs().mean().item():.4g} at t = 0.37", flush=True)
+    max_err = max(max_err, _main_path_shapes(
+        "K3 t=0.37",
+        lambda a, b, **kw: dyn_field_forward(tables, cfg, a, b, 0.37, **kw),
+        lambda a, b, **kw: dyn_field_forward_plain(tables, cfg, a, b, 0.37,
+                                                   **kw),
+        cfg, "dyn"))
     rec["max_abs_err"] = max_err
-    rec.update(_bound(cfg, m, mode="dyn"))
-    print(f"K3 at t = 0 equals K1 bit for bit; t read from the card equals t "
-          f"from the host; bound {rec['bound_ms']:.4f} ms by "
-          f"{rec['bound_by']}", flush=True)
+    print("K3 at t = 0 equals K1 bit for bit; t read from the card equals t "
+          "from the host", flush=True)
     return rec
 
 

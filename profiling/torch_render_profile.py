@@ -47,12 +47,16 @@ def report(label, fn, top=15):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     events.sort(key=lambda e: e.device_time_total, reverse=True)
     busy_ms = sum(e.device_time_total for e in events) / 1e3
-    field_ms = sum(e.device_time_total for e in events
-                   if "field_fwd_kernel" in e.key) / 1e3
+    # the dynamic entry runs the warp, then the static entry's kernel
+    warp_ms = sum(e.device_time_total for e in events
+                  if "deform_fwd_kernel" in e.key) / 1e3
+    field_ms = warp_ms + sum(e.device_time_total for e in events
+                             if "field_fwd_kernel" in e.key) / 1e3
     print(f"{label}: wall {wall_ms:.2f} ms (unprofiled), device busy "
           f"{busy_ms:.2f} ms (profiled run), idle share "
           f"{1 - busy_ms / wall_ms:.3f}; field kernel {field_ms:.2f} ms "
-          f"({field_ms / busy_ms:.3f} of device busy)")
+          f"({field_ms / busy_ms:.3f} of device busy), of it the deform "
+          f"tower {warp_ms:.2f} ms")
     for e in events[:top]:
         print(f"{e.device_time_total / 1e3:10.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")

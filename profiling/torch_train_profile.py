@@ -20,8 +20,8 @@ first line is the card's name and power limit.
 --dynamic profiles dynamic (CP-D-NeRF) training instead: the trainer of
 chip_smoke.py's dynamic training phase (main_dnerf's defaults: two learning
 rates, time curriculum, anneal, deform regulariser). The forward is then
-the march, K3 and compositing, the backward holds K4 (its four device
-kernels are listed one by one), a grid refresh is 8 time bins through K3
+the march, K3 and compositing, the backward holds K4 (K3's two and K4's four
+device kernels are listed one by one), a grid refresh is 8 time bins through K3
 density-only and fires every 2 steps until step 256 and every 4 after it,
 and the regulariser's tower (plain PyTorch) has a range of its own for its
 forward; its backward is in the backward's rest.
@@ -48,6 +48,8 @@ STEP_PARTS = ("grid_refresh", "sample", "forward", "adam", "schedule", "ema")
 SUB_PARTS = ("march", "composite", "zero_reg")
 K4_KERNELS = ("warp_kernel", "field_bwd_kernel", "tower_bwd_kernel",
               "time_rows_kernel")
+# K3 runs two device kernels behind one entry: the warp, then K1's kernel
+K3_KERNELS = ("deform_fwd_kernel", "field_fwd_kernel")
 
 
 def _ranged(name, fn):
@@ -124,16 +126,16 @@ def window(trainer, data, h, w, steps):
     # through ctypes under no torch op, so no CPU event claims it: take its
     # launches inside the refresh's device span
     dyn = trainer.time_conditioned
-    fwd_name = "dyn_field_fwd_kernel" if dyn else "field_fwd_kernel"
+    fwd_names = K3_KERNELS if dyn else ("field_fwd_kernel",)
     spans = [(e.time_range.start, e.time_range.end) for e in events
              if e.device_type == dev and e.name == "grid_refresh"]
     in_refresh = per_step(sum(
         e.time_range.elapsed_us() for e in events
-        if e.device_type == dev and fwd_name in e.name
+        if e.device_type == dev and any(k in e.name for k in fwd_names)
         and any(a <= e.time_range.start < b for a, b in spans)))
     ranges["grid_refresh"] = ranges.get("grid_refresh", 0.0) + in_refresh
     k1 = per_step(sum(e.device_time_total for e in kernels
-                      if fwd_name in e.key))
+                      if any(k in e.key for k in fwd_names)))
     k2 = per_step(sum(e.device_time_total for e in kernels
                       if any(k in e.key for k in K4_KERNELS)))
     backward = busy - sum(ranges.get(p, 0.0) for p in STEP_PARTS)
@@ -153,10 +155,11 @@ def window(trainer, data, h, w, steps):
     print(f"  {'backward':13s} {backward:9.3f} ms/step, of it {bwd} {k2:.3f} "
           f"ms/step ({n_mean / max(k2, 1e-9) * 1e3:.4g} samples/s)")
     if dyn:
-        for name in K4_KERNELS:
-            t = per_step(sum(e.device_time_total for e in kernels
-                             if name in e.key))
-            print(f"    K4 {name:18s} {t:9.3f} ms/step")
+        for tag, names in (("K3", K3_KERNELS), ("K4", K4_KERNELS)):
+            for name in names:
+                t = per_step(sum(e.device_time_total for e in kernels
+                                 if name in e.key))
+                print(f"    {tag} {name:18s} {t:9.3f} ms/step")
     for e in kernels[:12]:
         print(f"{per_step(e.device_time_total):10.3f} ms/step "
               f"{e.count:6d}x  {e.key[:90]}")

@@ -101,7 +101,7 @@ def load_library() -> ctypes.CDLL:
                          ctypes.c_int)
     lib.sdn_field_fwd.argtypes = [vp, vp, i64, vp, vp,
                                   ctypes.POINTER(ctypes.c_longlong), f32,
-                                  i32, i32, vp, vp]
+                                  i32, i32, vp, vp, vp]
     lib.sdn_field_fwd.restype = ctypes.c_int
     lib.sdn_field_bwd.argtypes = [vp, vp, vp, i64, vp, vp,
                                   ctypes.POINTER(ctypes.c_longlong), f32,
@@ -110,7 +110,7 @@ def load_library() -> ctypes.CDLL:
     lib.sdn_dyn_field_fwd.argtypes = [vp, vp, i64, vp, vp,
                                       ctypes.POINTER(ctypes.c_longlong), f32,
                                       vp, ctypes.POINTER(ctypes.c_longlong),
-                                      vp, i32, i32, vp, vp]
+                                      vp, i32, i32, vp, vp, vp, vp]
     lib.sdn_dyn_field_fwd.restype = ctypes.c_int
     lib.sdn_dyn_field_bwd.argtypes = (
         [vp, vp, vp, i64, vp, vp, ctypes.POINTER(ctypes.c_longlong), f32, vp,

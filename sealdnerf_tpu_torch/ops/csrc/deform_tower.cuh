@@ -1,9 +1,10 @@
 // The deformation tower of the dynamic field kernels (dyn_field_fwd.cu,
 // dyn_field_bwd.cu) on mma.sync.m16n8k16 tensor-core tiles: the layout
 // description passed by the ctypes entry points, the fragment loads, one
-// layer's product for a warp, and the tower's forward over a tile of 256
-// samples. Both kernels run the forward through this code, so a forward
-// recomputed inside the backward rounds exactly as the forward kernel does:
+// layer's product for a warp, the tower's forward over a tile of 256 samples,
+// and the kernel body that writes the warped positions (warp_tiles). Both entries
+// run the forward through this code, so a forward recomputed inside the
+// backward rounds exactly as the forward kernel does:
 //   ex = [x, sin(2^f x), cos(2^f x)] in f32, rounded to bf16 -> W0 (bf16
 //   operands, f32 sums) + the frame's f32 time bias -> (relu, bf16, W) per
 //   further matrix.
@@ -28,25 +29,13 @@ struct DeformMeta {
   long long off[kMaxDefLayers];  // bf16 element offsets into wdef
 };
 
-// D[16x8] += A[16x16] * B[16x8]; A row-major, B column-major, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // acc[mt][nt][.] = rows (16 * MT of this warp) times the staged matrix
 // wt [8 * NT rows n, k_dim] (stride kLd): acc = rows . wt^T.
-// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A: a0 (g, 2t..2t+1) a1 (g+8, 2t..) a2 (g, 2t+8..) a3 (g+8, 2t+8..)
-//   B: b0 (k 2t..2t+1, n g) b1 (k 2t+8.., n g)
-//   C: c0 (g, 2t) c1 (g, 2t+1) c2 (g+8, 2t) c3 (g+8, 2t+1)
+// (mma_bf16 and its fragment layout are in field_common.cuh.)
 template <int MT, int NT>
 __device__ __forceinline__ void warp_layer(const __nv_bfloat16* rows, const __nv_bfloat16* wt,
                                            int k_dim, float (&acc)[MT][NT][4]) {
@@ -75,11 +64,6 @@ __device__ __forceinline__ void warp_layer(const __nv_bfloat16* rows, const __nv
       for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
     }
   }
-}
-
-__device__ __forceinline__ uint32_t pack_relu_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(fmaxf(lo, 0.f), fmaxf(hi, 0.f));
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Copy a matrix of `rows` rows of k_dim bf16 (k_dim a multiple of 8, dense in
@@ -183,6 +167,68 @@ __device__ __forceinline__ void deform_tower_forward(const DeformMeta& dm,
 inline size_t tower_forward_smem(size_t head) {
   return head + (size_t)(kDefHid + kTowerTile) * kLd * sizeof(__nv_bfloat16) +
          (size_t)(kDefHid + 4 + kTowerTile * 3) * sizeof(float);
+}
+
+// xw [3, m] = x + dx(x, t): the tower's forward over tiles of kTowerTile
+// samples, the body of a kernel of kTowerTile threads and persistent blocks
+// with tower_forward_smem(0) bytes of dynamic shared memory. tcond is the
+// first layer's time bias [kDefHid] and the flag t != 0; at t == 0 the tower
+// is skipped and xw = x. The forward entry (dyn_field_fwd.cu) and the
+// backward's (dyn_field_bwd.cu) each wrap it in a kernel of their own name,
+// so they warp alike and a profile tells them apart.
+__device__ __forceinline__ void warp_tiles(const float* __restrict__ x3, long long m,
+                                           const __nv_bfloat16* __restrict__ wdef,
+                                           const float* __restrict__ tcond,
+                                           const DeformMeta& dm, float* __restrict__ xw) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* wst = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* act = wst + kDefHid * kLd;
+  float* tb = reinterpret_cast<float*>(act + kTowerTile * kLd);
+  float* dxs = tb + kDefHid + 4;
+  const int tid = threadIdx.x;
+  for (int j = tid; j < kDefHid + 1; j += kTowerTile) tb[j] = tcond[j];
+  __syncthreads();
+  const bool moving = tb[kDefHid] != 0.f;
+  for (long long base = (long long)blockIdx.x * kTowerTile; base < m;
+       base += (long long)gridDim.x * kTowerTile) {
+    const long long i = base + tid;
+    const bool live = i < m;
+    float x[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) x[a] = live ? x3[a * m + i] : 0.f;
+    if (moving) deform_tower_forward(dm, wdef, wst, act, tb, dxs, x);  // block-uniform
+    if (live) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        xw[a * m + i] = __fadd_rn(x[a], moving ? dxs[tid * 3 + a] : 0.f);
+    }
+    __syncwarp();  // dx is read before the next tile's tower writes it
+  }
+}
+
+using WarpKernel = void (*)(const float*, long long, const __nv_bfloat16*, const float*,
+                            const DeformMeta, float*);
+
+// Launch `kernel` (a wrapper of warp_tiles) over m samples on `stream`;
+// returns cudaGetLastError().
+inline int launch_warp(WarpKernel kernel, const float* x3, long long m,
+                       const __nv_bfloat16* wdef, const float* tcond, const DeformMeta& dm,
+                       float* xw, cudaStream_t stream) {
+  const size_t smem = tower_forward_smem(0);
+  cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTowerTile, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  long long blocks = (m + kTowerTile - 1) / kTowerTile;
+  if (blocks > (long long)n_sm * per_sm) blocks = (long long)n_sm * per_sm;
+  if (blocks < 1) blocks = 1;
+  kernel<<<(unsigned)blocks, kTowerTile, smem, stream>>>(x3, m, wdef, tcond, dm, xw);
+  return (int)cudaGetLastError();
 }
 
 // dmeta (int64): n_layers, hidden, in_dim, in_pad, n_freq, then one bf16

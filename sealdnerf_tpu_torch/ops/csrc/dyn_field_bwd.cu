@@ -37,7 +37,8 @@
 // activation of its tile (7 x 128 bf16 a sample) beside a staged matrix, so
 // one block cannot hold both. The entry point runs four kernels on the
 // caller's stream, all written here, and counts as one launch:
-//   1. warp_kernel: the tower's forward (deform_tower_forward, tiles of 256
+//   1. warp_kernel (warp_tiles of deform_tower.cuh, which the forward entry
+//      runs too): the tower's forward (deform_tower_forward, tiles of 256
 //      samples) writes xw [3, M] to device memory (3 MB a training step).
 //   2. field_bwd_kernel<true>: the static backward's body at xw; it also
 //      computes g_x per sample and appends the samples that carry a cotangent
@@ -79,30 +80,7 @@ constexpr int kBThreads = 256;  // 8 warps
 __global__ void __launch_bounds__(kTowerTile)
 warp_kernel(const float* __restrict__ x3, long long m, const __nv_bfloat16* __restrict__ wdef,
             const float* __restrict__ tcond, const DeformMeta dm, float* __restrict__ xw) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* wst = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* act = wst + kDefHid * kLd;
-  float* tb = reinterpret_cast<float*>(act + kTowerTile * kLd);
-  float* dxs = tb + kDefHid + 4;
-  const int tid = threadIdx.x;
-  for (int j = tid; j < kDefHid + 1; j += kTowerTile) tb[j] = tcond[j];
-  __syncthreads();
-  const bool moving = tb[kDefHid] != 0.f;
-  for (long long base = (long long)blockIdx.x * kTowerTile; base < m;
-       base += (long long)gridDim.x * kTowerTile) {
-    const long long i = base + tid;
-    const bool live = i < m;
-    float x[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) x[a] = live ? x3[a * m + i] : 0.f;
-    if (moving) deform_tower_forward(dm, wdef, wst, act, tb, dxs, x);  // block-uniform
-    if (live) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-        xw[a * m + i] = __fadd_rn(x[a], moving ? dxs[tid * 3 + a] : 0.f);
-    }
-    __syncwarp();  // dx is read before the next tile's tower writes it
-  }
+  warp_tiles(x3, m, wdef, tcond, dm, xw);
 }
 
 // ---------------------------------------------------------------- phase 3
@@ -371,24 +349,14 @@ extern "C" int sdn_dyn_field_bwd(const float* x3, const float* d3, const float* 
   if (bad) return bad;
   if (m < 1 || m > 0x7fffffffLL || tdim < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_;
-  int dev = 0, n_sm = 0, per_sm = 0;
+  int dev = 0, n_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
 
   // 1. xw = x + dx
-  const size_t smem1 = tower_forward_smem(0);
-  cudaError_t err = cudaFuncSetAttribute(warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem1);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, warp_kernel, kTowerTile, smem1);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-  long long blocks = (m + kTowerTile - 1) / kTowerTile;
-  if (blocks > (long long)n_sm * per_sm) blocks = (long long)n_sm * per_sm;
-  warp_kernel<<<(unsigned)blocks, kTowerTile, smem1, stream>>>(
-      x3, m, (const __nv_bfloat16*)wdef, tcond, dm, xw);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  bad = launch_warp(warp_kernel, x3, m, (const __nv_bfloat16*)wdef, tcond, dm, xw,
+                    stream);
+  if (bad) return bad;
 
   // 2. canonical backward at xw, g_x and the compact list
   const GxOut gxo = {cutoff, count, idx, gx};
@@ -399,10 +367,10 @@ extern "C" int sdn_dyn_field_bwd(const float* x3, const float* d3, const float* 
   // 3. the tower's backward over the list
   const size_t smem3 = tower_bwd_smem(dm.n_layers);
   if (smem3 > kMaxSmem) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(tower_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem3);
+  cudaError_t err = cudaFuncSetAttribute(
+      tower_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
   if (err != cudaSuccess) return (int)err;
-  blocks = (m + kBT - 1) / kBT;
+  long long blocks = (m + kBT - 1) / kBT;
   if (blocks > n_sm) blocks = n_sm;
   tower_bwd_kernel<<<(unsigned)blocks, kBThreads, smem3, stream>>>(
       x3, m, count, idx, gx, (const __nv_bfloat16*)wdef, (const __nv_bfloat16*)wdef_in, tcond,

@@ -1,9 +1,14 @@
 // Shared pieces of the CP/VM field kernels (field_fwd.cu, dyn_field_fwd.cu,
-// field_bwd.cu): the layout description passed by the ctypes entry points,
-// bf16 helpers, the 64-wide tower products over bf16 rows in shared memory,
-// the hat taps, the degree-4 spherical harmonics, and the canonical field at
-// one sample (field_sample), which both forward kernels call. A forward
-// recomputed inside the backward rounds exactly as the forward kernels do.
+// field_bwd.cu, dyn_field_bwd.cu): the layout descriptions passed by the
+// ctypes entry points, bf16 helpers, the hat taps, the degree-4 spherical
+// harmonics and the mma.sync.m16n8k16 wrapper. The forward kernels' body is
+// in field_fwd_body.cuh, the backward kernels' in field_bwd_body.cuh. The
+// backward recomputes the forward one sample a thread on the FP32 pipe
+// (axpy64 / dot64 below): the same rounding points, but each dot summed in
+// sequential order, where the forward sums in the mma's order. The two agree
+// to f32 summation noise, not bit for bit, so a hidden unit within that
+// noise of 0 can pass the relu in one and not in the other; the backward is
+// self-consistent (it takes only the cotangent from the forward).
 
 #pragma once
 
@@ -25,6 +30,7 @@ constexpr int kMaxPlanes = 4;
 
 struct FieldMeta {
   int n_scales, n_planes, freq_degree, feat_dim, w_elems;
+  // the backward kernels' weight buffer (wbuf):
   int w_off[5];  // w0 [feat, 64] | w1t [16, 64] | wc0 [31, 64] | wc1t [64, 64] | wc2 [64, 3]
   int res[kMaxScales], rank[kMaxScales];
   long long line_off[kMaxScales][3];
@@ -126,137 +132,26 @@ __device__ __forceinline__ void sh_basis(const FieldMeta& meta, float dx, float 
   }
 }
 
-// The five tower matrices in shared memory, in the layouts of FieldMeta::w_off.
-struct TowerWeights {
-  const __nv_bfloat16 *w0, *w1t, *wc0, *wc1t, *wc2;
-};
-
-__device__ __forceinline__ TowerWeights tower_weights(const __nv_bfloat16* ws,
-                                                      const FieldMeta& meta) {
-  return {ws + meta.w_off[0], ws + meta.w_off[1], ws + meta.w_off[2], ws + meta.w_off[3],
-          ws + meta.w_off[4]};
+// D[16x8] += A[16x16] * B[16x8]; A row-major, B column-major, f32 accumulate.
+// Fragments (g = lane / 4, t = lane % 4):
+//   A: a0 (g, 2t..2t+1) a1 (g+8, 2t..) a2 (g, 2t+8..) a3 (g+8, 2t+8..)
+//   B: b0 (k 2t..2t+1, n g) b1 (k 2t+8.., n g)
+//   C: c0 (g, 2t) c1 (g, 2t+1) c2 (g+8, 2t) c3 (g+8, 2t+1)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Copy the packed tower weights (w_elems bf16, a multiple of 8) to shared
-// memory with the whole block; the caller synchronises.
-__device__ __forceinline__ void stage_tower_weights(const __nv_bfloat16* wbuf, __nv_bfloat16* ws,
-                                                    const FieldMeta& meta) {
-  const uint4* src = reinterpret_cast<const uint4*>(wbuf);
-  uint4* dst = reinterpret_cast<uint4*>(ws);
-  for (int i = threadIdx.x; i < meta.w_elems / 8; i += blockDim.x) dst[i] = src[i];
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The canonical field at one sample: position xyz (already warped, for the
-// dynamic kernel), direction d3[:, i]; writes rows (sigma, r, g, b) of
-// out [4, m] at column i. The forward kernels of the static and the dynamic
-// field both call this, so they round alike.
-__device__ __forceinline__ void field_sample(const FieldMeta& meta,
-                                             const __nv_bfloat16* __restrict__ tab,
-                                             const TowerWeights& w, const float* xyz,
-                                             const float* __restrict__ d3, long long m,
-                                             long long i, int lod_mask, int density_only,
-                                             float* __restrict__ out) {
-  float x01[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) x01[a] = unit01(xyz[a], meta.bound);
-
-  // ---- sigma tower input layer, accumulated feature by feature ----
-  float h[kHid];
-#pragma unroll
-  for (int j = 0; j < kHid; ++j) h[j] = 0.f;
-  int row = 0;
-  for (int s = 0; s < meta.n_scales; ++s) {
-    const int res = meta.res[s], rank = meta.rank[s];
-    if ((lod_mask >> s) & 1) { row += rank; continue; }
-    const __nv_bfloat16* lo[3];
-    float wl[3], wh[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      int i0;
-      hat(x01[a], res, i0, wl[a], wh[a]);
-      lo[a] = tab + meta.line_off[s][a] + (long long)i0 * rank;
-    }
-    for (int r = 0; r < rank; ++r) {
-      const float fx = wl[0] * ldbf(lo[0] + r) + wh[0] * ldbf(lo[0] + rank + r);
-      const float fy = wl[1] * ldbf(lo[1] + r) + wh[1] * ldbf(lo[1] + rank + r);
-      const float fz = wl[2] * ldbf(lo[2] + r) + wh[2] * ldbf(lo[2] + rank + r);
-      axpy64(bf16r(__fmul_rn(__fmul_rn(fx, fy), fz)), w.w0 + (row + r) * kHid, h);
-    }
-    row += rank;
-  }
-  for (int s = 0; s < meta.n_planes; ++s) {
-    const int P = meta.pres[s], C = meta.pch[s];
-    int ip[3];
-    float pl[3], ph[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) hat(x01[a], P, ip[a], pl[a], ph[a]);
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      // VM pairs (plane axes a, b; line axis e): (0,1,2) (0,2,1) (1,2,0)
-      const int a = p == 2 ? 1 : 0, b = p == 0 ? 1 : 2, e = 2 - p;
-      const __nv_bfloat16* p00 =
-          tab + meta.plane_off[s][p] + ((long long)ip[a] * P + ip[b]) * C;
-      const __nv_bfloat16* p10 = p00 + (long long)P * C;
-      const __nv_bfloat16* l0 = tab + meta.vml_off[s][p] + (long long)ip[e] * C;
-      for (int c = 0; c < C; ++c) {
-        const float q0 = pl[a] * ldbf(p00 + c) + ph[a] * ldbf(p10 + c);
-        const float q1 = pl[a] * ldbf(p00 + C + c) + ph[a] * ldbf(p10 + C + c);
-        const float f = pl[b] * q0 + ph[b] * q1;
-        const float l = pl[e] * ldbf(l0 + c) + ph[e] * ldbf(l0 + C + c);
-        axpy64(bf16r(__fmul_rn(f, l)), w.w0 + (row + c) * kHid, h);
-      }
-      row += C;
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 3; ++a) axpy64(xyz[a], w.w0 + (row + a) * kHid, h);
-  row += 3;
-  for (int fd = 0; fd < meta.freq_degree; ++fd) {
-    const float sc = (float)(1 << fd);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) axpy64(sinf(xyz[a] * sc), w.w0 + (row + a) * kHid, h);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) axpy64(cosf(xyz[a] * sc), w.w0 + (row + 3 + a) * kHid, h);
-    row += 6;
-  }
-#pragma unroll
-  for (int j = 0; j < kHid; ++j) h[j] = bf16r(fmaxf(h[j], 0.f));
-
-  // ---- sigma tower output layer ----
-  float o[kSigOut];
-#pragma unroll
-  for (int j = 0; j < kSigOut; ++j) o[j] = dot64(h, w.w1t + j * kHid);
-  const float sigma = expf(o[0]);
-  out[i] = sigma;
-  if (density_only) {
-    out[m + i] = 0.f;
-    out[2 * m + i] = 0.f;
-    out[3 * m + i] = 0.f;
-    return;
-  }
-
-  // ---- SH(d), degree 4 ----
-  float sh[kShDim];
-  sh_basis(meta, d3[i], d3[m + i], d3[2 * m + i], sh);
-
-  // ---- colour tower ----
-  float hc[kHidC];
-#pragma unroll
-  for (int j = 0; j < kHidC; ++j) hc[j] = 0.f;
-#pragma unroll
-  for (int k = 0; k < kShDim; ++k) axpy64(bf16r(sh[k]), w.wc0 + k * kHidC, hc);
-#pragma unroll
-  for (int g = 0; g < kGeo; ++g) axpy64(bf16r(o[1 + g]), w.wc0 + (kShDim + g) * kHidC, hc);
-#pragma unroll
-  for (int j = 0; j < kHidC; ++j) hc[j] = bf16r(fmaxf(hc[j], 0.f));
-  float rgb[3] = {0.f, 0.f, 0.f};
-  for (int j = 0; j < kHidC; ++j) {
-    const float a = bf16r(fmaxf(dot64(hc, w.wc1t + j * kHidC), 0.f));
-#pragma unroll
-    for (int c = 0; c < 3; ++c) rgb[c] = fmaf(a, ldbf(w.wc2 + j * 3 + c), rgb[c]);
-  }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) out[(c + 1) * m + i] = 1.f / (1.f + expf(-rgb[c]));
+__device__ __forceinline__ uint32_t pack_relu_bf16(float lo, float hi) {
+  return pack_bf16(fmaxf(lo, 0.f), fmaxf(hi, 0.f));
 }
 
 inline double sh_k(int l, int m) {

@@ -14,69 +14,45 @@
 // the four zero rows there only padded the TPU's 8-row sublane tile.
 //
 // What bounds it: the Pallas kernel built [res, T] hat matrices for the TPU's
-// matrix unit. With lerps the table work is ~1.4k two-byte gathers per
-// sample, and about 24k MACs per sample remain, almost all in the towers.
-// So the kernel is bound by the FMA rate. Design: one thread per sample in a
-// grid-stride loop; all five towers' bf16 weights (~48 KB) are staged once
-// per block in dynamic shared memory and read as 16-byte broadcasts; the
-// tables (~1.4 MB in bf16) are read from global memory and stay L2-resident.
-// The ragged tail is masked here; `lod_mask` skips line scales and
-// `density_only` skips SH and the colour tower (the occupancy-grid sweep).
-// Moving the towers onto tensor cores (mma.sync / wgmma over a tile of
-// samples) is later work.
+// matrix unit. With lerps the table work is 1,392 two-byte taps per sample
+// (2.8 KB, out of L1/L2: the tables are 1.4 MB), and 23.9k MACs per sample
+// remain in the towers. On the FP32 pipe those MACs bound the kernel (the
+// first version, one sample a thread: 8.95 ms per 2^20 samples on an NVIDIA
+// H100 80GB HBM3 at 700 W, this one 0.69 ms); as bf16 x bf16 -> f32 products
+// they are what the tensor cores compute, and then the instruction rate of
+// the feature arithmetic bounds it, the gathers hidden behind it (random and
+// ray-coherent samples take the same time). Design (field_tile in
+// field_fwd_body.cuh): a warp owns a tile of 16 samples; the four threads of a
+// quad share two samples and each reads eight neighbouring ranks of every tap
+// row with one 16-byte load, so a quad covers 64 contiguous bytes of a row;
+// the features a thread computes are the A fragments of mma.sync.m16n8k16
+// directly and a layer's sums are the next layer's fragments, so nothing of
+// a sample passes through shared memory; the five matrices (56 KB, padded and
+// in fragment order) are staged once per block and read with 16-byte loads.
+// Blocks of 8 warps are persistent, two per SM, which leaves half of the SM's
+// memory to L1 for the gathers; consecutive warps take consecutive tiles.
+// The ragged tail is masked in the tile; `lod_mask` skips a scale's gathers
+// and k-blocks and `density_only` stops after the sigma tower (one n-tile of
+// its output layer): the occupancy-grid sweep.
 //
 // C interface for ctypes: sdn_field_fwd returns cudaGetLastError() after
-// the launch; 0 means the launch was accepted.
+// the launch; 0 means the launch was accepted. `wfwd` is the forward weight
+// buffer of pack_tables; feat_out is null or a zeroed bf16 [m, 32 n_blocks]
+// buffer that receives the first product's A operand (for tests).
 
-#include "field_common.cuh"
-
-namespace {
+#include "field_fwd_body.cuh"
 
 using namespace sdn;
 
-constexpr int kBlock = 128;
-
-__global__ void __launch_bounds__(kBlock)
-field_fwd_kernel(const float* __restrict__ x3, const float* __restrict__ d3, long long m,
-                 const __nv_bfloat16* __restrict__ tab, const __nv_bfloat16* __restrict__ wbuf,
-                 const FieldMeta meta, int lod_mask, int density_only,
-                 float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  stage_tower_weights(wbuf, ws, meta);
-  __syncthreads();
-  const TowerWeights w = tower_weights(ws, meta);
-
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < m;
-       i += (long long)gridDim.x * blockDim.x) {
-    float xyz[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) xyz[a] = x3[a * m + i];
-    field_sample(meta, tab, w, xyz, d3, m, i, lod_mask, density_only, out);
-  }
-}
-
-}  // namespace
-
 extern "C" int sdn_field_fwd(const float* x3, const float* d3, long long m, const void* tab,
-                             const void* wbuf, const long long* meta, float bound, int lod_mask,
-                             int density_only, float* out, void* stream) {
+                             const void* wfwd, const long long* meta, float bound, int lod_mask,
+                             int density_only, float* out, void* feat_out, void* stream) {
   FieldMeta fm;
-  const int bad = fill_meta(meta, bound, &fm);
+  TileMeta tm;
+  int bad = fill_meta(meta, bound, &fm);
+  if (!bad) bad = fill_tile_meta(meta, fm, &tm);
   if (bad) return bad;
-  const size_t smem = (size_t)fm.w_elems * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(field_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, n_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  long long blocks = (m + kBlock - 1) / kBlock;
-  const long long cap = (long long)n_sm * 4;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  field_fwd_kernel<<<(unsigned)blocks, kBlock, smem, (cudaStream_t)stream>>>(
-      x3, d3, m, (const __nv_bfloat16*)tab, (const __nv_bfloat16*)wbuf, fm, lod_mask,
-      density_only, out);
-  return (int)cudaGetLastError();
+  return launch_field_fwd(x3, d3, m, (const __nv_bfloat16*)tab, (const __nv_bfloat16*)wfwd, fm,
+                          tm, lod_mask, density_only, out, (__nv_bfloat16*)feat_out,
+                          (cudaStream_t)stream);
 }

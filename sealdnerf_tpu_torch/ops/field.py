@@ -21,7 +21,9 @@ PyTorch versions, and the autograd ops that join K1 with K2 and K3 with K4.
     no gradient)
 
 `params` is either a params dict or the `FieldTables` that `pack_tables`
-builds from one: the bf16 tables and tower weights in the kernel's layouts.
+builds from one: the bf16 tables and tower weights in the kernels' layouts
+(the forward kernels compute 16 samples a warp on the tensor cores and take
+the matrices padded and in mma fragment order: TileLayout).
 Packing costs a pass over ~1.5 MB of parameters, so callers that evaluate
 the field repeatedly pack once per parameter version (CPField.kernel_tables).
 
@@ -47,12 +49,14 @@ summing in f32 (the Pallas kernel rounds it once per tile of its grid).
 """
 
 import ctypes
+import functools
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from ..models.cp import (VM_PAIRS, CPConfig, CPDNeRFConfig, cp_color,
-                         cp_density, param_leaves)
+                         cp_density, cp_features, param_leaves)
 from .freq_encode import freq_encode
 from .hat import bf16_round, hat_slopes, hat_taps
 from .sh_encode import sh_encode
@@ -70,10 +74,15 @@ class FieldTables:
 
     plain: params-like dict of bf16 tensors in the reference layouts.
     tab:   flat bf16 buffer of all line, plane and VM-line tables.
-    wbuf:  flat bf16 buffer of the five tower matrices, in kernel layouts
-           w0 [feat, 64] | w1^T [16, 64] | wc0 [31, 64] | wc1^T [64, 64] |
-           wc2 [64, 3], padded to a multiple of 8 elements.
-    meta:  int64 layout description read by the kernel's C entry point.
+    wbuf:  flat bf16 buffer of the five tower matrices, in the backward
+           kernels' layouts w0 [feat, 64] | w1^T [16, 64] | wc0 [31, 64] |
+           wc1^T [64, 64] | wc2 [64, 3], padded to a multiple of 8 elements.
+    wfwd:  flat bf16 buffer of the same matrices for the forward kernels:
+           padded, the first one's rows in the order of the kernels' feature
+           segments, each in mma fragment order (see TileLayout). Empty when
+           the config is not one the forward kernels take.
+    meta:  int64 layout description read by the kernels' C entry points:
+           the tables and wbuf, then the forward kernels' tile layout.
     Of a time-conditioned field also (plain then has "deform_mlp" too):
     w0_time: f32 [time inputs, hidden], the first deform matrix's time rows.
     wdef:  flat bf16 buffer of the deform matrices, output-major (W^T):
@@ -89,10 +98,181 @@ class FieldTables:
     tab: torch.Tensor
     wbuf: torch.Tensor
     meta: list
+    wfwd: torch.Tensor = None
     w0_time: torch.Tensor = None
     wdef: torch.Tensor = None
     wdef_in: torch.Tensor = None
     dmeta: list = field(default_factory=list)
+
+
+# segment kinds of the forward kernels' tile layout (csrc/field_fwd_body.cuh)
+SEG_ZERO, SEG_LINE, SEG_PLANE, SEG_FREQ = 0, 1, 2, 3
+_MAX_BLOCKS = 16
+
+
+def _frag_index(idx):
+    """idx [K, N] (K, N multiples of 16) -> flat [K * N] in the B-fragment
+    order of mma.sync.m16n8k16: [k-step][pair of n-tiles][lane][8], the eight
+    being rows k0 + 2t, 2t+1, 2t+8, 2t+9 of column n0 + g, then of column
+    n0 + 8 + g (g = lane // 4, t = lane % 4, k0 = 16 k-step, n0 = 16 pair)."""
+    k, n = idx.shape
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    rows = (16 * np.arange(k // 16))[:, None, None, None] \
+        + (2 * t)[None, None, :, None] \
+        + np.array([0, 1, 8, 9, 0, 1, 8, 9])[None, None, None, :]
+    cols = (16 * np.arange(n // 16))[None, :, None, None] \
+        + g[None, None, :, None] \
+        + np.array([0, 0, 0, 0, 8, 8, 8, 8])[None, None, None, :]
+    return idx[rows, cols].reshape(-1)
+
+
+@dataclass(frozen=True, eq=False)
+class TileLayout:
+    """How the forward kernels see the field's features and matrices.
+
+    A warp computes 16 samples; of the first sigma product's columns a thread
+    holds eight at a time, a *segment*: eight neighbouring ranks of one line
+    scale (three tables), eight channels of one VM pair (plane and line), or
+    four values of the frequency encoding as (hi, lo) bf16 pairs. Four
+    segments make a k-block of 32 columns; a block holds one kind, padded
+    with zero segments.
+
+    segs:  per segment (kind, sub, scale or plane index, first rank or
+           channel): sub is the line scale, the VM pair, or the frequency
+           segment (0: xyz; q > 0: the (sin, cos) pairs 2q-2 and 2q-1, pair u
+           being degree u // 3 of axis u % 3).
+    rows:  int64 [32 * n_blocks]: the row of the first sigma matrix that
+           column 8 * segment + e multiplies, -1 for padding. A frequency
+           value's hi and lo columns name the same row.
+    index: int64 [w_elems]: wfwd = wbuf-and-eight-zeros[index]; the matrices
+           w0 [32 n_blocks, 64] | w1 [64, 16] | wc0 [32, 64] | wc1 [64, 64] |
+           wc2 [64, 16], input-major, zero-padded, each in fragment order
+           (_frag_index). Column 32 b + 8 t + e of the layout sits at row
+           32 b + 16 (e // 4) + 2 t + e % 2 + 8 (e // 2 % 2) of w0, where
+           the mma's A fragment of thread t holds it. wc0's rows: SH
+           component 4 t + c at row 2 t + c % 2 + 8 (c // 2), then a zero
+           row for the density logit and the 15 geo rows.
+    w_off: element offsets of the five matrices in wfwd.
+    """
+    segs: tuple
+    rows: np.ndarray
+    index: np.ndarray
+    w_off: tuple
+
+    @property
+    def n_blocks(self):
+        return len(self.segs) // 4
+
+    def meta(self, scale_meta, plane_meta):
+        """The tail of FieldTables.meta: n_blocks, w_elems, w_off[5], the
+        kind of each block, then per segment kind, sub, res, stride and the
+        element offsets of the rows it reads in `tab`."""
+        out = [self.n_blocks, int(self.index.size)] + list(self.w_off)
+        # a block's kind: that of its segments that are not padding (0)
+        out += [max(sg[0] for sg in self.segs[4 * b:4 * b + 4])
+                for b in range(self.n_blocks)]
+        for kind, sub, s, first in self.segs:
+            if kind == SEG_LINE:
+                res, rank, *offs = scale_meta[5 * s:5 * s + 5]
+                out += [kind, sub, res, rank] + [o + first for o in offs]
+            elif kind == SEG_PLANE:
+                pres, ch = plane_meta[8 * s:8 * s + 2]
+                out += [kind, sub, pres, ch,
+                        plane_meta[8 * s + 2 + sub] + first,
+                        plane_meta[8 * s + 5 + sub] + first, 0]
+            else:
+                out += [kind, sub, 0, 0, 0, 0, 0]
+        return out
+
+
+@functools.lru_cache(maxsize=16)
+def tile_layout(cfg: CPConfig):
+    """TileLayout of `cfg`, or None for a config the forward kernels do not
+    take: other towers than _KERNEL_TOWERS, a rank or a channel count that
+    is not a multiple of 8 (a segment is eight columns, read with one
+    16-byte load), or more than 16 k-blocks."""
+    if any(getattr(cfg, k) != v for k, v in _KERNEL_TOWERS.items()):
+        return None
+    if any(r % 8 for _, r in cfg.scales) or any(c % 8 for _, c in cfg.planes):
+        return None
+    segs, rows = [], []
+
+    def pad_block():
+        while len(segs) % 4:
+            segs.append((SEG_ZERO, 0, 0, 0))
+            rows.extend([-1] * 8)
+
+    row = 0
+    for s, (_, rank) in enumerate(cfg.scales):
+        for r0 in range(0, rank, 8):
+            segs.append((SEG_LINE, s, s, r0))
+            rows.extend(range(row + r0, row + r0 + 8))
+        row += rank
+    pad_block()
+    for s, (_, ch) in enumerate(cfg.planes):
+        for p in range(3):
+            for c0 in range(0, ch, 8):
+                segs.append((SEG_PLANE, p, s, c0))
+                rows.extend(range(row + c0, row + c0 + 8))
+            row += ch
+    pad_block()
+    # frequency rows of w0: x y z, then per degree 3 sin rows and 3 cos rows
+    segs.append((SEG_FREQ, 0, 0, 0))
+    rows.extend([row, row, row + 1, row + 1, row + 2, row + 2, -1, -1])
+    pairs = 3 * cfg.freq_degree
+    for q in range(1, 1 + (pairs + 1) // 2):
+        segs.append((SEG_FREQ, q, 0, 0))
+        for u in (2 * q - 2, 2 * q - 1):
+            if u < pairs:
+                sin = row + 3 + 6 * (u // 3) + u % 3
+                rows.extend([sin, sin, sin + 3, sin + 3])
+            else:
+                rows.extend([-1] * 4)
+    pad_block()
+    n_blocks = len(segs) // 4
+    if n_blocks > _MAX_BLOCKS:
+        return None
+    rows = np.asarray(rows, dtype=np.int64)
+
+    # element indices into wbuf (see pack_tables); `zero`: the pad behind it
+    hid, sig_out, c_in = 64, 16, 31
+    sizes = [cfg.feat_dim * hid, sig_out * hid, c_in * hid, hid * hid,
+             hid * 3]
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    zero = int(off[5] + (-off[5]) % 8)
+    n64 = np.arange(hid)[None, :]
+    # w0: layout column -> the A fragment's column of its k-block
+    col = np.arange(32 * n_blocks)
+    b, t, e = col // 32, col % 32 // 8, col % 8
+    kpos = 32 * b + 16 * (e // 4) + 2 * t + e % 2 + 8 * (e // 2 % 2)
+    i0 = np.full((32 * n_blocks, hid), zero, dtype=np.int64)
+    i0[kpos] = np.where(rows[:, None] >= 0, off[0] + rows[:, None] * hid + n64,
+                        zero)
+    # w1 [64, 16] from w1^T [16, 64]
+    i1 = off[1] + np.arange(sig_out)[None, :] * hid + np.arange(hid)[:, None]
+    # wc0 [32, 64]: SH rows in the threads' order, a zero row, the geo rows
+    ic0 = np.full((32, hid), zero, dtype=np.int64)
+    for tq in range(4):
+        for c in range(4):
+            ic0[2 * tq + c % 2 + 8 * (c // 2)] = off[2] + (4 * tq + c) * hid \
+                + n64[0]
+    ic0[17:32] = off[2] + (16 + np.arange(15))[:, None] * hid + n64
+    # wc1 [64, 64] from wc1^T
+    ic1 = off[3] + n64 * hid + np.arange(hid)[:, None]
+    # wc2 [64, 16] from [64, 3]
+    ic2 = np.full((hid, 16), zero, dtype=np.int64)
+    ic2[:, :3] = off[4] + np.arange(hid)[:, None] * 3 + np.arange(3)[None, :]
+    mats = [_frag_index(i) for i in (i0, i1, ic0, ic1, ic2)]
+    w_off = np.concatenate([[0], np.cumsum([m.size for m in mats])])[:5]
+    return TileLayout(segs=tuple(segs), rows=rows,
+                      index=np.concatenate(mats),
+                      w_off=tuple(int(o) for o in w_off))
+
+
+@functools.lru_cache(maxsize=16)
+def _device_index(layout: TileLayout, device: str):
+    return torch.from_numpy(layout.index).to(device)
 
 
 @torch.no_grad()
@@ -137,13 +317,21 @@ def pack_tables(params, cfg: CPConfig) -> FieldTables:
         parts.append(mat.contiguous().reshape(-1))
         n += mat.numel()
     pad = (-n) % 8
-    if pad:
-        parts.append(tab.new_zeros(pad))
-    wbuf = torch.cat(parts) if parts else tab.new_zeros(0)
+    # eight more zeros behind wbuf: the padding that wfwd gathers
+    flat = torch.cat(parts + [tab.new_zeros(pad + 8)])
+    wbuf = flat[:n + pad]
     w_off += [0] * (5 - len(w_off))
     meta = [len(cfg.scales), len(cfg.planes), cfg.freq_degree, cfg.feat_dim,
             n + pad] + w_off + scale_meta + plane_meta
-    tables = FieldTables(plain=plain, tab=tab, wbuf=wbuf, meta=meta)
+    layout = tile_layout(cfg)
+    if layout is None:
+        wfwd = tab.new_zeros(0)
+        meta += [0] * 7
+    else:
+        wfwd = flat[_device_index(layout, str(tab.device))]
+        meta += layout.meta(scale_meta, plane_meta)
+    tables = FieldTables(plain=plain, tab=tab, wbuf=wbuf, meta=meta,
+                         wfwd=wfwd)
     if isinstance(cfg, CPDNeRFConfig):
         _pack_deform(tables, params, cfg)
     return tables
@@ -202,6 +390,47 @@ def _check_kernel_cfg(cfg: CPConfig):
     if len(cfg.scales) > 8 or len(cfg.planes) > 4:
         raise NotImplementedError("the field kernel takes at most 8 line "
                                   "scales and 4 plane scales")
+    bad = [r for _, r in cfg.scales if r % 8] \
+        + [c for _, c in cfg.planes if c % 8]
+    if bad:
+        raise NotImplementedError(
+            "the field kernel reads eight ranks or channels of a table row "
+            f"with one 16-byte load: got {bad}, not multiples of 8")
+    if tile_layout(cfg) is None:
+        raise NotImplementedError(
+            f"the field kernel takes at most {32 * _MAX_BLOCKS} padded "
+            "feature columns")
+
+
+def _check_packed(tables: FieldTables, device, deform=()):
+    """Raise unless the packed buffers are bf16 on `device` and every table
+    row that the forward kernels read starts 16-byte aligned."""
+    for name, t in (("tables", tables.tab), ("weights", tables.wfwd)) \
+            + tuple(deform):
+        if t.device != device or t.dtype != torch.bfloat16:
+            raise ValueError(f"packed {name} must be bf16 on {device}, "
+                             f"got {t.dtype} on {t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"packed {name} must be 16-byte aligned")
+    for off in table_row_offsets(tables.meta):
+        if off % 8:
+            raise ValueError(f"a table starts at element {off} of the "
+                             "packed buffer, not a multiple of 8")
+
+
+def table_row_offsets(meta):
+    """The element offsets in `tab` of every table that FieldTables.meta
+    lists (three per line scale, six per plane scale). With ranks and
+    channel counts that are multiples of 8, every row of a table starts
+    16-byte aligned when these are multiples of 8 too."""
+    out, q = [], 10
+    for _ in range(meta[0]):
+        out += meta[q + 2:q + 5]
+        q += 5
+    for _ in range(meta[1]):
+        out += meta[q + 2:q + 8]
+        q += 8
+    return out
 
 
 def _check_samples(x3, d3, density_only):
@@ -224,13 +453,10 @@ def _check_samples(x3, d3, density_only):
 
 
 def _launch(tables: FieldTables, cfg: CPConfig, x3, d3, lod_skip,
-            density_only):
+            density_only, feats=None):
     from .build import load_library
     _check_kernel_cfg(cfg)
-    for name, t in (("tables", tables.tab), ("weights", tables.wbuf)):
-        if t.device != x3.device or t.dtype != torch.bfloat16:
-            raise ValueError(f"packed {name} must be bf16 on {x3.device}, "
-                             f"got {t.dtype} on {t.device}")
+    _check_packed(tables, x3.device)
     m = x3.shape[1]
     out = torch.empty((4, m), dtype=torch.float32, device=x3.device)
     if m == 0:
@@ -243,17 +469,48 @@ def _launch(tables: FieldTables, cfg: CPConfig, x3, d3, lod_skip,
     stream = torch.cuda.current_stream(x3.device).cuda_stream
     rc = lib.sdn_field_fwd(
         x3.data_ptr(), (x3 if d3 is None else d3).data_ptr(), m,
-        tables.tab.data_ptr(), tables.wbuf.data_ptr(), meta,
+        tables.tab.data_ptr(), tables.wfwd.data_ptr(), meta,
         float(cfg.bound), mask, int(bool(density_only)), out.data_ptr(),
-        stream)
+        None if feats is None else feats.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"field kernel launch failed: CUDA error {rc}")
     field_forward.launches += 1
     return out
 
 
+def _feature_buffer(cfg: CPConfig, x3, parts):
+    """The zeroed buffer that a forward kernel fills with the first sigma
+    product's A operand, bf16 [M, 32 * n_blocks] in segment order (see
+    TileLayout), or None when the caller asked for no parts."""
+    if parts is None:
+        return None
+    _check_kernel_cfg(cfg)
+    parts["features"] = torch.zeros(
+        (x3.shape[1], 32 * tile_layout(cfg).n_blocks), dtype=torch.bfloat16,
+        device=x3.device)
+    return parts["features"]
+
+
+def tile_features_plain(tables: FieldTables, cfg: CPConfig, x):
+    """What `parts["features"]` of the forward kernels holds, by the plain
+    version: (grid, freq), grid [S, grid_feat_dim] the bf16-rounded line and
+    plane features at positions x [S, 3] and freq [S, 3 + 6 * freq_degree]
+    the f32 frequency encoding, both in the first sigma matrix's row order,
+    and cols, an int64 [feat_dim, 2] tensor: the buffer's column(s) that
+    hold each row (a grid row one column, twice; a frequency row its hi and
+    its lo column)."""
+    feat = cp_features(tables.plain, cfg, x)
+    g = cfg.grid_feat_dim
+    rows = tile_layout(cfg).rows
+    cols = np.zeros((cfg.feat_dim, 2), dtype=np.int64)
+    for r in range(cfg.feat_dim):
+        at = np.nonzero(rows == r)[0]
+        cols[r] = at[0], at[-1]
+    return bf16_round(feat[:, :g]), feat[:, g:], torch.from_numpy(cols)
+
+
 def field_forward(params, cfg: CPConfig, x3, d3, lod_skip=(),
-                  density_only=False):
+                  density_only=False, parts=None):
     """Field forward on planar samples.
 
     Args:
@@ -262,6 +519,9 @@ def field_forward(params, cfg: CPConfig, x3, d3, lod_skip=(),
         device. d3 may be None when density_only.
       lod_skip: line-scale indices whose features are treated as zero.
       density_only: compute sigma only; rows 1-3 of the output are zero.
+      parts: an optional dict that receives "features", the kernel's input
+        to the first sigma product (CUDA only; see _feature_buffer), for
+        holding it against tile_features_plain.
 
     Returns out [4, M] f32, rows (sigma, r, g, b).
     """
@@ -269,11 +529,15 @@ def field_forward(params, cfg: CPConfig, x3, d3, lod_skip=(),
         else pack_tables(params, cfg)
     _check_samples(x3, d3, density_only)
     if x3.device.type == "cpu":
+        if parts is not None:
+            raise ValueError("parts holds the kernel's features: on the CPU "
+                             "call tile_features_plain instead")
         return field_forward_plain(tables, cfg, x3, d3, lod_skip,
                                    density_only)
     if x3.device.type != "cuda":
         raise ValueError(f"unsupported device {x3.device}")
-    return _launch(tables, cfg, x3, d3, lod_skip, density_only)
+    return _launch(tables, cfg, x3, d3, lod_skip, density_only,
+                   _feature_buffer(cfg, x3, parts))
 
 
 field_forward.launches = 0
@@ -327,7 +591,7 @@ def dyn_field_forward_plain(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3,
 
 
 def _launch_dyn(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t, lod_skip,
-                density_only):
+                density_only, feats=None):
     from .build import load_library
     _check_kernel_cfg(cfg)
     if not tables.dmeta:
@@ -337,16 +601,13 @@ def _launch_dyn(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t, lod_skip,
             f"most {_DEFORM_HID} spatial inputs, got hidden "
             f"{cfg.hidden_dim_deform}, {cfg.num_layers_deform} layers, "
             f"{cfg.deform_space_dim} inputs")
-    for name, buf in (("tables", tables.tab), ("weights", tables.wbuf),
-                      ("deform weights", tables.wdef)):
-        if buf.device != x3.device or buf.dtype != torch.bfloat16:
-            raise ValueError(f"packed {name} must be bf16 on {x3.device}, "
-                             f"got {buf.dtype} on {buf.device}")
+    _check_packed(tables, x3.device, (("deform weights", tables.wdef),))
     m = x3.shape[1]
     out = torch.empty((4, m), dtype=torch.float32, device=x3.device)
     if m == 0:
         return out
     tcond = torch.cat(_time_cond(tables, cfg, t, x3.device)).contiguous()
+    xw = torch.empty_like(x3)       # scratch: the warped positions
     lib = load_library()
     meta = (ctypes.c_longlong * len(tables.meta))(*tables.meta)
     dmeta = (ctypes.c_longlong * len(tables.dmeta))(*tables.dmeta)
@@ -356,9 +617,10 @@ def _launch_dyn(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t, lod_skip,
     stream = torch.cuda.current_stream(x3.device).cuda_stream
     rc = lib.sdn_dyn_field_fwd(
         x3.data_ptr(), (x3 if d3 is None else d3).data_ptr(), m,
-        tables.tab.data_ptr(), tables.wbuf.data_ptr(), meta,
+        tables.tab.data_ptr(), tables.wfwd.data_ptr(), meta,
         float(cfg.bound), tables.wdef.data_ptr(), dmeta, tcond.data_ptr(),
-        mask, int(bool(density_only)), out.data_ptr(), stream)
+        mask, int(bool(density_only)), xw.data_ptr(), out.data_ptr(),
+        None if feats is None else feats.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
             f"dynamic field kernel launch failed: CUDA error {rc}")
@@ -367,7 +629,7 @@ def _launch_dyn(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t, lod_skip,
 
 
 def dyn_field_forward(params, cfg: CPDNeRFConfig, x3, d3, t, lod_skip=(),
-                      density_only=False):
+                      density_only=False, parts=None):
     """Time-conditioned field forward on planar samples (render path, no
     gradient).
 
@@ -378,7 +640,8 @@ def dyn_field_forward(params, cfg: CPDNeRFConfig, x3, d3, t, lod_skip=(),
         device. d3 may be None when density_only.
       t: the frame's time, a float or a tensor holding one value; a tensor
         on x3's device is read there, without a host round trip.
-      lod_skip, density_only: as field_forward.
+      lod_skip, density_only, parts: as field_forward; the features are
+        those at the warped positions.
 
     Returns out [4, M] f32, rows (sigma, r, g, b).
     """
@@ -390,11 +653,15 @@ def dyn_field_forward(params, cfg: CPDNeRFConfig, x3, d3, t, lod_skip=(),
         raise ValueError("the tables hold no deform tower")
     _check_samples(x3, d3, density_only)
     if x3.device.type == "cpu":
+        if parts is not None:
+            raise ValueError("parts holds the kernel's features: on the CPU "
+                             "call tile_features_plain instead")
         return dyn_field_forward_plain(tables, cfg, x3, d3, t, lod_skip,
                                        density_only)
     if x3.device.type != "cuda":
         raise ValueError(f"unsupported device {x3.device}")
-    return _launch_dyn(tables, cfg, x3, d3, t, lod_skip, density_only)
+    return _launch_dyn(tables, cfg, x3, d3, t, lod_skip, density_only,
+                       _feature_buffer(cfg, x3, parts))
 
 
 dyn_field_forward.launches = 0

@@ -25,7 +25,8 @@ from sealdnerf_tpu_torch.ops.field import (dyn_canonical_backward_plain,
                                            field_backward,
                                            field_backward_plain,
                                            field_forward, field_forward_plain,
-                                           field_train_forward, pack_tables)
+                                           field_train_forward, pack_tables,
+                                           tile_features_plain)
 from sealdnerf_tpu_torch.render.dynamic_grid import (DynGridConfig,
                                                      init_dyn_grid_state,
                                                      rebuild_dyn_density_grid)
@@ -110,6 +111,100 @@ def test_grid_sweep_on_card(card):
     assert (got["occ"] == ref["occ"]).float().mean().item() >= 0.999
 
 
+# feat_dim 83, not a multiple of 16; one k-block of the forward kernels'
+# layout mixes the two line scales
+NARROW = dict(scales=((16, 8), (64, 24)), planes=((16, 8),))
+
+
+def _unit_samples(card, m, seed):
+    rng = np.random.default_rng(seed)
+    x3 = rng.uniform(-1, 1, (3, m)).astype(np.float32)
+    d3 = rng.normal(size=(3, m)).astype(np.float32)
+    d3 /= np.linalg.norm(d3, axis=0, keepdims=True)
+    return torch.from_numpy(x3).to(card), torch.from_numpy(d3).to(card)
+
+
+@pytest.mark.parametrize("kw", [{}, {"density_only": True},
+                                {"lod_skip": (1,)}])
+@pytest.mark.parametrize("m", [1, 255, 257])
+def test_field_kernel_narrow_config_and_ragged_counts(card, m, kw):
+    """K1 at a config whose feat_dim is not a multiple of 16, on sample
+    counts around its 16-sample tiles and 256-thread blocks."""
+    cfg = CPConfig(**NARROW)
+    tables = pack_tables(init_cp(torch.Generator().manual_seed(1), cfg, card),
+                         cfg)
+    x3, d3 = _unit_samples(card, m, 10 + m)
+    out = field_forward(tables, cfg, x3, d3, **kw).cpu()
+    ref = field_forward_plain(tables, cfg, x3, d3, **kw).cpu()
+    np.testing.assert_allclose(out[0], ref[0], **SIGMA_TOL)
+    np.testing.assert_allclose(out[1:], ref[1:], **RGB_TOL)
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+def test_field_kernel_features_are_the_plain_ones(card, narrow):
+    """Stage A of the forward kernels: the line and plane features that
+    enter the first sigma product equal the plain version's bf16 features
+    bit for bit, the frequency rows enter as hi + lo pairs that carry the
+    f32 value to 2^-15 of it, padding columns are zero, and a skipped scale's
+    columns stay zero."""
+    cfg = CPConfig(**NARROW) if narrow else CPConfig()
+    tables = pack_tables(init_cp(torch.Generator().manual_seed(2), cfg, card),
+                         cfg)
+    x3, d3 = _unit_samples(card, 4096 + 37, 11)
+    x3[:, :3] = torch.tensor([[-1.0, 1.0, 0.0]] * 3, device=card)  # corners
+    parts = {}
+    field_forward(tables, cfg, x3, d3, parts=parts)
+    feats = parts["features"].float()
+    grid, freq, cols = tile_features_plain(tables, cfg, x3.t())
+    g = cfg.grid_feat_dim
+    assert torch.equal(feats[:, cols[:g, 0]], grid)
+    hi, lo = feats[:, cols[g:, 0]], feats[:, cols[g:, 1]]
+    # sin and cos may differ from torch's by an ulp of f32, which moves a
+    # rare hi to the neighbouring bf16
+    assert (hi != freq.to(torch.bfloat16).float()).float().mean() <= 1e-3
+    assert ((hi + lo - freq).abs() <= 2.0 ** -15 * freq.abs() + 1e-6).all()
+    used = torch.zeros(feats.shape[1], dtype=torch.bool)
+    used[cols.reshape(-1)] = True
+    assert not feats[:, ~used.to(card)].any()
+    parts = {}
+    field_forward(tables, cfg, x3, None, lod_skip=(1,), density_only=True,
+                  parts=parts)
+    r0 = cfg.scales[0][1]
+    skipped = cols[r0:r0 + cfg.scales[1][1], 0]
+    assert not parts["features"][:, skipped].any()
+    assert torch.equal(parts["features"][:, cols[:r0, 0]].float(),
+                       grid[:, :r0])
+
+
+@pytest.mark.parametrize("kw", [{}, {"density_only": True},
+                                {"lod_skip": (0,)}, {"lod_skip": (0, 1)}])
+def test_dyn_field_kernel_at_t0_is_the_static_kernel(card, kw):
+    """K3 at t = 0 equals K1 bit for bit at the narrow config too, on a count
+    ragged against both kernels' tiles, and under density_only and
+    lod_skip (a whole k-block skipped, and part of one)."""
+    cfg = CPDNeRFConfig(**NARROW)
+    params = init_cp_dnerf(torch.Generator().manual_seed(3), cfg, card)
+    params["deform_mlp"]["w"][-1] *= 1e3
+    tables = pack_tables(params, cfg)
+    x3, d3 = _unit_samples(card, 3 * 256 + 19, 12)
+    k3 = dyn_field_forward(tables, cfg, x3, d3, 0.0, **kw)
+    assert torch.equal(k3, field_forward(tables, cfg, x3, d3, **kw))
+    moved = dyn_field_forward(tables, cfg, x3, d3, 0.6, **kw)
+    ref = dyn_field_forward_plain(tables, cfg, x3, d3, 0.6, **kw)
+    assert not torch.equal(moved[0], k3[0])
+    np.testing.assert_allclose(moved[0].cpu(), ref[0].cpu(), **SIGMA_TOL)
+    np.testing.assert_allclose(moved[1:].cpu(), ref[1:].cpu(), **RGB_TOL)
+
+
+def test_field_kernel_refuses_a_rank_that_is_no_multiple_of_8(card):
+    cfg = CPConfig(scales=((16, 8), (64, 20)), planes=())
+    tables = pack_tables(init_cp(torch.Generator().manual_seed(0), cfg, card),
+                         cfg)
+    x3, d3 = _unit_samples(card, 64, 13)
+    with pytest.raises(NotImplementedError, match="multiples of 8"):
+        field_forward(tables, cfg, x3, d3)
+
+
 def _samples(card, m, seed):
     rng = np.random.default_rng(seed)
     x3 = rng.uniform(-1, 1, (3, m)).astype(np.float32)
@@ -178,6 +273,8 @@ def test_kernel_tables_follow_inplace_updates_on_card(card):
     t1 = field.kernel_tables(params)
     assert t1 is not t0
     assert torch.equal(t1.tab, pack_tables(params, cfg).tab)
+    assert torch.equal(t1.wfwd, pack_tables(params, cfg).wfwd)
+    assert not torch.equal(t1.wfwd, t0.wfwd)
     assert torch.equal(field_forward(t1, cfg, x3, d3),
                        field_forward(pack_tables(params, cfg), cfg, x3, d3))
 
