@@ -17,8 +17,19 @@ Phases (any failure raises and exits non-zero):
      of a served frame).
   3b. backward kernel vs plain: the field backward kernel (K2) against its
      plain version at the full default CPConfig on 4096 * 64 + 37 samples
-     (one train step's worth plus a ragged tail), per param leaf within
-     1e-2 * max |plain|, with timings.
+     (one train step's worth plus a ragged tail). K2 recomputes the forward
+     with the forward kernel's own arithmetic: what it recomputed must equal
+     K1's output bit for bit at every sample. Its relu masks are therefore
+     the forward kernel's, whose sums run in the mma's order, and a few in
+     ten thousand samples hold a pre-activation that the plain version's
+     sums put on the other side of 0; such a sample's whole share of a
+     gradient differs. Every param leaf of the whole call is held within
+     5e-2 * max |plain|, and within 1e-2 on the samples that the plain
+     version alone calls stable (fragile_samples_plain: no pre-activation
+     within its summation noise of 0; the others' cotangents set to 0 for
+     both). Timings on random samples and on the same count of ray-coherent
+     ones; a narrow config with ranks and channels that are no multiples of
+     8, through K1 and K2.
   3c. dynamic kernel vs plain: the dynamic field kernel (K3: deform tower,
      then the canonical field at the warped point) against its plain version
      at the full default CPDNeRFConfig on 2^20 + 37 samples, at t = 0, 0.37
@@ -35,7 +46,9 @@ Phases (any failure raises and exits non-zero):
      which 30 % of the columns are all zero, at t = 0.37 and t = 0. With the
      merely undamped tower (warp 6e-4): per param leaf within 1e-2 * max
      |plain| (the first deform matrix's 13 time rows are under the same
-     limit: both round the sum over all samples once). With the re-gained
+     limit: both round the sum over all samples once) on the samples that
+     are stable at the kernel's warped positions (see 3b), and within 5e-2
+     on all. With the re-gained
      tower (warp 0.1) the tower's bf16 noise moves a few positions by up to
      half a cell of the finest tables, so end to end it is held to 0.35
      (the reference's envelope for its dynamic kernels against its XLA
@@ -126,6 +139,11 @@ TOL = {"sigma": (2e-2, 1e-4), "rgb": (2e-2, 1e-3)}
 # order of the f32 sums, and 1-ulp differences in exp, sigmoid, sin and cos
 # can flip single bf16 roundings
 GRAD_TOL = 1e-2
+# K2 and K4's canonical stage vs plain over ALL samples, those included whose
+# relu masks the mma's summation order flips (see phase 3b): one such sample
+# moves an entry of a fine table by its whole share (measured 2.1e-2 to 3.2e-2
+# on 262,181 random samples and cotangents; on the stable ones 1.9e-3)
+WHOLE_CALL_TOL = 5e-2
 # K4 against its plain version end to end with a tower that warps by 0.1:
 # the reference's own envelope for its dynamic kernels against its XLA model
 # (see phase_dyn_backward_vs_plain)
@@ -206,8 +224,7 @@ def _bound(cfg, m, **kw):
     nbytes, tensor, fp32 = _field_work(cfg, m, **kw)
     t_bytes = nbytes / PEAK["bytes"] * 1e3
     t_ops = (tensor / PEAK["tensor_flops"] + fp32 / PEAK["fp32_flops"]) * 1e3
-    # beside it: every operation on the FP32 pipe, where K2 and K4's
-    # canonical half run (and K1 and K3's did before their redesign)
+    # beside it, for scale: the same operations all on the FP32 pipe
     t_fp32 = (tensor + fp32) / PEAK["fp32_flops"] * 1e3
     print(f"bound ({kw.get('mode', 'fwd')}, M={m}): {nbytes / 1e6:.2f} MB -> "
           f"{t_bytes:.4f} ms; {tensor / 1e9:.2f} GFLOP bf16 x bf16 -> f32 + "
@@ -481,12 +498,75 @@ def _grad_errs(got, ref):
     return ratios, max_abs
 
 
+def _stable_cotangents(tag, tables, cfg, positions, d3, g):
+    """g [4, M] with the cotangents zeroed of the samples that the plain
+    version calls fragile at `positions` [3, M] (fragile_samples_plain: a
+    relu's pre-activation within its summation noise of 0; chosen without
+    the kernel), and their share of the samples that carry a cotangent."""
+    import torch
+    from sealdnerf_tpu_torch.ops.field import fragile_samples_plain
+    live = torch.nonzero(g.abs().amax(dim=0) > 0)[:, 0]
+    fragile = live[fragile_samples_plain(tables, cfg, positions.t()[live],
+                                         d3.t()[live])]
+    share = fragile.numel() / max(live.numel(), 1)
+    print(f"{tag}: of {live.numel()} samples with a cotangent the plain "
+          f"version calls {fragile.numel()} ({share:.3g}) fragile", flush=True)
+    g = g.clone()
+    g[:, fragile] = 0.0
+    return g
+
+
+def _held(tag, ratios, tol):
+    bad = {k: v for k, v in ratios.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"{tag} beyond {tol}: {bad}")
+
+
+def _padded_config_through_the_kernels():
+    """A config whose ranks and plane channels are no multiples of 8 (rows
+    padded by pack_tables) through K1 and K2 against their plain versions."""
+    import torch
+    from sealdnerf_tpu_torch.models.cp import CPConfig, init_cp
+    from sealdnerf_tpu_torch.ops.field import (field_backward,
+                                               field_backward_plain,
+                                               field_forward,
+                                               field_forward_plain,
+                                               pack_tables)
+    cfg = CPConfig(scales=((32, 4), (128, 20)), planes=((128, 4),))
+    tables = pack_tables(init_cp(torch.Generator().manual_seed(3), cfg,
+                                 "cuda"), cfg)
+    m = 4096 * 4 + 5
+    rng = np.random.default_rng(4)
+    x3 = rng.uniform(-1.0, 1.0, (3, m)).astype(np.float32)
+    d3 = rng.normal(size=(3, m)).astype(np.float32)
+    d3 /= np.linalg.norm(d3, axis=0, keepdims=True)
+    g = rng.normal(size=(4, m)).astype(np.float32)
+    x3, d3, g = (torch.from_numpy(a).cuda() for a in (x3, d3, g))
+    out, ref = (f(tables, cfg, x3, d3)
+                for f in (field_forward, field_forward_plain))
+    e_s = _check_close("sigma", out[0], ref[0])
+    e_c = _check_close("rgb", out[1:4], ref[1:4])
+    whole, _ = _grad_errs(field_backward(tables, cfg, x3, d3, g),
+                          field_backward_plain(tables, cfg, x3, d3, g))
+    g = _stable_cotangents("K2, padded config", tables, cfg, x3, d3, g)
+    ratios, _ = _grad_errs(field_backward(tables, cfg, x3, d3, g),
+                           field_backward_plain(tables, cfg, x3, d3, g))
+    print(f"config with ranks (4, 20) and 4 plane channels, M={m}: K1 "
+          f"max|err| sigma {e_s:.3g} rgb {e_c:.3g}; K2 max|k-p|/max|p| on the "
+          "stable samples "
+          + " ".join(f"{k} {v:.3g}" for k, v in ratios.items())
+          + "; on all "
+          + " ".join(f"{k} {v:.3g}" for k, v in whole.items()), flush=True)
+    _held("padded config, K2 on the stable samples", ratios, GRAD_TOL)
+    _held("padded config, K2 on all samples", whole, WHOLE_CALL_TOL)
+
+
 def phase_backward_vs_plain():
     import torch
     from sealdnerf_tpu_torch.models.cp import CPConfig, init_cp
     from sealdnerf_tpu_torch.ops.field import (field_backward,
                                                field_backward_plain,
-                                               pack_tables)
+                                               field_forward, pack_tables)
     cfg = CPConfig()
     tables = pack_tables(init_cp(torch.Generator().manual_seed(0), cfg,
                                  "cuda"), cfg)
@@ -498,27 +578,46 @@ def phase_backward_vs_plain():
     g = rng.normal(size=(4, m)).astype(np.float32)
     x3, d3, g = (torch.from_numpy(a).cuda() for a in (x3, d3, g))
     before = field_backward.launches
-    got = field_backward(tables, cfg, x3, d3, g)
+    parts = {}
+    got = field_backward(tables, cfg, x3, d3, g, parts=parts)
     ref = field_backward_plain(tables, cfg, x3, d3, g)
     torch.cuda.synchronize()
     if field_backward.launches != before + 1:
         raise AssertionError("K2 did not launch exactly once")
-    ratios, max_abs = _grad_errs(got, ref)
+    whole, _ = _grad_errs(got, ref)
+    # what K2 recomputed is what K1 computes, bit for bit
+    live = parts["live"]
+    k1 = field_forward(tables, cfg, x3, d3)
+    off = int((parts["out"][:, live] != k1[:, live]).any(dim=0).sum())
+    print(f"K2: M={m}; the forward it recomputed differs from K1's output "
+          f"at {off} of {live.numel()} samples", flush=True)
+    if off or live.numel() != m:
+        raise AssertionError("K2's recompute is not the forward kernel's")
+    g2 = _stable_cotangents("K2", tables, cfg, x3, d3, g)
+    ratios, max_abs = _grad_errs(field_backward(tables, cfg, x3, d3, g2),
+                                 field_backward_plain(tables, cfg, x3, d3,
+                                                      g2))
     ms = _cuda_ms(lambda: field_backward(tables, cfg, x3, d3, g), 10)
     pms = _cuda_ms(lambda: field_backward_plain(tables, cfg, x3, d3, g), 3)
-    print(f"K2: M={m} max|k-p|/max|p| "
+    xc, dc = (a[:, :m].contiguous() for a in _frame_samples(res=64,
+                                                            n_steps=65))
+    ms_c = _cuda_ms(lambda: field_backward(tables, cfg, xc, dc, g), 10)
+    print(f"K2: max|k-p|/max|p| on the stable samples "
           + " ".join(f"{k} {v:.3g}" for k, v in ratios.items())
+          + "; on all "
+          + " ".join(f"{k} {v:.3g}" for k, v in whole.items())
           + f"; max|err| {max_abs:.3g}; kernel {ms:.3f} ms "
-          f"({m / ms * 1e3:.4g} samples/s), plain {pms:.3f} ms "
+          f"({m / ms * 1e3:.4g} samples/s) on random samples, {ms_c:.3f} ms "
+          f"on ray-coherent ones, plain {pms:.3f} ms "
           f"({m / pms * 1e3:.4g} samples/s); launches "
           f"{field_backward.launches}", flush=True)
-    bad = {k: v for k, v in ratios.items() if not v <= GRAD_TOL}
-    if bad:
-        raise AssertionError(f"K2 vs plain beyond {GRAD_TOL}: {bad}")
+    _held("K2 vs plain on the stable samples", ratios, GRAD_TOL)
+    _held("K2 vs plain on all samples", whole, WHOLE_CALL_TOL)
     rec = {"ms": ms, "plain_ms": pms, "max_abs_err": max_abs}
     rec.update(_bound(cfg, m, mode="bwd"))
     print(f"K2 bound: {rec['bound_ms']:.4f} ms by {rec['bound_by']}",
           flush=True)
+    _padded_config_through_the_kernels()
     return rec
 
 
@@ -540,16 +639,14 @@ def phase_dyn_backward_vs_plain():
     g = rng.normal(size=(4, m)).astype(np.float32)
     g[:, rng.random(m) < 0.3] = 0.0            # samples the march left empty
     m_live = int((np.abs(g).max(axis=0) > 0).sum())
-    x3, d3, g = (torch.from_numpy(a).cuda() for a in (x3, d3, g))
+    x3, d3, g_all = (torch.from_numpy(a).cuda() for a in (x3, d3, g))
     nx = cfg.deform_space_dim
 
     def check(tag, ratios, tol):
         print(f"K4 {tag}: max|k-p|/max|p| "
               + " ".join(f"{k} {v:.3g}" for k, v in ratios.items()),
               flush=True)
-        bad = {k: v for k, v in ratios.items() if not v <= tol}
-        if bad:
-            raise AssertionError(f"K4 {tag} beyond {tol}: {bad}")
+        _held(f"K4 {tag}", ratios, tol)
 
     def rel(a, b):
         return ((a - b).abs().max().item()
@@ -562,18 +659,33 @@ def phase_dyn_backward_vs_plain():
         for t in (0.37, 0.0):
             before = dyn_field_backward.launches
             parts = {}
-            got = dyn_field_backward(tables, cfg, x3, d3, t, g, parts=parts)
-            ref = dyn_field_backward_plain(tables, cfg, x3, d3, t, g)
+            whole = dyn_field_backward(tables, cfg, x3, d3, t, g_all,
+                                       parts=parts)
             xw_p, acts_p = dyn_warp_plain(tables, cfg, x3, t)
             torch.cuda.synchronize()
             if dyn_field_backward.launches != before + 1:
                 raise AssertionError("K4 did not launch exactly once")
+            # all samples, then those that are stable at the kernel's warped
+            # positions (see 3b)
+            all_r, _ = _grad_errs(whole, dyn_field_backward_plain(
+                tables, cfg, x3, d3, t, g_all))
+            check(f"{tower} t={t} vs plain, all samples", all_r,
+                  WHOLE_CALL_TOL if gain == 1.0 or t == 0.0
+                  else REGAINED_TOL)
+            del whole
+            g = _stable_cotangents(f"K4, {tower} tower, t={t}", tables, cfg,
+                                   parts["xw"], d3, g_all)
+            parts = {}
+            got = dyn_field_backward(tables, cfg, x3, d3, t, g, parts=parts)
+            ref = dyn_field_backward_plain(tables, cfg, x3, d3, t, g)
+            torch.cuda.synchronize()
             ratios, err = _grad_errs(got, ref)
             gt, rt = (q["deform_mlp"]["w"][0][nx:] for q in (got, ref))
             ratios["time rows"] = (rel(gt, rt) if t != 0.0
                                    else gt.abs().max().item())
             dmax = max(w.abs().max().item() for w in got["deform_mlp"]["w"])
-            dxw = (parts["xw"] - xw_p).abs()
+            # the kernel warps the samples with a cotangent only
+            dxw = (parts["xw"] - xw_p).abs()[:, parts["live"]]
             warp = (xw_p - x3).abs().mean().item()
             print(f"K4, {tower} tower, t={t}: M={m} ({m_live} with a "
                   f"cotangent); mean |dx| {warp:.3g}; warped positions kernel "
@@ -667,6 +779,7 @@ def phase_dyn_backward_vs_plain():
                   "not held): " + " ".join(
                       f"{rel(a, b):.3g}" for a, b in zip(got3, ref4)),
                   flush=True)
+    g = g_all
     ms = _cuda_ms(lambda: dyn_field_backward(tables, cfg, x3, d3, 0.37, g), 10)
     pms = _cuda_ms(lambda: dyn_field_backward_plain(tables, cfg, x3, d3, 0.37,
                                                     g), 3)

@@ -36,7 +36,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 SCALES = ((16, 8), (64, 16), (128, 16))
-PLANES = ((32, 8),)     # the kernels read 8 channels at a time
+PLANES = ((32, 4),)     # 4 channels: pack_tables pads the rows to 8
 NARROW = dict(grid_size=32, march_res=16, n_intervals=6, steps_per_interval=3)
 SEGMENTS, SEGMENT_STEPS, RES = 10, 32, 64
 DEFORM = dict(num_layers_deform=4, hidden_dim_deform=128)

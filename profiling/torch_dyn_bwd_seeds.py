@@ -139,8 +139,9 @@ def main():
                 leaves = [((a - b).abs().max() / b.abs().max()).item()
                           for a, b in zip(got["deform_mlp"]["w"],
                                           ref["deform_mlp"]["w"])]
-                dxw = (parts["xw"] - xw).abs()
                 live = parts["live"]
+                # the kernel warps the samples with a cotangent only
+                dxw = (parts["xw"] - xw).abs()[:, live]
                 g_x = parts["g_x"][:, live]
                 acts_p = [a[live] for a in acts_p]
                 mag = g_x.abs().amax(dim=0)

@@ -1,7 +1,8 @@
-"""Times the forward field kernels, static (K1) and dynamic (K3), of the
-tree in the current directory, and checks them against their plain versions.
+"""Times the field kernels of the tree in the current directory, the forward
+ones (K1 static, K3 dynamic) or, with `bwd`, the backward ones (K2, K4), and
+checks them against their plain versions.
 
-    cd <tree> && python3 <path to>/profiling/torch_dyn_kernel_timing.py TAG
+    cd <tree> && python3 <path to>/profiling/torch_dyn_kernel_timing.py TAG [bwd]
 
 The package is imported from the current directory, so two checkouts with
 two versions of ops/csrc/ can be compared inside one call on one card, in
@@ -18,6 +19,13 @@ skipped leaves the towers (and the planes' and frequency rows' features), so
 its difference to a density-only run is the line features' gathers and
 arithmetic; and K3 with a deform tower of two matrices (no hidden one)
 instead of eight, whose difference is the cost of the six hidden layers.
+
+With `bwd`: K2 and K4 (t = 0.37, and K4's canonical kernel alone at t = 0) on
+a training step's 262,181 samples, random positions and the ray-coherent
+samples of a 64x64 pinhole frame (the first 262,181 of 65 a ray), each with
+every cotangent live and with 30 % of the columns zero (what the march
+leaves empty); the worst gradient leaf against the plain version beside it.
+Then K2 at the widest config the kernels take (16 k-blocks).
 """
 
 import importlib.util
@@ -30,9 +38,14 @@ sys.path.insert(0, os.getcwd())
 
 import torch  # noqa: E402
 
-from sealdnerf_tpu_torch.models.cp import CPDNeRFConfig  # noqa: E402
-from sealdnerf_tpu_torch.ops.field import (dyn_field_forward,  # noqa: E402
+from sealdnerf_tpu_torch.models.cp import (CPConfig,  # noqa: E402
+                                           CPDNeRFConfig, init_cp)
+from sealdnerf_tpu_torch.ops.field import (dyn_field_backward,  # noqa: E402
+                                           dyn_field_backward_plain,
+                                           dyn_field_forward,
                                            dyn_field_forward_plain,
+                                           field_backward,
+                                           field_backward_plain,
                                            field_forward, field_forward_plain,
                                            pack_tables)
 
@@ -48,11 +61,74 @@ def _smoke_module():
     return mod
 
 
+def time_backward(tag, smoke):
+    ms = smoke._cuda_ms
+    cfg = CPDNeRFConfig()
+    tables = pack_tables(smoke._dyn_seeded_params(0, cfg, "cuda", gain=1.0),
+                         cfg)
+    m = 4096 * 64 + 37
+    rng = np.random.default_rng(1)
+    xr = torch.from_numpy(
+        rng.uniform(-1, 1, (3, m)).astype(np.float32)).cuda()
+    dr = rng.normal(size=(3, m)).astype(np.float32)
+    dr /= np.linalg.norm(dr, axis=0, keepdims=True)
+    dr = torch.from_numpy(dr).cuda()
+    xc, dc = (a[:, :m].contiguous()
+              for a in smoke._frame_samples(res=64, n_steps=65))
+    g_all = rng.normal(size=(4, m)).astype(np.float32)
+    g_part = g_all.copy()
+    g_part[:, rng.random(m) < 0.3] = 0.0
+    for label, x3, d3 in (("random", xr, dr), ("ray-coherent", xc, dc)):
+        for live, g in (("every cotangent live", g_all),
+                        ("30 % of the cotangents zero", g_part)):
+            g = torch.from_numpy(g).cuda()
+            n_live = int((g.abs().amax(dim=0) > 0).sum())
+            worst = {}
+            for name, fn, plain in (
+                    ("K2", lambda: field_backward(tables, cfg, x3, d3, g),
+                     lambda: field_backward_plain(tables, cfg, x3, d3, g)),
+                    ("K4", lambda: dyn_field_backward(tables, cfg, x3, d3,
+                                                      0.37, g),
+                     lambda: dyn_field_backward_plain(tables, cfg, x3, d3,
+                                                      0.37, g))):
+                ratios, _ = smoke._grad_errs(fn(), plain())
+                worst[name] = max(ratios.values())
+            print(f"{tag} backward, {m} {label} samples, {live} ({n_live}): "
+                  f"K2 {ms(lambda: field_backward(tables, cfg, x3, d3, g), 10):.3f}"
+                  f" ms, K4 at t = 0.37 "
+                  f"{ms(lambda: dyn_field_backward(tables, cfg, x3, d3, 0.37, g), 10):.3f}"
+                  f" ms, K4 at t = 0 "
+                  f"{ms(lambda: dyn_field_backward(tables, cfg, x3, d3, 0.0, g), 10):.3f}"
+                  f" ms; worst leaf against plain: K2 {worst['K2']:.3g}, K4 "
+                  f"{worst['K4']:.3g}", flush=True)
+    # the widest config the kernels take, 16 k-blocks of feature columns
+    wide = CPConfig(
+        scales=CPConfig().scales + ((64, 32), (256, 64), (256, 64)),
+        planes=CPConfig().planes + ((64, 8),))
+    tables = pack_tables(init_cp(torch.Generator().manual_seed(0), wide,
+                                 "cuda"), wide)
+    g = torch.from_numpy(g_all).cuda()
+    try:
+        ratios, _ = smoke._grad_errs(
+            field_backward(tables, wide, xr, dr, g),
+            field_backward_plain(tables, wide, xr, dr, g))
+    except NotImplementedError as e:
+        print(f"{tag} backward, 16 k-blocks: refused ({e})", flush=True)
+        return
+    print(f"{tag} backward, 16 k-blocks (feat_dim {wide.feat_dim}), {m} "
+          f"random samples, every cotangent live: K2 "
+          f"{ms(lambda: field_backward(tables, wide, xr, dr, g), 10):.3f} ms, "
+          f"K1 {ms(lambda: field_forward(tables, wide, xr, dr), 10):.3f} ms; "
+          f"worst leaf against plain {max(ratios.values()):.3g}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     tag = sys.argv[1] if len(sys.argv) > 1 else "tree"
     smoke = _smoke_module()
+    if sys.argv[2:] == ["bwd"]:
+        return time_backward(tag, smoke)
     ms = smoke._cuda_ms
     cfg = CPDNeRFConfig()
     tables = pack_tables(smoke._dyn_seeded_params(0, cfg, "cuda"), cfg)

@@ -103,9 +103,9 @@ def load_library() -> ctypes.CDLL:
                                   ctypes.POINTER(ctypes.c_longlong), f32,
                                   i32, i32, vp, vp, vp]
     lib.sdn_field_fwd.restype = ctypes.c_int
-    lib.sdn_field_bwd.argtypes = [vp, vp, vp, i64, vp, vp,
+    lib.sdn_field_bwd.argtypes = [vp, vp, vp, i64, vp, vp, vp,
                                   ctypes.POINTER(ctypes.c_longlong), f32,
-                                  vp, vp, vp]
+                                  vp, vp, vp, vp, vp, vp]
     lib.sdn_field_bwd.restype = ctypes.c_int
     lib.sdn_dyn_field_fwd.argtypes = [vp, vp, i64, vp, vp,
                                       ctypes.POINTER(ctypes.c_longlong), f32,
@@ -113,7 +113,8 @@ def load_library() -> ctypes.CDLL:
                                       vp, i32, i32, vp, vp, vp, vp]
     lib.sdn_dyn_field_fwd.restype = ctypes.c_int
     lib.sdn_dyn_field_bwd.argtypes = (
-        [vp, vp, vp, i64, vp, vp, ctypes.POINTER(ctypes.c_longlong), f32, vp,
-         vp, ctypes.POINTER(ctypes.c_longlong), vp, i32, i32] + [vp] * 11)
+        [vp, vp, vp, i64, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong), f32,
+         vp, vp, ctypes.POINTER(ctypes.c_longlong), vp, i32, i32]
+        + [vp] * 12)
     lib.sdn_dyn_field_bwd.restype = ctypes.c_int
     return lib

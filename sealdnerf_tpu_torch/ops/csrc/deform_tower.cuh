@@ -173,13 +173,17 @@ inline size_t tower_forward_smem(size_t head) {
 // samples, the body of a kernel of kTowerTile threads and persistent blocks
 // with tower_forward_smem(0) bytes of dynamic shared memory. tcond is the
 // first layer's time bias [kDefHid] and the flag t != 0; at t == 0 the tower
-// is skipped and xw = x. The forward entry (dyn_field_fwd.cu) and the
+// is skipped and xw = x. With a list (list [*count], device memory) only the
+// listed samples are warped, each into its own column of xw; the others'
+// columns are not written. The forward entry (dyn_field_fwd.cu) and the
 // backward's (dyn_field_bwd.cu) each wrap it in a kernel of their own name,
 // so they warp alike and a profile tells them apart.
 __device__ __forceinline__ void warp_tiles(const float* __restrict__ x3, long long m,
                                            const __nv_bfloat16* __restrict__ wdef,
                                            const float* __restrict__ tcond,
-                                           const DeformMeta& dm, float* __restrict__ xw) {
+                                           const DeformMeta& dm, float* __restrict__ xw,
+                                           const int* __restrict__ list = nullptr,
+                                           const int* __restrict__ count = nullptr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* wst = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* act = wst + kDefHid * kLd;
@@ -189,10 +193,11 @@ __device__ __forceinline__ void warp_tiles(const float* __restrict__ x3, long lo
   for (int j = tid; j < kDefHid + 1; j += kTowerTile) tb[j] = tcond[j];
   __syncthreads();
   const bool moving = tb[kDefHid] != 0.f;
-  for (long long base = (long long)blockIdx.x * kTowerTile; base < m;
+  const long long n = list != nullptr ? (long long)*count : m;
+  for (long long base = (long long)blockIdx.x * kTowerTile; base < n;
        base += (long long)gridDim.x * kTowerTile) {
-    const long long i = base + tid;
-    const bool live = i < m;
+    const bool live = base + tid < n;
+    const long long i = !live ? 0 : (list != nullptr ? (long long)list[base + tid] : base + tid);
     float x[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) x[a] = live ? x3[a * m + i] : 0.f;
@@ -207,13 +212,13 @@ __device__ __forceinline__ void warp_tiles(const float* __restrict__ x3, long lo
 }
 
 using WarpKernel = void (*)(const float*, long long, const __nv_bfloat16*, const float*,
-                            const DeformMeta, float*);
+                            const DeformMeta, float*, const int*, const int*);
 
-// Launch `kernel` (a wrapper of warp_tiles) over m samples on `stream`;
-// returns cudaGetLastError().
+// Launch `kernel` (a wrapper of warp_tiles) over m samples, or over the
+// listed ones of them, on `stream`; returns cudaGetLastError().
 inline int launch_warp(WarpKernel kernel, const float* x3, long long m,
                        const __nv_bfloat16* wdef, const float* tcond, const DeformMeta& dm,
-                       float* xw, cudaStream_t stream) {
+                       float* xw, const int* list, const int* count, cudaStream_t stream) {
   const size_t smem = tower_forward_smem(0);
   cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -227,7 +232,7 @@ inline int launch_warp(WarpKernel kernel, const float* x3, long long m,
   long long blocks = (m + kTowerTile - 1) / kTowerTile;
   if (blocks > (long long)n_sm * per_sm) blocks = (long long)n_sm * per_sm;
   if (blocks < 1) blocks = 1;
-  kernel<<<(unsigned)blocks, kTowerTile, smem, stream>>>(x3, m, wdef, tcond, dm, xw);
+  kernel<<<(unsigned)blocks, kTowerTile, smem, stream>>>(x3, m, wdef, tcond, dm, xw, list, count);
   return (int)cudaGetLastError();
 }
 

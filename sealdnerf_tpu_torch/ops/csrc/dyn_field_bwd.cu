@@ -27,44 +27,51 @@
 //     the forward kernel; then dx = 0, every deform gradient is exactly 0 and
 //     the canonical gradients are those of the static backward at x.
 //
-// What bounds it: operations. Per sample the tower costs ~107k MACs each for
-// the recompute, the input gradients and the weight gradients, all bf16 x
-// bf16 -> f32 and so on mma.sync.m16n8k16; the canonical half is the static
-// backward's ~72k MACs on the FP32 pipe plus its table atomics.
+// What bounds it: operations. Per live sample the tower costs ~107k MACs each
+// for the recompute, the input gradients and the weight gradients, and the
+// canonical half the static backward's ~72k, all bf16 x bf16 -> f32 on
+// mma.sync.m16n8k16; beside them the canonical half's feature arithmetic and
+// its vector atomics.
 //
-// Design: shared memory decides it. The static backward already fills 163 KB
-// for a 64-sample tile, and the tower's backward needs every hidden
-// activation of its tile (7 x 128 bf16 a sample) beside a staged matrix, so
-// one block cannot hold both. The entry point runs four kernels on the
-// caller's stream, all written here, and counts as one launch:
-//   1. warp_kernel (warp_tiles of deform_tower.cuh, which the forward entry
+// Design. The entry point runs five kernels on the caller's stream, all
+// written here or in the headers, and counts as one launch:
+//   1. compact_live_kernel (field_bwd_body.cuh) lists the samples that carry
+//      a cotangent; everything after it walks that list, so the march's
+//      invalid samples cost nothing, the warp included.
+//   2. warp_kernel (warp_tiles of deform_tower.cuh, which the forward entry
 //      runs too): the tower's forward (deform_tower_forward, tiles of 256
-//      samples) writes xw [3, M] to device memory (3 MB a training step).
-//   2. field_bwd_kernel<true>: the static backward's body at xw; it also
-//      computes g_x per sample and appends the samples that carry a cotangent
-//      to a compact list (index, g_x), so that the tower's backward skips the
-//      march's invalid samples.
-//   3. tower_bwd_kernel: persistent blocks of 256 threads walk the list in
+//      samples) writes xw of the listed samples to device memory.
+//   3. field_bwd_kernel<true>: the static backward's body at xw; it also
+//      writes g_x of each listed sample, in the list's order.
+//   4. tower_bwd_kernel: persistent blocks of 256 threads walk the list in
 //      tiles of 64 samples. A tile recomputes the tower keeping all hidden
 //      activations in shared memory (bf16 [7][64][136], 122 KB), then walks
 //      back through the matrices. Input gradients are the forward's product
 //      with the matrix staged input-major (a second packed copy, wdef_in);
 //      weight gradients are products over the tile's samples whose operands
 //      are read transposed with ldmatrix.trans, warp w owning 16 output rows.
-//   4. time_rows_kernel: the outer product for the first matrix's time rows.
-// Cross-block weight sums: each tile adds its [128, 128] product to the
-// gradient buffer with one atomicAdd per nonzero entry (the buffer, 434 KB,
-// stays in L2). Per-block partial buffers would need 57 MB and a second pass.
-// So the results differ from run to run in their last bits, as the static
-// backward's do. Later work: wider tiles by recomputing activations, wgmma,
-// vector atomics.
+//   5. time_rows_kernel: the outer product for the first matrix's time rows.
+// Why still separate kernels, now that the canonical half keeps a sample in
+// registers: its block holds the canonical matrices twice and the partial
+// weight gradients (220 KB at the default widths), the tower's backward its
+// activations, two gradient buffers and a staged matrix (206 KB); one block
+// cannot hold both, and the 12 bytes of xw and of g_x a sample that pass
+// between them through device memory are nothing beside either kernel's
+// gathers.
+// Cross-block weight sums of the tower: each tile adds its [128, 128] product
+// to the gradient buffer with one atomicAdd per nonzero entry (the buffer, 434
+// KB, stays in L2). So the results differ from run to run in their last bits,
+// as the static backward's do. Later work: wider tiles by recomputing
+// activations, wgmma.
 //
 // C interface for ctypes: sdn_dyn_field_bwd adds into g_tab, g_w, g_wdef
 // (laid out like wdef) and g_tsum [128], which the caller zeroes along with
-// `count`; it writes g_wtime [tdim, 128]; xw [3, M], idx [M] and gx [3, M]
-// are scratch. acts, unless null, is bf16 [n_layers, M, 128] and receives the
+// `count`; it writes g_wtime [tdim, 128]; xw [3, M] (the listed samples'
+// columns are written), idx [M] and gx [3, M] are scratch. acts, unless null, is bf16 [n_layers, M, 128] and receives the
 // tower backward's recomputed ex and hidden activations in the list's order
-// (for checks). Returns the first error of any launch, else 0.
+// (for checks); rec_out is null or [4, M] and receives the forward's output
+// that the canonical kernel recomputed. Returns the first error of any
+// launch, else 0.
 
 #include "deform_tower.cuh"
 #include "field_bwd_body.cuh"
@@ -76,14 +83,15 @@ using namespace sdn;
 constexpr int kBT = 64;         // samples per tile of the tower's backward
 constexpr int kBThreads = 256;  // 8 warps
 
-// ---------------------------------------------------------------- phase 1
+// ---------------------------------------------------------------- phase 2
 __global__ void __launch_bounds__(kTowerTile)
 warp_kernel(const float* __restrict__ x3, long long m, const __nv_bfloat16* __restrict__ wdef,
-            const float* __restrict__ tcond, const DeformMeta dm, float* __restrict__ xw) {
-  warp_tiles(x3, m, wdef, tcond, dm, xw);
+            const float* __restrict__ tcond, const DeformMeta dm, float* __restrict__ xw,
+            const int* __restrict__ list, const int* __restrict__ count) {
+  warp_tiles(x3, m, wdef, tcond, dm, xw, list, count);
 }
 
-// ---------------------------------------------------------------- phase 3
+// ---------------------------------------------------------------- phase 4
 // Four 8x8 b16 matrices, transposed, from the shared-memory rows that the
 // lanes address (lanes 8j..8j+7 give the rows of matrix j).
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
@@ -323,7 +331,7 @@ tower_bwd_kernel(const float* __restrict__ x3, long long m, const int* __restric
   for (int j = tid; j < kDefHid; j += kBThreads) red_add(g_tsum + j, rowsum[j]);
 }
 
-// ---------------------------------------------------------------- phase 4
+// ---------------------------------------------------------------- phase 5
 // g_wtime [tdim][128] = bf16(freq(t)) (x) bf16(g_tsum), the time rows of the
 // first matrix; tcond holds freq(t) behind the bias and the flag.
 __global__ void time_rows_kernel(const float* __restrict__ tcond, int tdim,
@@ -336,15 +344,19 @@ __global__ void time_rows_kernel(const float* __restrict__ tcond, int tdim,
 }  // namespace
 
 extern "C" int sdn_dyn_field_bwd(const float* x3, const float* d3, const float* g_out,
-                                 long long m, const void* tab, const void* wbuf,
-                                 const long long* meta, float bound, const void* wdef,
-                                 const void* wdef_in, const long long* dmeta, const float* tcond,
-                                 int tdim, int cutoff, float* xw, int* count, int* idx,
-                                 float* gx, float* g_tab, float* g_w, float* g_wdef,
-                                 float* g_tsum, float* g_wtime, void* acts, void* stream_) {
+                                 long long m, const void* tab, const void* wfwd,
+                                 const void* wbwd, const long long* meta, float bound,
+                                 const void* wdef, const void* wdef_in, const long long* dmeta,
+                                 const float* tcond, int tdim, int cutoff, float* xw, int* count, int* idx, float* gx, float* g_tab,
+                                 float* g_w, float* g_wdef, float* g_tsum, float* g_wtime,
+                                 void* acts, float* rec_out, void* stream_) {
   FieldMeta fm;
+  TileMeta tm;
+  BwdMeta bm;
   DeformMeta dm;
   int bad = fill_meta(meta, bound, &fm);
+  if (!bad) bad = fill_tile_meta(meta, fm, &tm);
+  if (!bad) bad = fill_bwd_meta(meta, fm, tm, &bm);
   if (!bad) bad = fill_deform_meta(dmeta, &dm);
   if (bad) return bad;
   if (m < 1 || m > 0x7fffffffLL || tdim < 0) return (int)cudaErrorInvalidValue;
@@ -353,18 +365,23 @@ extern "C" int sdn_dyn_field_bwd(const float* x3, const float* d3, const float* 
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
 
-  // 1. xw = x + dx
+  // 1. the samples with a cotangent
+  bad = launch_compact(g_out, m, count, idx, stream);
+  if (bad) return bad;
+
+  // 2. xw = x + dx of the listed samples
   bad = launch_warp(warp_kernel, x3, m, (const __nv_bfloat16*)wdef, tcond, dm, xw,
-                    stream);
+                    idx, count, stream);
   if (bad) return bad;
 
-  // 2. canonical backward at xw, g_x and the compact list
-  const GxOut gxo = {cutoff, count, idx, gx};
-  bad = launch_field_bwd<true>(xw, d3, g_out, m, (const __nv_bfloat16*)tab,
-                               (const __nv_bfloat16*)wbuf, fm, g_tab, g_w, gxo, stream);
+  // 3. canonical backward at xw, and g_x in the list's order
+  const GxOut gxo = {cutoff, gx};
+  bad = launch_field_bwd<true>(xw, d3, g_out, m, count, idx, (const __nv_bfloat16*)tab,
+                               (const __nv_bfloat16*)wfwd, (const __nv_bfloat16*)wbwd, fm, tm,
+                               bm, g_tab, g_w, gxo, rec_out, stream);
   if (bad) return bad;
 
-  // 3. the tower's backward over the list
+  // 4. the tower's backward over the list
   const size_t smem3 = tower_bwd_smem(dm.n_layers);
   if (smem3 > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -378,7 +395,7 @@ extern "C" int sdn_dyn_field_bwd(const float* x3, const float* d3, const float* 
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  // 4. the first matrix's time rows
+  // 5. the first matrix's time rows
   time_rows_kernel<<<1, kDefHid, 0, stream>>>(tcond, tdim, g_tsum, g_wtime);
   return (int)cudaGetLastError();
 }

@@ -58,8 +58,9 @@ namespace {
 __global__ void __launch_bounds__(kTowerTile)
 deform_fwd_kernel(const float* __restrict__ x3, long long m,
                   const __nv_bfloat16* __restrict__ wdef, const float* __restrict__ tcond,
-                  const DeformMeta dm, float* __restrict__ xw) {
-  warp_tiles(x3, m, wdef, tcond, dm, xw);
+                  const DeformMeta dm, float* __restrict__ xw, const int* __restrict__ list,
+                  const int* __restrict__ count) {
+  warp_tiles(x3, m, wdef, tcond, dm, xw, list, count);
 }
 
 }  // namespace
@@ -78,7 +79,7 @@ extern "C" int sdn_dyn_field_fwd(const float* x3, const float* d3, long long m, 
   if (bad) return bad;
   cudaStream_t stream = (cudaStream_t)stream_;
   bad = launch_warp(deform_fwd_kernel, x3, m, (const __nv_bfloat16*)wdef, tcond, dm, xw,
-                    stream);
+                    nullptr, nullptr, stream);
   if (bad) return bad;
   return launch_field_fwd(xw, d3, m, (const __nv_bfloat16*)tab, (const __nv_bfloat16*)wfwd, fm,
                           tm, lod_mask, density_only, out, (__nv_bfloat16*)feat_out, stream);

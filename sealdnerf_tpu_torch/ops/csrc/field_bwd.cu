@@ -19,43 +19,49 @@
 //   - table gradients: bf16(g_f) x bf16(hat weight) into the two taps of each
 //     line; bf16(ua) x bf16(g_f[c] ub) into the four taps of each plane.
 //
-// Design. A block owns a tile of kT = 64 samples, one per thread.
-//   1. Each thread recomputes its sample's forward and backward chain in
-//      registers, reading the bf16 tower weights (~48 KB) from shared memory,
-//      and scatters its table gradients with atomicAdd (about 1.4k atomics per
-//      sample at the default widths).
-//   2. It stashes the bf16 activations and gradients that the weight-gradient
-//      outer products need in shared memory (~1.8 KB per sample).
-//   3. The block then sums each weight entry over its tile in f32 (thread j
-//      owns column j of every matrix) and issues one atomicAdd per entry.
-// Samples whose four cotangents are zero (march-invalid samples, which the
-// renderer masks) are skipped; the active ones are compacted to the front of
-// the tile, so the sums run over them only. The ragged tail is masked here.
+// Design (field_bwd_body.cuh has it in full): a first small kernel lists the
+// samples that carry a cotangent (march-invalid samples, which the renderer
+// masks, carry none); then persistent blocks of 12 warps walk the list, a warp
+// per tile of 16 samples. A tile's forward is the forward kernel's own
+// arithmetic (the device functions of field_fwd_body.cuh), so the relu masks
+// are the forward's; the chain's transposed products and the weight-gradient
+// outer products run on mma.sync.m16n8k16 with the activations in registers;
+// a block sums the five weight gradients in shared memory over all its tiles
+// and adds them to g_w once; a tap row's eight table gradients go out as two
+// 16-byte vector atomics.
 //
-// What bounds it: per active sample ~24k MACs of forward recompute, ~24k of
-// transposed products and ~24k of weight-gradient sums, all on the FP32 pipe,
-// plus the table atomics, which contend at the coarse scale (res 32: every
-// sample of a step hits the same 3k addresses). With ~163 KB of shared memory
-// a block at the default widths, one 64-thread block runs per SM. Summing with atomics makes the
-// results differ from run to run in their last bits. Pre-reducing the table
-// atomics within a warp and moving the towers and the outer products onto
-// tensor cores are later work.
+// What bounds it: operations. Per live sample ~24k MACs of recompute, ~24k of
+// transposed products and ~24k of weight-gradient sums on the tensor cores,
+// the feature arithmetic twice on the FP32 pipe (once for the recompute, once
+// for the scatter), and 348 vector atomics. Summing with atomics makes the
+// results differ from run to run in their last bits.
 //
 // C interface for ctypes: sdn_field_bwd adds into g_tab (laid out like the
-// packed tables) and g_w (laid out like the packed weights), which the caller
-// zeroes, and returns cudaGetLastError() after the launch.
+// packed tables) and g_w (see field_bwd_body.cuh), which the caller zeroes
+// along with `count`; idx [M] is scratch for the list. rec_out is null, or
+// [4, M] and receives the forward's output that the kernel recomputed (for
+// checks). It returns the first error of its two launches, else 0.
 
 #include "field_bwd_body.cuh"
 
 using namespace sdn;
 
 extern "C" int sdn_field_bwd(const float* x3, const float* d3, const float* g_out, long long m,
-                             const void* tab, const void* wbuf, const long long* meta,
-                             float bound, float* g_tab, float* g_w, void* stream) {
+                             const void* tab, const void* wfwd, const void* wbwd,
+                             const long long* meta, float bound, int* count, int* idx,
+                             float* g_tab, float* g_w, float* rec_out, void* stream_) {
   FieldMeta fm;
-  const int bad = fill_meta(meta, bound, &fm);
+  TileMeta tm;
+  BwdMeta bm;
+  int bad = fill_meta(meta, bound, &fm);
+  if (!bad) bad = fill_tile_meta(meta, fm, &tm);
+  if (!bad) bad = fill_bwd_meta(meta, fm, tm, &bm);
   if (bad) return bad;
-  return launch_field_bwd<false>(x3, d3, g_out, m, (const __nv_bfloat16*)tab,
-                                 (const __nv_bfloat16*)wbuf, fm, g_tab, g_w, GxOut{},
-                                 (cudaStream_t)stream);
+  if (m < 1 || m > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_;
+  bad = launch_compact(g_out, m, count, idx, stream);
+  if (bad) return bad;
+  return launch_field_bwd<false>(x3, d3, g_out, m, count, idx, (const __nv_bfloat16*)tab,
+                                 (const __nv_bfloat16*)wfwd, (const __nv_bfloat16*)wbwd, fm, tm,
+                                 bm, g_tab, g_w, GxOut{}, rec_out, stream);
 }

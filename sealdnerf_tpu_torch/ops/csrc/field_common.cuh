@@ -2,13 +2,9 @@
 // field_bwd.cu, dyn_field_bwd.cu): the layout descriptions passed by the
 // ctypes entry points, bf16 helpers, the hat taps, the degree-4 spherical
 // harmonics and the mma.sync.m16n8k16 wrapper. The forward kernels' body is
-// in field_fwd_body.cuh, the backward kernels' in field_bwd_body.cuh. The
-// backward recomputes the forward one sample a thread on the FP32 pipe
-// (axpy64 / dot64 below): the same rounding points, but each dot summed in
-// sequential order, where the forward sums in the mma's order. The two agree
-// to f32 summation noise, not bit for bit, so a hidden unit within that
-// noise of 0 can pass the relu in one and not in the other; the backward is
-// self-consistent (it takes only the cotangent from the forward).
+// in field_fwd_body.cuh, the backward kernels' in field_bwd_body.cuh; the
+// backward recomputes the forward with the forward body's own device
+// functions, so the two agree bit for bit.
 
 #pragma once
 
@@ -19,23 +15,15 @@
 
 namespace sdn {
 
-constexpr int kHid = 64;          // sigma tower hidden width
-constexpr int kGeo = 15;          // geo_feat_dim
-constexpr int kSigOut = 1 + kGeo;
-constexpr int kHidC = 64;         // colour tower hidden width
 constexpr int kShDeg = 4;
 constexpr int kShDim = kShDeg * kShDeg;
 constexpr int kMaxScales = 8;
 constexpr int kMaxPlanes = 4;
 
 struct FieldMeta {
-  int n_scales, n_planes, freq_degree, feat_dim, w_elems;
-  // the backward kernels' weight buffer (wbuf):
-  int w_off[5];  // w0 [feat, 64] | w1t [16, 64] | wc0 [31, 64] | wc1t [64, 64] | wc2 [64, 3]
-  int res[kMaxScales], rank[kMaxScales];
-  long long line_off[kMaxScales][3];
-  int pres[kMaxPlanes], pch[kMaxPlanes];
-  long long plane_off[kMaxPlanes][3], vml_off[kMaxPlanes][3];
+  int n_scales, n_planes, freq_degree, w_elems;
+  // the backward kernels' weight-gradient buffer g_w (f32, w_elems entries):
+  int w_off[5];  // w0 [32 n_blocks, 64] | w1 [64, 16] | wc0 [32, 64] | wc1 [64, 64] | wc2 [64, 8]
   float bound;
   float pmm[kShDeg];    // (-1)^m (2m-1)!!
   float shk[kShDim];    // K_l^m, times sqrt(2) for m != 0
@@ -47,39 +35,6 @@ __device__ __forceinline__ float bf16r(float v) {
 
 __device__ __forceinline__ float ldbf(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void unpack8(uint4 u, float* f) {
-  f[0] = __uint_as_float(u.x << 16); f[1] = __uint_as_float(u.x & 0xffff0000u);
-  f[2] = __uint_as_float(u.y << 16); f[3] = __uint_as_float(u.y & 0xffff0000u);
-  f[4] = __uint_as_float(u.z << 16); f[5] = __uint_as_float(u.z & 0xffff0000u);
-  f[6] = __uint_as_float(u.w << 16); f[7] = __uint_as_float(u.w & 0xffff0000u);
-}
-
-// acc[0:64] += a * row[0:64]; row is a 16-byte aligned bf16 row in shared memory
-__device__ __forceinline__ void axpy64(float a, const __nv_bfloat16* row, float* acc) {
-  const uint4* r = reinterpret_cast<const uint4*>(row);
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    float w[8];
-    unpack8(r[q], w);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) acc[q * 8 + t] = fmaf(a, w[t], acc[q * 8 + t]);
-  }
-}
-
-// sum_k v[k] * row[k] over 64 entries
-__device__ __forceinline__ float dot64(const float* v, const __nv_bfloat16* row) {
-  const uint4* r = reinterpret_cast<const uint4*>(row);
-  float s = 0.f;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    float w[8];
-    unpack8(r[q], w);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) s = fmaf(v[q * 8 + t], w[t], s);
-  }
-  return s;
 }
 
 // Lower tap index and the two bf16-rounded hat weights of x01 in [0, 1] on a
@@ -162,32 +117,21 @@ inline double sh_k(int l, int m) {
 
 // meta (int64): n_scales, n_planes, freq_degree, feat_dim, w_elems, w_off[5],
 // then per scale (res, rank, off_x, off_y, off_z), then per plane scale
-// (res, ch, plane_off[3], vm_line_off[3]). Offsets count bf16 elements.
+// (res, ch, plane_off[3], vm_line_off[3]): the tables' places in `tab`, with
+// rank and ch their padded row lengths, which the wrappers read (the kernels
+// take them from the tile layout behind, see fill_tile_meta); w_elems and
+// w_off describe the weight-gradient buffer. Offsets count elements.
 // Returns 0, or cudaErrorInvalidValue for a layout the kernels do not take.
 inline int fill_meta(const long long* meta, float bound, FieldMeta* out) {
   FieldMeta fm = {};
   fm.n_scales = (int)meta[0];
   fm.n_planes = (int)meta[1];
   fm.freq_degree = (int)meta[2];
-  fm.feat_dim = (int)meta[3];
   fm.w_elems = (int)meta[4];
-  if (fm.n_scales > kMaxScales || fm.n_planes > kMaxPlanes || fm.w_elems % 8 != 0)
+  if (fm.n_scales < 0 || fm.n_scales > kMaxScales || fm.n_planes < 0 ||
+      fm.n_planes > kMaxPlanes || fm.w_elems % 8 != 0)
     return (int)cudaErrorInvalidValue;
   for (int t = 0; t < 5; ++t) fm.w_off[t] = (int)meta[5 + t];
-  const long long* q = meta + 10;
-  for (int s = 0; s < fm.n_scales; ++s, q += 5) {
-    fm.res[s] = (int)q[0];
-    fm.rank[s] = (int)q[1];
-    for (int a = 0; a < 3; ++a) fm.line_off[s][a] = q[2 + a];
-  }
-  for (int s = 0; s < fm.n_planes; ++s, q += 8) {
-    fm.pres[s] = (int)q[0];
-    fm.pch[s] = (int)q[1];
-    for (int p = 0; p < 3; ++p) {
-      fm.plane_off[s][p] = q[2 + p];
-      fm.vml_off[s][p] = q[5 + p];
-    }
-  }
   fm.bound = bound;
   double dfact = 1.0;  // (2m-1)!!
   for (int mm = 0; mm < kShDeg; ++mm) {

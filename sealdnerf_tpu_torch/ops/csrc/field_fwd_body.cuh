@@ -117,75 +117,129 @@ __device__ __forceinline__ void relu_fragments(const float (*acc)[4], uint32_t (
   }
 }
 
-// Eight line features of one sample: q[c] holds ranks r0 + 2c, r0 + 2c + 1.
-__device__ __forceinline__ void line_segment(const Seg& sg, const __nv_bfloat16* __restrict__ tab,
-                                             const float* x01, uint32_t* q) {
-  uint32_t lo[3][4], hi[3][4];
+// The taps of one sample's line segment: per axis the lower tap index, the
+// two bf16-rounded hat weights and eight ranks of either tap row.
+struct LineTaps {
+  int i0[3];
   float wl[3], wh[3];
+  uint32_t lo[3][4], hi[3][4];
+};
+
+__device__ __forceinline__ void line_taps(const Seg& sg, const __nv_bfloat16* __restrict__ tab,
+                                          const float* x01, LineTaps& tp) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    int i0;
-    hat(x01[a], sg.res, i0, wl[a], wh[a]);
-    const __nv_bfloat16* p = tab + sg.off[a] + (long long)i0 * sg.stride;
-    ldg8(p, lo[a]);
-    ldg8(p + sg.stride, hi[a]);
+    hat(x01[a], sg.res, tp.i0[a], tp.wl[a], tp.wh[a]);
+    const __nv_bfloat16* p = tab + sg.off[a] + (long long)tp.i0[a] * sg.stride;
+    ldg8(p, tp.lo[a]);
+    ldg8(p + sg.stride, tp.hi[a]);
   }
+}
+
+// One axis's lerp of rank 2c + h of the segment (exact products: one rounding)
+__device__ __forceinline__ float line_lerp(const LineTaps& tp, int a, int c, int h) {
+  return h ? tp.wl[a] * bf_hi(tp.lo[a][c]) + tp.wh[a] * bf_hi(tp.hi[a][c])
+           : tp.wl[a] * bf_lo(tp.lo[a][c]) + tp.wh[a] * bf_lo(tp.hi[a][c]);
+}
+
+// Eight line features of one sample: q[c] holds ranks r0 + 2c, r0 + 2c + 1.
+__device__ __forceinline__ void line_features(const LineTaps& tp, uint32_t* q) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const float fx0 = wl[0] * bf_lo(lo[0][c]) + wh[0] * bf_lo(hi[0][c]);
-    const float fy0 = wl[1] * bf_lo(lo[1][c]) + wh[1] * bf_lo(hi[1][c]);
-    const float fz0 = wl[2] * bf_lo(lo[2][c]) + wh[2] * bf_lo(hi[2][c]);
-    const float fx1 = wl[0] * bf_hi(lo[0][c]) + wh[0] * bf_hi(hi[0][c]);
-    const float fy1 = wl[1] * bf_hi(lo[1][c]) + wh[1] * bf_hi(hi[1][c]);
-    const float fz1 = wl[2] * bf_hi(lo[2][c]) + wh[2] * bf_hi(hi[2][c]);
+    const float fx0 = line_lerp(tp, 0, c, 0), fy0 = line_lerp(tp, 1, c, 0);
+    const float fz0 = line_lerp(tp, 2, c, 0);
+    const float fx1 = line_lerp(tp, 0, c, 1), fy1 = line_lerp(tp, 1, c, 1);
+    const float fz1 = line_lerp(tp, 2, c, 1);
     q[c] = pack_bf16(__fmul_rn(__fmul_rn(fx0, fy0), fz0), __fmul_rn(__fmul_rn(fx1, fy1), fz1));
   }
 }
 
-// Eight VM features of one sample and pair: channels c0 + 2c, c0 + 2c + 1.
-__device__ __forceinline__ void plane_segment(const Seg& sg, const __nv_bfloat16* __restrict__ tab,
-                                              const float* x01, uint32_t* q) {
-  // VM pairs (plane axes a, b; line axis e): (0,1,2) (0,2,1) (1,2,0)
+__device__ __forceinline__ void line_segment(const Seg& sg, const __nv_bfloat16* __restrict__ tab,
+                                             const float* x01, uint32_t* q) {
+  LineTaps tp;
+  line_taps(sg, tab, x01, tp);
+  line_features(tp, q);
+}
+
+// The taps of one sample's VM segment (pair p = sg.sub; plane axes a, b and
+// line axis e: (0,1,2) (0,2,1) (1,2,0)): tap indices, hat weights, eight
+// channels of the four plane taps (t00 at (ia, ib), t01 at (ia, ib + 1), t10
+// at (ia + 1, ib), t11) and of the two line taps.
+struct PlaneTaps {
+  int ia, ib, ie;
+  float la, ha, lb, hb, le, he;
+  uint32_t t00[4], t01[4], t10[4], t11[4], v0[4], v1[4];
+};
+
+__device__ __forceinline__ int plane_axis_a(int p) { return p == 2 ? 1 : 0; }
+__device__ __forceinline__ int plane_axis_b(int p) { return p == 0 ? 1 : 2; }
+__device__ __forceinline__ int plane_axis_e(int p) { return 2 - p; }
+
+__device__ __forceinline__ void plane_taps(const Seg& sg, const __nv_bfloat16* __restrict__ tab,
+                                           const float* x01, PlaneTaps& tp) {
   const int p = sg.sub, P = sg.res, C = sg.stride;
   const float xa = p == 2 ? x01[1] : x01[0];
   const float xb = p == 0 ? x01[1] : x01[2];
   const float xe = p == 0 ? x01[2] : (p == 1 ? x01[1] : x01[0]);
-  int ia, ib, ie;
-  float la, ha, lb, hb, le, he;
-  hat(xa, P, ia, la, ha);
-  hat(xb, P, ib, lb, hb);
-  hat(xe, P, ie, le, he);
-  const __nv_bfloat16* p00 = tab + sg.off[0] + ((long long)ia * P + ib) * C;
-  const __nv_bfloat16* l0 = tab + sg.off[1] + (long long)ie * C;
-  uint32_t t00[4], t01[4], t10[4], t11[4], v0[4], v1[4];
-  ldg8(p00, t00);
-  ldg8(p00 + C, t01);
-  ldg8(p00 + (long long)P * C, t10);
-  ldg8(p00 + (long long)P * C + C, t11);
-  ldg8(l0, v0);
-  ldg8(l0 + C, v1);
-  float f[2];
+  hat(xa, P, tp.ia, tp.la, tp.ha);
+  hat(xb, P, tp.ib, tp.lb, tp.hb);
+  hat(xe, P, tp.ie, tp.le, tp.he);
+  const __nv_bfloat16* p00 = tab + sg.off[0] + ((long long)tp.ia * P + tp.ib) * C;
+  const __nv_bfloat16* l0 = tab + sg.off[1] + (long long)tp.ie * C;
+  ldg8(p00, tp.t00);
+  ldg8(p00 + C, tp.t01);
+  ldg8(p00 + (long long)P * C, tp.t10);
+  ldg8(p00 + (long long)P * C + C, tp.t11);
+  ldg8(l0, tp.v0);
+  ldg8(l0 + C, tp.v1);
+}
+
+// Channel 2c + h of the segment: the plane read's two lerps along axis a
+// (q0 at ib, q1 at ib + 1), the bilinear plane value fv and the line value
+// lv, with the plain version's roundings (no fused multiply-add where a
+// product is inexact).
+__device__ __forceinline__ void plane_channel(const PlaneTaps& tp, int c, int h, float& q0,
+                                              float& q1, float& fv, float& lv) {
+  const float a00 = h ? bf_hi(tp.t00[c]) : bf_lo(tp.t00[c]);
+  const float a01 = h ? bf_hi(tp.t01[c]) : bf_lo(tp.t01[c]);
+  const float a10 = h ? bf_hi(tp.t10[c]) : bf_lo(tp.t10[c]);
+  const float a11 = h ? bf_hi(tp.t11[c]) : bf_lo(tp.t11[c]);
+  const float b0 = h ? bf_hi(tp.v0[c]) : bf_lo(tp.v0[c]);
+  const float b1 = h ? bf_hi(tp.v1[c]) : bf_lo(tp.v1[c]);
+  q0 = tp.la * a00 + tp.ha * a10;  // exact products: one rounding either way
+  q1 = tp.la * a01 + tp.ha * a11;
+  fv = __fadd_rn(__fmul_rn(tp.lb, q0), __fmul_rn(tp.hb, q1));
+  lv = tp.le * b0 + tp.he * b1;
+}
+
+// Eight VM features of one sample and pair: channels c0 + 2c, c0 + 2c + 1.
+__device__ __forceinline__ void plane_features(const PlaneTaps& tp, uint32_t* q) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
+    float f[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float a00 = h ? bf_hi(t00[c]) : bf_lo(t00[c]), a01 = h ? bf_hi(t01[c]) : bf_lo(t01[c]);
-      const float a10 = h ? bf_hi(t10[c]) : bf_lo(t10[c]), a11 = h ? bf_hi(t11[c]) : bf_lo(t11[c]);
-      const float b0 = h ? bf_hi(v0[c]) : bf_lo(v0[c]), b1 = h ? bf_hi(v1[c]) : bf_lo(v1[c]);
-      const float q0 = la * a00 + ha * a10;  // exact products: one rounding either way
-      const float q1 = la * a01 + ha * a11;
-      const float fv = __fadd_rn(__fmul_rn(lb, q0), __fmul_rn(hb, q1));
-      const float lv = le * b0 + he * b1;
+      float q0, q1, fv, lv;
+      plane_channel(tp, c, h, q0, q1, fv, lv);
       f[h] = __fmul_rn(fv, lv);
     }
     q[c] = pack_bf16(f[0], f[1]);
   }
 }
 
-// Four values of the frequency encoding of one sample, each as (hi, lo).
-__device__ __forceinline__ void freq_segment(const Seg& sg, int freq_degree, const float* xyz,
-                                             uint32_t* q) {
-  float v[4] = {0.f, 0.f, 0.f, 0.f};
+__device__ __forceinline__ void plane_segment(const Seg& sg, const __nv_bfloat16* __restrict__ tab,
+                                              const float* x01, uint32_t* q) {
+  PlaneTaps tp;
+  plane_taps(sg, tab, x01, tp);
+  plane_features(tp, q);
+}
+
+// The four values of frequency segment sg of one sample: xyz and a zero
+// (sub 0), or (sin, cos) of two (degree, axis) pairs u = 2 (sub - 1) + h,
+// degree u / 3 of axis u % 3; zeros past the last pair.
+__device__ __forceinline__ void freq_values(const Seg& sg, int freq_degree, const float* xyz,
+                                            float* v) {
+  v[0] = v[1] = v[2] = v[3] = 0.f;
   if (sg.sub == 0) {
     v[0] = xyz[0]; v[1] = xyz[1]; v[2] = xyz[2];
   } else {
@@ -199,6 +253,13 @@ __device__ __forceinline__ void freq_segment(const Seg& sg, int freq_degree, con
       }
     }
   }
+}
+
+// Four values of the frequency encoding of one sample, each as (hi, lo).
+__device__ __forceinline__ void freq_segment(const Seg& sg, int freq_degree, const float* xyz,
+                                             uint32_t* q) {
+  float v[4];
+  freq_values(sg, freq_degree, xyz, v);
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const float hi = bf16r(v[c]);
@@ -206,63 +267,82 @@ __device__ __forceinline__ void freq_segment(const Seg& sg, int freq_degree, con
   }
 }
 
-// The canonical field at a tile of 16 samples; every lane of the warp calls
-// it. xyz[j] is the (already warped) position of row g + 8 j and idx[j] its
-// column in the [., m] arrays, or < 0 for a row past the ragged end, which is
-// computed (at any in-range position) and not stored. Writes rows (sigma, r,
-// g, b) of out [4, m]. feat_out, if not null, receives the A operand of the
-// first product, bf16 [m, 32 n_blocks] in segment order (column 8 (4 b + t)
-// + e; the caller zeroes it: a block that lod_mask skips whole is not
-// written).
-__device__ __forceinline__ void field_tile(const FieldMeta& meta, const TileMeta& tm,
-                                           const __nv_bfloat16* __restrict__ tab,
-                                           const TileWeights& w, const float (&xyz)[2][3],
-                                           const long long (&idx)[2],
-                                           const float* __restrict__ d3, long long m,
-                                           int lod_mask, int density_only,
-                                           float* __restrict__ out,
-                                           __nv_bfloat16* __restrict__ feat_out) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  float x01[2][3];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int a = 0; a < 3; ++a) x01[j][a] = unit01(xyz[j][a], meta.bound);
+// The pieces of the canonical field at a tile of 16 samples, which the
+// forward (field_tile) and the backward's recompute (field_bwd_body.cuh) both
+// run, so that the backward sees the forward's pre-activations bit for bit.
+// Every lane of the warp calls them. Row j of a thread is sample g + 8 j of
+// the tile; idx[j] is its column in the [., m] arrays, or < 0 for a row past
+// the ragged end, which is computed (at any in-range position) and not stored.
 
-  // ---- sigma tower, first product: features k-block by k-block ----
-  float acc[8][4];
+__device__ __forceinline__ void zero_acc(float (*acc)[4]) {
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+}
+
+// Is segment sg computed under lod_mask (padding and skipped line scales are
+// not)?
+__device__ __forceinline__ bool segment_on(const Seg& sg, int lod_mask) {
+  return sg.kind != kSegZero && !(sg.kind == kSegLine && ((lod_mask >> sg.sub) & 1));
+}
+
+// The eight features of this thread's segment of k-block b for its two rows,
+// as the A fragments of the block's two k-steps.
+__device__ __forceinline__ void block_features(const FieldMeta& meta, int kind, const Seg& sg,
+                                               bool on, const __nv_bfloat16* __restrict__ tab,
+                                               const float (&xyz)[2][3],
+                                               const float (&x01)[2][3], uint32_t (&q)[2][4],
+                                               uint32_t (&a)[2][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) q[j][c] = 0u;
+    if (on) {
+      if (kind == kSegLine) line_segment(sg, tab, x01[j], q[j]);
+      else if (kind == kSegPlane) plane_segment(sg, tab, x01[j], q[j]);
+      else freq_segment(sg, meta.freq_degree, xyz[j], q[j]);
+    }
+    a[0][j] = q[j][0]; a[0][2 + j] = q[j][1];
+    a[1][j] = q[j][2]; a[1][2 + j] = q[j][3];
+  }
+}
+
+// acc [16, 64] = features x the first sigma matrix, k-block by k-block.
+// feat_out, if not null, receives the A operand, bf16 [m, 32 n_blocks] in
+// segment order (column 8 (4 b + t) + e; the caller zeroes it: a block that
+// lod_mask skips whole is not written).
+__device__ __forceinline__ void first_product(const FieldMeta& meta, const TileMeta& tm,
+                                              const __nv_bfloat16* __restrict__ tab,
+                                              const TileWeights& w, const float (&xyz)[2][3],
+                                              const float (&x01)[2][3],
+                                              const long long (&idx)[2], int lod_mask,
+                                              __nv_bfloat16* __restrict__ feat_out,
+                                              float (*acc)[4]) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  zero_acc(acc);
   for (int b = 0; b < tm.n_blocks; ++b) {
     const Seg& sg = tm.seg[4 * b + t];
-    const int kind = tm.blk_kind[b];
-    const bool on = sg.kind != kSegZero && !(sg.kind == kSegLine && ((lod_mask >> sg.sub) & 1));
+    const bool on = segment_on(sg, lod_mask);
     if (!__any_sync(0xffffffffu, on)) continue;  // the whole block is skipped
-    uint32_t a[2][4];
+    uint32_t q[2][4], a[2][4];
+    block_features(meta, tm.blk_kind[b], sg, on, tab, xyz, x01, q, a);
+    if (feat_out != nullptr) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      uint32_t q[4] = {0u, 0u, 0u, 0u};
-      if (on) {
-        if (kind == kSegLine) line_segment(sg, tab, x01[j], q);
-        else if (kind == kSegPlane) plane_segment(sg, tab, x01[j], q);
-        else freq_segment(sg, meta.freq_degree, xyz[j], q);
-      }
-      a[0][j] = q[0]; a[0][2 + j] = q[1];
-      a[1][j] = q[2]; a[1][2 + j] = q[3];
-      if (feat_out != nullptr && idx[j] >= 0)
-        *reinterpret_cast<uint4*>(feat_out + idx[j] * (32LL * tm.n_blocks) + 8 * (4 * b + t)) =
-            make_uint4(q[0], q[1], q[2], q[3]);
+      for (int j = 0; j < 2; ++j)
+        if (idx[j] >= 0)
+          *reinterpret_cast<uint4*>(feat_out + idx[j] * (32LL * tm.n_blocks) + 8 * (4 * b + t)) =
+              make_uint4(q[j][0], q[j][1], q[j][2], q[j][3]);
     }
     mma_step<4>(acc, a[0], w.w0 + (2 * b) * 128 + lane);
     mma_step<4>(acc, a[1], w.w0 + (2 * b + 1) * 128 + lane);
   }
-  uint32_t ah[4][4];
-  relu_fragments(acc, ah);
+}
 
-  // ---- sigma tower, output layer: (density logit, 15 geo features) ----
-  float o[2][4];
+// o [16, 16] = (density logit, 15 geo features) from the relu'd hidden layer
+__device__ __forceinline__ void sigma_output(const TileWeights& w, const uint32_t (*ah)[4],
+                                             int density_only, float (*o)[4]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int n = 0; n < 2; ++n)
 #pragma unroll
@@ -273,20 +353,14 @@ __device__ __forceinline__ void field_tile(const FieldMeta& meta, const TileMeta
     mma_bf16(o[0], ah[ks], bw.x, bw.y);
     if (!density_only) mma_bf16(o[1], ah[ks], bw.z, bw.w);
   }
-  if (t == 0) {
-    if (idx[0] >= 0) out[idx[0]] = expf(o[0][0]);
-    if (idx[1] >= 0) out[idx[1]] = expf(o[0][2]);
-  }
-  if (density_only) {
-    if (t != 0) {
-      if (idx[0] >= 0) out[t * m + idx[0]] = 0.f;
-      if (idx[1] >= 0) out[t * m + idx[1]] = 0.f;
-    }
-    return;
-  }
+}
 
-  // ---- colour tower input: SH(d) of degree 4, then the sigma outputs ----
-  uint32_t ac[2][4];
+// The colour tower's input as A fragments: SH(d) of degree 4, then the sigma
+// outputs with the density logit zeroed.
+__device__ __forceinline__ void color_input(const FieldMeta& meta, const float* __restrict__ d3,
+                                            long long m, const long long (&idx)[2],
+                                            const float (*o)[4], uint32_t (*ac)[4]) {
+  const int t = threadIdx.x & 3;
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     float sh[kShDim];
@@ -308,34 +382,84 @@ __device__ __forceinline__ void field_tile(const FieldMeta& meta, const TileMeta
     ac[1][0] &= 0xffff0000u;
     ac[1][1] &= 0xffff0000u;
   }
+}
 
-  // ---- colour tower ----
+// The colour tower's two hidden products: acc = a x wc0 (k_steps = 2) or
+// a x wc1 (k_steps = 4).
+template <int kSteps>
+__device__ __forceinline__ void color_product(const uint4* wm, const uint32_t (*a)[4],
+                                              float (*acc)[4]) {
+  const int lane = threadIdx.x & 31;
+  zero_acc(acc);
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int ks = 0; ks < kSteps; ++ks) mma_step<4>(acc, a[ks], wm + ks * 128 + lane);
+}
+
+// The colour logits: (r, g) of rows g, g + 8 in t == 0; (b, -) in t == 1.
+__device__ __forceinline__ void color_output(const TileWeights& w, const uint32_t (*ah)[4],
+                                             float* rgb) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) mma_step<4>(acc, ac[ks], w.wc0 + ks * 128 + lane);
-  relu_fragments(acc, ah);
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) mma_step<4>(acc, ah[ks], w.wc1 + ks * 128 + lane);
-  relu_fragments(acc, ah);
-  float rgb[4] = {0.f, 0.f, 0.f, 0.f};  // (r, g) of rows g, g + 8 in t == 0; (b, -) in t == 1
+  for (int c = 0; c < 4; ++c) rgb[c] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
     const uint4 bw = w.wc2[ks * 32 + lane];
     mma_bf16(rgb, ah[ks], bw.x, bw.y);
   }
+}
+
+__device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
+
+// The canonical field at a tile of 16 samples. xyz[j] is the (already warped)
+// position of row j. Writes rows (sigma, r, g, b) of out [4, m]; feat_out as
+// in first_product.
+__device__ __forceinline__ void field_tile(const FieldMeta& meta, const TileMeta& tm,
+                                           const __nv_bfloat16* __restrict__ tab,
+                                           const TileWeights& w, const float (&xyz)[2][3],
+                                           const long long (&idx)[2],
+                                           const float* __restrict__ d3, long long m,
+                                           int lod_mask, int density_only,
+                                           float* __restrict__ out,
+                                           __nv_bfloat16* __restrict__ feat_out) {
+  const int t = threadIdx.x & 3;
+  float x01[2][3];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) x01[j][a] = unit01(xyz[j][a], meta.bound);
+
+  float acc[8][4];
+  first_product(meta, tm, tab, w, xyz, x01, idx, lod_mask, feat_out, acc);
+  uint32_t ah[4][4];
+  relu_fragments(acc, ah);
+  float o[2][4];
+  sigma_output(w, ah, density_only, o);
+  if (t == 0) {
+    if (idx[0] >= 0) out[idx[0]] = expf(o[0][0]);
+    if (idx[1] >= 0) out[idx[1]] = expf(o[0][2]);
+  }
+  if (density_only) {
+    if (t != 0) {
+      if (idx[0] >= 0) out[t * m + idx[0]] = 0.f;
+      if (idx[1] >= 0) out[t * m + idx[1]] = 0.f;
+    }
+    return;
+  }
+
+  uint32_t ac[2][4];
+  color_input(meta, d3, m, idx, o, ac);
+  color_product<2>(w.wc0, ac, acc);
+  relu_fragments(acc, ah);
+  color_product<4>(w.wc1, ah, acc);
+  relu_fragments(acc, ah);
+  float rgb[4];
+  color_output(w, ah, rgb);
   if (t < 2) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       if (idx[j] < 0) continue;
-      out[(2 * t + 1) * m + idx[j]] = 1.f / (1.f + expf(-rgb[2 * j]));
-      if (t == 0) out[2 * m + idx[j]] = 1.f / (1.f + expf(-rgb[2 * j + 1]));
+      out[(2 * t + 1) * m + idx[j]] = sigmoidf(rgb[2 * j]);
+      if (t == 0) out[2 * m + idx[j]] = sigmoidf(rgb[2 * j + 1]);
     }
   }
 }
@@ -403,8 +527,9 @@ inline int launch_field_fwd(const float* x3, const float* d3, long long m,
 // scales: n_blocks, w_elems, w_off[5] (bf16 elements into the forward weight
 // buffer), blk_kind[n_blocks], then per segment (4 n_blocks of them) kind,
 // sub, res, stride, off[3]. n_blocks == 0 says that pack_tables could not lay
-// the config out (a rank or channel count that is not a multiple of 8).
-// Every row a segment reads must start 16-byte aligned.
+// the config out (more than kMaxBlocks k-blocks). Every row a segment reads
+// must start 16-byte aligned: pack_tables pads the tables' rows to multiples
+// of eight columns.
 inline int fill_tile_meta(const long long* meta, const FieldMeta& fm, TileMeta* out) {
   const long long* q = meta + 10 + 5 * fm.n_scales + 8 * fm.n_planes;
   TileMeta tm = {};

@@ -22,8 +22,9 @@ PyTorch versions, and the autograd ops that join K1 with K2 and K3 with K4.
 
 `params` is either a params dict or the `FieldTables` that `pack_tables`
 builds from one: the bf16 tables and tower weights in the kernels' layouts
-(the forward kernels compute 16 samples a warp on the tensor cores and take
-the matrices padded and in mma fragment order: TileLayout).
+(the kernels compute 16 samples a warp on the tensor cores and take the
+matrices, and for the backward their transposes, padded and in mma fragment
+order: TileLayout).
 Packing costs a pass over ~1.5 MB of parameters, so callers that evaluate
 the field repeatedly pack once per parameter version (CPField.kernel_tables).
 
@@ -66,6 +67,9 @@ _KERNEL_TOWERS = dict(num_layers=2, num_layers_color=3, hidden_dim=64,
 # the dynamic kernel's deform tower: hidden width, rows of the padded last
 # matrix, most matrices
 _DEFORM_HID, _DEFORM_LAST_ROWS, _DEFORM_MAX_LAYERS = 128, 8, 16
+# a block's shared memory on sm_90, and the backward body's spin locks in it
+# (csrc/field_bwd_body.cuh: kMaxSmem, kMaxLocks)
+_SMEM_PER_BLOCK, _BWD_LOCK_BYTES = 232448, 4 * 46
 
 
 @dataclass
@@ -73,16 +77,19 @@ class FieldTables:
     """bf16 operands of the field for one parameter version.
 
     plain: params-like dict of bf16 tensors in the reference layouts.
-    tab:   flat bf16 buffer of all line, plane and VM-line tables.
-    wbuf:  flat bf16 buffer of the five tower matrices, in the backward
-           kernels' layouts w0 [feat, 64] | w1^T [16, 64] | wc0 [31, 64] |
-           wc1^T [64, 64] | wc2 [64, 3], padded to a multiple of 8 elements.
-    wfwd:  flat bf16 buffer of the same matrices for the forward kernels:
+    tab:   flat bf16 buffer of all line, plane and VM-line tables, each row
+           padded with zero columns to a multiple of 8 (one 16-byte load
+           reads eight ranks or channels; a kernel's table gradients come
+           in the same layout).
+    wfwd:  flat bf16 buffer of the five tower matrices for the kernels:
            padded, the first one's rows in the order of the kernels' feature
            segments, each in mma fragment order (see TileLayout). Empty when
-           the config is not one the forward kernels take.
+           the config is not one the kernels take.
+    wbwd:  the same matrices' transposes for the backward kernels' chain,
+           in fragment order too (TileLayout.bwd_index).
     meta:  int64 layout description read by the kernels' C entry points:
-           the tables and wbuf, then the forward kernels' tile layout.
+           the tables and the weight-gradient buffer, the kernels' tile
+           layout, then the offsets into wbwd.
     Of a time-conditioned field also (plain then has "deform_mlp" too):
     w0_time: f32 [time inputs, hidden], the first deform matrix's time rows.
     wdef:  flat bf16 buffer of the deform matrices, output-major (W^T):
@@ -96,9 +103,9 @@ class FieldTables:
     """
     plain: dict
     tab: torch.Tensor
-    wbuf: torch.Tensor
     meta: list
     wfwd: torch.Tensor = None
+    wbwd: torch.Tensor = None
     w0_time: torch.Tensor = None
     wdef: torch.Tensor = None
     wdef_in: torch.Tensor = None
@@ -129,7 +136,7 @@ def _frag_index(idx):
 
 @dataclass(frozen=True, eq=False)
 class TileLayout:
-    """How the forward kernels see the field's features and matrices.
+    """How the kernels see the field's features and matrices.
 
     A warp computes 16 samples; of the first sigma product's columns a thread
     holds eight at a time, a *segment*: eight neighbouring ranks of one line
@@ -145,7 +152,10 @@ class TileLayout:
     rows:  int64 [32 * n_blocks]: the row of the first sigma matrix that
            column 8 * segment + e multiplies, -1 for padding. A frequency
            value's hi and lo columns name the same row.
-    index: int64 [w_elems]: wfwd = wbuf-and-eight-zeros[index]; the matrices
+    index: int64 [w_elems]: wfwd = flat[index], flat being the five
+           matrices w0 [feat, 64] | w1^T [16, 64] | wc0 [31, 64] | wc1^T
+           [64, 64] | wc2 [64, 3] one after the other and then zeros; the
+           matrices
            w0 [32 n_blocks, 64] | w1 [64, 16] | wc0 [32, 64] | wc1 [64, 64] |
            wc2 [64, 16], input-major, zero-padded, each in fragment order
            (_frag_index). Column 32 b + 8 t + e of the layout sits at row
@@ -154,11 +164,34 @@ class TileLayout:
            component 4 t + c at row 2 t + c % 2 + 8 (c // 2), then a zero
            row for the density logit and the 15 geo rows.
     w_off: element offsets of the five matrices in wfwd.
+    bwd_index, bwd_off: the same for wbwd = flat[bwd_index], the B operands
+           of the backward's chain, each [k, n] in fragment order: w0^T
+           [64, 32 n_blocks], whose column 32 b + 8 i + 2 t + e is segment
+           column 32 b + 8 t + 2 i + e (so that the C fragment of thread t
+           holds the cotangents of its own segment's eight features) | w1^T
+           [16, 64] | wc0^T [64, 16] (column 0, the density logit, zero;
+           then the geo rows) | wc1^T [64, 64] | wc2^T [16, 64] (rows 3..
+           zero).
+    gw_off: element offsets of the five weight gradients in the backward
+           kernels' f32 buffer g_w, row-major: w0 [32 n_blocks, 64] with its
+           rows in the A fragments' order (the row of `index`'s w0) | w1
+           [64, 16] | wc0 [32, 64] in the colour input's order | wc1
+           [64, 64] | wc2 [64, 8]; gw_elems is its size.
+    w0_rows: int64 [32 n_blocks]: the row of the first sigma matrix that row
+           k of g_w's w0 belongs to (-1: padding; a frequency row's hi and lo
+           rows both name it, and their sum is its gradient).
+    wc0_rows: int64 [32]: the same for wc0 (-1: the density logit's row).
     """
     segs: tuple
     rows: np.ndarray
     index: np.ndarray
     w_off: tuple
+    bwd_index: np.ndarray
+    bwd_off: tuple
+    gw_off: tuple
+    gw_elems: int
+    w0_rows: np.ndarray
+    wc0_rows: np.ndarray
 
     @property
     def n_blocks(self):
@@ -167,7 +200,8 @@ class TileLayout:
     def meta(self, scale_meta, plane_meta):
         """The tail of FieldTables.meta: n_blocks, w_elems, w_off[5], the
         kind of each block, then per segment kind, sub, res, stride and the
-        element offsets of the rows it reads in `tab`."""
+        element offsets of the rows it reads in `tab`; then the size of
+        wbwd and the offsets of its five matrices."""
         out = [self.n_blocks, int(self.index.size)] + list(self.w_off)
         # a block's kind: that of its segments that are not padding (0)
         out += [max(sg[0] for sg in self.segs[4 * b:4 * b + 4])
@@ -183,20 +217,23 @@ class TileLayout:
                         plane_meta[8 * s + 5 + sub] + first, 0]
             else:
                 out += [kind, sub, 0, 0, 0, 0, 0]
-        return out
+        return out + [int(self.bwd_index.size)] + list(self.bwd_off)
 
 
 @functools.lru_cache(maxsize=16)
 def tile_layout(cfg: CPConfig):
-    """TileLayout of `cfg`, or None for a config the forward kernels do not
-    take: other towers than _KERNEL_TOWERS, a rank or a channel count that
-    is not a multiple of 8 (a segment is eight columns, read with one
-    16-byte load), or more than 16 k-blocks."""
+    """TileLayout of `cfg`, or None for a config the kernels do not take:
+    other towers than _KERNEL_TOWERS, or more than 16 k-blocks. A rank or a
+    channel count that is not a multiple of 8 is padded to one: the last
+    segment's spare columns read the zero columns that pack_tables appends
+    to the table's rows and meet zero rows of the matrix."""
     if any(getattr(cfg, k) != v for k, v in _KERNEL_TOWERS.items()):
         return None
-    if any(r % 8 for _, r in cfg.scales) or any(c % 8 for _, c in cfg.planes):
-        return None
     segs, rows = [], []
+
+    def segment_rows(first, r0, width):
+        live = min(8, width - r0)
+        return list(range(first + r0, first + r0 + live)) + [-1] * (8 - live)
 
     def pad_block():
         while len(segs) % 4:
@@ -207,14 +244,14 @@ def tile_layout(cfg: CPConfig):
     for s, (_, rank) in enumerate(cfg.scales):
         for r0 in range(0, rank, 8):
             segs.append((SEG_LINE, s, s, r0))
-            rows.extend(range(row + r0, row + r0 + 8))
+            rows.extend(segment_rows(row, r0, rank))
         row += rank
     pad_block()
     for s, (_, ch) in enumerate(cfg.planes):
         for p in range(3):
             for c0 in range(0, ch, 8):
                 segs.append((SEG_PLANE, p, s, c0))
-                rows.extend(range(row + c0, row + c0 + 8))
+                rows.extend(segment_rows(row, c0, ch))
             row += ch
     pad_block()
     # frequency rows of w0: x y z, then per degree 3 sin rows and 3 cos rows
@@ -235,7 +272,7 @@ def tile_layout(cfg: CPConfig):
         return None
     rows = np.asarray(rows, dtype=np.int64)
 
-    # element indices into wbuf (see pack_tables); `zero`: the pad behind it
+    # element indices into `flat` (see pack_tables); `zero`: the pad behind it
     hid, sig_out, c_in = 64, 16, 31
     sizes = [cfg.feat_dim * hid, sig_out * hid, c_in * hid, hid * hid,
              hid * 3]
@@ -246,9 +283,10 @@ def tile_layout(cfg: CPConfig):
     col = np.arange(32 * n_blocks)
     b, t, e = col // 32, col % 32 // 8, col % 8
     kpos = 32 * b + 16 * (e // 4) + 2 * t + e % 2 + 8 * (e // 2 % 2)
+    iseg = np.where(rows[:, None] >= 0, off[0] + rows[:, None] * hid + n64,
+                    zero)                      # w0's rows in segment order
     i0 = np.full((32 * n_blocks, hid), zero, dtype=np.int64)
-    i0[kpos] = np.where(rows[:, None] >= 0, off[0] + rows[:, None] * hid + n64,
-                        zero)
+    i0[kpos] = iseg
     # w1 [64, 16] from w1^T [16, 64]
     i1 = off[1] + np.arange(sig_out)[None, :] * hid + np.arange(hid)[:, None]
     # wc0 [32, 64]: SH rows in the threads' order, a zero row, the geo rows
@@ -265,14 +303,45 @@ def tile_layout(cfg: CPConfig):
     ic2[:, :3] = off[4] + np.arange(hid)[:, None] * 3 + np.arange(3)[None, :]
     mats = [_frag_index(i) for i in (i0, i1, ic0, ic1, ic2)]
     w_off = np.concatenate([[0], np.cumsum([m.size for m in mats])])[:5]
+    # the chain's B operands: the transposes, w0^T's columns regrouped
+    i_blk, t_seg, e_seg = col % 32 // 8, col % 8 // 2, col % 2
+    seg_col = 32 * b + 8 * t_seg + 2 * i_blk + e_seg
+    i2t = np.full((16, hid), zero, dtype=np.int64)
+    i2t[:3] = ic2[:, :3].T
+    tmats = [_frag_index(m) for m in (
+        iseg[seg_col].T, i1.T, np.ascontiguousarray(ic0[16:32].T), ic1.T,
+        i2t)]
+    bwd_off = np.concatenate([[0], np.cumsum([m.size for m in tmats])])[:5]
+    gw_sizes = [32 * n_blocks * hid, hid * 16, 32 * hid, hid * hid, hid * 8]
+    gw_off = np.concatenate([[0], np.cumsum(gw_sizes)])
+    w0_rows = np.full(32 * n_blocks, -1, dtype=np.int64)
+    w0_rows[kpos] = rows
+    wc0_rows = np.full(32, -1, dtype=np.int64)
+    for tq in range(4):
+        for c in range(4):
+            wc0_rows[2 * tq + c % 2 + 8 * (c // 2)] = 4 * tq + c
+    wc0_rows[17:32] = 16 + np.arange(15)
     return TileLayout(segs=tuple(segs), rows=rows,
                       index=np.concatenate(mats),
-                      w_off=tuple(int(o) for o in w_off))
+                      w_off=tuple(int(o) for o in w_off),
+                      bwd_index=np.concatenate(tmats),
+                      bwd_off=tuple(int(o) for o in bwd_off),
+                      gw_off=tuple(int(o) for o in gw_off[:5]),
+                      gw_elems=int(gw_off[5]), w0_rows=w0_rows,
+                      wc0_rows=wc0_rows)
 
 
 @functools.lru_cache(maxsize=16)
 def _device_index(layout: TileLayout, device: str):
-    return torch.from_numpy(layout.index).to(device)
+    """The layout's gather indices on `device`: (index, bwd_index), and for
+    g_w's w0 and wc0 the rows that are not padding and the matrix rows they
+    belong to."""
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    k0, kc0 = np.nonzero(layout.w0_rows >= 0)[0], \
+        np.nonzero(layout.wc0_rows >= 0)[0]
+    return (dev(layout.index), dev(layout.bwd_index), dev(k0),
+            dev(layout.w0_rows[k0]), dev(kc0), dev(layout.wc0_rows[kc0]))
 
 
 @torch.no_grad()
@@ -292,46 +361,44 @@ def pack_tables(params, cfg: CPConfig) -> FieldTables:
     chunks, off = [], 0
 
     def put(t):
+        """Append table t, its rows padded with zero columns to a multiple
+        of 8; returns its element offset and its row length."""
         nonlocal off
+        width = t.shape[-1] + (-t.shape[-1]) % 8
+        if width != t.shape[-1]:
+            t = torch.nn.functional.pad(t, (0, width - t.shape[-1]))
         chunks.append(t.reshape(-1))
         off += t.numel()
-        return off - t.numel()
+        return off - t.numel(), width
 
     scale_meta = []
-    for s, (res, rank) in enumerate(cfg.scales):
-        scale_meta += [res, rank] + [put(plain["lines"][s][a])
-                                     for a in range(3)]
+    for s, (res, _) in enumerate(cfg.scales):
+        offs = [put(plain["lines"][s][a]) for a in range(3)]
+        scale_meta += [res, offs[0][1]] + [o for o, _ in offs]
     plane_meta = []
-    for s, (pres, ch) in enumerate(cfg.planes):
+    for s, (pres, _) in enumerate(cfg.planes):
         po = [put(plain["planes"][s][p]) for p in range(3)]
-        vo = [put(plain["vm_lines"][s][p]) for p in range(3)]
-        plane_meta += [pres, ch] + po + vo
+        vo = [put(plain["vm_lines"][s][p])[0] for p in range(3)]
+        plane_meta += [pres, po[0][1]] + [o for o, _ in po] + vo
     tab = torch.cat(chunks)
 
-    ws, wc = plain["sigma_mlp"]["w"], plain["color_mlp"]["w"]
-    mats = [ws[0], ws[-1].t(), wc[0], wc[1].t(), wc[-1]] \
-        if len(ws) == 2 and len(wc) == 3 else []
-    w_off, parts, n = [], [], 0
-    for mat in mats:
-        w_off.append(n)
-        parts.append(mat.contiguous().reshape(-1))
-        n += mat.numel()
-    pad = (-n) % 8
-    # eight more zeros behind wbuf: the padding that wfwd gathers
-    flat = torch.cat(parts + [tab.new_zeros(pad + 8)])
-    wbuf = flat[:n + pad]
-    w_off += [0] * (5 - len(w_off))
-    meta = [len(cfg.scales), len(cfg.planes), cfg.freq_degree, cfg.feat_dim,
-            n + pad] + w_off + scale_meta + plane_meta
     layout = tile_layout(cfg)
+    meta = [len(cfg.scales), len(cfg.planes), cfg.freq_degree, cfg.feat_dim]
     if layout is None:
-        wfwd = tab.new_zeros(0)
-        meta += [0] * 7
+        wfwd = wbwd = tab.new_zeros(0)
+        meta += [0] * 6 + scale_meta + plane_meta + [0] * 7
     else:
-        wfwd = flat[_device_index(layout, str(tab.device))]
-        meta += layout.meta(scale_meta, plane_meta)
-    tables = FieldTables(plain=plain, tab=tab, wbuf=wbuf, meta=meta,
-                         wfwd=wfwd)
+        ws, wc = plain["sigma_mlp"]["w"], plain["color_mlp"]["w"]
+        # the five matrices one after the other, then the zeros that the
+        # layouts' padding gathers
+        flat = torch.cat([m.contiguous().reshape(-1) for m in (
+            ws[0], ws[1].t(), wc[0], wc[1].t(), wc[2])] + [tab.new_zeros(16)])
+        index, bwd_index = _device_index(layout, str(tab.device))[:2]
+        wfwd, wbwd = flat[index], flat[bwd_index]
+        meta += [layout.gw_elems] + list(layout.gw_off) + scale_meta \
+            + plane_meta + layout.meta(scale_meta, plane_meta)
+    tables = FieldTables(plain=plain, tab=tab, meta=meta, wfwd=wfwd,
+                         wbwd=wbwd)
     if isinstance(cfg, CPDNeRFConfig):
         _pack_deform(tables, params, cfg)
     return tables
@@ -390,12 +457,6 @@ def _check_kernel_cfg(cfg: CPConfig):
     if len(cfg.scales) > 8 or len(cfg.planes) > 4:
         raise NotImplementedError("the field kernel takes at most 8 line "
                                   "scales and 4 plane scales")
-    bad = [r for _, r in cfg.scales if r % 8] \
-        + [c for _, c in cfg.planes if c % 8]
-    if bad:
-        raise NotImplementedError(
-            "the field kernel reads eight ranks or channels of a table row "
-            f"with one 16-byte load: got {bad}, not multiples of 8")
     if tile_layout(cfg) is None:
         raise NotImplementedError(
             f"the field kernel takes at most {32 * _MAX_BLOCKS} padded "
@@ -404,7 +465,7 @@ def _check_kernel_cfg(cfg: CPConfig):
 
 def _check_packed(tables: FieldTables, device, deform=()):
     """Raise unless the packed buffers are bf16 on `device` and every table
-    row that the forward kernels read starts 16-byte aligned."""
+    row that the kernels read starts 16-byte aligned."""
     for name, t in (("tables", tables.tab), ("weights", tables.wfwd)) \
             + tuple(deform):
         if t.device != device or t.dtype != torch.bfloat16:
@@ -420,9 +481,9 @@ def _check_packed(tables: FieldTables, device, deform=()):
 
 def table_row_offsets(meta):
     """The element offsets in `tab` of every table that FieldTables.meta
-    lists (three per line scale, six per plane scale). With ranks and
-    channel counts that are multiples of 8, every row of a table starts
-    16-byte aligned when these are multiples of 8 too."""
+    lists (three per line scale, six per plane scale). The rows are padded
+    to multiples of 8 columns, so every row of a table starts 16-byte
+    aligned when these are multiples of 8 too."""
     out, q = [], 10
     for _ in range(meta[0]):
         out += meta[q + 2:q + 5]
@@ -837,68 +898,182 @@ def field_backward_plain(tables: FieldTables, cfg: CPConfig, x3, d3, g_out,
 
 
 def _unpack_grads(tables: FieldTables, cfg: CPConfig, g_tab, g_w):
-    """Views of the kernel's flat grad buffers in the params' layouts."""
+    """The kernel's flat grad buffers in the params' layouts: views of g_tab
+    with the rows' padding cut away, and the five matrices gathered from
+    g_w's layout (TileLayout.gw_off)."""
     meta = tables.meta
-    n_scales, n_planes, feat = meta[0], meta[1], meta[3]
-    w_off = meta[5:10]
     q = 10
     out = {"lines": []}
-    for s in range(n_scales):
-        res, rank = meta[q], meta[q + 1]
-        out["lines"].append([g_tab[o:o + res * rank].view(res, rank)
-                             for o in meta[q + 2:q + 5]])
+    for res, rank in cfg.scales:
+        width = meta[q + 1]
+        out["lines"].append([
+            g_tab[o:o + res * width].view(res, width)[:, :rank]
+            for o in meta[q + 2:q + 5]])
         q += 5
-    if n_planes:
+    if cfg.planes:
         out["planes"], out["vm_lines"] = [], []
-        for s in range(n_planes):
-            pres, ch = meta[q], meta[q + 1]
-            n_pl, n_vl = pres * pres * ch, pres * ch
-            out["planes"].append([g_tab[o:o + n_pl].view(pres, pres, ch)
-                                  for o in meta[q + 2:q + 5]])
-            out["vm_lines"].append([g_tab[o:o + n_vl].view(pres, ch)
-                                    for o in meta[q + 5:q + 8]])
+        for pres, ch in cfg.planes:
+            width = meta[q + 1]
+            n_pl, n_vl = pres * pres * width, pres * width
+            out["planes"].append([
+                g_tab[o:o + n_pl].view(pres, pres, width)[..., :ch]
+                for o in meta[q + 2:q + 5]])
+            out["vm_lines"].append([
+                g_tab[o:o + n_vl].view(pres, width)[:, :ch]
+                for o in meta[q + 5:q + 8]])
             q += 8
-    hid, hc, sig_out = cfg.hidden_dim, cfg.hidden_dim_color, \
-        1 + cfg.geo_feat_dim
-    c_in = cfg.dir_dim + cfg.geo_feat_dim
+    layout = tile_layout(cfg)
+    hid = cfg.hidden_dim
+    _, _, k0, r0, kc0, rc0 = _device_index(layout, str(g_w.device))
 
     def mat(k, rows, cols):
-        return g_w[w_off[k]:w_off[k] + rows * cols].view(rows, cols)
-    out["sigma_mlp"] = {"w": [mat(0, feat, hid), mat(1, sig_out, hid).t()]}
-    out["color_mlp"] = {"w": [mat(2, c_in, hc), mat(3, hc, hc).t(),
-                              mat(4, hc, 3)]}
+        o = layout.gw_off[k]
+        return g_w[o:o + rows * cols].view(rows, cols)
+    # a frequency row's gradient is the sum of its hi and its lo row
+    w0 = g_w.new_zeros((cfg.feat_dim, hid)).index_add_(
+        0, r0, mat(0, 32 * layout.n_blocks, hid)[k0])
+    wc0 = g_w.new_zeros((cfg.dir_dim + cfg.geo_feat_dim, hid)).index_add_(
+        0, rc0, mat(2, 32, hid)[kc0])
+    out["sigma_mlp"] = {"w": [w0, mat(1, hid, 16)]}
+    out["color_mlp"] = {"w": [wc0, mat(3, hid, hid), mat(4, hid, 8)[:, :3]]}
     return out
 
 
-def _launch_bwd(tables: FieldTables, cfg: CPConfig, x3, d3, g_out):
-    from .build import load_library
+def backward_shared_bytes(layout: TileLayout):
+    """(bytes, w0_staged): the shared memory of a block of the backward
+    kernels, and whether that holds the first sigma matrix and its transpose
+    (csrc/field_bwd_body.cuh: field_bwd_smem). They are staged with the other
+    matrices when everything fits a block, as at the default widths' 10
+    k-blocks; a wider config leaves the two in device memory."""
+    rest = 2 * (layout.index.size + layout.bwd_index.size) \
+        + 4 * layout.gw_elems + _BWD_LOCK_BYTES
+    if rest <= _SMEM_PER_BLOCK:
+        return rest, True
+    return rest - 2 * (layout.w_off[1] + layout.bwd_off[1]), False
+
+
+def _backward_buffers(tables: FieldTables, cfg: CPConfig, x3):
+    """Check the packed operands of a backward kernel against the device and
+    a block's shared memory (backward_shared_bytes), and return its zeroed f32 gradient buffers
+    (g_tab like the tables, g_w: TileLayout.gw_off) with the zeroed counter
+    and the scratch of the list of samples that carry a cotangent. Zeroed on
+    the launch stream: the kernels only add into them."""
     _check_kernel_cfg(cfg)
-    for name, t in (("tables", tables.tab), ("weights", tables.wbuf)):
-        if t.device != x3.device or t.dtype != torch.bfloat16:
-            raise ValueError(f"packed {name} must be bf16 on {x3.device}, "
-                             f"got {t.dtype} on {t.device}")
+    _check_packed(tables, x3.device, (("transposed weights", tables.wbwd),))
+    layout = tile_layout(cfg)
+    need = backward_shared_bytes(layout)[0]
+    if need > _SMEM_PER_BLOCK:
+        raise NotImplementedError(
+            f"the field backward kernel keeps the towers' matrices, their "
+            f"transposes and a block's weight-gradient sums "
+            f"({4 * layout.gw_elems} bytes) in shared memory: {need} bytes "
+            f"for {layout.n_blocks} k-blocks of 32 feature columns, more "
+            f"than the {_SMEM_PER_BLOCK} a block has")
+    m, dev = x3.shape[1], x3.device
+    g_tab = torch.zeros(tables.tab.numel(), dtype=torch.float32, device=dev)
+    g_w = torch.zeros(layout.gw_elems, dtype=torch.float32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    idx = torch.empty(m, dtype=torch.int32, device=dev)
+    return g_tab, g_w, count, idx
+
+
+# fragile_samples_plain's allowances: for the order of an f32 sum, as a share
+# of sum_k |a_k w_k| (eight roundings of 2^-24), and for a frequency feature
+# that the kernels enter as a hi + lo bf16 pair, as a share of its value.
+# Measured on an H100 (profiling/torch_fragile_margin.py, 262,181 random
+# samples): with these values the set takes 4 % of the samples (7 % at narrow
+# widths) and K2 lies 1.2e-3 to 2.0e-3 from its plain version on the others,
+# 2.5e-2 on all; a quarter of both values still holds that, a sixteenth does
+# not (the set then misses samples whose masks the kernel's sums flip).
+SUM_NOISE = 2.0 ** -21
+FREQ_NOISE = 2.0 ** -19
+
+
+def _bf16_tie_distance(v):
+    """Per f32 value: how far it lies from the nearest point at which its
+    bf16 rounding changes (the midpoint of two neighbouring bf16 values),
+    and the spacing of the bf16 values there."""
+    _, e = torch.frexp(v.abs().clamp(min=1e-30))    # |v| = m 2^e, m in [.5, 1)
+    ulp = torch.ldexp(torch.ones_like(v), e - 8)
+    return 0.5 * ulp - (v - bf16_round(v)).abs(), ulp
+
+
+def fragile_samples_plain(tables: FieldTables, cfg: CPConfig, x, d,
+                          sum_noise: float = SUM_NOISE, freq_noise: float = FREQ_NOISE):
+    """The samples (bool [S], at positions x and directions d [S, 3]) whose
+    share of a gradient is not stable under a reordering of the forward's
+    f32 sums, by the plain version alone: those at which a pre-activation of
+    a relu (h0, hc0, hc1 of _bwd_chunk) lies within its noise bound of 0, so
+    that the same arithmetic summed in another order (the kernels' mma) may
+    put it on the other side, which changes the sample's whole share of
+    every gradient.
+
+    The bound of a product a @ w is sum_noise * (|a| @ |w|) + da @ |w|, da
+    being how far the operand itself may differ: 2^-16 of a frequency
+    feature (the kernels enter it as a hi + lo bf16 pair), nothing for a
+    line or plane feature (the kernels' are the plain ones bit for bit), a
+    few f32 ulps for an SH component, and for a bf16-rounded activation one
+    bf16 spacing where its f32 value lies within its own bound of a point
+    where the rounding changes, else nothing: rounding to bf16 wipes the
+    noise out everywhere else."""
+    tp = tables.plain
+    w0, w1 = (w.float() for w in tp["sigma_mlp"]["w"])
+    wc0, wc1, _ = (w.float() for w in tp["color_mlp"]["w"])
+
+    def product(a, da, w):
+        return a @ w, sum_noise * (a.abs() @ w.abs()) + da @ w.abs()
+
+    def rounded(h, nb, relu):
+        dist, ulp = _bf16_tie_distance(h)
+        moves = (dist <= nb) & (h > -nb) if relu else dist <= nb
+        return torch.where(moves, ulp, torch.zeros_like(ulp))
+
+    with torch.no_grad():
+        feat = cp_features(tp, cfg, x)
+        g = cfg.grid_feat_dim
+        a0 = torch.cat([bf16_round(feat[:, :g]), feat[:, g:]], dim=-1)
+        da0 = torch.zeros_like(a0)
+        da0[:, g:] = freq_noise * feat[:, g:].abs()
+        h0, n0 = product(a0, da0, w0)
+        h1, n1 = product(bf16_round(torch.relu(h0)), rounded(h0, n0, True),
+                         w1)
+        sh = sh_encode(d, degree=cfg.sh_degree)
+        cin = torch.cat([sh, h1[:, 1:]], dim=-1)
+        ncin = torch.cat([2.0 ** -21 * sh.abs() + 1e-7, n1[:, 1:]], dim=-1)
+        hc0, nc0 = product(bf16_round(cin), rounded(cin, ncin, False), wc0)
+        hc1, nc1 = product(bf16_round(torch.relu(hc0)),
+                           rounded(hc0, nc0, True), wc1)
+        return ((h0.abs() <= n0).any(dim=1) | (hc0.abs() <= nc0).any(dim=1)
+                | (hc1.abs() <= nc1).any(dim=1))
+
+
+def _launch_bwd(tables: FieldTables, cfg: CPConfig, x3, d3, g_out,
+                parts=None):
+    from .build import load_library
+    g_tab, g_w, count, idx = _backward_buffers(tables, cfg, x3)
     m = x3.shape[1]
-    # zeroed on the launch stream: the kernel only adds into them
-    g_tab = torch.zeros(tables.tab.numel(), dtype=torch.float32,
-                        device=x3.device)
-    g_w = torch.zeros(tables.wbuf.numel(), dtype=torch.float32,
-                      device=x3.device)
     if m > 0:
+        rec_out = None if parts is None else torch.zeros_like(g_out)
         lib = load_library()
         meta = (ctypes.c_longlong * len(tables.meta))(*tables.meta)
         stream = torch.cuda.current_stream(x3.device).cuda_stream
         rc = lib.sdn_field_bwd(
             x3.data_ptr(), d3.data_ptr(), g_out.data_ptr(), m,
-            tables.tab.data_ptr(), tables.wbuf.data_ptr(), meta,
-            float(cfg.bound), g_tab.data_ptr(), g_w.data_ptr(), stream)
+            tables.tab.data_ptr(), tables.wfwd.data_ptr(),
+            tables.wbwd.data_ptr(), meta, float(cfg.bound), count.data_ptr(),
+            idx.data_ptr(), g_tab.data_ptr(), g_w.data_ptr(),
+            None if parts is None else rec_out.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(
                 f"field backward kernel launch failed: CUDA error {rc}")
         field_backward.launches += 1
+        if parts is not None:
+            # reading the list's length waits for the kernel
+            parts.update(live=idx[:int(count)].long(), out=rec_out)
     return _unpack_grads(tables, cfg, g_tab, g_w)
 
 
-def field_backward(tables, cfg: CPConfig, x3, d3, g_out):
+def field_backward(tables, cfg: CPConfig, x3, d3, g_out, parts=None):
     """Param gradients of the field at planar samples.
 
     Args:
@@ -906,19 +1081,27 @@ def field_backward(tables, cfg: CPConfig, x3, d3, g_out):
       x3, d3: [3, M] f32 contiguous positions and unit directions.
       g_out: [4, M] f32 contiguous cotangent of field_forward's output
         (rows sigma, r, g, b).
+      parts: an optional dict that receives what the kernel recomputed
+        (CUDA only; filling it waits for the kernel): "live" [L], the
+        samples that carry a cotangent, in the order the kernel walked
+        them; "out" [4, M], the forward's output at those samples (0
+        elsewhere), to be held against field_forward's bit for bit.
 
     Returns an f32 dict in the params' names and layouts. On CUDA the
-    tensors are views into two flat buffers (one for the tables, one for
-    the tower weights). Samples whose four cotangents are zero add nothing.
+    tables' gradients are views into one flat buffer. Samples whose four
+    cotangents are zero add nothing.
     """
     tables = tables if isinstance(tables, FieldTables) \
         else pack_tables(tables, cfg)
     _check_backward_inputs(x3, d3, g_out)
     if x3.device.type == "cpu":
+        if parts is not None:
+            raise ValueError("parts holds what the kernel recomputed: there "
+                             "is none on the CPU")
         return field_backward_plain(tables, cfg, x3, d3, g_out)
     if x3.device.type != "cuda":
         raise ValueError(f"unsupported device {x3.device}")
-    return _launch_bwd(tables, cfg, x3, d3, g_out)
+    return _launch_bwd(tables, cfg, x3, d3, g_out, parts)
 
 
 field_backward.launches = 0
@@ -1060,56 +1243,55 @@ def _launch_dyn_bwd(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t,
             f"most {_DEFORM_HID} spatial inputs, got hidden "
             f"{cfg.hidden_dim_deform}, {cfg.num_layers_deform} layers, "
             f"{cfg.deform_space_dim} inputs")
-    for name, buf in (("tables", tables.tab), ("weights", tables.wbuf),
-                      ("deform weights", tables.wdef),
+    for name, buf in (("deform weights", tables.wdef),
                       ("deform weights", tables.wdef_in)):
         if buf.device != x3.device or buf.dtype != torch.bfloat16:
             raise ValueError(f"packed {name} must be bf16 on {x3.device}, "
                              f"got {buf.dtype} on {buf.device}")
+    g_tab, g_w, count, idx = _backward_buffers(tables, cfg, x3)
     m, dev = x3.shape[1], x3.device
     f32 = dict(dtype=torch.float32, device=dev)
     tdim = tables.w0_time.shape[0]
-    # zeroed on the launch stream: the kernel only adds into them
-    g_tab = torch.zeros(tables.tab.numel(), **f32)
-    g_w = torch.zeros(tables.wbuf.numel(), **f32)
     g_wdef = torch.zeros(tables.wdef.numel(), **f32)
     g_tsum = torch.zeros(_DEFORM_HID, **f32)
     g_wtime = torch.zeros((tdim, _DEFORM_HID), **f32)
     if m > 0:
-        count = torch.zeros(1, dtype=torch.int32, device=dev)
-        xw = torch.empty((3, m), **f32)
+        xw = (torch.empty if parts is None else torch.zeros)((3, m), **f32)
         gx = torch.empty((3, m), **f32)
-        idx = torch.empty(m, dtype=torch.int32, device=dev)
         tcond = torch.cat(_time_cond_vec(tables, cfg, t, dev)).contiguous()
         n_layers = tables.dmeta[0]
         acts = None if parts is None else torch.zeros(
             (n_layers, m, _DEFORM_HID), dtype=torch.bfloat16, device=dev)
+        rec_out = None if parts is None else torch.zeros_like(g_out)
         lib = load_library()
         meta = (ctypes.c_longlong * len(tables.meta))(*tables.meta)
         dmeta = (ctypes.c_longlong * len(tables.dmeta))(*tables.dmeta)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdn_dyn_field_bwd(
             x3.data_ptr(), d3.data_ptr(), g_out.data_ptr(), m,
-            tables.tab.data_ptr(), tables.wbuf.data_ptr(), meta,
-            float(cfg.bound), tables.wdef.data_ptr(),
-            tables.wdef_in.data_ptr(), dmeta, tcond.data_ptr(), tdim,
-            int(cfg.deform_grad_res_cutoff), xw.data_ptr(), count.data_ptr(),
+            tables.tab.data_ptr(), tables.wfwd.data_ptr(),
+            tables.wbwd.data_ptr(), meta, float(cfg.bound),
+            tables.wdef.data_ptr(), tables.wdef_in.data_ptr(), dmeta,
+            tcond.data_ptr(), tdim, int(cfg.deform_grad_res_cutoff),
+            xw.data_ptr(), count.data_ptr(),
             idx.data_ptr(), gx.data_ptr(), g_tab.data_ptr(), g_w.data_ptr(),
             g_wdef.data_ptr(), g_tsum.data_ptr(), g_wtime.data_ptr(),
-            None if acts is None else acts.data_ptr(), stream)
+            None if acts is None else acts.data_ptr(),
+            None if parts is None else rec_out.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(
                 f"dynamic field backward kernel launch failed: CUDA error "
                 f"{rc}")
         dyn_field_backward.launches += 1
         if parts is not None:
-            # the compact list back in sample order (reading its length
-            # waits for the kernel)
+            # the compact list back in sample order; reading its length
+            # waits for the kernel
             live = idx[:int(count)].long()
+            parts.update(live=live, out=rec_out)
             g_x = torch.zeros((3, m), **f32)
             g_x[:, live] = gx[:, :live.numel()]
             nx = cfg.deform_space_dim
-            parts.update(xw=xw, g_x=g_x, live=live, acts=[
+            parts.update(xw=xw, g_x=g_x, acts=[
                 a[:live.numel(), :nx if l == 0 else None]
                 for l, a in enumerate(acts)])
     grads = _unpack_grads(tables, cfg, g_tab, g_w)
@@ -1131,13 +1313,16 @@ def dyn_field_backward(tables, cfg: CPDNeRFConfig, x3, d3, t, g_out,
         (rows sigma, r, g, b).
       parts: an optional dict that receives the stages between the kernel's
         phases (CUDA only), for holding them against the plain version's
-        stages one by one: "xw" [3, M], the warped positions; "g_x" [3, M],
+        stages one by one: "xw" [3, M], the warped positions of the samples
+        that carry a cotangent (0 elsewhere: the kernel warps only those,
+        see dyn_warp_plain for the others); "g_x" [3, M],
         the position gradient that entered the tower's backward (0 where
         the cotangent is all zero); "live" [L], the samples that carry a
         cotangent, in the order the tower's backward walked them; "acts",
         the activations it recomputed for them, bf16, laid out as
-        dyn_warp_plain's ([L, spatial inputs], then [L, hidden] a matrix).
-        Filling it waits for the kernel.
+        dyn_warp_plain's ([L, spatial inputs], then [L, hidden] a matrix);
+        "out", what the canonical kernel recomputed at the warped
+        positions, as field_backward's. Filling it waits for the kernel.
 
     Returns an f32 dict in the params' names and layouts, "deform_mlp"
     included. The warp's gradient reaches the tower only through the line

@@ -25,7 +25,8 @@ from sealdnerf_tpu_torch.ops.field import (dyn_canonical_backward_plain,
                                            field_backward,
                                            field_backward_plain,
                                            field_forward, field_forward_plain,
-                                           field_train_forward, pack_tables,
+                                           field_train_forward,
+                                           fragile_samples_plain, pack_tables,
                                            tile_features_plain)
 from sealdnerf_tpu_torch.render.dynamic_grid import (DynGridConfig,
                                                      init_dyn_grid_state,
@@ -42,6 +43,11 @@ RGB_TOL = dict(rtol=2e-2, atol=1e-3)
 # order of the f32 sums, and 1-ulp differences in exp, sigmoid, sin and cos
 # can flip single bf16 roundings
 GRAD_TOL = 1e-2
+# the same over ALL samples, those included whose relu masks the mma's
+# summation order flips (_stable_cotangents): one such sample moves an entry
+# of a fine table by its whole share (measured 2.1e-2 to 3.2e-2 on 262,181
+# random samples and cotangents)
+WHOLE_CALL_TOL = 5e-2
 
 
 @pytest.fixture
@@ -197,12 +203,23 @@ def test_dyn_field_kernel_at_t0_is_the_static_kernel(card, kw):
 
 
 def test_field_kernel_refuses_a_rank_that_is_no_multiple_of_8(card):
-    cfg = CPConfig(scales=((16, 8), (64, 20)), planes=())
+    """It refused such a rank once; now pack_tables pads the tables' rows to
+    multiples of 8 columns, and K1 matches plain at a rank of 20 and a
+    plane of 4 channels, on a ragged count."""
+    cfg = CPConfig(scales=((16, 8), (64, 20)), planes=((16, 4),))
     tables = pack_tables(init_cp(torch.Generator().manual_seed(0), cfg, card),
                          cfg)
-    x3, d3 = _unit_samples(card, 64, 13)
-    with pytest.raises(NotImplementedError, match="multiples of 8"):
-        field_forward(tables, cfg, x3, d3)
+    x3, d3 = _unit_samples(card, 1000 + 13, 13)
+    for kw in ({}, {"density_only": True}, {"lod_skip": (1,)}):
+        out = field_forward(tables, cfg, x3, d3, **kw).cpu()
+        ref = field_forward_plain(tables, cfg, x3, d3, **kw).cpu()
+        np.testing.assert_allclose(out[0], ref[0], **SIGMA_TOL)
+        np.testing.assert_allclose(out[1:], ref[1:], **RGB_TOL)
+    parts = {}
+    field_forward(tables, cfg, x3, d3, parts=parts)
+    grid, _, cols = tile_features_plain(tables, cfg, x3.t())
+    assert torch.equal(parts["features"].float()[:, cols[:cfg.grid_feat_dim,
+                                                         0]], grid)
 
 
 def _samples(card, m, seed):
@@ -215,21 +232,69 @@ def _samples(card, m, seed):
     return [torch.from_numpy(a).to(card) for a in (x3, d3, g)]
 
 
-def test_field_backward_kernel_matches_plain(card):
-    """K2 against its plain version at the full default config on a ragged
-    sample count of mid size."""
-    cfg = CPConfig()
+def _stable_cotangents(tables, cfg, positions, d3, g):
+    """g with the cotangents zeroed of the samples that the plain version
+    alone calls fragile at `positions`: a relu's pre-activation lies within
+    its summation noise of 0 (fragile_samples_plain). The kernels recompute
+    the forward as the forward kernels compute it, whose sums run in the
+    mma's order: a few in ten thousand samples hold a pre-activation that
+    the plain version's sums put on the other side of 0, and such a sample's
+    share of every gradient changes as a whole. The set is chosen without
+    the kernel: it takes 3 to 7 % of the samples."""
+    fragile = fragile_samples_plain(tables, cfg, positions.t(), d3.t())
+    assert fragile.float().mean().item() <= 0.1
+    g = g.clone()
+    g[:, fragile] = 0.0
+    return g
+
+
+# 16 k-blocks, the most the kernels take: the backward then leaves the first
+# sigma matrix and its transpose in device memory
+WIDE = dict(scales=CPConfig().scales + ((64, 32), (256, 64), (256, 64)),
+            planes=CPConfig().planes + ((64, 8),))
+
+
+@pytest.mark.parametrize("case", ["ragged", "all live", "none live",
+                                  "one tile", "padded ranks", "wide"])
+def test_field_backward_kernel_matches_plain(card, case):
+    """K2 against its plain version on a ragged sample count of mid size, a
+    third of the cotangents zero; with every sample live; with none; on
+    fewer samples than a tile; at a narrow config whose ranks and channels
+    are padded; and at the widest config the kernels take. What it recomputed equals K1's output bit for bit;
+    every leaf lies within WHOLE_CALL_TOL of the plain version's, and within
+    GRAD_TOL on the stable samples (_stable_cotangents)."""
+    cfg = {"padded ranks": CPConfig(scales=((16, 4), (64, 20)),
+                                    planes=((16, 4),)),
+           "wide": CPConfig(**WIDE)}.get(case, CPConfig())
     tables = pack_tables(init_cp(torch.Generator().manual_seed(0), cfg, card),
                          cfg)
-    x3, d3, g = _samples(card, 8192 + 37, 2)
+    x3, d3, g = _samples(card, 11 if case == "one tile" else 8192 + 37, 2)
+    if case == "all live":
+        g[:, ::3] = 1.0
+    if case == "none live":
+        g.zero_()
     before = field_backward.launches
-    got = field_backward(tables, cfg, x3, d3, g)
+    parts = {}
+    whole = field_backward(tables, cfg, x3, d3, g, parts=parts)
     assert field_backward.launches == before + 1
-    ref = field_backward_plain(tables, cfg, x3, d3, g)
-    for a, b in zip(param_leaves(got), param_leaves(ref)):
-        assert a.shape == b.shape
-        err = ((a - b).abs().max() / b.abs().max()).item()
-        assert err <= GRAD_TOL, (tuple(a.shape), err)
+    live = parts["live"]
+    assert torch.equal(live.sort().values,
+                       torch.nonzero(g.abs().amax(dim=0) > 0)[:, 0])
+    k1 = field_forward(tables, cfg, x3, d3)
+    assert torch.equal(parts["out"][:, live], k1[:, live])
+    for tol, got, g_in in (
+            (WHOLE_CALL_TOL, whole, g),
+            (GRAD_TOL, None, _stable_cotangents(tables, cfg, x3, d3, g))):
+        if got is None:
+            got = field_backward(tables, cfg, x3, d3, g_in)
+        ref = field_backward_plain(tables, cfg, x3, d3, g_in)
+        for a, b in zip(param_leaves(got), param_leaves(ref)):
+            assert a.shape == b.shape
+            if case == "none live":
+                assert a.abs().max().item() == 0.0 == b.abs().max().item()
+                continue
+            err = ((a - b).abs().max() / b.abs().max()).item()
+            assert err <= tol, (tuple(a.shape), err, tol)
 
 
 def test_one_train_step_kernel_matches_plain(card, tmp_path):
@@ -387,6 +452,10 @@ def _hold_k4_stages(tables, cfg, x3, d3, g, got, parts):
     (three seeds, 8,229 and 262,181 samples, towers of eight and two
     matrices, undamped and re-gained).
 
+    The canonical stage is held to WHOLE_CALL_TOL on all samples and to
+    GRAD_TOL on those that are stable at the kernel's warped positions
+    (_stable_cotangents), in a second call.
+
     The activations that the tower's backward recomputes: an mma sums in
     another order than a matmul, so 3.8e-4 to 7.1e-4 of the hidden entries
     round to the neighbouring bf16 and about 1e-6 of them land on the other
@@ -403,12 +472,20 @@ def _hold_k4_stages(tables, cfg, x3, d3, g, got, parts):
     4.1e-3)."""
     nx = cfg.deform_space_dim
     xw, acts_p = dyn_warp_plain(tables, cfg, x3, 0.37)
-    dxw = (parts["xw"] - xw).abs()
+    live = parts["live"]
+    # the kernel warps the samples with a cotangent only
+    dxw = (parts["xw"] - xw).abs()[:, live]
     ref, g_x = dyn_canonical_backward_plain(tables, cfg, parts["xw"], d3,
                                             0.37, g)
-    assert max(_leaf_errs({k: got[k] for k in ref}, ref)) <= GRAD_TOL
-    assert _rel(parts["g_x"], g_x) <= GRAD_TOL
-    live = parts["live"]
+    assert max(_leaf_errs({k: got[k] for k in ref}, ref)) <= WHOLE_CALL_TOL
+    assert _rel(parts["g_x"], g_x) <= WHOLE_CALL_TOL
+    g2 = _stable_cotangents(tables, cfg, parts["xw"], d3, g)
+    parts2 = {}
+    got2 = dyn_field_backward(tables, cfg, x3, d3, 0.37, g2, parts=parts2)
+    ref, g_x = dyn_canonical_backward_plain(tables, cfg, parts2["xw"], d3,
+                                            0.37, g2)
+    assert max(_leaf_errs({k: got2[k] for k in ref}, ref)) <= GRAD_TOL
+    assert _rel(parts2["g_x"], g_x) <= GRAD_TOL
     assert torch.equal(live.sort().values,
                        torch.nonzero(g.abs().amax(dim=0) > 0)[:, 0])
     acts_k = [a.float() for a in parts["acts"]]
@@ -450,9 +527,10 @@ def test_dyn_field_backward_kernel_matches_plain(card, layers):
     assert max(_leaf_errs(got, ref)) <= 5e-2, _leaf_errs(got, ref)
     _, dxw = _hold_k4_stages(tables, cfg, x3, d3, g, got, parts)
     assert dxw.max().item() <= 1e-3 and dxw.mean().item() <= 1e-6
+    # t read on the card: the same gradients (atomics reorder the sums)
     on_card = dyn_field_backward(tables, cfg, x3, d3,
                                  torch.tensor(0.37, device=card), g)
-    assert max(_leaf_errs(on_card, got)) <= 1e-4     # atomics reorder sums
+    assert max(_leaf_errs(on_card, got)) <= 1e-4
 
 
 def test_dyn_field_backward_stages_with_a_warping_tower(card):
@@ -489,16 +567,26 @@ def test_dyn_field_backward_at_t0_and_zero_cotangents(card):
 
 
 def test_field_backward_unchanged_by_the_shared_body(card):
-    """K2 after its per-sample body moved into a header shared with K4: the
-    same gradients as the plain version at a train step's sample count, and
-    K4 at t = 0 runs that body to K2's results."""
-    cfg = CPConfig()
-    tables = pack_tables(init_cp(torch.Generator().manual_seed(0), cfg, card),
-                         cfg)
+    """K2 and K4 share one body: K4 at t = 0 runs it to K2's results at a
+    train step's sample count, within 1e-3 (only the atomics' order
+    differs). Against the plain version K2 is held as everywhere: to
+    WHOLE_CALL_TOL on all samples, to GRAD_TOL on the stable ones. The
+    per-sample body that this one replaced summed each product in
+    sequential f32 order, as the plain version's matmul does, and lay 1e-3
+    from it on all samples; the mma's order rounds 4e-4 to 7e-4 of the
+    hidden activations to the neighbouring bf16, which alone moves a leaf
+    by 2e-3, and flips a relu mask at a few in ten thousand samples."""
+    cfg, tables = _dyn_tables(card)
     x3, d3, g = _samples(card, 4096 * 16 + 5, 7)
     got = field_backward(tables, cfg, x3, d3, g)
+    k4 = dyn_field_backward(tables, cfg, x3, d3, 0.0, g)
+    assert max(_leaf_errs({k: k4[k] for k in got}, got)) <= 1e-3
     ref = field_backward_plain(tables, cfg, x3, d3, g)
-    assert max(_leaf_errs(got, ref)) <= 1e-3, _leaf_errs(got, ref)
+    assert max(_leaf_errs(got, ref)) <= WHOLE_CALL_TOL, _leaf_errs(got, ref)
+    g = _stable_cotangents(tables, cfg, x3, d3, g)
+    got = field_backward(tables, cfg, x3, d3, g)
+    ref = field_backward_plain(tables, cfg, x3, d3, g)
+    assert max(_leaf_errs(got, ref)) <= GRAD_TOL, _leaf_errs(got, ref)
 
 
 def test_one_dynamic_train_step_kernel_matches_plain(card, tmp_path):

@@ -107,7 +107,7 @@ def test_packed_tables_give_the_same_result(setup):
     _, tcfg, _, params, x, d = setup
     tables = pack_tables(params, tcfg)
     assert tables.tab.dtype == torch.bfloat16
-    assert tables.wbuf.numel() % 8 == 0
+    assert tables.wfwd.numel() % 8 == 0 and tables.wbwd.numel() % 8 == 0
     np.testing.assert_array_equal(
         field_forward(tables, tcfg, _planar(x), _planar(d)).numpy(),
         field_forward_plain(tables, tcfg, _planar(x), _planar(d),

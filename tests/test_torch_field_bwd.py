@@ -197,7 +197,7 @@ def test_kernel_tables_follow_inplace_updates(setup):
     assert t1 is not t0
     np.testing.assert_array_equal(t1.tab.float().numpy(),
                                   pack_tables(p, tcfg).tab.float().numpy())
-    assert not torch.equal(t1.wbuf, t0.wbuf)
+    assert not torch.equal(t1.wbwd, t0.wbwd)
     fresh = field_forward(pack_tables(p, tcfg), tcfg, torch.from_numpy(x),
                           torch.from_numpy(d))
     np.testing.assert_array_equal(
