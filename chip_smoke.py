@@ -34,7 +34,9 @@ Phases (any failure raises and exits non-zero):
      then the canonical field at the warped point) against its plain version
      at the full default CPDNeRFConfig on 2^20 + 37 samples, at t = 0, 0.37
      and 1 in three variants each (full, density_only, lod_skip=(3,)), within
-     K1's tolerances, with timings. The seeded deform tower is re-gained
+     K1's tolerances, with timings. K3 in chunks of 2^18, of 100,003 and of
+     the default 2^20 samples (its warp scratch holds one chunk) equals K3
+     in one pass bit for bit. The seeded deform tower is re-gained
      (see _dyn_seeded_params) so that it warps by ~0.1: the mean |dx| of the
      plain version at t = 0.37 must exceed 1e-2. K3 at t = 0 must equal K1
      on the same canonical params bit for bit, in all three variants. Then
@@ -88,7 +90,12 @@ Phases (any failure raises and exits non-zero):
      frame. K3 must have been launched in the rebuild and in the render and
      K1 not at all; every time bin must hold occupied cells; frames finite;
      one view through the plain field must agree with the kernel frame to
-     >= 40 dB; one pose rendered at two times must differ.
+     >= 40 dB; one pose rendered at two times must differ. C4: view 0 again,
+     once with K3's warp scratch for all 81.92 M samples of the frame and
+     once at the default chunk; the peak device memory of K3's call (the
+     counter reset just before it, read just after it) must fall by >= 900
+     MB, both frames must equal the evaluated one bit for bit; the frame's
+     own peak is printed.
   7. dynamic training: main_dnerf's parser and cli.build_trainer(
      dynamic=True) on `synthetic -O --bound 1 --dt_gamma 0 --iters 512
      --synthetic_res 800 --ckpt scratch` with the reference's defaults (lr
@@ -113,8 +120,32 @@ Phases (any failure raises and exits non-zero):
      the trained field, whose tower warps by ~0.08, so that the tower's
      bf16 noise reaches the finest line tables (see 3d): 5e-2 there. The
      plain runs launch no kernel.
+  8. dynamic edit: phase 7's trained field (its last full checkpoint) is the
+     teacher of `main_seald.main([...])`, called in-process with `synthetic
+     -O --bound 1.0 --scale 0.8 --dt_gamma 0 --time_frame 0.5
+     --synthetic_res 800` and a bbox `seal.json` the script writes (the
+     content of a shell of radius 0.36 around (0, 0.1, 0) moved by +0.3 in
+     y, its hue turned); cut: 2 pretraining epochs (100), local point step
+     0.01 (0.001), 4 epochs of 128 distillation steps (625). Checks: K3 and
+     K4 launched, K1 and K2 not; (a) the proxied views' times all 0.5; (b)
+     the student's deform leaves bit for bit the teacher's, its tables
+     moved; (c) on the val views at t = 0.5 the student's MSE to the edited
+     teacher below 0.8 x the unedited teacher's (the reference's own
+     criterion, tests/test_editing.py:293); (d) one edited teacher frame
+     through K3 against the same through K3's plain version >= 40 dB; (e)
+     one pretraining step (8,192 zone points) through K3/K4 against plain:
+     loss within rtol 1e-4; the L1's cotangents, taken from the plain
+     forward, through K4 and through its plain version, grads per leaf
+     within 5e-2 of max |plain|. Prints the proxy seconds, the teacher point queries and
+     their seconds, pretraining ms/step, distillation ms/step and rays/s,
+     main's wall seconds and the student's PSNR against the edited and the
+     unedited teacher.
+  8b. static edit: the same through `main_SealNeRF.main([...])` on phase
+     5's trained field, 2 pretraining epochs and 2 of distillation; K1 and
+     K2 launched, K3 and K4 not; checks (b)-(e).
 The launch counts of the kernels record are read from the main paths'
-runs (phases 4, 5, 6 and 7), with the counters set to 0 just before each. Each
+runs (phases 4, 5, 6, 7, 8 and 8b), with the counters set to 0 just before
+each. Each
 kernel's bound_ms is the least time the card could take for the work of its
 vs-plain phase: the larger of bytes moved over the memory rate and
 operations over the peak rate of their type (PEAK). The line before last is
@@ -163,6 +194,9 @@ ACT_MASK_TOL = 5e-3
 # carry weight; it shows in the finest line tables only (measured 0.019)
 TRAINED_STEP_TOL = 5e-2
 TRAIN_STEPS = 512
+# phases 8 and 8b: pretraining epochs and distillation epochs of 128 steps
+EDIT_PRE_EPOCHS, EDIT_EPOCHS = 2, 4
+EDIT_PRE_EPOCHS_STATIC, EDIT_EPOCHS_STATIC = 2, 2
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores (the towers' bf16 x
 # bf16 -> f32 products), the FP32 pipe (taps, encodings, activations), HBM3
 PEAK = {"tensor_flops": 989e12, "fp32_flops": 67e12, "bytes": 3.35e12}
@@ -398,7 +432,7 @@ def _dyn_seeded_params(seed, cfg, device, gain=DEFORM_GAIN):
 def phase_dyn_kernel_vs_plain():
     import torch
     from sealdnerf_tpu_torch.models.cp import CPDNeRFConfig
-    from sealdnerf_tpu_torch.ops.field import (dyn_field_forward,
+    from sealdnerf_tpu_torch.ops.field import (DYN_CHUNK, dyn_field_forward,
                                                dyn_field_forward_plain,
                                                field_forward, pack_tables)
     cfg = CPDNeRFConfig()
@@ -456,6 +490,20 @@ def phase_dyn_kernel_vs_plain():
     if not torch.equal(t_dev, t_host):
         raise AssertionError("K3 with t on the card differs from t on the "
                              "host")
+    # the warp's scratch holds one chunk: any chunking gives the same bits
+    whole = dyn_field_forward(tables, cfg, x3, d3, 0.37, chunk=m)
+    for chunk in (1 << 18, 100_003):
+        if not torch.equal(dyn_field_forward(tables, cfg, x3, d3, 0.37,
+                                             chunk=chunk), whole):
+            raise AssertionError(f"K3 in chunks of {chunk} differs from K3 "
+                                 "in one pass")
+    if not torch.equal(t_host, whole):
+        raise AssertionError("K3 at the default chunk differs from K3 in "
+                             "one pass")
+    del whole
+    print(f"K3 in chunks of 2^18, of 100,003 and of the default "
+          f"{DYN_CHUNK} samples equals K3 in one pass of {m} bit for bit",
+          flush=True)
     _, dx = dyn_field_forward_plain(
         pack_tables(_dyn_seeded_params(0, cfg, "cuda", gain=1.0), cfg), cfg,
         x3[:, :1 << 16].contiguous(), None, 0.37, density_only=True,
@@ -1079,6 +1127,7 @@ def phase_dynamic_served_path():
     t = float(val.times[0])
     occ_m = downsample_occ(occ[time_slice_index(t, gcfg), 0], rcfg.march_res)
     tables = field.kernel_tables(trainer._infer_params())
+    _frame_memory(trainer, tables, occ_m, val, t, frames[0])
     before = dyn_field_forward.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1105,6 +1154,68 @@ def phase_dynamic_served_path():
     if p < 40.0:
         raise AssertionError(f"kernel vs plain frame PSNR {p:.2f} < 40 dB")
     return launches, train, val
+
+
+def _frame_memory(trainer, tables, occ_m, val, t, frame):
+    """C4: the device memory of K3's call in one 800x800 frame, with the
+    warp's scratch for all M samples (chunk = M, the layout before the
+    chunking) and at the default chunk. The peak counter is reset just
+    before the call and read just after it; the frame's own peak is the
+    larger of the peaks before, in and after the call. Both frames must be
+    the evaluated one bit for bit."""
+    import torch
+    from sealdnerf_tpu_torch.ops.field import DYN_CHUNK, dyn_field_forward
+    from sealdnerf_tpu_torch.render.fast_image import render_image_tiled
+    cfg, dev = trainer.field.cfg, trainer.device
+    out = {}
+    for tag, chunk in (("one chunk of all M", None), ("default", DYN_CHUNK)):
+        rec = {}
+
+        def fwd(tabs, x3, d3, tt):
+            torch.cuda.synchronize()
+            rec["before"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            rec["base"] = torch.cuda.memory_allocated()
+            o = dyn_field_forward(tabs, cfg, x3, d3, tt,
+                                  chunk=x3.shape[1] if chunk is None
+                                  else chunk)
+            torch.cuda.synchronize()
+            rec["call"] = torch.cuda.max_memory_allocated()
+            rec["m"] = x3.shape[1]
+            torch.cuda.reset_peak_memory_stats()
+            return o
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            img, _ = render_image_tiled(
+                tables, occ_m, torch.as_tensor(val.poses[0], device=dev),
+                torch.as_tensor(val.intrinsics, device=dev), val.h, val.w,
+                trainer.render_cfg, fwd, torch.ones(3, device=dev),
+                tile_px=trainer._pick_tile(val.h, val.w),
+                dilate=trainer.opt.render_dilate,
+                density_scale=trainer.opt.density_scale,
+                t_thresh=trainer.opt.t_thresh, extra=(t,))
+        torch.cuda.synchronize()
+        frame_peak = max(rec["before"], rec["call"],
+                         torch.cuda.max_memory_allocated())
+        if not np.array_equal(img.cpu().numpy(), frame):
+            raise AssertionError(f"the frame with K3 at {tag} differs from "
+                                 "the evaluated one")
+        out[tag] = rec["call"]
+        print(f"C4 memory, K3 at {tag} (M = {rec['m']}): the call's peak "
+              f"{rec['call'] / 2**20:.1f} MiB ({(rec['call'] - rec['base']) / 2**20:.1f} "
+              f"MiB above the {rec['base'] / 2**20:.1f} MiB allocated before "
+              f"it); the frame's peak {frame_peak / 2**20:.1f} MiB",
+              flush=True)
+    drop = out["one chunk of all M"] - out["default"]
+    print(f"C4 memory: the call's peak falls by {drop / 1e6:.1f} MB at the "
+          f"default chunk; both frames equal the evaluated one bit for bit",
+          flush=True)
+    if drop < 900e6:
+        raise AssertionError(f"K3's peak fell by {drop / 1e6:.1f} MB, not "
+                             "900 MB")
 
 
 def _expected_refreshes(steps, upd=2, warmup=128, freeze=592):
@@ -1313,6 +1424,185 @@ def phase_one_dyn_step(trainer, train, tag, tol):
                              f"{tol}: {bad}")
 
 
+def _edit_config():
+    """The bbox edit of the reference's editing tests at full scale: the
+    content of a shell of radius 0.36 around (0, 0.1, 0) (sphere 0 of the
+    synthetic scene) moved by +0.3 in y and its hue turned."""
+    t = np.eye(4)
+    t[1, 3] = 0.3
+    gr = np.random.default_rng(3).normal(size=(256, 3))
+    gr /= np.linalg.norm(gr, axis=-1, keepdims=True)
+    return {"type": "bbox", "raw": (gr * 0.36 + [0.0, 0.1, 0.0]).tolist(),
+            "transform": t.tolist(), "scale": [1, 1, 1],
+            "boundType": "both", "hsv": [0.35, 0.1, 0.0]}
+
+
+def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
+    """Phase 8 (dynamic, main_seald) or 8b (static, main_SealNeRF): a Seal
+    edit of a trained teacher through the CLI's main, then its checks.
+    Returns the launches of K1-K4 in the main's run."""
+    import torch
+    from sealdnerf_tpu_torch import main_seald, main_SealNeRF
+    from sealdnerf_tpu_torch.editing.student import (freeze_labels,
+                                                     pretrain_l1)
+    from sealdnerf_tpu_torch.models.cp import param_leaves
+    from sealdnerf_tpu_torch.ops.field import (dyn_field_backward,
+                                               dyn_field_backward_plain,
+                                               dyn_field_forward,
+                                               dyn_field_forward_plain,
+                                               field_backward,
+                                               field_backward_plain,
+                                               field_forward,
+                                               field_forward_plain)
+    from sealdnerf_tpu_torch.train.metrics import psnr
+
+    tag = "8" if dynamic else "8b"
+    mod = main_seald if dynamic else main_SealNeRF
+    ws = os.path.join(REPO, "workspace",
+                      "chip_smoke_edit" if dynamic else "chip_smoke_edit_static")
+    os.makedirs(ws, exist_ok=True)
+    with open(os.path.join(ws, "seal.json"), "w") as f:
+        json.dump(_edit_config(), f)
+    argv = ["synthetic", "-O", "--bound", "1.0", "--scale", "0.8",
+            "--dt_gamma", "0", "--synthetic_res", "800",
+            "--teacher_workspace", teacher_ws, "--workspace", ws,
+            "--seal_config", "seal.json",
+            "--pretraining_epochs", str(pre_epochs),
+            "--pretraining_local_point_step", "0.01",
+            "--extra_epochs", str(extra_epochs)]
+    if dynamic:
+        argv += ["--time_frame", "0.5"]
+    print(f"phase {tag} cuts: pretraining epochs 100 -> {pre_epochs}; local "
+          f"point step 0.001 -> 0.01; distillation ceil(30,000 / 48) = 625 "
+          f"epochs -> --extra_epochs {extra_epochs} of 128 steps",
+          flush=True)
+    fns = (field_forward, field_backward, dyn_field_forward,
+           dyn_field_backward)
+    for fn in fns:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in fns]
+    tt = st.teacher_trainer
+    k1, k2, k3, k4 = launches
+    if dynamic and not (k3 > 0 and k4 > 0 and k1 == 0 and k2 == 0):
+        raise AssertionError(f"dynamic edit launches K1-K4 {launches}")
+    if not dynamic and not (k1 > 0 and k2 > 0 and k3 == 0 and k4 == 0):
+        raise AssertionError(f"static edit launches K1-K4 {launches}")
+    # (a) the proxied views are pinned to the edit's frame
+    tv = st.proxied["valid"]
+    if dynamic:
+        for name, ds in st.proxied.items():
+            if not np.all(ds.times == np.float32(0.5)):
+                raise AssertionError(f"proxied {name} times {ds.times}")
+    # (b) the deform tower is the teacher's bit for bit; the tables moved
+    labels = freeze_labels(st.params)
+    for k in st.params:
+        for a, b in zip(param_leaves(st.params[k]),
+                        param_leaves(tt.params[k])):
+            same = torch.equal(a, b)
+            if labels[k] == "deform" and not same:
+                raise AssertionError(f"the student's {k} moved")
+            if labels[k] == "enc" and same:
+                raise AssertionError(f"the student's {k} did not move")
+    # (c) the student is nearer the edited teacher than the unedited one
+    t = 0.5 if dynamic else None
+    mse_s, mse_u, ps, pu = [], [], [], []
+    for i in range(len(tv)):
+        img, _ = st.render_image(tv.poses[i], tv.intrinsics, tv.h, tv.w,
+                                 time=t)
+        ref, _ = st.render_teacher_image(tv.poses[i], tv.intrinsics, tv.h,
+                                         tv.w, time=t, edited=False)
+        gt = tv.images[i]
+        mse_s.append(float(np.mean((img - gt) ** 2)))
+        mse_u.append(float(np.mean((ref - gt) ** 2)))
+        ps.append(psnr(img, gt))
+        pu.append(psnr(img, ref))
+    hist = st.history
+    spe = max(len(st.proxied["train"]), st.opt.segment_steps)
+    warm = hist["epoch_s"][1:] or hist["epoch_s"]
+    dist_ms = sum(warm) / (len(warm) * spe) * 1e3
+    n_pre = sum(z["points"].shape[0] for z in st.pretraining_data.values())
+    pre_ms = float(np.mean(st.time_inspector["pretraining"])) / n_pre * 1e3
+    print(f"phase {tag} edit: {wall:.2f} s wall for main; proxy "
+          f"{len(st.proxied['train'])} + {len(tv)} views at {tv.h}x{tv.w} in "
+          f"{st.proxy_seconds:.2f} s; {st.query_points} teacher point "
+          f"queries in {st.query_seconds:.2f} s; pretraining {pre_epochs} x "
+          f"{n_pre} steps of {st.pretraining_batch_size} points, "
+          f"{pre_ms:.3f} ms/step; distillation {len(hist['loss'])} steps, "
+          f"{dist_ms:.3f} ms/step, {st.opt.num_rays * 1e3 / dist_ms:.1f} "
+          f"rays/s over epochs 2-{len(hist['epoch_s'])}; launches K1 {k1} "
+          f"K2 {k2} K3 {k3} K4 {k4}", flush=True)
+    print(f"phase {tag} edit: val MSE student vs edited teacher "
+          f"{np.mean(mse_s):.6f}, unedited vs edited teacher "
+          f"{np.mean(mse_u):.6f}; PSNR student vs edited teacher "
+          f"{np.mean(ps):.3f} dB, vs unedited teacher {np.mean(pu):.3f} dB",
+          flush=True)
+    if not np.mean(mse_s) < 0.8 * np.mean(mse_u):
+        raise AssertionError(f"the student is not nearer the edit: MSE "
+                             f"{np.mean(mse_s)} vs {np.mean(mse_u)}")
+    # (d) one edited teacher frame through the kernel and its plain version
+    kern = tv.images[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain, _ = st.render_teacher_image(tv.poses[0], tv.intrinsics, tv.h,
+                                       tv.w, time=t, plain=True)
+    ms_p = (time.perf_counter() - t0) * 1e3
+    p = psnr(kern, plain)
+    print(f"phase {tag} edited teacher frame, kernel vs plain: PSNR {p:.2f} "
+          f"dB, max|diff| {np.abs(kern - plain).max():.3g}; plain frame "
+          f"{ms_p:.1f} ms", flush=True)
+    if p < 40.0:
+        raise AssertionError(f"edited teacher frame PSNR {p:.2f} < 40 dB")
+    # (e) one pretraining step through the kernels and their plain versions:
+    # the L1's cotangents are taken from the plain forward and fed to both
+    # backwards (a point whose residual lies within the kernels' noise of 0
+    # would take the other sign of the L1's subgradient, which is the loss's
+    # doing and not the backward's)
+    batch = {k: v[0] for k, v in st.pretraining_data["local"].items()}
+    cfg, tables = st.field.cfg, st.field.kernel_tables(st.params)
+    x3 = batch["points"].t().contiguous()
+    d3 = batch["dirs"].t().contiguous()
+    tt_ = (0.5,) if dynamic else ()
+    fwd, fwd_p, bwd, bwd_p = (
+        (dyn_field_forward, dyn_field_forward_plain, dyn_field_backward,
+         dyn_field_backward_plain) if dynamic else
+        (field_forward, field_forward_plain, field_backward,
+         field_backward_plain))
+    before = [fn.launches for fn in fns]
+    with torch.no_grad():
+        out_p = fwd_p(tables, cfg, x3, d3, *tt_)
+    out_p.requires_grad_(True)
+    loss_p = pretrain_l1(out_p, batch)
+    g = torch.autograd.grad(loss_p, out_p)[0].contiguous()
+    grads_p = bwd_p(tables, cfg, x3, d3, *tt_, g)
+    torch.cuda.synchronize()
+    if [fn.launches for fn in fns] != before:
+        raise AssertionError("the plain pretraining step launched a kernel")
+    with torch.no_grad():
+        loss_k = pretrain_l1(fwd(tables, cfg, x3, d3, *tt_), batch)
+    grads_k = bwd(tables, cfg, x3, d3, *tt_, g)
+    torch.cuda.synchronize()
+    n = sum(a - b for a, b in zip([fn.launches for fn in fns], before))
+    if n != 2:
+        raise AssertionError(f"the kernel pretraining step: {n} launches")
+    lk, lp = loss_k.item(), loss_p.item()
+    ratios, _ = _grad_errs(grads_k, grads_p)
+    print(f"phase {tag} one pretraining step of {x3.shape[1]} points, kernel "
+          f"vs plain: loss {lk:.8f} vs {lp:.8f}; grads max|k-p|/max|p| "
+          + " ".join(f"{k} {v:.3g}" for k, v in ratios.items()), flush=True)
+    if abs(lk - lp) > 1e-4 * abs(lp):
+        raise AssertionError(f"pretraining loss kernel {lk} vs plain {lp}")
+    bad = {k: v for k, v in ratios.items() if not v <= TRAINED_STEP_TOL}
+    if bad:
+        raise AssertionError(f"pretraining grads beyond {TRAINED_STEP_TOL}: "
+                             f"{bad}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ckpt", default=None,
@@ -1353,25 +1643,34 @@ def main():
     k3_served, dtrain, dval = phase_dynamic_served_path()
     dtrainer, k3_train, k4_train = phase_dynamic_training(dtrain, dval)
     phase_one_dyn_step(dtrainer, dtrain, "trained field", TRAINED_STEP_TOL)
+    dyn_ws = dtrainer.workspace
+    del dtrainer, dtrain, dval
+    torch.cuda.empty_cache()
+    _, _, k3_edit, k4_edit = phase_edit(True, dyn_ws, EDIT_PRE_EPOCHS,
+                                        EDIT_EPOCHS)
+    torch.cuda.empty_cache()
+    k1_edit, k2_edit, _, _ = phase_edit(
+        False, os.path.join(REPO, "workspace", "chip_smoke_train"),
+        EDIT_PRE_EPOCHS_STATIC, EDIT_EPOCHS_STATIC)
 
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "field_fwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:185",
-        "launches": served["launches"] + k1_train, **rec}, {
+        "launches": served["launches"] + k1_train + k1_edit, **rec}, {
         "name": "field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:574",
-        "launches": k2_train, **rec_bwd}, {
+        "launches": k2_train + k2_edit, **rec_bwd}, {
         "name": "dyn_field_fwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:200",
-        "launches": k3_served + k3_train, **rec_dyn}, {
+        "launches": k3_served + k3_train + k3_edit, **rec_dyn}, {
         "name": "dyn_field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:805",
-        "launches": k4_train, **rec_dbwd}]}))
+        "launches": k4_train + k4_edit, **rec_dbwd}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

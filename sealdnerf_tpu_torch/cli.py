@@ -108,6 +108,15 @@ def postprocess(opt):
     return opt
 
 
+def cp_route(opt) -> bool:
+    """Whether the recipe selects the CP/VM field (--backbone cp, or auto
+    with bound <= 1, no background sphere and no --basis/--hyper), the
+    backbone whose rate defaults are 1e-2 (tables) and 1e-3 (MLPs)."""
+    return opt.backbone == "cp" or (
+        opt.backbone == "auto" and opt.bg_radius <= 0 and opt.bound <= 1.0
+        and not (getattr(opt, "basis", False) or getattr(opt, "hyper", False)))
+
+
 def resolve_device(name: str) -> torch.device:
     """The device to run on. 'cuda' without a card raises: the CPU is used
     only when asked for with --device cpu."""
@@ -192,3 +201,69 @@ def build_trainer(opt, name="ngp", dynamic=False, metrics=None,
                           use_checkpoint=use_checkpoint or opt.ckpt,
                           device=device, time_conditioned=dynamic)
     return trainer, field
+
+
+def build_edit_trainers(opt, dynamic=False, metrics=None, **topt_overrides):
+    """The trainers of a Seal edit (main_seald, main_SealNeRF) -> (teacher,
+    student, mapper).
+
+    The teacher is the FastTrainer of the checkpoint that --teacher_ckpt
+    selects in --teacher_workspace, which must exist. Both fields take the
+    teacher checkpoint's shapes (models/cp.py:config_from_params); a
+    --planes other than 'auto' that contradicts them is refused. The
+    student is a FastStudentTrainer on a copy of the teacher's params, in
+    --workspace, with a copy of its grid state; the mapper is built from
+    --seal_config (a path under --workspace, or absolute), or for a static
+    edit from --workspace/seal.json; a dynamic edit without --seal_config
+    has none. A static edit's --secondary_teacher_workspace loads the
+    secondary teacher in the same way. topt_overrides go to the options of
+    every trainer."""
+    import copy
+
+    from .editing.seal_utils import get_seal_mapper
+    from .editing.student import FastStudentTrainer
+    from .models.cp import CPField, cp_dnerf_deform_raw, map_params, \
+        parse_planes
+    from .train.checkpoint import resolve_checkpoint
+
+    def load(workspace, ckpt):
+        if resolve_checkpoint(workspace, "ngp", ckpt) is None:
+            raise SystemExit(f"no teacher checkpoint '{ckpt}' in "
+                             f"{workspace}")
+        topt = copy.copy(opt)
+        topt.workspace, topt.ckpt = workspace, ckpt
+        trainer, _ = build_trainer(topt, name="ngp", dynamic=dynamic,
+                                   **topt_overrides)
+        want = parse_planes(getattr(opt, "planes", "auto"), opt.bound)
+        if getattr(opt, "planes", "auto").strip().lower() != "auto" and \
+                tuple(want) != tuple(trainer.field.cfg.planes):
+            raise SystemExit(
+                f"--planes {opt.planes} contradicts the teacher checkpoint "
+                f"in {workspace}, whose field has planes "
+                f"{trainer.field.cfg.planes}")
+        return trainer
+
+    teacher = load(opt.teacher_workspace, opt.teacher_ckpt)
+    secondary = None
+    if getattr(opt, "secondary_teacher_workspace", None):
+        secondary = load(opt.secondary_teacher_workspace,
+                         opt.secondary_teacher_ckpt).field
+    cfg = teacher.field.cfg
+    field = CPField(map_params(lambda t: t.detach().clone(), teacher.params),
+                    cfg)
+    if dynamic:
+        field.deform_raw = lambda params, x, t: cp_dnerf_deform_raw(
+            params, cfg, x, t)
+    if getattr(opt, "seal_config", ""):
+        mapper = get_seal_mapper(opt.workspace, None, opt.seal_config)
+    elif dynamic:
+        mapper = None
+    else:
+        mapper = get_seal_mapper(opt.workspace)
+    student = FastStudentTrainer(
+        "ngp", to_train_options(opt, name="ngp", **topt_overrides), field,
+        teacher, mapper=mapper, secondary_teacher=secondary,
+        metrics=metrics, workspace=opt.workspace, use_checkpoint="scratch",
+        device=teacher.device, time_conditioned=dynamic)
+    student.adopt_grid_state(teacher.grid_state)
+    return teacher, student, mapper

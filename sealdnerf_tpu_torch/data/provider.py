@@ -95,6 +95,19 @@ class NeRFDataset:
         return out
 
     @classmethod
+    def random_orbit(cls, n: int, h: int, w: int, intrinsics,
+                     center=(0, 0, 0), radius: float = 1.0, seed: int = 0):
+        """Random orbit poses around `center` without images (the
+        reference's SealRandomDataset, for --custom_pose editing: the
+        teacher renders their images)."""
+        from .rays import rand_poses
+        poses = rand_poses(np.random.default_rng(seed), n, radius=radius)
+        poses[:, :3, 3] += np.asarray(center, dtype=np.float32)
+        return cls(poses=poses, images=None,
+                   intrinsics=np.asarray(intrinsics, dtype=np.float32),
+                   h=h, w=w)
+
+    @classmethod
     def load(cls, root_path: str, split: str = "train", downscale: int = 1,
              scale: float = 0.33, offset=(0, 0, 0), n_test: int = 10,
              error_map: bool = False, with_time: bool = False):

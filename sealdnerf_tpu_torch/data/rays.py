@@ -1,8 +1,10 @@
-"""Ray generation (port of `get_rays` in sealdnerf_tpu/data/rays.py):
-the full-image case and uniform random pixel sampling."""
+"""Ray generation (port of `get_rays` and `rand_poses` in
+sealdnerf_tpu/data/rays.py): the full-image case, uniform random pixel
+sampling and random orbit poses."""
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -50,3 +52,28 @@ def get_rays(poses, intrinsics, h: int, w: int, n: int = -1,
     out["rays_d"] = d_cam @ poses[:, :3, :3].transpose(1, 2)
     out["rays_o"] = poses[:, None, :3, 3].expand(out["rays_d"].shape)
     return out
+
+
+def rand_poses(rng, size: int, radius: float = 1.0,
+               theta_range=(np.pi / 3, 2 * np.pi / 3),
+               phi_range=(0.0, 2 * np.pi)):
+    """Random orbit-camera poses [size, 4, 4] (numpy f32), y-up, looking at
+    the origin, with theta and phi drawn uniformly from `rng` (a
+    np.random.Generator)."""
+    thetas = rng.uniform(theta_range[0], theta_range[1], size)
+    phis = rng.uniform(phi_range[0], phi_range[1], size)
+    centers = np.stack([radius * np.sin(thetas) * np.sin(phis),
+                        radius * np.cos(thetas),
+                        radius * np.sin(thetas) * np.cos(phis)], axis=-1)
+
+    def normalize(v):
+        return v / (np.linalg.norm(v, axis=-1, keepdims=True) + 1e-10)
+
+    forward = -normalize(centers)
+    up = np.broadcast_to(np.array([0.0, -1.0, 0.0]), forward.shape)
+    right = normalize(np.cross(forward, up))
+    up = normalize(np.cross(right, forward))
+    poses = np.tile(np.eye(4), (size, 1, 1))
+    poses[:, :3, :3] = np.stack([right, up, forward], axis=-1)
+    poses[:, :3, 3] = centers
+    return poses.astype(np.float32)

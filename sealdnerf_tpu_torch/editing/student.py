@@ -1,0 +1,577 @@
+"""Student distillation trainer: the Seal editing engine (port of
+sealdnerf_tpu/editing/student.py, on the port's FastTrainer).
+
+FastStudentTrainer distils an edited teacher into a student field that
+starts as a copy of the teacher:
+- proxy_dataset: every view of the dataset is rendered through the
+  edit-aware teacher; those images are the student's ground truth. For a
+  dynamic edit the teacher renders at the pinned time_frame and the views'
+  times are replaced by it.
+- init_pretraining: points on a grid in three zones, local (inside the
+  edit; ground truth the mapped teacher), surrounding (a shell around the
+  edit; the teacher as it is) and global (the box minus the edit), each
+  with a direction drawn from a fixed set, and the teacher's sigma and
+  colour at them, queried once in chunks of 65,536 points.
+- pretraining epochs: the weighted L1 of the student's sigma and colour
+  against the cached ones, Adam at lr 0.07 over the encoder tables only
+  (the towers stay as they are, which keeps the scene from being globally
+  disturbed), through field_train_forward or dyn_field_train_forward: K1 and
+  K2, or K3 and K4, on the card.
+- then ray distillation on the proxied dataset through FastTrainer.train,
+  with the edit region force-filled in the student's march occupancy.
+The deform tower of a dynamic student is frozen throughout: its leaves are
+in no optimizer the student builds (optax's set_to_zero in the reference),
+so they stay the teacher's bit for bit, and freezing never rebuilds an
+optimizer that has taken steps. The coarse-to-fine anneal is off: a student
+distils from a trained teacher and needs its fine scales from the first
+step.
+
+Divergence from the reference: the reference renders the teacher through
+render/renderer.py's render_occ, which the port does not have yet. The
+port renders it through its own renderers on the teacher's force-filled
+occupancy with the wrapped forward: render_dense (render/fast.py) for
+render_teacher_rays, the tiled whole-image renderer for proxy_dataset's
+views. Both march the occupancy at march resolution and take at most
+n_intervals occupied steps a ray (render_cfg: 32 of 4 samples), where
+render_occ steps up to 1024 times along the ray; tests/
+test_torch_edit_teacher.py bounds the difference by the reference's own
+render_dense-vs-render_occ gap.
+"""
+
+import dataclasses
+import json
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..models.cp import param_leaves
+from ..ops.field import dyn_field_train_forward, field_train_forward
+from ..ops.marching_dense import downsample_occ
+from ..render.dynamic_grid import time_slice_index
+from ..render.fast import render_dense
+from ..render.fast_image import render_image_tiled
+from ..train.fast import FastTrainer
+from .seal_utils import SealMapper
+from .teacher import TeacherField, force_fill_mask, hack_occ
+
+TEACHER_QUERY_CHUNK = 65536    # points of one teacher point query
+TEACHER_RAY_CHUNK = 4096       # rays of one render_teacher_rays pass
+
+
+def sample_zone_points(bounds, point_step: float, angle_step: int = 45):
+    """Points on a grid of spacing point_step inside each AABB of bounds
+    [B, 2, 3], and the set of unit directions that euler angles in steps of
+    angle_step degrees give."""
+    from scipy.spatial.transform import Rotation
+    bounds = np.asarray(bounds, dtype=np.float64)
+    if bounds.ndim == 2:
+        bounds = bounds[None]
+    pts = []
+    for b in bounds:
+        axes = [np.arange(b[0, i], b[1, i], point_step) for i in range(3)]
+        if any(len(a) == 0 for a in axes):
+            continue
+        pts.append(np.stack(np.meshgrid(*axes, indexing="ij"),
+                            axis=-1).reshape(-1, 3))
+    points = (np.concatenate(pts) if pts
+              else np.zeros((0, 3))).astype(np.float32)
+    angles = np.arange(0, 360, angle_step)
+    rx, ry, rz = np.meshgrid(angles, angles, angles, indexing="ij")
+    eulers = np.stack([rx.ravel(), ry.ravel(), rz.ravel()], axis=-1)
+    dirs = Rotation.from_euler("xyz", eulers, degrees=True).apply(
+        np.array([1 - 1e-5, 0, 0])).astype(np.float32)
+    return points, dirs
+
+
+def pretrain_l1(out, batch):
+    """The pretraining loss of field outputs out [4, M] (rows sigma, r, g,
+    b) on a zone batch: the weighted L1 of sigma plus that of the colour,
+    each over the live points."""
+    w = batch["weight"]
+    wsum = w.sum()
+    l_sig = (torch.abs(out[0] - batch["sigma"]) * w).sum() \
+        / torch.clamp(wsum, min=1.0)
+    l_col = (torch.abs(out[1:4].t() - batch["color"]) * w[:, None]).sum() \
+        / torch.clamp(wsum * 3, min=1.0)
+    return l_sig + l_col
+
+
+def freeze_labels(params):
+    """'enc' (the encoder tables, which pretraining trains), 'mlp' (the
+    towers) or 'deform' (the deform tower and the other time-conditioning
+    networks, frozen during an edit) for every top-level key of `params`."""
+    out = {}
+    for k in params:
+        if "deform" in k or "ambient" in k or \
+                (k.startswith("basis") and "grid" not in k):
+            out[k] = "deform"
+        elif "grid" in k or "lines" in k or "planes" in k:
+            out[k] = "enc"
+        else:
+            out[k] = "mlp"
+    return out
+
+
+class FastStudentTrainer(FastTrainer):
+    """Distils an edited teacher into the student field.
+
+    teacher_trainer: a FastTrainer holding the original scene (its params
+    and occupancy grid are the teacher's); the edit is `mapper`'s. A
+    secondary teacher (a CPField) answers the edited samples instead.
+    """
+
+    def __init__(self, name, opt, field, teacher_trainer: FastTrainer,
+                 mapper: Optional[SealMapper] = None, secondary_teacher=None,
+                 time_conditioned: bool = False, **kw):
+        self.teacher_trainer = teacher_trainer
+        self.secondary_teacher = secondary_teacher
+        self.mapper = None
+        self.teacher_field = None
+        self.fill_mask = None
+        super().__init__(name, opt, field, time_conditioned=time_conditioned,
+                         **kw)
+        if mapper is not None:
+            self.init_mapper(mapper)
+        self.pretraining_epochs = 0
+        self.pretraining_batch_size = 4096
+        self.pretraining_lr = 0.07
+        self.pretraining_data = {}
+        self._pretrain_optimizer = None
+        self.time_frame: Optional[float] = None
+        self.time_inspector = {"pretraining": [], "training": []}
+        self.proxied = {}
+        self.proxy_seconds = self.query_seconds = 0.0
+        self.query_points = 0
+
+    # ------------------------------------------------------------- setup
+    def init_mapper(self, mapper: SealMapper):
+        """Wrap the teacher with the mapper and build the occupancy
+        force-fill of the teacher's grid shape."""
+        tt = self.teacher_trainer
+        self.mapper = mapper.to(tt.device)
+        self.teacher_field = TeacherField(
+            tt.field, self.mapper, secondary=self.secondary_teacher,
+            time_conditioned=self.time_conditioned)
+        g = tt.dyn_grid_cfg if tt.time_conditioned else tt.grid_cfg
+        self.fill_mask = force_fill_mask(
+            self.mapper, g.grid_size, g.cascades, g.bound,
+            time_size=g.time_size if tt.time_conditioned else 0,
+            device=tt.device)
+        if self._occ_m is not None:
+            self._occ_m = self._march_occ()
+
+    def _segment_occ_fill(self):
+        return self.fill_mask
+
+    def _build_anneal_mask(self):
+        # the anneal is for training from scratch; a student distils from a
+        # trained teacher and keeps its fine scales live from the first step
+        return None
+
+    def _param_groups(self):
+        """FastTrainer's groups without the deform leaves, which are frozen
+        (and take no gradient)."""
+        frozen = self._deform_leaves()
+        for p in frozen:
+            p.requires_grad_(False)
+        ids = {id(p) for p in frozen}
+        groups = super()._param_groups()
+        for g in groups:
+            g["params"] = [p for p in g["params"] if id(p) not in ids]
+        return [g for g in groups if g["params"]]
+
+    def _deform_leaves(self):
+        labels = freeze_labels(self.params)
+        return [p for k in sorted(self.params) if labels[k] == "deform"
+                for p in param_leaves(self.params[k])]
+
+    def _ensure_deform_frozen(self):
+        """Take the deform leaves out of the optimizer if they are in it,
+        keeping the other leaves' Adam moments; never rebuilds it."""
+        frozen = {id(p) for p in self._deform_leaves()}
+        for g in self.optimizer.param_groups:
+            keep = [p for p in g["params"] if id(p) not in frozen]
+            if len(keep) != len(g["params"]):
+                for p in g["params"]:
+                    if id(p) in frozen:
+                        self.optimizer.state.pop(p, None)
+                        p.requires_grad_(False)
+                        p.grad = None
+                g["params"] = keep
+
+    def _teacher_params(self):
+        """The params the teacher answers with: its trained params (not
+        the EMA), unannealed, as the reference's teacher field reads them."""
+        return self.teacher_trainer.params
+
+    def teacher_occ(self):
+        """The teacher's occupancy with the edit region forced on."""
+        return hack_occ(self.teacher_trainer.grid_state["occ"],
+                        self.fill_mask)
+
+    def _teacher_extra(self, time=None):
+        """(extra, occupancy [CAS, H, H, H]): (t,) and the bin of time (None:
+        time_frame) for a time-conditioned teacher, else () and the grid."""
+        occ = self.teacher_trainer.grid_state["occ"]
+        if not self.time_conditioned:
+            return (), hack_occ(occ, self.fill_mask)
+        t = float(self.time_frame if time is None else time)
+        t_idx = time_slice_index(t, self.teacher_trainer.dyn_grid_cfg)
+        fill = None if self.fill_mask is None else self.fill_mask[t_idx]
+        return (t,), hack_occ(occ[t_idx], fill)
+
+    # ---------------------------------------------------------- proxying
+    @torch.no_grad()
+    def render_teacher_rays(self, rays_o, rays_d, time=None,
+                            chunk: int = TEACHER_RAY_CHUNK):
+        """Render a flat ray batch [N, 3] through the edit-aware teacher ->
+        (image [N, 3], depth [N]), by render_dense on the teacher's
+        force-filled occupancy."""
+        tt = self.teacher_trainer
+        extra, occ = self._teacher_extra(time)
+        cfg = tt.render_cfg
+        occ_m = downsample_occ(occ[0], cfg.march_res)
+        params = self._teacher_params()
+        imgs, deps = [], []
+        for i in range(0, rays_o.shape[0], chunk):
+            res = render_dense(params, occ_m, rays_o[i:i + chunk],
+                               rays_d[i:i + chunk], cfg,
+                               self.teacher_field.forward,
+                               density_scale=tt.opt.density_scale,
+                               t_thresh=tt.opt.t_thresh, extra=extra)
+            imgs.append(res["image"])
+            deps.append(res["depth"])
+        return (torch.nan_to_num(torch.cat(imgs)),
+                torch.nan_to_num(torch.cat(deps)))
+
+    @torch.no_grad()
+    def render_teacher_image(self, pose, intrinsics, h: int, w: int,
+                             time=None, edited: bool = True,
+                             plain: bool = False):
+        """One whole view through the teacher's tiled renderer -> (rgb
+        [h, w, 3], depth [h, w]) numpy: edited, on its force-filled
+        occupancy with the wrapped forward, or (edited=False) the original
+        scene, on its own occupancy with the bare field, for comparison.
+        plain=True: the edited view through the kernels' plain versions."""
+        tt = self.teacher_trainer
+        dev = tt.device
+        extra, occ = self._teacher_extra(time)
+        if plain:
+            fwd = TeacherField(tt.field, self.mapper,
+                               secondary=self.secondary_teacher,
+                               time_conditioned=self.time_conditioned,
+                               plain=True).forward_planar
+        elif edited:
+            fwd = self.teacher_field.forward_planar
+        else:
+            occ = (tt.grid_state["occ"][time_slice_index(
+                extra[0], tt.dyn_grid_cfg)] if self.time_conditioned
+                else tt.grid_state["occ"])
+            fwd = tt._render_forward()
+        params = self._teacher_params()
+        if not edited:
+            params = tt.field.kernel_tables(params)
+        tile = self._teacher_tile(pose, intrinsics, h, w)
+        img, depth = render_image_tiled(
+            params, downsample_occ(occ[0], tt.render_cfg.march_res),
+            torch.as_tensor(np.asarray(pose, np.float32), device=dev),
+            torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev),
+            h, w, tt.render_cfg, fwd, torch.ones(3, device=dev),
+            tile_px=tile, dilate=tt.opt.render_dilate if tile > 1 else 0,
+            density_scale=tt.opt.density_scale, t_thresh=tt.opt.t_thresh,
+            extra=extra)
+        return img.cpu().numpy(), depth.cpu().numpy()
+
+    def _teacher_tile(self, pose, intrinsics, h: int, w: int) -> int:
+        """The teacher renderer's tile: FastTrainer's pick while a tile's
+        half-diagonal footprint at the far side of the box (camera distance
+        to the centre plus the bound) stays within the occupancy dilation,
+        which makes the tile-centre march cover all of the tile's pixels
+        (true at 800 px with 10 px tiles, false at 32 px with 8 px ones);
+        else 1, a march per pixel, which needs no dilation."""
+        tt = self.teacher_trainer
+        tp = tt._pick_tile(h, w)
+        reach = float(np.linalg.norm(np.asarray(pose)[:3, 3])) + tt.opt.bound
+        fx = float(min(intrinsics[0], intrinsics[1]))
+        foot = tp * 0.5 * np.sqrt(2.0) * reach / fx
+        return tp if foot <= tt.render_cfg.voxel * tt.opt.render_dilate \
+            else 1
+
+    def proxy_dataset(self, dataset, time=None):
+        """The dataset with every view rendered through the edit-aware
+        teacher as its images (RGB on white); for a dynamic edit rendered at
+        `time` (None: time_frame), which replaces the views' times."""
+        if self.time_conditioned and time is None:
+            time = self.time_frame
+        imgs = [self.render_teacher_image(dataset.poses[i],
+                                          dataset.intrinsics, dataset.h,
+                                          dataset.w, time=time)[0]
+                for i in range(len(dataset))]
+        rep = {"images": np.stack(imgs).astype(np.float32)}
+        if time is not None and dataset.times is not None:
+            rep["times"] = np.full(len(dataset), float(time), np.float32)
+        return dataclasses.replace(dataset, **rep)
+
+    # ------------------------------------------------------- pretraining
+    @torch.no_grad()
+    def _teacher_query(self, points, dirs, extra, mapped: bool):
+        """Teacher sigma [N] and colour [N, 3] (numpy) at points and dirs
+        (numpy [N, 3]) in chunks of TEACHER_QUERY_CHUNK: through the mapper
+        (the local zone's ground truth) or the bare field."""
+        tt = self.teacher_trainer
+        params = self._teacher_params()
+        fwd = self.teacher_field.forward_planar if mapped \
+            else tt._render_forward()
+        if not mapped:
+            params = tt.field.kernel_tables(params)
+        sig, col = [], []
+        for i in range(0, len(points), TEACHER_QUERY_CHUNK):
+            x3 = torch.as_tensor(np.ascontiguousarray(
+                points[i:i + TEACHER_QUERY_CHUNK].T), device=tt.device)
+            d3 = torch.as_tensor(np.ascontiguousarray(
+                dirs[i:i + TEACHER_QUERY_CHUNK].T), device=tt.device)
+            out = fwd(params, x3, d3, *extra)
+            sig.append(out[0].cpu().numpy())
+            col.append(out[1:4].t().cpu().numpy())
+        return np.concatenate(sig), np.concatenate(col)
+
+    def _edit_mask(self, pts):
+        """mapper mask of numpy points [N, 3] (host bool)."""
+        if not len(pts):
+            return np.zeros(0, bool)
+        p = torch.as_tensor(pts, device=self.teacher_trainer.device)
+        probe = torch.zeros_like(p)
+        probe[:, 0] = 1.0
+        return self.mapper.map_to_origin_compact(p, probe)[2].cpu().numpy()
+
+    def init_pretraining(self, time_frame: Optional[float] = None, epochs=0,
+                         batch_size=4096, lr=0.07,
+                         local_point_step=0.001, local_angle_step=45,
+                         surrounding_point_step=0.01,
+                         surrounding_angle_step=45,
+                         surrounding_bounds_extend=0.2,
+                         global_point_step=0.05, global_angle_step=45):
+        """Cache the teacher's point ground truth of the three zones. The
+        directions are drawn from np.random.default_rng(opt.seed)."""
+        if self.mapper is None:
+            raise RuntimeError("init_mapper first")
+        self.pretraining_epochs = epochs
+        self.pretraining_batch_size = batch_size
+        self.pretraining_lr = lr
+        self.time_frame = time_frame
+        self.query_seconds, self.query_points = 0.0, 0
+        if epochs <= 0:
+            return
+        rng = np.random.default_rng(self.opt.seed)
+        md = self.mapper.map_data
+        bound = self.opt.bound
+        fill = np.asarray(md["force_fill_bound"].cpu())
+        if fill.ndim == 2:
+            fill = fill[None]
+        extra, _ = self._teacher_extra(time_frame)
+        zones = {}
+
+        def add(name, pts, dirs, mapped):
+            dsel = dirs[rng.integers(0, len(dirs), len(pts))]
+            t0 = time.perf_counter()
+            sig, col = self._teacher_query(pts, dsel, extra, mapped)
+            self.query_seconds += time.perf_counter() - t0
+            self.query_points += len(pts)
+            zones[name] = (pts, dsel, sig, col)
+
+        t0 = time.perf_counter()
+        if local_point_step > 0:
+            pts, dirs = sample_zone_points(fill, local_point_step,
+                                           local_angle_step)
+            if len(pts):
+                if "map_source" not in md:
+                    pts = pts[self._edit_mask(pts)]
+                if len(pts):
+                    add("local", pts, dirs, mapped=True)
+        self.log(f"Local x generation: {time.perf_counter() - t0:.2f}s")
+        t0 = time.perf_counter()
+        if surrounding_point_step > 0:
+            sb = fill.copy()
+            sb[:, 0] = np.maximum(sb[:, 0] - surrounding_bounds_extend, -bound)
+            sb[:, 1] = np.minimum(sb[:, 1] + surrounding_bounds_extend, bound)
+            pts, dirs = sample_zone_points(sb, surrounding_point_step,
+                                           surrounding_angle_step)
+            pts = pts[~self._edit_mask(pts)]
+            if len(pts):
+                add("surrounding", pts, dirs, mapped=False)
+        self.log(f"Surrounding x generation: {time.perf_counter() - t0:.2f}s")
+        t0 = time.perf_counter()
+        if global_point_step > 0:
+            gb = np.array([[-bound] * 3, [bound] * 3], dtype=np.float32)
+            pts, dirs = sample_zone_points(gb[None], global_point_step,
+                                           global_angle_step)
+            pts = pts[~self._edit_mask(pts)]
+            if len(pts):
+                add("global", pts, dirs, mapped=False)
+        self.log(f"Global x generation: {time.perf_counter() - t0:.2f}s")
+
+        # each zone padded to whole batches (weight 0) and put on the device
+        self.pretraining_data = {}
+        dev = self.device
+        for k, (pts, dirs, sig, col) in zones.items():
+            n = len(pts)
+            pad = (-n) % batch_size
+            w = np.concatenate([np.ones(n, np.float32),
+                                np.zeros(pad, np.float32)])
+            pts = np.concatenate([pts, np.zeros((pad, 3), np.float32)])
+            dirs = np.concatenate([dirs, np.tile(
+                np.array([[1, 0, 0]], np.float32), (pad, 1))])
+            sig = np.concatenate([sig, np.zeros(pad, np.float32)])
+            col = np.concatenate([col, np.zeros((pad, 3), np.float32)])
+
+            def put(a, *shape):
+                return torch.as_tensor(a.reshape(-1, batch_size, *shape),
+                                       device=dev)
+            self.pretraining_data[k] = {
+                "points": put(pts, 3), "dirs": put(dirs, 3),
+                "sigma": put(sig), "color": put(col, 3), "weight": put(w)}
+        self._build_pretrain_optimizer()
+        vis = os.path.join(self.workspace, "pretrain_vis")
+        os.makedirs(vis, exist_ok=True)
+        for k, v in zones.items():
+            _export_ply_points(os.path.join(vis, f"{k}.ply"), v[0], v[3])
+
+    def _enc_leaves(self):
+        labels = freeze_labels(self.params)
+        return [p for k in sorted(self.params) if labels[k] == "enc"
+                for p in param_leaves(self.params[k])]
+
+    def _build_pretrain_optimizer(self):
+        """Adam (betas 0.9/0.99, eps 1e-15) at the constant pretraining lr
+        over the encoder leaves: the towers and the deform tower are
+        frozen."""
+        self._pretrain_optimizer = torch.optim.Adam(
+            self._enc_leaves(), lr=self.pretraining_lr, betas=(0.9, 0.99),
+            eps=1e-15)
+
+    def pretrain_loss(self, batch):
+        """pretrain_l1 of the student at the batch's points, at time_frame
+        for a time-conditioned field, through the field's kernels: K1 and
+        K2, or K3 and K4."""
+        x3 = batch["points"].t().contiguous()
+        d3 = batch["dirs"].t().contiguous()
+        cfg = self.field.cfg
+        tables = self.field.kernel_tables(self.params)
+        if self.time_conditioned:
+            out = dyn_field_train_forward(self.params, cfg, x3, d3,
+                                          float(self.time_frame or 0.0),
+                                          tables=tables)
+        else:
+            out = field_train_forward(self.params, cfg, x3, d3,
+                                      tables=tables)
+        return pretrain_l1(out, batch)
+
+    def pretrain_step(self, batch):
+        """One Adam step of the encoder leaves on one batch -> loss (a
+        device tensor)."""
+        leaves = self._enc_leaves()
+        loss = self.pretrain_loss(batch)
+        grads = torch.autograd.grad(loss, leaves)
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        self._pretrain_optimizer.step()
+        for p in leaves:
+            p.grad = None
+        return loss.detach()
+
+    def pretrain_one_epoch(self):
+        """One pass over every zone's batches; the EMA once at its end ->
+        mean loss."""
+        losses = []
+        for zone in self.pretraining_data.values():
+            for i in range(zone["points"].shape[0]):
+                losses.append(self.pretrain_step(
+                    {k: v[i] for k, v in zone.items()}))
+                self.global_step += 1
+        self._ema_update()
+        return float(torch.stack(losses).mean()) if losses else 0.0
+
+    # ---------------------------------------------------------- training
+    def train(self, train_dataset, valid_dataset=None, max_epochs: int = 1,
+              time_frame: Optional[float] = None):
+        """Proxy the datasets, pretraining epochs, then ray distillation for
+        the remaining epochs (FastTrainer.train, which stops at opt.iters
+        steps counted with the pretraining's). The proxied datasets are
+        kept as self.proxied["train"] and ["valid"]."""
+        if time_frame is not None:
+            self.time_frame = time_frame
+        self._ensure_deform_frozen()
+        self._write_provenance()
+        self._sync()
+        t0 = time.perf_counter()
+        train_ds = self.proxy_dataset(train_dataset)
+        valid_ds = (self.proxy_dataset(valid_dataset)
+                    if valid_dataset is not None else None)
+        self._sync()
+        self.proxy_seconds = time.perf_counter() - t0
+        self.proxied = {"train": train_ds, "valid": valid_ds}
+        self.log(f"proxy_dataset: {self.proxy_seconds:.2f}s")
+        for _ in range(self.pretraining_epochs):
+            self.epoch += 1
+            self._sync()
+            t0 = time.perf_counter()
+            loss = self.pretrain_one_epoch()
+            self._sync()
+            self.time_inspector["pretraining"].append(time.perf_counter() - t0)
+            self.log(f"[pretrain epoch {self.epoch}] loss={loss:.5f} "
+                     f"{self.time_inspector['pretraining'][-1]:.2f}s")
+        t0 = time.perf_counter()
+        remaining = max_epochs - self.pretraining_epochs
+        if remaining > 0:
+            super().train(train_ds, valid_ds, remaining)
+        self.time_inspector["training"].append(time.perf_counter() - t0)
+        self._write_timer()
+
+    # -------------------------------------------------------- provenance
+    def _write_provenance(self):
+        """seal.json, options.json and run.sh in the workspace."""
+        os.makedirs(self.workspace, exist_ok=True)
+        try:
+            if self.mapper is not None:
+                with open(os.path.join(self.workspace, "seal.json"), "w") as f:
+                    json.dump(self.mapper.config, f, indent=2, default=str)
+            with open(os.path.join(self.workspace, "options.json"), "w") as f:
+                json.dump({k: str(v) for k, v in vars(self.opt).items()}, f,
+                          indent=2)
+            with open(os.path.join(self.workspace, "run.sh"), "w") as f:
+                f.write(f"python {' '.join(sys.argv)}\n")
+        except OSError:
+            pass
+
+    def _write_timer(self):
+        ti = self.time_inspector
+        out = {}
+        for k in ("pretraining", "training"):
+            out[k] = ti[k]
+            out[f"{k}_avg"] = float(np.mean(ti[k])) if ti[k] else 0.0
+            out[f"{k}_total"] = float(np.sum(ti[k]))
+        with open(os.path.join(self.workspace, "timer.json"), "w") as f:
+            json.dump(out, f, indent=2)
+
+
+def _export_ply_points(path, pts, colors):
+    """Binary little-endian PLY of points with u8 colours."""
+    try:
+        with open(path, "wb") as f:
+            f.write(b"ply\nformat binary_little_endian 1.0\n")
+            f.write(f"element vertex {len(pts)}\n".encode())
+            f.write(b"property float x\nproperty float y\nproperty float z\n")
+            f.write(b"property uchar red\nproperty uchar green\n"
+                    b"property uchar blue\nend_header\n")
+            buf = np.zeros(len(pts), dtype=[("xyz", "<f4", 3),
+                                            ("rgb", "u1", 3)])
+            buf["xyz"] = np.asarray(pts, dtype=np.float32)
+            buf["rgb"] = np.clip(np.asarray(colors) * 255, 0, 255).astype(
+                np.uint8)
+            f.write(buf.tobytes())
+    except OSError:
+        pass

@@ -1,0 +1,115 @@
+"""Static Seal editing CLI of the port (counterpart of the repository's
+main_SealNeRF.py).
+
+    python -m sealdnerf_tpu_torch.main_SealNeRF synthetic -O --bound 1 \\
+        --dt_gamma 0 --teacher_workspace T --workspace W \\
+        [--seal_config seal.json] [--custom_pose] \\
+        [--secondary_teacher_workspace S] [--device cpu]
+
+The teacher is the static CP field of the checkpoint that --teacher_ckpt
+selects in --teacher_workspace; the student starts as its copy. The mapper
+comes from --seal_config (default: seal.json in --workspace). The student
+pretrains on the teacher's point queries (K1) through K1/K2, then distils on
+the views the teacher renders (K1), through K1/K2; then the test views are
+rendered and written as PNG. --custom_pose trains on random orbit poses
+around the edit instead of the dataset's (the teacher provides their
+images); --secondary_teacher_workspace answers the edited samples with a
+second model.
+
+Both fields take the teacher checkpoint's shapes; --planes other than
+'auto' must agree with them. Not ported yet: the GUI, LPIPS and the NGP
+backbone (--backbone ngp, --bg_radius), which raise.
+"""
+
+import numpy as np
+
+from .cli import base_parser, build_edit_trainers, load_datasets, postprocess
+from .main_seald import max_epochs
+from .train.metrics import PSNRMeter
+
+
+def build_parser():
+    parser = base_parser()
+    parser.add_argument("--seal_config", type=str, default="")
+    parser.add_argument("--extra_epochs", type=int, default=None)
+    parser.add_argument("--log2_hashmap_size", type=int, default=19)
+    parser.add_argument("--dt_gamma_proxy", type=float, default=1 / 128)
+    parser.add_argument("--pretraining_epochs", type=int, default=100)
+    parser.add_argument("--pretraining_local_point_step", type=float,
+                        default=0.001)
+    parser.add_argument("--pretraining_local_angle_step", type=float,
+                        default=45)
+    parser.add_argument("--pretraining_surrounding_point_step", type=float,
+                        default=0.01)
+    parser.add_argument("--pretraining_surrounding_angle_step", type=float,
+                        default=45)
+    parser.add_argument("--pretraining_surrounding_bounds_extend", type=float,
+                        default=0.1)
+    parser.add_argument("--pretraining_global_point_step", type=float,
+                        default=-1)
+    parser.add_argument("--pretraining_global_angle_step", type=float,
+                        default=45)
+    parser.add_argument("--pretraining_batch_size", type=int, default=8192)
+    parser.add_argument("--pretraining_lr", type=float, default=0.07)
+    parser.add_argument("--custom_pose", action="store_true")
+    parser.add_argument("--teacher_workspace", type=str, default="")
+    parser.add_argument("--teacher_ckpt", type=str, default="latest")
+    parser.add_argument("--secondary_teacher_workspace", type=str,
+                        default=None)
+    parser.add_argument("--secondary_teacher_ckpt", type=str,
+                        default="latest")
+    parser.add_argument("--eval_interval", type=int, default=50)
+    parser.add_argument("--eval_count", type=int, default=10)
+    parser.add_argument("--test_type", type=str, default="test")
+    return parser
+
+
+def parse_args(argv=None):
+    opt = postprocess(build_parser().parse_args(argv))
+    if not opt.teacher_workspace:
+        opt.teacher_workspace = opt.workspace
+    return opt
+
+
+def main(argv=None):
+    opt = parse_args(argv)
+    if opt.gui:
+        raise SystemExit("the GUI is not yet ported")
+    print(opt)
+    _, trainer, mapper = build_edit_trainers(
+        opt, dynamic=False, metrics=[PSNRMeter()],
+        eval_interval=opt.eval_interval)
+    train, val, test = load_datasets(opt)
+    if opt.custom_pose:
+        # random orbit poses around the edit (the reference's
+        # SealRandomDataset): the teacher renders their images
+        from .data.provider import NeRFDataset
+        md = mapper.map_data
+        center = np.asarray(md["pose_center"].cpu() if "pose_center" in md
+                            else np.zeros(3), np.float32)
+        radius = float(md.get("pose_radius", 1.0))
+        train = NeRFDataset.random_orbit(
+            n=max(len(train), 50), h=train.h, w=train.w,
+            intrinsics=train.intrinsics, center=center,
+            radius=min(max(radius, 0.5), 2.0 * opt.bound), seed=opt.seed)
+    if opt.test:
+        trainer.test(test)
+        return trainer
+    trainer.init_pretraining(
+        epochs=opt.pretraining_epochs,
+        batch_size=opt.pretraining_batch_size, lr=opt.pretraining_lr,
+        local_point_step=opt.pretraining_local_point_step,
+        local_angle_step=opt.pretraining_local_angle_step,
+        surrounding_point_step=opt.pretraining_surrounding_point_step,
+        surrounding_angle_step=opt.pretraining_surrounding_angle_step,
+        surrounding_bounds_extend=opt.pretraining_surrounding_bounds_extend,
+        global_point_step=opt.pretraining_global_point_step,
+        global_angle_step=opt.pretraining_global_angle_step)
+    trainer.train(train, val, max_epochs(opt, len(train)))
+    trainer.test(test)
+    trainer.log("[INFO] LPIPS is not yet ported; PSNR only")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -19,7 +19,8 @@ Not ported yet: the GUI, --basis and --hyper, and the mp4 export.
 
 import math
 
-from .cli import base_parser, build_trainer, load_datasets, postprocess
+from .cli import (base_parser, build_trainer, cp_route, load_datasets,
+                  postprocess)
 from .train.metrics import PSNRMeter
 
 
@@ -47,13 +48,11 @@ def parse_args(argv=None):
     """Parse, and resolve the lr defaults from the backbone the recipe
     selects."""
     opt = postprocess(build_parser().parse_args(argv))
-    cp_route = (opt.backbone == "cp"
-                or (opt.backbone == "auto" and opt.bg_radius <= 0
-                    and opt.bound <= 1.0 and not (opt.basis or opt.hyper)))
+    cp = cp_route(opt)
     if opt.lr is None:
-        opt.lr = 1e-2 if cp_route else 5e-4
+        opt.lr = 1e-2 if cp else 5e-4
     if opt.lr_net is None:
-        opt.lr_net = 1e-3 if cp_route else 5e-4
+        opt.lr_net = 1e-3 if cp else 5e-4
     return opt
 
 

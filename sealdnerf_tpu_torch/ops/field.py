@@ -651,8 +651,18 @@ def dyn_field_forward_plain(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3,
     return (out, dxs) if return_deform else out
 
 
+# Samples per pass of K3's two device kernels. The warp writes the warped
+# positions to a [3, chunk] f32 scratch that the canonical kernel reads back;
+# a larger call runs chunk by chunk through staging copies of its samples and
+# outputs, 52 bytes a sample of the chunk in all (54.5 MB at 2^20, against
+# the 983 MB that a scratch for all 81.92 M samples of an 800x800 frame
+# would take). Every sample's arithmetic is its own, so the chunked output
+# equals the unchunked one bit for bit.
+DYN_CHUNK = 1 << 20
+
+
 def _launch_dyn(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t, lod_skip,
-                density_only, feats=None):
+                density_only, feats=None, chunk: int = DYN_CHUNK):
     from .build import load_library
     _check_kernel_cfg(cfg)
     if not tables.dmeta:
@@ -668,29 +678,53 @@ def _launch_dyn(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t, lod_skip,
     if m == 0:
         return out
     tcond = torch.cat(_time_cond(tables, cfg, t, x3.device)).contiguous()
-    xw = torch.empty_like(x3)       # scratch: the warped positions
+    chunk = max(1, min(int(chunk), m))
+    staged = chunk < m
+    dev = x3.device
+
+    def buf(rows):
+        return torch.empty(rows * chunk, dtype=torch.float32, device=dev)
+
+    xw = buf(3)                     # scratch: the warped positions
+    if staged:
+        xbuf, obuf = buf(3), buf(4)
+        dbuf = None if d3 is None else buf(3)
     lib = load_library()
     meta = (ctypes.c_longlong * len(tables.meta))(*tables.meta)
     dmeta = (ctypes.c_longlong * len(tables.dmeta))(*tables.dmeta)
     mask = 0
     for s in lod_skip:
         mask |= 1 << int(s)
-    stream = torch.cuda.current_stream(x3.device).cuda_stream
-    rc = lib.sdn_dyn_field_fwd(
-        x3.data_ptr(), (x3 if d3 is None else d3).data_ptr(), m,
-        tables.tab.data_ptr(), tables.wfwd.data_ptr(), meta,
-        float(cfg.bound), tables.wdef.data_ptr(), dmeta, tcond.data_ptr(),
-        mask, int(bool(density_only)), xw.data_ptr(), out.data_ptr(),
-        None if feats is None else feats.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"dynamic field kernel launch failed: CUDA error {rc}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for i0 in range(0, m, chunk):
+        n = min(chunk, m - i0)
+        if staged:
+            xs = xbuf[:3 * n].view(3, n)
+            xs.copy_(x3[:, i0:i0 + n])
+            ds = xs
+            if d3 is not None:
+                ds = dbuf[:3 * n].view(3, n)
+                ds.copy_(d3[:, i0:i0 + n])
+            os_ = obuf[:4 * n].view(4, n)
+        else:
+            xs, ds, os_ = x3, (x3 if d3 is None else d3), out
+        rc = lib.sdn_dyn_field_fwd(
+            xs.data_ptr(), ds.data_ptr(), n, tables.tab.data_ptr(),
+            tables.wfwd.data_ptr(), meta, float(cfg.bound),
+            tables.wdef.data_ptr(), dmeta, tcond.data_ptr(), mask,
+            int(bool(density_only)), xw.data_ptr(), os_.data_ptr(),
+            None if feats is None else feats[i0:i0 + n].data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"dynamic field kernel launch failed: CUDA error {rc}")
+        if staged:
+            out[:, i0:i0 + n].copy_(os_)
     dyn_field_forward.launches += 1
     return out
 
 
 def dyn_field_forward(params, cfg: CPDNeRFConfig, x3, d3, t, lod_skip=(),
-                      density_only=False, parts=None):
+                      density_only=False, parts=None, chunk: int = DYN_CHUNK):
     """Time-conditioned field forward on planar samples (render path, no
     gradient).
 
@@ -703,6 +737,8 @@ def dyn_field_forward(params, cfg: CPDNeRFConfig, x3, d3, t, lod_skip=(),
         on x3's device is read there, without a host round trip.
       lod_skip, density_only, parts: as field_forward; the features are
         those at the warped positions.
+      chunk: samples per pass of the kernel's two device kernels (see
+        DYN_CHUNK); the output does not depend on it.
 
     Returns out [4, M] f32, rows (sigma, r, g, b).
     """
@@ -722,7 +758,7 @@ def dyn_field_forward(params, cfg: CPDNeRFConfig, x3, d3, t, lod_skip=(),
     if x3.device.type != "cuda":
         raise ValueError(f"unsupported device {x3.device}")
     return _launch_dyn(tables, cfg, x3, d3, t, lod_skip, density_only,
-                       _feature_buffer(cfg, x3, parts))
+                       _feature_buffer(cfg, x3, parts), chunk)
 
 
 dyn_field_forward.launches = 0

@@ -37,6 +37,12 @@ in this:
 - with `lr_net` the MLP towers train at that rate and the tables at `lr`,
   as two Adam groups under one schedule.
 
+Editing hooks (overridden by editing/student.py's FastStudentTrainer):
+`_segment_occ_fill` (a bool mask ORed into the occupancy wherever it is
+brought to march resolution: the grid refresh, the start of train() and
+render_image), `_param_groups` (the leaves that the optimizer steps and their
+rates) and `adopt_grid_state` (a grid state taken over from another trainer).
+
 Not ported yet: error-map and patch sampling, host-resident images
 (preload=False), train_gui, the bucketed renderer (the reference switches
 to it below 15 % occupancy; this port always renders tiled, the exact one
@@ -235,26 +241,29 @@ class FastTrainer:
     # -------------------------------------------------------- optimizer
     def _set_params(self, params):
         """Install f32 leaf params that take gradients, and a fresh Adam
-        (betas 0.9/0.99, eps 1e-15) with the schedule
+        (betas 0.9/0.99, eps 1e-15) over `_param_groups` with the schedule
         lr * 0.1 ** min(step / iters, 1), stepped after each update."""
         self.params = map_params(
             lambda t: t.detach().float().requires_grad_(True), params)
         self.field.params = self.params
         iters = self.opt.iters
-        groups = param_leaves(self.params)
-        if self.opt.lr_net is not None:
-            # the MLP towers at lr_net, the tables at lr (the reference's
-            # optax.multi_transform over the same two labels)
-            labels = self._leaf_labels()
-            groups = [
-                {"params": [p for p, lab in zip(groups, labels)
-                            if lab == name], "lr": lr}
-                for name, lr in (("enc", self.opt.lr),
-                                 ("net", self.opt.lr_net))]
-        self.optimizer = torch.optim.Adam(groups, lr=self.opt.lr,
+        self.optimizer = torch.optim.Adam(self._param_groups(), lr=self.opt.lr,
                                           betas=(0.9, 0.99), eps=1e-15)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
             self.optimizer, lambda k: 0.1 ** min(k / iters, 1.0))
+
+    def _param_groups(self):
+        """The optimizer's param groups: every leaf at lr, or with lr_net the
+        MLP towers at lr_net and the tables at lr (the reference's
+        optax.multi_transform over the same two labels)."""
+        leaves = param_leaves(self.params)
+        if self.opt.lr_net is None:
+            return [{"params": leaves, "lr": self.opt.lr}]
+        labels = self._leaf_labels()
+        return [{"params": [p for p, lab in zip(leaves, labels)
+                            if lab == name], "lr": lr}
+                for name, lr in (("enc", self.opt.lr),
+                                 ("net", self.opt.lr_net))]
 
     def _leaf_labels(self):
         """"net" or "enc" per leaf in param_leaves order: "net" for the
@@ -388,6 +397,37 @@ class FastTrainer:
         return lambda tabs, x3, d3: field_forward(tabs, cfg, x3, d3)
 
     # ------------------------------------------------------------- grid
+    def _segment_occ_fill(self):
+        """A bool mask ORed into the occupancy wherever it is brought to
+        march resolution, shaped like grid_state["occ"] (None: none). The
+        editing student's force-fill of its edit region."""
+        return None
+
+    def _occ_of(self, occ, t_idx=None):
+        """occ ORed with `_segment_occ_fill` (of time bin t_idx when occ is
+        one bin of a time-conditioned grid)."""
+        fill = self._segment_occ_fill()
+        if fill is None:
+            return occ
+        return occ | (fill if t_idx is None else fill[t_idx])
+
+    def _march_occ(self):
+        """The training march's occupancy at march resolution: [T, M, M, M]
+        for a time-conditioned grid, [M, M, M] for a static one."""
+        occ = self._occ_of(self.grid_state["occ"])
+        return downsample_occ(occ[:, 0] if self.time_conditioned else occ[0],
+                              self.march_cfg.march_res)
+
+    def adopt_grid_state(self, grid_state):
+        """Take over a copy of another trainer's grid state of the same kind
+        (the editing student starts from its teacher's): the host copies of
+        the dynamic grid's counters are dropped and the march occupancy is
+        recomputed, with the fill."""
+        self.grid_state = {k: v.detach().clone().to(self.device)
+                           for k, v in grid_state.items()}
+        self._forget_dyn_host_state()
+        self._occ_m = self._march_occ()
+
     def _forget_dyn_host_state(self):
         """Drop what the trainer keeps beside the dynamic grid's state: the
         host copies of iter_density and bin_cursor (read back from the state
@@ -463,16 +503,14 @@ class FastTrainer:
             self._dyn_calls = calls + 1
             self._dyn_cursor = (cursor + min(dcfg.bins_per_call,
                                              dcfg.time_size)) % dcfg.time_size
-            self._occ_m = downsample_occ(self.grid_state["occ"][:, 0],
-                                         self.march_cfg.march_res)
+            self._occ_m = self._march_occ()
             return
         idx = refresh_indices(int(self.grid_state["iter_density"]),
                               self.grid_cfg, self.generator, self.device)
         self.grid_state = update_density_grid(
             self.grid_state, self._density_fn(self.params), self.grid_cfg,
             indices=idx, generator=self.generator)
-        self._occ_m = downsample_occ(self.grid_state["occ"][0],
-                                     self.march_cfg.march_res)
+        self._occ_m = self._march_occ()
 
     @torch.no_grad()
     def rebuild_grid(self):
@@ -655,10 +693,7 @@ class FastTrainer:
         data = train_dataset.device(self.device)
         h, w = train_dataset.h, train_dataset.w
         steps_per_epoch = max(len(train_dataset), self.opt.segment_steps)
-        occ = self.grid_state["occ"]
-        self._occ_m = downsample_occ(
-            occ[:, 0] if self.time_conditioned else occ[0],
-            self.march_cfg.march_res)
+        self._occ_m = self._march_occ()
         last_ckpt = time.perf_counter()
         for _ in range(max_epochs):
             if self.global_step >= self.opt.iters:
@@ -714,8 +749,11 @@ class FastTrainer:
         occ, extra = self.grid_state["occ"], ()
         if self.time_conditioned:
             t = 0.0 if time is None else float(time)
-            occ = occ[time_slice_index(t, self.dyn_grid_cfg)]
+            t_idx = time_slice_index(t, self.dyn_grid_cfg)
+            occ = self._occ_of(occ[t_idx], t_idx)
             extra = (t,)
+        else:
+            occ = self._occ_of(occ)
         occ_m = downsample_occ(occ[0], self.render_cfg.march_res)
         pose_t = torch.as_tensor(np.asarray(pose, np.float32), device=dev)
         intr = torch.as_tensor(np.asarray(intrinsics, np.float32),

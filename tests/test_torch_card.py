@@ -626,3 +626,149 @@ def test_one_dynamic_train_step_kernel_matches_plain(card, tmp_path):
     for a, b in zip(gk, gp):
         err = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
         assert err <= GRAD_TOL, (tuple(a.shape), err)
+
+
+# ------------------------------------------------------------------ editing
+@pytest.mark.parametrize("kw", [{}, {"density_only": True}])
+def test_dyn_field_kernel_chunked_equals_unchunked(card, kw):
+    """K3 through a [3, chunk] scratch for the warped positions, chunk by
+    chunk with a ragged last chunk, equals K3 in one pass bit for bit, and
+    counts one launch; the features that parts asks for too."""
+    cfg, tables = _dyn_tables(card)
+    rng = np.random.default_rng(3)
+    m = 3 * 4096 + 37
+    x3 = torch.from_numpy(rng.uniform(-1, 1, (3, m)).astype(
+        np.float32)).to(card)
+    d3 = torch.from_numpy(rng.normal(size=(3, m)).astype(np.float32))
+    d3 = (d3 / d3.norm(dim=0, keepdim=True)).to(card)
+    if kw:
+        d3 = None
+    whole_parts, chunk_parts = {}, {}
+    whole = dyn_field_forward(tables, cfg, x3, d3, 0.37, chunk=m,
+                              parts=whole_parts, **kw)
+    before = dyn_field_forward.launches
+    chunked = dyn_field_forward(tables, cfg, x3, d3, 0.37, chunk=4096,
+                                parts=chunk_parts, **kw)
+    assert dyn_field_forward.launches == before + 1
+    assert torch.equal(chunked, whole)
+    assert torch.equal(chunk_parts["features"], whole_parts["features"])
+    assert torch.equal(dyn_field_forward(tables, cfg, x3, d3, 0.37, **kw),
+                       whole)
+
+
+def _edit_student(card, tmp_path, gain=6.0 ** 0.5):
+    """A dynamic student around the seeded full-width field (its tower
+    undamped, the hidden matrices times `gain`: the default re-gains it to
+    warp by ~0.1; 32^3 grid rebuilt over its 64 bins) and the bbox
+    move-and-recolour edit, on the card."""
+    from sealdnerf_tpu_torch.editing.seal_utils import get_seal_mapper
+    from sealdnerf_tpu_torch.editing.student import FastStudentTrainer
+    from sealdnerf_tpu_torch.models.cp import (cp_dnerf_deform_raw,
+                                               make_cp_dnerf_field,
+                                               map_params)
+    from sealdnerf_tpu_torch.train.fast import FastTrainer
+    from sealdnerf_tpu_torch.train.trainer import TrainOptions
+    cfg = CPDNeRFConfig()
+    field = make_cp_dnerf_field(torch.Generator().manual_seed(0), cfg, card)
+    wd = field.params["deform_mlp"]["w"]
+    wd[-1] = wd[-1] * 1e3
+    for k in range(1, len(wd) - 1):
+        wd[k] = wd[k] * gain
+    topt = TrainOptions(bound=1.0, dt_gamma=0.0, grid_size=32, march_res=16,
+                        lr_net=5e-5, workspace=str(tmp_path))
+    teacher = FastTrainer("ngp", topt, field, workspace=str(tmp_path / "t"),
+                          use_checkpoint="scratch", device=card,
+                          time_conditioned=True)
+    _, train, _ = make_synthetic_scene(n_train=4, n_val=1, res=64,
+                                       dynamic=True)
+    teacher.mark_untrained_grid(train.poses, train.intrinsics)
+    teacher.rebuild_grid()
+    t = np.eye(4)
+    t[1, 3] = 0.3
+    gr = np.random.default_rng(3).normal(size=(256, 3))
+    gr /= np.linalg.norm(gr, axis=-1, keepdims=True)
+    mapper = get_seal_mapper("", {
+        "type": "bbox", "raw": (gr * 0.36 + [0, 0.1, 0]).tolist(),
+        "transform": t.tolist(), "scale": [1, 1, 1], "boundType": "both",
+        "hsv": [0.3, 0.0, 0.0]})
+    sfield = type(field)(map_params(lambda p: p.detach().clone(),
+                                    teacher.params), cfg)
+    sfield.deform_raw = lambda p, x, tt: cp_dnerf_deform_raw(p, cfg, x, tt)
+    student = FastStudentTrainer("ngp", topt, sfield, teacher, mapper=mapper,
+                                 workspace=str(tmp_path / "s"),
+                                 use_checkpoint="scratch", device=card,
+                                 time_conditioned=True)
+    student.adopt_grid_state(teacher.grid_state)
+    return student, train
+
+
+def test_edit_teacher_through_the_kernel_matches_plain(card, tmp_path):
+    """The wrapped teacher (mapper, then K3 at t = 0.5, then the recolour)
+    against the same through K3's plain version, on points of the box and
+    of the edit; then one view through the teacher's renderer both ways."""
+    from sealdnerf_tpu_torch.editing.teacher import TeacherField
+    student, train = _edit_student(card, tmp_path)
+    tt = student.teacher_trainer
+    rng = np.random.default_rng(4)
+    x = np.concatenate([rng.uniform(-1, 1, (4096, 3)),
+                        rng.uniform(-0.4, 0.8, (4096, 3))]).astype(np.float32)
+    d = rng.normal(size=x.shape).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    x3 = torch.from_numpy(np.ascontiguousarray(x.T)).to(card)
+    d3 = torch.from_numpy(np.ascontiguousarray(d.T)).to(card)
+    kern = student.teacher_field
+    plain = TeacherField(tt.field, student.mapper, time_conditioned=True,
+                         plain=True)
+    before = dyn_field_forward.launches
+    with torch.no_grad():
+        got = kern.forward_planar(tt.params, x3, d3, 0.5)
+        assert dyn_field_forward.launches == before + 1
+        ref = plain.forward_planar(tt.params, x3, d3, 0.5)
+    assert dyn_field_forward.launches == before + 1
+    np.testing.assert_allclose(got[0].cpu(), ref[0].cpu(), **SIGMA_TOL)
+    np.testing.assert_allclose(got[1:4].cpu(), ref[1:4].cpu(), **RGB_TOL)
+    mask = student.mapper.map_to_origin_compact(x3.t())[2]
+    assert 500 < int(mask.sum()) < 7000
+    img_k, _ = student.render_teacher_image(train.poses[0], train.intrinsics,
+                                            64, 64, time=0.5)
+    img_p, _ = student.render_teacher_image(train.poses[0], train.intrinsics,
+                                            64, 64, time=0.5, plain=True)
+    assert np.abs(img_k - img_p).max() <= 2e-2
+
+
+def test_one_dynamic_pretraining_step_kernel_matches_plain(card, tmp_path):
+    """One pretraining step on the first batch of the local zone: the loss
+    through K3 and through its plain version, and the L1's cotangents (of
+    the plain forward) through K4 and through its plain version, with the
+    undamped tower (warp 6e-4) at which K4 is held end to end to
+    WHOLE_CALL_TOL (test_dyn_field_backward_kernel_matches_plain); the
+    re-gained one moves a few positions by half a cell of the finest
+    tables (chip_smoke.py phase 3d)."""
+    from sealdnerf_tpu_torch.editing.student import pretrain_l1
+    student, _ = _edit_student(card, tmp_path, gain=1.0)
+    student.init_pretraining(time_frame=0.5, epochs=1, batch_size=8192,
+                             local_point_step=0.02,
+                             surrounding_point_step=0.05,
+                             global_point_step=-1)
+    batch = {k: v[0] for k, v in student.pretraining_data["local"].items()}
+    cfg, tables = student.field.cfg, student.field.kernel_tables(
+        student.params)
+    x3 = batch["points"].t().contiguous()
+    d3 = batch["dirs"].t().contiguous()
+    k3, k4 = dyn_field_forward.launches, dyn_field_backward.launches
+    with torch.no_grad():
+        out_p = dyn_field_forward_plain(tables, cfg, x3, d3, 0.5)
+    out_p.requires_grad_(True)
+    loss_p = pretrain_l1(out_p, batch)
+    g = torch.autograd.grad(loss_p, out_p)[0].contiguous()
+    ref = dyn_field_backward_plain(tables, cfg, x3, d3, 0.5, g)
+    assert (dyn_field_forward.launches, dyn_field_backward.launches) == \
+        (k3, k4)
+    with torch.no_grad():
+        loss_k = pretrain_l1(dyn_field_forward(tables, cfg, x3, d3, 0.5),
+                             batch)
+    got = dyn_field_backward(tables, cfg, x3, d3, 0.5, g)
+    assert (dyn_field_forward.launches, dyn_field_backward.launches) == \
+        (k3 + 1, k4 + 1)
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
+    assert max(_leaf_errs(got, ref)) <= WHOLE_CALL_TOL, _leaf_errs(got, ref)
