@@ -81,6 +81,16 @@ Phases (any failure raises and exits non-zero):
      through K1/K2 and through their plain versions on the card; loss
      within rtol 1e-4, grads per leaf within 1e-2 * max |plain|, and the
      plain run launches no kernel.
+  5c. trained static serving: phase 5's field, whose occupancy must be
+     below 15 %, so that render_image takes the bucketed renderer (the
+     termination trim, the reference's eval ladder). After
+     warm_renderers, view 0 four ways through K1, each timed: tiled (one
+     launch), bucketed (the pick; the trim's probe and the buckets: >= 2
+     launches), the LOD preview (the 1024 line scale skipped, the
+     preview ladder) and the trim alone (one full-budget bucket); then
+     the bucketed frame and the preview through K1's plain version. Trim
+     alone vs tiled >= 40 dB, bucketed and preview kernel vs plain >= 40
+     dB; the ladders' distance to tiled is printed.
   6. dynamic served path: a checkpoint of the seeded, re-gained dynamic field
      is written to a temporary directory; main_dnerf's parser and
      cli.build_trainer(dynamic=True) on `synthetic -O --bound 1 --dt_gamma 0
@@ -120,6 +130,8 @@ Phases (any failure raises and exits non-zero):
      the trained field, whose tower warps by ~0.08, so that the tower's
      bf16 noise reaches the finest line tables (see 3d): 5e-2 there. The
      plain runs launch no kernel.
+  7c. trained dynamic serving: phase 5c's checks on phase 7's field at
+     t = 0.5, through K3.
   8. dynamic edit: phase 7's trained field (its last full checkpoint) is the
      teacher of `main_seald.main([...])`, called in-process with `synthetic
      -O --bound 1.0 --scale 0.8 --dt_gamma 0 --time_frame 0.5
@@ -143,9 +155,22 @@ Phases (any failure raises and exits non-zero):
   8b. static edit: the same through `main_SealNeRF.main([...])` on phase
      5's trained field, 2 pretraining epochs and 2 of distillation; K1 and
      K2 launched, K3 and K4 not; checks (b)-(e).
+  9. bound-2 training: `main_nerf.main(["synthetic", "-O", "--iters",
+     "512", "--ckpt", "scratch", "--synthetic_res", "800", ...])` with no
+     --bound or --dt_gamma: the CLI's defaults, bound 2 and dt_gamma 1/128,
+     so the default line scales and no VM planes, two cascades, the
+     cascade march with growing steps; 48 views at 800x800, 4096 rays a
+     step. Before it the seeded field of the same options is served
+     (mark, rebuild, evaluate). Checks: 512 finite losses, K2 once a step
+     and K1 launched, the last 64 losses below half the first 64, val PSNR
+     at least 5 dB above the seeded field's, the refreshes wrote cells of
+     both cascades, main wrote the 6 test frames; then phase 5b's one-step
+     comparison on this zero-plane field at 1e-2. Prints ms/step and rays/s
+     without the first epoch.
+  9b. bound-2 serving: phase 5c's checks on phase 9's field.
 The launch counts of the kernels record are read from the main paths'
-runs (phases 4, 5, 6, 7, 8 and 8b), with the counters set to 0 just before
-each. Each
+runs (phases 4, 5, 5c, 6, 7, 7c, 8, 8b, 9 and 9b), with the counters set
+to 0 just before each. Each
 kernel's bound_ms is the least time the card could take for the work of its
 vs-plain phase: the larger of bytes moved over the memory rate and
 operations over the peak rate of their type (PEAK). The line before last is
@@ -268,6 +293,14 @@ def _bound(cfg, m, **kw):
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+
+
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def _cuda_ms(fn, reps):
@@ -1602,6 +1635,189 @@ def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
                              f"{bad}")
     return launches
 
+def phase_trained_frames(trainer, val, tag):
+    """Phases 5c, 7c and 9b: a trained field served as render_image serves
+    it. Its occupancy must be below 15 %, so that render_image takes the
+    bucketed renderer (termination trim, the eval ladder's buckets). On
+    view 0 (at t = 0.5 for a time-conditioned field), after
+    warm_renderers, through the field kernel (K1, or K3), each timed: the
+    tiled frame, the bucketed frame that render_image picks, the LOD
+    preview (the 1024 line scale skipped, the preview ladder) and the trim
+    alone (render_splits set to one full-budget bucket); then the bucketed
+    frame and the preview through the kernel's plain version. Checks: the
+    tiled frame launches the kernel once, the others at least twice (the
+    trim's probe and the buckets); the trim alone against tiled >= 40 dB;
+    the bucketed frame and the preview through the kernel against plain
+    >= 40 dB each. The bucketed frame's and the preview's distance to the
+    tiled frame (the reference's ladders subsampling tiles over budget)
+    are printed. Returns the kernel's launches in the four frames."""
+    import dataclasses
+
+    import torch
+    import sealdnerf_tpu_torch.train.fast as tfast
+    from sealdnerf_tpu_torch.ops.field import (dyn_field_forward,
+                                               dyn_field_forward_plain,
+                                               field_forward,
+                                               field_forward_plain)
+    from sealdnerf_tpu_torch.train.metrics import psnr
+
+    dyn = trainer.time_conditioned
+    kernel = dyn_field_forward if dyn else field_forward
+    t = 0.5 if dyn else None
+    pose, intr, h, w = val.poses[0], val.intrinsics, val.h, val.w
+    occ = trainer.grid_state["occ"]
+    share = occ.float().mean().item()
+    per_cas = [round(occ[..., c, :, :, :].float().mean().item(), 4)
+               for c in range(occ.shape[-4])]
+    if not trainer._use_buckets():
+        raise AssertionError(f"phase {tag}: occupancy {share:.4f} is not "
+                             "below 0.15: render_image would not bucket")
+    trainer.warm_renderers(h, w, pose, intr, time=t)
+
+    def frame(**kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = kernel.launches
+        t0 = time.perf_counter()
+        img, _ = trainer.render_image(pose, intr, h, w, time=t, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if img.shape != (h, w, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"phase {tag}: bad frame {img.shape}")
+        return img, ms, kernel.launches - before, \
+            torch.cuda.max_memory_allocated() / 2 ** 20
+
+    kernel.launches = 0
+    tiled, ms_t, n_t, mem_t = frame(buckets=False)
+    buck, ms_b, n_b, mem_b = frame()
+    prev, ms_p, n_p, mem_p = frame(lod=True)
+    opt = trainer.opt
+    trainer.opt = dataclasses.replace(opt, render_splits=((1.0, 1),))
+    try:
+        trim, ms_tr, n_tr, _ = frame()
+    finally:
+        trainer.opt = opt
+    launches = kernel.launches
+    if n_t != 1 or min(n_b, n_p, n_tr) < 2:
+        raise AssertionError(f"phase {tag}: launches tiled {n_t}, bucketed "
+                             f"{n_b}, preview {n_p}, trim alone {n_tr}")
+    # the trainer's forward through the kernel's plain version, the LOD
+    # skip included
+    name = "dyn_field_forward" if dyn else "field_forward"
+    setattr(tfast, name, dyn_field_forward_plain if dyn
+            else field_forward_plain)
+    try:
+        img_p, ms_plain, n_plain, _ = frame()
+        prev_p, _, n_prev_plain, _ = frame(lod=True)
+    finally:
+        setattr(tfast, name, kernel)
+    if n_plain or n_prev_plain:
+        raise AssertionError(f"phase {tag}: the plain frames launched the "
+                             "kernel")
+    p_bt, p_pt, p_trt = psnr(buck, tiled), psnr(prev, tiled), psnr(trim,
+                                                                   tiled)
+    p_bp, p_pp = psnr(buck, img_p), psnr(prev, prev_p)
+    print(f"phase {tag} trained frames on {_card()}, {h}x{w}"
+          + (f" at t={t}" if dyn else "") + f": occupancy {share:.4f} "
+          f"(cascades {per_cas}); tiled {ms_t:.2f} ms ({n_t} launch, peak "
+          f"{mem_t:.1f} MiB), bucketed {ms_b:.2f} ms ({n_b} launches, peak "
+          f"{mem_b:.1f} MiB), preview {ms_p:.2f} ms ({n_p} launches), trim "
+          f"alone {ms_tr:.2f} ms ({n_tr} launches), bucketed through the "
+          f"plain version {ms_plain:.2f} ms; PSNR against tiled: bucketed "
+          f"{p_bt:.2f} dB, preview {p_pt:.2f} dB, trim alone {p_trt:.2f} "
+          f"dB; kernel vs plain: bucketed {p_bp:.2f} dB, preview "
+          f"{p_pp:.2f} dB", flush=True)
+    for name, p in (("trim alone vs tiled", p_trt),
+                    ("bucketed kernel vs plain", p_bp),
+                    ("preview kernel vs plain", p_pp)):
+        if not p >= 40.0:
+            raise AssertionError(f"phase {tag}: {name} PSNR {p:.2f} < 40")
+    return launches
+
+
+def phase_bound2_training():
+    """Phase 9: main_nerf at the CLI's defaults (bound 2, dt_gamma 1/128,
+    --planes auto = no VM planes, two cascades), trained in-process; then
+    one train step through the kernels against their plain versions."""
+    import torch
+    from sealdnerf_tpu_torch import main_nerf
+    from sealdnerf_tpu_torch.cli import (base_parser, build_trainer,
+                                         load_datasets, postprocess)
+    from sealdnerf_tpu_torch.ops.field import field_backward, field_forward
+
+    ws = os.path.join(REPO, "workspace", "chip_smoke_bound2")
+    argv = ["synthetic", "-O", "--iters", str(TRAIN_STEPS), "--ckpt",
+            "scratch", "--synthetic_res", "800", "--workspace", ws]
+    opt = postprocess(base_parser().parse_args(argv))
+    if (opt.bound, opt.dt_gamma, opt.planes) != (2.0, 1 / 128, "auto"):
+        raise AssertionError(f"not the CLI's defaults: {opt}")
+    # the seeded field, served as `--test` serves it: the floor of the PSNR
+    t0 = time.perf_counter()
+    train, val, _ = load_datasets(opt)
+    data_s = time.perf_counter() - t0
+    seeded, field = build_trainer(opt, name="ngp")
+    mc = seeded.march_cfg
+    if field.cfg.planes != () or not mc.multi or mc.cascades != 2 \
+            or seeded.grid_cfg.cascades != 2:
+        raise AssertionError(f"bound-2 trainer: planes {field.cfg.planes}, "
+                             f"march {mc}")
+    seeded.mark_untrained_grid(train.poses, train.intrinsics)
+    seeded.rebuild_grid()
+    psnr0 = seeded.evaluate(val)
+    del seeded
+    torch.cuda.empty_cache()
+
+    field_forward.launches = 0
+    field_backward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = main_nerf.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = field_forward.launches, field_backward.launches
+    hist = trainer.history
+    losses = np.asarray(hist["loss"])
+    steps = len(losses)
+    if steps != TRAIN_STEPS or trainer.global_step != TRAIN_STEPS:
+        raise AssertionError(f"trained {steps} steps, not {TRAIN_STEPS}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite training loss")
+    if k2 < steps or k1 < 1:
+        raise AssertionError(f"launches in {steps} steps: K1 {k1}, K2 {k2}")
+    steps_per_epoch = max(len(train), trainer.opt.segment_steps)
+    ms_step = sum(hist["epoch_s"][1:]) / (steps - steps_per_epoch) * 1e3
+    first, last = losses[:64].mean(), losses[-64:].mean()
+    dg = trainer.grid_state["density_grid"]
+    occ = trainer.grid_state["occ"]
+    written = [int((dg[c] > 0).sum()) for c in range(dg.shape[0])]
+    per_cas = [round(occ[c].float().mean().item(), 4)
+               for c in range(occ.shape[0])]
+    psnr = trainer.stats["results"][-1]
+    frames = sorted(os.listdir(os.path.join(ws, "results")))
+    print(f"phase 9 bound-2 train (main_nerf at the CLI defaults) on "
+          f"{_card()}: data "
+          f"{data_s:.2f} s; main {wall:.2f} s wall; {steps} steps x "
+          f"{trainer.opt.num_rays} rays, {ms_step:.3f} ms/step, "
+          f"{trainer.opt.num_rays * 1e3 / ms_step:.1f} rays/s over epochs "
+          f"2-{len(hist['epoch_s'])} (idle share not measured here: "
+          f"profiling/torch_train_profile.py --bound2); mean n_samples/step "
+          f"{np.mean(hist['n_samples']):.1f}; launches K1 {k1} K2 {k2}; "
+          f"grid cells written per cascade {written}, occupancy per cascade "
+          f"{per_cas}; loss first 64 {first:.6f} last 64 {last:.6f}; val "
+          f"PSNR {psnr:.3f} dB (seeded field {psnr0:.3f} dB); {len(frames)} "
+          "test frames written", flush=True)
+    if not last < 0.5 * first:
+        raise AssertionError(f"loss did not halve: {first} -> {last}")
+    if not psnr >= psnr0 + 5.0:
+        raise AssertionError(f"val PSNR {psnr:.3f} not 5 dB above the seeded "
+                             f"field's {psnr0:.3f}")
+    if min(written) < 1:
+        raise AssertionError(f"a cascade holds no refreshed cell: {written}")
+    if len(frames) != len(val):
+        raise AssertionError(f"test frames written: {frames}")
+    phase_one_step(trainer, train)
+    return trainer, val, k1, k2
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1612,10 +1828,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _card()
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
@@ -1639,10 +1852,13 @@ def main():
     served = phase_served_path(args.ckpt)
     trainer, k1_train, k2_train = phase_training(served)
     phase_one_step(trainer, served["train"])
+    k1_frames = phase_trained_frames(trainer, served["val"], "5c")
     del trainer, served["train"], served["val"]
+    torch.cuda.empty_cache()
     k3_served, dtrain, dval = phase_dynamic_served_path()
     dtrainer, k3_train, k4_train = phase_dynamic_training(dtrain, dval)
     phase_one_dyn_step(dtrainer, dtrain, "trained field", TRAINED_STEP_TOL)
+    k3_frames = phase_trained_frames(dtrainer, dval, "7c")
     dyn_ws = dtrainer.workspace
     del dtrainer, dtrain, dval
     torch.cuda.empty_cache()
@@ -1652,21 +1868,27 @@ def main():
     k1_edit, k2_edit, _, _ = phase_edit(
         False, os.path.join(REPO, "workspace", "chip_smoke_train"),
         EDIT_PRE_EPOCHS_STATIC, EDIT_EPOCHS_STATIC)
+    torch.cuda.empty_cache()
+    b2trainer, b2val, k1_b2, k2_b2 = phase_bound2_training()
+    k1_b2 += phase_trained_frames(b2trainer, b2val, "9b")
+    del b2trainer, b2val
 
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "field_fwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:185",
-        "launches": served["launches"] + k1_train + k1_edit, **rec}, {
+        "launches": served["launches"] + k1_train + k1_frames + k1_edit
+        + k1_b2, **rec}, {
         "name": "field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:574",
-        "launches": k2_train + k2_edit, **rec_bwd}, {
+        "launches": k2_train + k2_edit + k2_b2, **rec_bwd}, {
         "name": "dyn_field_fwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:200",
-        "launches": k3_served + k3_train + k3_edit, **rec_dyn}, {
+        "launches": k3_served + k3_train + k3_frames + k3_edit,
+        **rec_dyn}, {
         "name": "dyn_field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:805",

@@ -1,7 +1,8 @@
 """Where the time of one served 800x800 frame and of one full occupancy-grid
 sweep goes, for the PyTorch/CUDA port on one GPU.
 
-    python3 profiling/torch_render_profile.py [--dynamic]
+    python3 profiling/torch_render_profile.py [--dynamic] [--trained
+                                              [--bound2]]
 
 Serves the seeded field as chip_smoke.py does (synthetic -O --bound 1
 --dt_gamma 0 --test --synthetic_res 800) and rebuilds the occupancy grid.
@@ -15,6 +16,12 @@ is the card's name and power limit.
 dynamic phases (the seeded field with its deform tower re-gained): one
 rebuild of all 64 time bins of the grid, and one frame at the first val
 view's time.
+
+--trained first trains the field 512 steps as chip_smoke.py's phase 5 (7
+with --dynamic; 9, the CLI's defaults at bound 2, with --bound2) does, then
+profiles three frames of the first val view (at t = 0.5 for the dynamic
+field): tiled, bucketed with the termination trim (what render_image
+serves below 15 % occupancy) and the LOD preview (test_gui without depth).
 """
 
 import argparse
@@ -62,6 +69,25 @@ def report(label, fn, top=15):
               f"{e.key[:90]}")
 
 
+def trained(ws, recipe):
+    from torch_bucket_ladder import train_field
+    t0 = time.perf_counter()
+    trainer, val = train_field(recipe, ws)
+    occ = trainer.grid_state["occ"].float().mean().item()
+    print(f"trained {trainer.global_step} steps in "
+          f"{time.perf_counter() - t0:.1f} s (data included); occupancy "
+          f"{occ:.4f}, bucketed pick {trainer._use_buckets()}")
+    t = 0.5 if trainer.time_conditioned else None
+    pose, intr = val.poses[0], val.intrinsics
+    for label, kw in (("tiled", {"buckets": False}),
+                      ("bucketed (eval ladder, trim)", {"buckets": True}),
+                      ("LOD preview (preview ladder, trim)",
+                       {"buckets": True, "lod": True})):
+        report(f"trained frame {val.h}x{val.w}, {label}",
+               lambda: trainer.render_image(pose, intr, val.h, val.w, time=t,
+                                            **kw))
+
+
 def dynamic(ws):
     import chip_smoke
     from sealdnerf_tpu_torch import main_dnerf
@@ -86,7 +112,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dynamic", action="store_true",
                     help="profile the time-conditioned field instead")
+    ap.add_argument("--trained", action="store_true",
+                    help="train 512 steps, then profile trained frames")
+    ap.add_argument("--bound2", action="store_true",
+                    help="with --trained: the CLI's default recipe")
     args = ap.parse_args()
+    if args.dynamic and args.bound2:
+        raise SystemExit("dynamic fields serve bound <= 1 only")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -95,6 +127,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     ws = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "workspace", "render_profile")
+    if args.trained:
+        recipe = "dynamic" if args.dynamic else \
+            "bound2" if args.bound2 else "static"
+        return trained(ws + "_trained", recipe)
     if args.dynamic:
         return dynamic(ws + "_dyn")
     opt = postprocess(base_parser().parse_args(

@@ -2,7 +2,7 @@
 PyTorch/CUDA port on one GPU.
 
     python3 profiling/torch_train_profile.py [--steps 16] [--at 64 448]
-                                             [--dynamic]
+                                             [--dynamic | --bound2]
 
 Builds the trainer as chip_smoke.py's training phase does (synthetic -O
 --bound 1 --dt_gamma 0 --iters 512, seeded init, 48 train views at
@@ -25,6 +25,10 @@ device kernels are listed one by one), a grid refresh is 8 time bins through K3
 density-only and fires every 2 steps until step 256 and every 4 after it,
 and the regulariser's tower (plain PyTorch) has a range of its own for its
 forward; its backward is in the backward's rest.
+
+--bound2 profiles the static step at the CLI's defaults instead (bound 2,
+dt_gamma 1/128: no VM planes, two cascades, the cascade march), as
+chip_smoke.py's phase 9 trains it.
 """
 
 import argparse
@@ -172,7 +176,12 @@ def main():
                     help="step counts at which a window starts")
     ap.add_argument("--dynamic", action="store_true",
                     help="profile dynamic (CP-D-NeRF) training")
+    ap.add_argument("--bound2", action="store_true",
+                    help="profile static training at the CLI's defaults "
+                         "(bound 2, dt_gamma 1/128)")
     args = ap.parse_args()
+    if args.dynamic and args.bound2:
+        raise SystemExit("dynamic training serves bound <= 1 only")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -181,9 +190,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     ws = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "workspace", "train_profile")
-    argv = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--iters",
-            "512", "--synthetic_res", "800", "--ckpt", "scratch",
-            "--workspace", ws]
+    recipe = [] if args.bound2 else ["--bound", "1", "--dt_gamma", "0"]
+    argv = ["synthetic", "-O", *recipe, "--iters", "512", "--synthetic_res",
+            "800", "--ckpt", "scratch", "--workspace", ws]
     if args.dynamic:
         from sealdnerf_tpu_torch import main_dnerf
         opt = main_dnerf.parse_args(argv)

@@ -167,8 +167,10 @@ def load_datasets(opt, with_time=False):
 def build_trainer(opt, name="ngp", dynamic=False, metrics=None,
                   use_checkpoint=None, **topt_overrides):
     """Build the CP field (seeded from --seed) and its FastTrainer on
-    --device: the static field, or with dynamic=True the time-conditioned
-    one (bound <= 1). Every other backbone is not ported yet and raises."""
+    --device: the static field at any --bound and --dt_gamma (its VM planes
+    from --planes, none at bound > 1 by default), or with dynamic=True the
+    time-conditioned one (bound <= 1). Every other backbone is not ported
+    yet and raises."""
     from .models.cp import (CPConfig, CPDNeRFConfig, make_cp_dnerf_field,
                             make_cp_field, parse_planes)
     from .train.fast import FastTrainer

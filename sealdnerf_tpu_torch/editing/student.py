@@ -50,7 +50,6 @@ import torch
 
 from ..models.cp import param_leaves
 from ..ops.field import dyn_field_train_forward, field_train_forward
-from ..ops.marching_dense import downsample_occ
 from ..render.dynamic_grid import time_slice_index
 from ..render.fast import render_dense
 from ..render.fast_image import render_image_tiled
@@ -234,7 +233,7 @@ class FastStudentTrainer(FastTrainer):
         tt = self.teacher_trainer
         extra, occ = self._teacher_extra(time)
         cfg = tt.render_cfg
-        occ_m = downsample_occ(occ[0], cfg.march_res)
+        occ_m = tt.cascade_occ(occ, cfg)
         params = self._teacher_params()
         imgs, deps = [], []
         for i in range(0, rays_o.shape[0], chunk):
@@ -277,7 +276,7 @@ class FastStudentTrainer(FastTrainer):
             params = tt.field.kernel_tables(params)
         tile = self._teacher_tile(pose, intrinsics, h, w)
         img, depth = render_image_tiled(
-            params, downsample_occ(occ[0], tt.render_cfg.march_res),
+            params, tt.cascade_occ(occ, tt.render_cfg),
             torch.as_tensor(np.asarray(pose, np.float32), device=dev),
             torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev),
             h, w, tt.render_cfg, fwd, torch.ones(3, device=dev),

@@ -1,12 +1,17 @@
 """Static NeRF CLI of the port (counterpart of the repository's main_nerf.py).
 
-    python -m sealdnerf_tpu_torch.main_nerf synthetic -O --bound 1 \\
-        --dt_gamma 0 [--iters N] [--test] [--ckpt PATH] [--device cpu]
+    python -m sealdnerf_tpu_torch.main_nerf synthetic -O [--bound B] \\
+        [--dt_gamma G] [--iters N] [--test] [--ckpt PATH] [--device cpu]
+
+At the defaults (--bound 2, --dt_gamma 1/128) the CP field has no VM planes
+(--planes auto) and marches two cascades with growing steps; --bound 1
+--dt_gamma 0 is the single-cascade recipe with one (128, 8) plane scale.
 
 Training (no --test): builds the trainer (seeded init, or the checkpoint
 that --ckpt selects), trains ceil(iters / n_train) epochs, evaluates PSNR on
 the val views as it goes and on the test views at the end, and writes the
-test frames as PNG.
+test frames as PNG. Frames of a trained field (occupancy below 15 %) come
+from the bucketed renderer.
 
 Serving (--test): loads the checkpoint (or starts from the seeded init with
 --ckpt scratch), rebuilds the occupancy grid when the checkpoint has none,
@@ -23,6 +28,7 @@ from .train.metrics import PSNRMeter
 
 
 def main(argv=None):
+    """Run the CLI on argv (None: sys.argv) -> the trainer."""
     opt = postprocess(base_parser().parse_args(argv))
     if opt.gui:
         raise SystemExit("the GUI is not yet ported")
@@ -42,6 +48,7 @@ def main(argv=None):
     if not opt.test:
         trainer.log("[INFO] mesh export (save_mesh) is not yet ported; "
                     "skipped")
+    return trainer
 
 
 if __name__ == "__main__":

@@ -18,7 +18,8 @@ def render_dense(params, occ_m, rays_o, rays_d, cfg: DenseMarchConfig,
 
     Args:
       params: field params, passed through to forward_fn.
-      occ_m: bool [M, M, M] occupancy at march resolution.
+      occ_m: bool [M, M, M] occupancy at march resolution, or [CAS, M, M,
+        M] for the cascade march (cfg.multi).
       rays_o, rays_d: [N, 3].
       forward_fn: (params, x [S, 3], d [S, 3], *extra) -> (sigma [S],
         rgb [S, 3]).

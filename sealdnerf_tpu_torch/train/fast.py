@@ -10,8 +10,21 @@ through `render_dense` with the field's forward K1 and backward K2
 (ops/field.py), and applies Adam, the lr schedule and the EMA. All draws
 come from the trainer's one device generator, seeded from `opt.seed`.
 
+Static fields train and serve at any bound and dt_gamma: cascades > 1 or
+dt_gamma > 0 march through the cascade march (ops/marching_dense.py), on the
+occupancy of every cascade.
+
 Serving: checkpoint loading, occupancy-grid rebuild and frustum marking,
-whole-frame rendering through the tiled renderer, the evaluate/test loops.
+whole-frame rendering, the evaluate/test loops. render_image takes the
+bucketed renderer with the termination trim (render/fast_image.py) while
+the occupied share of the grid is below 15 %, as a trained field's is, else
+the tiled one; the share is read from the device once per grid version, at
+the first frame after the grid changed. Unlike the reference, a bucketed
+eval frame subsamples no tile (the bucket ladder's shares group the tiles,
+each bucket gets the budget of its fullest tile: the ladder's divisors
+become floors), so that evaluation reads the field and not the ladder.
+test_gui renders the LOD preview (the finest line scales skipped, a harsher
+bucket ladder that may subsample a tile 2x) when the caller needs no depth.
 On CPU tensors the field runs through the kernels' plain versions.
 
 Time-conditioned fields (time_conditioned=True, a CPDNeRFConfig) use the
@@ -44,9 +57,8 @@ render_image), `_param_groups` (the leaves that the optimizer steps and their
 rates) and `adopt_grid_state` (a grid state taken over from another trainer).
 
 Not ported yet: error-map and patch sampling, host-resident images
-(preload=False), train_gui, the bucketed renderer (the reference switches
-to it below 15 % occupancy; this port always renders tiled, the exact one
-of the two) and the cascade march for bound > 1.
+(preload=False) and train_gui. Time-conditioned fields serve and train at
+bound <= 1 only, as in the reference.
 """
 
 import os
@@ -70,7 +82,7 @@ from ..render.dynamic_grid import (DynGridConfig, init_dyn_grid_state,
                                    rebuild_dyn_density_grid,
                                    refresh_dyn_density_grid,
                                    time_slice_index)
-from ..render.fast_image import render_image_tiled
+from ..render.fast_image import render_image_bucketed, render_image_tiled
 from ..render.grid import (GridConfig, init_grid_state, mark_untrained_grid,
                            refresh_indices, update_density_grid)
 from ..utils.png import write_png
@@ -80,6 +92,8 @@ from .metrics import PSNRMeter
 from .trainer import TrainOptions, cascades_for
 
 N_ZERO_REG = 1024      # points of the deform regulariser per step
+BUCKET_OCC = 0.15      # occupied share of the grid below which frames bucket
+GUI_DOWNSCALES = (1, 2, 4, 8)
 
 
 class FastTrainer:
@@ -99,10 +113,6 @@ class FastTrainer:
                              f"recipes (got bound={opt.bound})")
         self.time_conditioned = time_conditioned
         cascades = cascades_for(opt.bound)
-        if cascades > 1 or opt.dt_gamma > 0.0:
-            raise NotImplementedError(
-                "bound > 1 or dt_gamma > 0 needs the cascade march, which is "
-                "not ported yet")
         for flag, on in (("--error_map", opt.error_map),
                          ("--patch_size > 1", opt.patch_size > 1),
                          ("--no_preload", not opt.preload)):
@@ -115,6 +125,9 @@ class FastTrainer:
         self.workspace = workspace or opt.workspace
         self.device = torch.device(device) if device is not None \
             else field.params["lines"][0][0].device
+        # the kept-interval budget grows with the cascades: each cascade's
+        # band of geometry takes its own slots (the reference measured 12
+        # dB at bound 2 with 16 and 25.6 dB with 32)
         ni = opt.n_intervals * cascades
         self.march_cfg = DenseMarchConfig(
             bound=opt.bound, march_res=opt.march_res, n_intervals=ni,
@@ -163,6 +176,17 @@ class FastTrainer:
             else:
                 self.log(f"[INFO] no checkpoint found for '{use_checkpoint}',"
                          " starting from the seeded init")
+
+    @property
+    def grid_state(self):
+        return self._grid_state
+
+    @grid_state.setter
+    def grid_state(self, state):
+        # a new grid: its occupied share (_use_buckets) is read again at the
+        # next frame
+        self._grid_state = state
+        self._occ_frac = None
 
     def log(self, *msg):
         text = " ".join(str(m) for m in msg)
@@ -388,13 +412,20 @@ class FastTrainer:
         return lambda pts: field_forward(tables, cfg, pts.t().contiguous(),
                                          None, density_only=True)[0]
 
-    def _render_forward(self):
-        """The tiled renderer's forward_fn: (tables, x3, d3[, t]) -> out."""
+    def _render_forward(self, lod: bool = False):
+        """The renderers' forward_fn: (tables, x3, d3[, t]) -> out. lod=True:
+        the LOD preview's, which skips the line scales with res >=
+        opt.preview_lod_min_res inside the kernel."""
         cfg = self.field.cfg
+        skip = ()
+        if lod and self.opt.preview_lod_min_res > 0:
+            skip = tuple(s for s, (res, _) in enumerate(cfg.scales)
+                         if res >= self.opt.preview_lod_min_res)
         if self.time_conditioned:
-            return lambda tabs, x3, d3, t: dyn_field_forward(tabs, cfg, x3,
-                                                             d3, t)
-        return lambda tabs, x3, d3: field_forward(tabs, cfg, x3, d3)
+            return lambda tabs, x3, d3, t: dyn_field_forward(
+                tabs, cfg, x3, d3, t, lod_skip=skip)
+        return lambda tabs, x3, d3: field_forward(tabs, cfg, x3, d3,
+                                                  lod_skip=skip)
 
     # ------------------------------------------------------------- grid
     def _segment_occ_fill(self):
@@ -413,10 +444,19 @@ class FastTrainer:
 
     def _march_occ(self):
         """The training march's occupancy at march resolution: [T, M, M, M]
-        for a time-conditioned grid, [M, M, M] for a static one."""
+        for a time-conditioned grid, [CAS, M, M, M] for a static one whose
+        march is the cascade march, else [M, M, M]."""
         occ = self._occ_of(self.grid_state["occ"])
-        return downsample_occ(occ[:, 0] if self.time_conditioned else occ[0],
-                              self.march_cfg.march_res)
+        if self.time_conditioned:
+            return downsample_occ(occ[:, 0], self.march_cfg.march_res)
+        return self.cascade_occ(occ, self.march_cfg)
+
+    @staticmethod
+    def cascade_occ(occ, cfg: DenseMarchConfig):
+        """A [CAS, H, H, H] occupancy at cfg's march resolution, as cfg's
+        march takes it: every cascade for the cascade march, else the
+        first."""
+        return downsample_occ(occ if cfg.multi else occ[0], cfg.march_res)
 
     def adopt_grid_state(self, grid_state):
         """Take over a copy of another trainer's grid state of the same kind
@@ -427,6 +467,17 @@ class FastTrainer:
                            for k, v in grid_state.items()}
         self._forget_dyn_host_state()
         self._occ_m = self._march_occ()
+
+    def _use_buckets(self) -> bool:
+        """Whether frames take the bucketed renderer: while the mean of
+        grid_state["occ"] over all its cells is below 15 %. A broadly filled
+        grid (early training, a seeded field) gives tiles more intervals
+        than the cheap buckets hold; the tiled renderer takes those. The
+        mean is read from the device once per grid version (replacing
+        grid_state forgets it), so that training steps never wait for it."""
+        if self._occ_frac is None:
+            self._occ_frac = float(self.grid_state["occ"].float().mean())
+        return self._occ_frac < BUCKET_OCC
 
     def _forget_dyn_host_state(self):
         """Drop what the trainer keeps beside the dynamic grid's state: the
@@ -739,10 +790,18 @@ class FastTrainer:
 
     @torch.no_grad()
     def render_image(self, pose, intrinsics, h, w, bg_color=None,
-                     downscale: int = 1, params=None, time=None):
+                     downscale: int = 1, params=None, time=None,
+                     lod: bool = False, buckets: Optional[bool] = None):
         """Whole-frame render -> (rgb f32 [rh, rw, 3], depth f32 [rh, rw])
         as numpy arrays. A time-conditioned field renders at `time` (None:
-        0), marching the occupancy of that time's bin."""
+        0), marching the occupancy of that time's bin.
+
+        The renderer: bucketed with the termination trim (buckets=None:
+        while _use_buckets(); True or False forces the pick) when the frame
+        is cut into tiles, else tiled, with the eval ladder
+        (opt.render_splits). lod=True renders the LOD preview: the line
+        scales with res >= opt.preview_lod_min_res skipped in the kernel,
+        and the preview ladder (opt.render_splits_preview)."""
         rh, rw = int(h // downscale), int(w // downscale)
         dev = self.device
         params = params if params is not None else self._infer_params()
@@ -754,19 +813,59 @@ class FastTrainer:
             extra = (t,)
         else:
             occ = self._occ_of(occ)
-        occ_m = downsample_occ(occ[0], self.render_cfg.march_res)
+        rcfg, opt = self.render_cfg, self.opt
+        occ_m = self.cascade_occ(occ, rcfg)
         pose_t = torch.as_tensor(np.asarray(pose, np.float32), device=dev)
         intr = torch.as_tensor(np.asarray(intrinsics, np.float32),
                                device=dev) / downscale
         bg = torch.ones(3, device=dev) if bg_color is None else \
             torch.as_tensor(np.asarray(bg_color, np.float32), device=dev)
-        img, depth = render_image_tiled(
-            self.field.kernel_tables(params), occ_m, pose_t, intr, rh, rw,
-            self.render_cfg, self._render_forward(), bg,
-            tile_px=self._pick_tile(rh, rw), dilate=self.opt.render_dilate,
-            density_scale=self.opt.density_scale, t_thresh=self.opt.t_thresh,
-            extra=extra)
+        tp = self._pick_tile(rh, rw)
+        if buckets is None:
+            buckets = self._use_buckets()
+        kw = dict(tile_px=tp, dilate=opt.render_dilate,
+                  density_scale=opt.density_scale, t_thresh=opt.t_thresh,
+                  extra=extra)
+        args = (self.field.kernel_tables(params), occ_m, pose_t, intr, rh, rw,
+                rcfg, self._render_forward(lod), bg)
+        if buckets and tp > 1:
+            img, depth = render_image_bucketed(
+                *args, splits=(opt.render_splits_preview if lod
+                               else opt.render_splits),
+                term_probe=opt.render_term_intervals,
+                term_tau=opt.render_term_tau,
+                term_stride=opt.render_term_stride, **kw)
+        else:
+            img, depth = render_image_tiled(*args, **kw)
         return img.cpu().numpy(), depth.cpu().numpy()
+
+    def warm_renderers(self, h, w, pose=None, intrinsics=None, time=None):
+        """One throwaway frame through each renderer (tiled and bucketed),
+        so that the kernels are built and the allocator holds a frame's
+        buffers before the first timed or served frame. Default camera: on
+        the -z axis at twice the bound, looking at the origin."""
+        if pose is None:
+            pose = np.eye(4, dtype=np.float32)
+            pose[2, 3] = -2.0 * self.opt.bound
+        if intrinsics is None:
+            f = 0.5 * max(h, w)
+            intrinsics = np.array([f, f, w / 2, h / 2], np.float32)
+        for b in (False, True):
+            self.render_image(pose, intrinsics, h, w, time=time, buckets=b)
+
+    def test_gui(self, pose, intrinsics, w, h, bg_color=None, spp=1,
+                 downscale=1, time=None, need_depth=True):
+        """A GUI frame -> {"image": f32 [rh, rw, 3], "depth": f32 [rh, rw]
+        or None}. downscale snaps to the nearest of 1, 2, 4 and 8;
+        need_depth=False renders the LOD preview and returns no depth (the
+        reference's preview wire; its u8 and yuv420 packing is not
+        ported)."""
+        downscale = min(GUI_DOWNSCALES, key=lambda b: abs(b - downscale))
+        img, depth = self.render_image(pose, intrinsics, h, w,
+                                       bg_color=bg_color,
+                                       downscale=downscale, time=time,
+                                       lod=not need_depth)
+        return {"image": img, "depth": depth if need_depth else None}
 
     def _time_of(self, dataset, i):
         """The i-th view's time for a time-conditioned field, else None."""

@@ -2,7 +2,8 @@
 sealdnerf_tpu/train/trainer.py).
 
 Only the fields that the ported paths read: the grid, march and render
-settings of serving, the static trainer's settings (step count, learning
+settings of serving (the bucket ladders, the termination trim and the LOD
+preview among them), the static trainer's settings (step count, learning
 rate and schedule, rays per step, grid-refresh interval, EMA, epochs,
 evaluation and checkpoint cadence), and the dynamic trainer's (the MLP
 learning rate, the time curriculum, the coarse-to-fine anneal and the
@@ -12,7 +13,7 @@ the code that reads them.
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass
@@ -66,6 +67,25 @@ class TrainOptions:
     render_march_res: int = 0        # 0 = use march_res
     render_n_intervals: int = 0      # 0 = 2x the training n_intervals
     render_steps_per_interval: int = 0
+    # The bucketed renderer (render/fast_image.py:render_image_bucketed),
+    # which FastTrainer.render_image takes below 15 % occupancy: (share of
+    # the tiles, divisor of the render interval budget), the emptiest tiles
+    # first, the last split taking the rest. The eval ladder and the LOD
+    # preview's harsher one, with the reference's values (its TrainOptions
+    # comment gives their measured trade-off on the TPU).
+    render_splits: Tuple[Tuple[float, int], ...] = (
+        (0.60, 32), (0.15, 16), (0.15, 4), (0.07, 2), (1.0, 2))
+    render_splits_preview: Tuple[Tuple[float, int], ...] = (
+        (0.60, 32), (0.18, 16), (0.12, 8), (0.07, 4), (1.0, 2))
+    # the termination trim of bucketed frames: leading intervals probed per
+    # tile (0 = off), the optical-depth cutoff at interval entry (exp(-7) ~
+    # 1e-3 per corner probe), and every stride-th covered interval tapped
+    render_term_intervals: int = 16
+    render_term_tau: float = 7.0
+    render_term_stride: int = 2
+    # the LOD preview (FastTrainer.test_gui without depth): line scales with
+    # res >= this are skipped in the field kernel; 0 disables
+    preview_lod_min_res: int = 1024
 
 
 def cascades_for(bound: float) -> int:

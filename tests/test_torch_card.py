@@ -772,3 +772,151 @@ def test_one_dynamic_pretraining_step_kernel_matches_plain(card, tmp_path):
         (k3 + 1, k4 + 1)
     assert abs(loss_k.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
     assert max(_leaf_errs(got, ref)) <= WHOLE_CALL_TOL, _leaf_errs(got, ref)
+
+
+# ----------------------------------------- the CLI's default recipe (bound 2)
+@pytest.mark.parametrize("kw", [{}, {"density_only": True},
+                                {"lod_skip": (3,)}])
+def test_field_kernels_without_planes_match_plain(card, kw):
+    """K1 and K2 at the default line scales and no VM planes (what
+    default_planes gives at bound > 1: the layout has no plane segment),
+    on points of the bound-2 box."""
+    cfg = CPConfig(bound=2.0, planes=())
+    tables = pack_tables(init_cp(torch.Generator().manual_seed(5), cfg, card),
+                         cfg)
+    x3, d3, g = _samples(card, 8192 + 37, 6)
+    x3 = x3 * 2.0
+    out = field_forward(tables, cfg, x3, d3, **kw).cpu()
+    ref = field_forward_plain(tables, cfg, x3, d3, **kw).cpu()
+    np.testing.assert_allclose(out[0], ref[0], **SIGMA_TOL)
+    np.testing.assert_allclose(out[1:], ref[1:], **RGB_TOL)
+    if kw:
+        return
+    parts = {}
+    whole = field_backward(tables, cfg, x3, d3, g, parts=parts)
+    assert torch.equal(parts["out"][:, parts["live"]],
+                       field_forward(tables, cfg, x3, d3)[:, parts["live"]])
+    for tol, got, g_in in (
+            (WHOLE_CALL_TOL, whole, g),
+            (GRAD_TOL, None, _stable_cotangents(tables, cfg, x3, d3, g))):
+        if got is None:
+            got = field_backward(tables, cfg, x3, d3, g_in)
+        ref_g = field_backward_plain(tables, cfg, x3, d3, g_in)
+        for a, b in zip(param_leaves(got), param_leaves(ref_g)):
+            err = ((a - b).abs().max() / b.abs().max()).item()
+            assert err <= tol, (tuple(a.shape), err, tol)
+
+
+def test_bound2_train_step_kernel_matches_plain(card, tmp_path):
+    """One step of the CLI's default recipe (bound 2, dt_gamma 1/128, two
+    cascades, no planes) through K1/K2 and through their plain versions."""
+    opt = postprocess(base_parser().parse_args(
+        ["synthetic", "-O", "--ckpt", "scratch", "--workspace",
+         str(tmp_path), "--num_rays", "1024"]))
+    trainer, field = build_trainer(opt, name="card")
+    assert field.cfg.planes == () and trainer.march_cfg.multi
+    _, train, _ = make_synthetic_scene(n_train=4, n_val=1, res=64)
+    trainer.mark_untrained_grid(train.poses, train.intrinsics)
+    trainer.refresh_grid()
+    assert trainer._occ_m.shape[0] == 2
+    batch = trainer.sample_batch(train.device(card), train.h, train.w)
+    out = []
+    for plain in (False, True):
+        for p in param_leaves(trainer.params):
+            p.grad = None
+        loss, _ = trainer.loss_on(*batch, plain=plain)
+        loss.backward()
+        out.append((loss.item(), [p.grad.clone()
+                                  for p in param_leaves(trainer.params)]))
+    (lk, gk), (lp, gp) = out
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+    for a, b in zip(gk, gp):
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        assert err <= GRAD_TOL, (tuple(a.shape), err)
+
+
+def _frame_psnr(a, b):
+    mse = float(((a - b) ** 2).mean())
+    return float("inf") if mse == 0 else -10.0 * np.log10(mse)
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_bucketed_frame_through_the_kernel_matches_plain(card, dynamic):
+    """A bucketed frame with the termination trim through K1 (or K3 at
+    t = 0.5) and through its plain version, on a sparse ball occupancy:
+    >= 40 dB between the two; the trim's probe launches the kernel once
+    more than the buckets do."""
+    from sealdnerf_tpu_torch.ops.marching_dense import DenseMarchConfig
+    from sealdnerf_tpu_torch.render.fast_image import render_image_bucketed
+    if dynamic:
+        cfg, tables = _dyn_tables(card)
+        kern = lambda tb, x3, d3, t: dyn_field_forward(tb, cfg, x3, d3, t)
+        plain = lambda tb, x3, d3, t: dyn_field_forward_plain(tb, cfg, x3,
+                                                              d3, t)
+        counter, extra = dyn_field_forward, (0.5,)
+    else:
+        cfg = CPConfig()
+        tables = pack_tables(
+            init_cp(torch.Generator().manual_seed(0), cfg, card), cfg)
+        kern = lambda tb, x3, d3: field_forward(tb, cfg, x3, d3)
+        plain = lambda tb, x3, d3: field_forward_plain(tb, cfg, x3, d3)
+        counter, extra = field_forward, ()
+    g = torch.linspace(-1, 1, 64, device=card)
+    x, y, z = torch.meshgrid(g, g, g, indexing="ij")
+    occ = (x * x + y * y + z * z) < 0.35 ** 2
+    rcfg = DenseMarchConfig(bound=1.0, march_res=64, n_intervals=32)
+    pose = torch.eye(4, device=card)
+    pose[2, 3] = -2.5
+    intr = torch.tensor([320.0, 320.0, 128.0, 128.0], device=card)
+    kw = dict(tile_px=8, term_probe=16, term_tau=7.0, term_stride=2,
+              splits=((0.60, 32), (0.15, 16), (0.15, 4), (0.07, 2),
+                      (1.0, 2)), extra=extra)
+    frames = []
+    for fwd in (kern, plain):
+        before = counter.launches
+        with torch.no_grad():
+            img, _ = render_image_bucketed(tables, occ, pose, intr, 256, 256,
+                                           rcfg, fwd, torch.ones(3,
+                                                                 device=card),
+                                           **kw)
+        frames.append((img.cpu().numpy(), counter.launches - before))
+    (img_k, n_k), (img_p, n_p) = frames
+    assert n_p == 0 and n_k >= 2
+    assert np.isfinite(img_k).all() and img_k.min() < 0.9
+    assert _frame_psnr(img_k, img_p) >= 40.0
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_termination_trim_probe_through_the_kernel(card, dynamic):
+    """The trim's corner probe through K1 (K3 at t = 0.5) keeps the same
+    intervals as through the plain version, but for taps within the
+    kernel's noise of tau (at most 1 % of the tiles)."""
+    from sealdnerf_tpu_torch.ops.marching_dense import DenseMarchConfig
+    from sealdnerf_tpu_torch.render import fast_image as tfi
+    if dynamic:
+        cfg, tables = _dyn_tables(card)
+        fwds = (lambda tb, x3, d3, t: dyn_field_forward(tb, cfg, x3, d3, t),
+                lambda tb, x3, d3, t: dyn_field_forward_plain(tb, cfg, x3,
+                                                              d3, t))
+        extra = (0.5,)
+    else:
+        cfg = CPConfig()
+        tables = pack_tables(
+            init_cp(torch.Generator().manual_seed(0), cfg, card), cfg)
+        fwds = (lambda tb, x3, d3: field_forward(tb, cfg, x3, d3),
+                lambda tb, x3, d3: field_forward_plain(tb, cfg, x3, d3))
+        extra = ()
+    occ = torch.ones((64, 64, 64), dtype=torch.bool, device=card)
+    rcfg = DenseMarchConfig(bound=1.0, march_res=64, n_intervals=32)
+    pose = torch.eye(4, device=card)
+    pose[2, 3] = -2.5
+    intr = torch.tensor([320.0, 320.0, 128.0, 128.0], device=card)
+    th = tw = 32
+    to, td, tn, tf = tfi._tile_rays(pose, intr, th, tw, 8, rcfg)
+    te, _, iv, _ = tfi._march_tiles(to, td, tn, tf, occ, rcfg, 1)
+    kept = [tfi._termination_trim(tables, pose, intr / 8, th,
+                                  tw, 8, te, iv, None, rcfg, f, 1.0, 0.05,
+                                  16, extra, stride=2) for f in fwds]
+    assert int(kept[1].sum()) < int(iv.sum())           # the trim acts
+    differ = (kept[0] != kept[1]).any(dim=1).float().mean().item()
+    assert differ <= 0.01, differ

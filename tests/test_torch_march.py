@@ -107,14 +107,6 @@ def test_march_dense(rng):
                                **TS_TOL)
 
 
-def test_cascade_march_not_ported():
-    cfg = tmd.DenseMarchConfig(bound=2.0, cascades=2)
-    z = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError):
-        tmd.march_dense(z, z, z[:, 0], z[:, 0],
-                        torch.zeros((2, 64, 64, 64), dtype=torch.bool), cfg)
-
-
 def test_render_dense(rng):
     cfg_j = jmd.DenseMarchConfig(bound=1.0, march_res=32, n_intervals=16,
                                  steps_per_interval=4)

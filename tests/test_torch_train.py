@@ -15,7 +15,10 @@ from `cli.build_trainer` as a user's would). Tolerances:
   FastTrainer's grid_update arithmetic with the cells and jitter passed in:
   density within the field kernel's bf16 tolerance (rtol 2e-2, atol 1e-4),
   >= 99.9 % of occupancy cells equal.
-- The slice as a whole: see test_training_matches_jax_band.
+- The slice as a whole: see test_training_matches_jax_band, at the
+  single-cascade recipe (bound 1, dt_gamma 0, one plane scale) and at the
+  CLI's default one (bound 2, dt_gamma 1/128, no planes: the cascade
+  march).
 - Checkpoints with optimizer state resume bit-exactly in both directions.
 """
 
@@ -53,36 +56,49 @@ PLANES = ((16, 4),)
 STEPS = 192                    # 3 epochs of 64 steps
 SEEDS = (1, 2, 3)
 BAND_DB = 0.75
+# the recipes of the band test: (bound, dt_gamma, VM planes)
+RECIPES = {"bound1": (1.0, 0.0, PLANES), "bound2": (2.0, 1.0 / 128, ())}
 
 
-def _jax_opts(ws, seed, **kw):
-    return TrainOptions(iters=STEPS, num_rays=256, bound=1.0, dt_gamma=0.0,
-                        segment_steps=64, update_extra_interval=8,
-                        eval_interval=1000, workspace=ws, seed=seed,
-                        **NARROW, **kw)
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """The suite runs in several worker processes at once; a torch pool of
+    every core in each makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
-def _port_trainer(ckpt, ws, seed=1, extra=()):
+def _jax_opts(ws, seed, recipe="bound1", **kw):
+    bound, dt_gamma, _ = RECIPES[recipe]
+    return TrainOptions(iters=STEPS, num_rays=256, bound=bound,
+                        dt_gamma=dt_gamma, segment_steps=64,
+                        update_extra_interval=8, eval_interval=1000,
+                        workspace=ws, seed=seed, **NARROW, **kw)
+
+
+def _port_trainer(ckpt, ws, seed=1, extra=(), recipe="bound1"):
+    bound, dt_gamma, _ = RECIPES[recipe]
     opt = postprocess(base_parser().parse_args(
-        ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--device",
-         "cpu", "--ckpt", ckpt, "--workspace", ws, "--iters", str(STEPS),
-         "--num_rays", "256", "--update_extra_interval", "8", "--seed",
-         str(seed), *extra]))
+        ["synthetic", "-O", "--bound", str(bound), "--dt_gamma",
+         str(dt_gamma), "--device", "cpu", "--ckpt", ckpt, "--workspace", ws,
+         "--iters", str(STEPS), "--num_rays", "256",
+         "--update_extra_interval", "8", "--seed", str(seed), *extra]))
     trainer, _ = build_trainer(opt, name="t", segment_steps=64, **NARROW)
     return trainer
 
 
-@pytest.fixture(scope="module")
-def jax_runs(tmp_path_factory):
-    """The JAX FastTrainer trained STEPS steps from PRNGKey(0)'s init for
-    each seed; the init as a checkpoint for the port; val PSNRs; the seed-1
-    trainer and its full checkpoint."""
-    ws = str(tmp_path_factory.mktemp("jax_train"))
+def _jax_band(ws, recipe):
+    """The JAX FastTrainer trained STEPS steps from PRNGKey(0)'s init of
+    `recipe` for each seed; the init as a checkpoint for the port; val
+    PSNRs; the seed-1 trainer and its full checkpoint."""
+    bound, _, planes = RECIPES[recipe]
     _, train, val = jax_scene(n_train=6, n_val=1, res=32)
     field = make_cp_field(jax.random.PRNGKey(0), JaxCPConfig(
-        bound=1.0, scales=SCALES, planes=PLANES))
-    tr = FastTrainer("t", _jax_opts(ws, SEEDS[0]), field, workspace=ws,
-                     use_checkpoint="scratch")
+        bound=bound, scales=SCALES, planes=planes))
+    tr = FastTrainer("t", _jax_opts(ws, SEEDS[0], recipe), field,
+                     workspace=ws, use_checkpoint="scratch")
     init = {k: jax.tree_util.tree_map(np.asarray, v) for k, v in (
         ("params", tr.params), ("ema", tr.ema_params))}
     init_ckpt = os.path.join(ws, "init.npz")
@@ -112,6 +128,18 @@ def jax_runs(tmp_path_factory):
                 snap=snap, val=val, train=train, opts=tr.opt)
 
 
+@pytest.fixture(scope="module")
+def jax_runs(tmp_path_factory):
+    """_jax_band of the single-cascade recipe."""
+    return _jax_band(str(tmp_path_factory.mktemp("jax_train")), "bound1")
+
+
+@pytest.fixture(scope="module")
+def jax_runs_bound2(tmp_path_factory):
+    """_jax_band of the CLI's default recipe (the cascade march)."""
+    return _jax_band(str(tmp_path_factory.mktemp("jax_train2")), "bound2")
+
+
 def test_synthetic_scenes_agree():
     _, a, _ = jax_scene(n_train=2, n_val=1, res=16)
     _, b, _ = make_synthetic_scene(n_train=2, n_val=1, res=16)
@@ -119,24 +147,32 @@ def test_synthetic_scenes_agree():
     np.testing.assert_allclose(a.images, b.images, atol=1e-6)
 
 
-def test_training_matches_jax_band(jax_runs, tmp_path):
+@pytest.mark.parametrize("recipe", sorted(RECIPES))
+def test_training_matches_jax_band(recipe, request, tmp_path):
     """The port trains STEPS steps from the same init through
     cli.build_trainer and FastTrainer.train on the CPU. Its val PSNR must
     lie within [min JAX - 0.75 dB, max JAX + 0.75 dB] over seeds 1-3, and
     at least 4 dB above the seeded field's PSNR at step 0. A band and not a
     tolerance: threefry and Philox draw different rays, pixels and noise,
     so the two runs are two samples of one training process. (For
-    reference, measured on the CPU with this fixture and init: JAX reached
-    15.32 / 16.43 / 16.77 dB at 192 steps for seeds 1-3, and the port
-    15.10 dB from 8.39 dB at step 0.)"""
+    reference, measured on the CPU with this fixture and init: at bound 1
+    JAX reached 15.32 / 16.43 / 16.77 dB at 192 steps for seeds 1-3 and the
+    port 15.10 dB from 8.39 dB at step 0; at bound 2 JAX 13.41 / 13.64 /
+    14.30 dB and the port 13.11 dB from 6.69 dB.)"""
+    jax_runs = request.getfixturevalue(
+        "jax_runs" if recipe == "bound1" else "jax_runs_bound2")
     _, train, val = make_synthetic_scene(n_train=6, n_val=1, res=32)
-    t0 = _port_trainer(jax_runs["init_ckpt"], str(tmp_path / "p0"))
+    t0 = _port_trainer(jax_runs["init_ckpt"], str(tmp_path / "p0"),
+                       recipe=recipe)
     t0.mark_untrained_grid(train.poses, train.intrinsics)
     t0.rebuild_grid()
     psnr0 = t0.evaluate(val)
 
-    tr = _port_trainer(jax_runs["init_ckpt"], str(tmp_path / "p1"))
-    assert tr.field.cfg.scales == SCALES and tr.field.cfg.planes == PLANES
+    tr = _port_trainer(jax_runs["init_ckpt"], str(tmp_path / "p1"),
+                       recipe=recipe)
+    assert tr.field.cfg.scales == SCALES
+    assert tr.field.cfg.planes == RECIPES[recipe][2]
+    assert tr.march_cfg.multi == (recipe == "bound2")
     tr.train(train, None, max_epochs=10)
     assert tr.global_step == STEPS and tr.epoch == 3
     assert len(tr.history["loss"]) == STEPS
