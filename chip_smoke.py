@@ -143,18 +143,22 @@ Phases (any failure raises and exits non-zero):
      the student's deform leaves bit for bit the teacher's, its tables
      moved; (c) on the val views at t = 0.5 the student's MSE to the edited
      teacher below 0.8 x the unedited teacher's (the reference's own
-     criterion, tests/test_editing.py:293); (d) one edited teacher frame
-     through K3 against the same through K3's plain version >= 40 dB; (e)
-     one pretraining step (8,192 zone points) through K3/K4 against plain:
-     loss within rtol 1e-4; the L1's cotangents, taken from the plain
-     forward, through K4 and through its plain version, grads per leaf
-     within 5e-2 of max |plain|. Prints the proxy seconds, the teacher point queries and
-     their seconds, pretraining ms/step, distillation ms/step and rays/s,
-     main's wall seconds and the student's PSNR against the edited and the
-     unedited teacher.
+     criterion, tests/test_editing.py:293); (d) one proxied view (render_occ
+     through K3) against the same view through K3's plain version >= 40 dB;
+     (e) one pretraining step (8,192 zone points) through K3/K4 against
+     plain: loss within rtol 1e-4; the L1's cotangents, taken from the
+     plain forward, through K4 and through its plain version, grads per
+     leaf within 5e-2 of max |plain|. The proxy renders every view as the
+     reference's does, through render_occ (the packed march, up to 1024
+     samples a ray, chunks of 4096 rays with 64 packed samples a ray) on
+     the teacher's force-filled occupancy, K3 on the kept samples: K3 must
+     launch under it, no other kernel. Prints the proxy seconds and its
+     launches, the teacher point queries and their seconds, pretraining
+     ms/step, distillation ms/step and rays/s, main's wall seconds and the
+     student's PSNR against the edited and the unedited teacher.
   8b. static edit: the same through `main_SealNeRF.main([...])` on phase
      5's trained field, 2 pretraining epochs and 2 of distillation; K1 and
-     K2 launched, K3 and K4 not; checks (b)-(e).
+     K2 launched, K3 and K4 not, K1 alone under the proxy; checks (b)-(e).
   9. bound-2 training: `main_nerf.main(["synthetic", "-O", "--iters",
      "512", "--ckpt", "scratch", "--synthetic_res", "800", ...])` with no
      --bound or --dt_gamma: the CLI's defaults, bound 2 and dt_gamma 1/128,
@@ -168,9 +172,29 @@ Phases (any failure raises and exits non-zero):
      comparison on this zero-plane field at 1e-2. Prints ms/step and rays/s
      without the first epoch.
   9b. bound-2 serving: phase 5c's checks on phase 9's field.
+  10. NGP training: the seeded Instant-NGP field of `main_nerf
+     --backbone ngp` at the CLI's defaults (bound 2, dt_gamma 1/128: the
+     packed march's closed-form ladder, two cascades; 16 levels x 2, 2^19
+     entries a level, desired resolution 4096) is served (a full sweep of
+     both cascades, one timed 800x800 frame through Trainer.render_image,
+     val PSNR); then `main_nerf.main([... "--backbone", "ngp", "--iters",
+     "512", ...])` on the 48 views at 800x800, 4096 rays a step. Checks:
+     512 finite losses, the last 64 below half the first 64, val PSNR at
+     least 5 dB above the seeded field's, the refreshes wrote cells of both
+     cascades, main wrote the 6 test frames. Prints ms/step and rays/s
+     without the first epoch, ms per 800x800 frame, and K1-K4's launches
+     (none: the NGP path is plain PyTorch, as the reference's is XLA).
+  10b. D-NeRF NGP training: `main_dnerf.main([... "--bound", "2", "--iters",
+     "256", ...])` routes to the D-NeRF deform field (8 x 128 deform tower,
+     tiled canonical grid, NGP towers) and Trainer; cut from 300,000 steps,
+     with the tables at 1e-2 and the towers at 1e-3 (at the backbone's 5e-4
+     the loss does not move within 256 steps): 256 finite losses whose last
+     64 lie below the first 64, and a finite 800x800 frame at t = 0.5
+     (timed), which differs from the frame at t = 0.
 The launch counts of the kernels record are read from the main paths'
-runs (phases 4, 5, 5c, 6, 7, 7c, 8, 8b, 9 and 9b), with the counters set
-to 0 just before each. Each
+runs (phases 4, 5, 5c, 6, 7, 7c, 8, 8b, 9 and 9b; 8 and 8b include the
+proxy's launches through render_occ), with the counters set to 0 just
+before each. Each
 kernel's bound_ms is the least time the card could take for the work of its
 vs-plain phase: the larger of bytes moved over the memory rate and
 operations over the peak rate of their type (PEAK). The line before last is
@@ -219,6 +243,9 @@ ACT_MASK_TOL = 5e-3
 # carry weight; it shows in the finest line tables only (measured 0.019)
 TRAINED_STEP_TOL = 5e-2
 TRAIN_STEPS = 512
+# phase 10b: D-NeRF NGP training steps (its grid sweeps 8 of 64 time bins
+# in full every 2 steps for the first 16 passes)
+NGP_DYN_STEPS = 256
 # phases 8 and 8b: pretraining epochs and distillation epochs of 128 steps
 EDIT_PRE_EPOCHS, EDIT_EPOCHS = 2, 4
 EDIT_PRE_EPOCHS_STATIC, EDIT_EPOCHS_STATIC = 2, 2
@@ -1476,7 +1503,8 @@ def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
     Returns the launches of K1-K4 in the main's run."""
     import torch
     from sealdnerf_tpu_torch import main_seald, main_SealNeRF
-    from sealdnerf_tpu_torch.editing.student import (freeze_labels,
+    from sealdnerf_tpu_torch.editing.student import (FastStudentTrainer,
+                                                     freeze_labels,
                                                      pretrain_l1)
     from sealdnerf_tpu_torch.models.cp import param_leaves
     from sealdnerf_tpu_torch.ops.field import (dyn_field_backward,
@@ -1511,13 +1539,28 @@ def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
           flush=True)
     fns = (field_forward, field_backward, dyn_field_forward,
            dyn_field_backward)
+    # the launches under the proxy, which renders through render_occ
+    proxy_launches = [0, 0, 0, 0]
+    proxy = FastStudentTrainer.proxy_dataset
+
+    def counted_proxy(self, *a, **kw):
+        before = [fn.launches for fn in fns]
+        out = proxy(self, *a, **kw)
+        for i, fn in enumerate(fns):
+            proxy_launches[i] += fn.launches - before[i]
+        return out
+
     for fn in fns:
         fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st = mod.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    FastStudentTrainer.proxy_dataset = counted_proxy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        FastStudentTrainer.proxy_dataset = proxy
     launches = [fn.launches for fn in fns]
     tt = st.teacher_trainer
     k1, k2, k3, k4 = launches
@@ -1525,6 +1568,10 @@ def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
         raise AssertionError(f"dynamic edit launches K1-K4 {launches}")
     if not dynamic and not (k1 > 0 and k2 > 0 and k3 == 0 and k4 == 0):
         raise AssertionError(f"static edit launches K1-K4 {launches}")
+    # the proxy's forward is K1 (static) or K3 (dynamic), and only that
+    want = [0, 0, 1, 0] if dynamic else [1, 0, 0, 0]
+    if [int(n > 0) for n in proxy_launches] != want:
+        raise AssertionError(f"proxy launches K1-K4 {proxy_launches}")
     # (a) the proxied views are pinned to the edit's frame
     tv = st.proxied["valid"]
     if dynamic:
@@ -1562,7 +1609,11 @@ def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
     pre_ms = float(np.mean(st.time_inspector["pretraining"])) / n_pre * 1e3
     print(f"phase {tag} edit: {wall:.2f} s wall for main; proxy "
           f"{len(st.proxied['train'])} + {len(tv)} views at {tv.h}x{tv.w} in "
-          f"{st.proxy_seconds:.2f} s; {st.query_points} teacher point "
+          f"{st.proxy_seconds:.2f} s through render_occ"
+          + (" (the tiled renderer's proxy of this phase took 16.14 s on an "
+             "NVIDIA H100 80GB HBM3 at 700 W)" if dynamic else "")
+          + f", its launches K1 {proxy_launches[0]} K3 "
+          f"{proxy_launches[2]}; {st.query_points} teacher point "
           f"queries in {st.query_seconds:.2f} s; pretraining {pre_epochs} x "
           f"{n_pre} steps of {st.pretraining_batch_size} points, "
           f"{pre_ms:.3f} ms/step; distillation {len(hist['loss'])} steps, "
@@ -1577,7 +1628,8 @@ def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
     if not np.mean(mse_s) < 0.8 * np.mean(mse_u):
         raise AssertionError(f"the student is not nearer the edit: MSE "
                              f"{np.mean(mse_s)} vs {np.mean(mse_u)}")
-    # (d) one edited teacher frame through the kernel and its plain version
+    # (d) one proxied view (render_occ through the kernel) against the same
+    # view through the kernel's plain version
     kern = tv.images[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1585,11 +1637,12 @@ def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
                                        tv.w, time=t, plain=True)
     ms_p = (time.perf_counter() - t0) * 1e3
     p = psnr(kern, plain)
-    print(f"phase {tag} edited teacher frame, kernel vs plain: PSNR {p:.2f} "
+    print(f"phase {tag} proxied view through render_occ, kernel vs plain: "
+          f"PSNR {p:.2f} "
           f"dB, max|diff| {np.abs(kern - plain).max():.3g}; plain frame "
           f"{ms_p:.1f} ms", flush=True)
     if p < 40.0:
-        raise AssertionError(f"edited teacher frame PSNR {p:.2f} < 40 dB")
+        raise AssertionError(f"proxied view PSNR {p:.2f} < 40 dB")
     # (e) one pretraining step through the kernels and their plain versions:
     # the L1's cotangents are taken from the plain forward and fed to both
     # backwards (a point whose residual lies within the kernels' noise of 0
@@ -1819,6 +1872,194 @@ def phase_bound2_training():
     return trainer, val, k1, k2
 
 
+def _frame_ms(trainer, pose, intrinsics, t=None):
+    """One warm 800x800 frame through render_image: (ms, rgb)."""
+    import torch
+    trainer.render_image(pose, intrinsics, 800, 800, time=t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, _ = trainer.render_image(pose, intrinsics, 800, 800, time=t)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, img
+
+
+def _orbit_view(radius=2.0, res=800, fov=0.9):
+    """A camera of the synthetic scene's orbit: (pose, intrinsics)."""
+    from sealdnerf_tpu_torch.data.rays import rand_poses
+    fl = res / (2 * np.tan(fov / 2))
+    return (rand_poses(np.random.default_rng(0), 1, radius=radius)[0],
+            np.array([fl, fl, res / 2, res / 2], np.float32))
+
+
+def _kernel_launches():
+    from sealdnerf_tpu_torch.ops.field import (dyn_field_backward,
+                                               dyn_field_forward,
+                                               field_backward, field_forward)
+    return (field_forward, field_backward, dyn_field_forward,
+            dyn_field_backward)
+
+
+def _train_stats(trainer, steps, tag):
+    """Checks of an NGP-family training run: `steps` finite losses, the
+    last 64 below the first 64 -> (ms/step over epochs 2-, first, last)."""
+    hist = trainer.history
+    losses = np.asarray(hist["loss"])
+    if len(losses) != steps or trainer.global_step != steps:
+        raise AssertionError(f"phase {tag}: trained {len(losses)} steps, not "
+                             f"{steps}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"phase {tag}: non-finite training loss")
+    spe = max(48, trainer.opt.segment_steps)
+    ms_step = sum(hist["epoch_s"][1:]) / (steps - spe) * 1e3
+    return ms_step, losses[:64].mean(), losses[-64:].mean()
+
+
+def phase_ngp_training():
+    """Phase 10: main_nerf --backbone ngp at the CLI's defaults (bound 2,
+    dt_gamma 1/128: the packed march's closed-form ladder, two cascades),
+    the Instant-NGP field at full width, after the seeded field is
+    served."""
+    import torch
+    from sealdnerf_tpu_torch import main_nerf
+    from sealdnerf_tpu_torch.cli import (base_parser, build_trainer,
+                                         load_datasets, postprocess)
+    from sealdnerf_tpu_torch.models.ngp import NGPConfig
+    from sealdnerf_tpu_torch.train.trainer import Trainer
+
+    ws = os.path.join(REPO, "workspace", "chip_smoke_ngp")
+    argv = ["synthetic", "-O", "--backbone", "ngp", "--iters",
+            str(TRAIN_STEPS), "--ckpt", "scratch", "--synthetic_res", "800",
+            "--workspace", ws]
+    opt = postprocess(base_parser().parse_args(argv))
+    if (opt.bound, opt.dt_gamma) != (2.0, 1 / 128):
+        raise AssertionError(f"not the CLI's defaults: {opt}")
+    train, val, _ = load_datasets(opt)
+    seeded, field = build_trainer(opt, name="ngp")
+    full = NGPConfig(bound=2.0)
+    if type(seeded) is not Trainer or field.cfg != full or \
+            seeded.march.cascades != 2 or \
+            tuple(field.params["grid"].shape) != (full.grid_cfg.table_size,
+                                                  2):
+        raise AssertionError(f"phase 10 trainer {type(seeded)}, field "
+                             f"{field.cfg}, march {seeded.march}")
+    seeded.mark_untrained_grid(train.poses, train.intrinsics)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seeded.rebuild_grid()
+    torch.cuda.synchronize()
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    seeded_ms, img0 = _frame_ms(seeded, val.poses[0], val.intrinsics)
+    if img0.shape != (800, 800, 3) or not np.isfinite(img0).all():
+        raise AssertionError("phase 10: bad seeded frame")
+    psnr0 = seeded.evaluate(val)
+    del seeded
+    torch.cuda.empty_cache()
+
+    fns = _kernel_launches()
+    for fn in fns:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = main_nerf.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in fns]
+    ms_step, first, last = _train_stats(trainer, TRAIN_STEPS, "10")
+    dg = trainer.grid_state["density_grid"]
+    written = [int((dg[c] > 0).sum()) for c in range(dg.shape[0])]
+    occ = [round(trainer.grid_state["occ"][c].float().mean().item(), 4)
+           for c in range(dg.shape[0])]
+    psnr = trainer.stats["results"][-1]
+    frames = sorted(os.listdir(os.path.join(ws, "results")))
+    trained_ms, img = _frame_ms(trainer, val.poses[0], val.intrinsics)
+    print(f"phase 10 NGP train (main_nerf --backbone ngp at the CLI "
+          f"defaults) on {_card()}: seeded field served: 128^3 x 2 sweep "
+          f"{sweep_ms:.1f} ms, 800x800 frame {seeded_ms:.1f} ms, val PSNR "
+          f"{psnr0:.3f} dB; main {wall:.2f} s wall; {TRAIN_STEPS} steps x "
+          f"{trainer.opt.num_rays} rays, {ms_step:.3f} ms/step, "
+          f"{trainer.opt.num_rays * 1e3 / ms_step:.1f} rays/s over epochs "
+          f"2-{len(trainer.history['epoch_s'])}; mean n_samples/step "
+          f"{np.mean(trainer.history['n_samples']):.1f}, packed budget "
+          f"{trainer._cur_budget}/ray; launches K1-K4 {launches} (the NGP "
+          f"path is plain PyTorch); grid cells written per cascade {written},"
+          f" occupancy {occ}; loss first 64 {first:.6f} last 64 {last:.6f}; "
+          f"val PSNR {psnr:.3f} dB; trained 800x800 frame {trained_ms:.1f} "
+          f"ms; {len(frames)} test frames written", flush=True)
+    if not last < 0.5 * first:
+        raise AssertionError(f"phase 10: loss did not halve: {first} -> "
+                             f"{last}")
+    if not psnr >= psnr0 + 5.0:
+        raise AssertionError(f"phase 10: val PSNR {psnr:.3f} not 5 dB above "
+                             f"the seeded field's {psnr0:.3f}")
+    if min(written) < 1:
+        raise AssertionError(f"phase 10: a cascade holds no refreshed cell: "
+                             f"{written}")
+    if len(frames) != len(val) or not np.isfinite(img).all():
+        raise AssertionError(f"phase 10: test frames written: {frames}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_dnerf_ngp_training():
+    """Phase 10b: main_dnerf at --bound 2, which routes to the D-NeRF
+    deform field (NGP towers, tiled canonical grid) and Trainer's packed
+    march, for NGP_DYN_STEPS steps at full width; then a frame at t = 0.5."""
+    import torch
+    from sealdnerf_tpu_torch import main_dnerf
+    from sealdnerf_tpu_torch.models.dnerf import DNeRFConfig
+    from sealdnerf_tpu_torch.train.trainer import Trainer
+
+    ws = os.path.join(REPO, "workspace", "chip_smoke_dnerf_ngp")
+    argv = ["synthetic", "-O", "--bound", "2", "--iters",
+            str(NGP_DYN_STEPS), "--ckpt", "scratch", "--synthetic_res",
+            "800", "--workspace", ws]
+    opt = main_dnerf.parse_args(argv)
+    if (opt.lr, opt.lr_net) != (5e-4, 5e-4):
+        raise AssertionError(f"phase 10b rates {opt.lr}, {opt.lr_net}")
+    print(f"phase 10b cuts: 300,000 steps -> {NGP_DYN_STEPS}; at the hash "
+          "backbone's rates (5e-4 / 5e-4) the loss does not move within "
+          "them, so the tables train at 1e-2 (main_nerf's rate) and the "
+          "towers at 1e-3", flush=True)
+    argv += ["--lr", "1e-2", "--lr_net", "1e-3"]
+    fns = _kernel_launches()
+    for fn in fns:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = main_dnerf.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in fns]
+    if type(trainer) is not Trainer or not trainer.time_conditioned or \
+            trainer.field.cfg != DNeRFConfig(bound=2.0):
+        raise AssertionError(f"phase 10b trainer {type(trainer)}, field "
+                             f"{trainer.field.cfg}")
+    ms_step, first, last = _train_stats(trainer, NGP_DYN_STEPS, "10b")
+    passes = int(trainer.grid_state["iter_density"])
+    view = _orbit_view()
+    frame_ms, img = _frame_ms(trainer, *view, t=0.5)
+    img2, _ = trainer.render_image(*view, 800, 800, time=0.0)
+    print(f"phase 10b D-NeRF NGP train (main_dnerf --bound 2: deform "
+          f"variant) on {_card()}: main {wall:.2f} s wall; {NGP_DYN_STEPS} "
+          f"steps x {trainer.opt.num_rays} rays, {ms_step:.3f} ms/step, "
+          f"{trainer.opt.num_rays * 1e3 / ms_step:.1f} rays/s over epochs "
+          f"2-{len(trainer.history['epoch_s'])} (grid refreshes of 8 of 64 "
+          f"bins every 2 steps, full sweeps: {passes} passes); mean "
+          f"n_samples/step {np.mean(trainer.history['n_samples']):.1f}; "
+          f"launches K1-K4 {launches}; loss first 64 {first:.6f} last 64 "
+          f"{last:.6f}; val PSNR {trainer.stats['results'][-1]:.3f} dB; "
+          f"800x800 frame at t = 0.5 {frame_ms:.1f} ms, max |frame(0.5) - "
+          f"frame(0)| {np.abs(img - img2).max():.4f}", flush=True)
+    if not last < first:
+        raise AssertionError(f"phase 10b: loss did not fall: {first} -> "
+                             f"{last}")
+    if img.shape != (800, 800, 3) or not np.isfinite(img).all() or \
+            np.abs(img - img2).max() == 0:
+        raise AssertionError("phase 10b: bad frame at t = 0.5")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ckpt", default=None,
@@ -1872,6 +2113,9 @@ def main():
     b2trainer, b2val, k1_b2, k2_b2 = phase_bound2_training()
     k1_b2 += phase_trained_frames(b2trainer, b2val, "9b")
     del b2trainer, b2val
+    torch.cuda.empty_cache()
+    phase_ngp_training()
+    phase_dnerf_ngp_training()
 
     print(smi)
     print(json.dumps({"kernels": [{

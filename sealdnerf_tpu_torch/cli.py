@@ -3,9 +3,10 @@ sealdnerf_tpu/cli.py).
 
 `base_parser` keeps every flag of the reference parser, plus --device.
 Flags of parts that are not ported yet parse but nothing reads them;
-`build_trainer` raises for backbones that are not ported (--backbone ngp,
---bg_radius, --basis, --hyper), and the FastTrainer it builds for training
-options that are not (--error_map, --patch_size > 1, --no_preload).
+`build_trainer` routes the recipes as the reference does (the CP field and
+FastTrainer where the recipe allows it, else the Instant-NGP or D-NeRF field
+and Trainer), and the trainers raise for training options that are not
+ported (--error_map, --patch_size > 1, --no_preload, --clip_text).
 """
 
 import argparse
@@ -109,12 +110,11 @@ def postprocess(opt):
 
 
 def cp_route(opt) -> bool:
-    """Whether the recipe selects the CP/VM field (--backbone cp, or auto
-    with bound <= 1, no background sphere and no --basis/--hyper), the
+    """Whether a dynamic recipe selects the CP/VM field (--backbone cp, or
+    auto with bound <= 1, no background sphere and no --basis/--hyper), the
     backbone whose rate defaults are 1e-2 (tables) and 1e-3 (MLPs)."""
-    return opt.backbone == "cp" or (
-        opt.backbone == "auto" and opt.bg_radius <= 0 and opt.bound <= 1.0
-        and not (getattr(opt, "basis", False) or getattr(opt, "hyper", False)))
+    return opt.backbone == "cp" or (opt.backbone == "auto"
+                                    and _cp_eligible(opt, dynamic=True))
 
 
 def resolve_device(name: str) -> torch.device:
@@ -135,6 +135,13 @@ def to_train_options(opt, name="ngp", **overrides) -> TrainOptions:
         update_extra_interval=opt.update_extra_interval,
         error_map=opt.error_map, patch_size=opt.patch_size, seed=opt.seed,
         preload=not getattr(opt, "no_preload", False),
+        max_steps=opt.max_steps, bg_radius=opt.bg_radius,
+        samples_per_ray=opt.samples_per_ray,
+        eval_samples_per_ray=opt.eval_samples_per_ray,
+        max_ray_batch=opt.max_ray_batch, num_steps=opt.num_steps,
+        upsample_steps=opt.upsample_steps,
+        tv_weight=getattr(opt, "tv_weight", 0.0),
+        clip_text=getattr(opt, "clip_text", ""),
         time_curriculum_steps=getattr(opt, "time_curriculum_steps", 0),
     )
     kw.update(overrides)
@@ -164,45 +171,65 @@ def load_datasets(opt, with_time=False):
     return train, val, test
 
 
+def _cp_eligible(opt, dynamic: bool) -> bool:
+    """Whether the recipe allows the CP field: no background sphere, and
+    for a dynamic scene --bound <= 1 and neither --basis nor --hyper."""
+    return (opt.bg_radius <= 0
+            and not (dynamic and opt.bound > 1.0)
+            and not (dynamic and (getattr(opt, "basis", False)
+                                  or getattr(opt, "hyper", False))))
+
+
 def build_trainer(opt, name="ngp", dynamic=False, metrics=None,
                   use_checkpoint=None, **topt_overrides):
-    """Build the CP field (seeded from --seed) and its FastTrainer on
-    --device: the static field at any --bound and --dt_gamma (its VM planes
-    from --planes, none at bound > 1 by default), or with dynamic=True the
-    time-conditioned one (bound <= 1). Every other backbone is not ported
-    yet and raises."""
-    from .models.cp import (CPConfig, CPDNeRFConfig, make_cp_dnerf_field,
-                            make_cp_field, parse_planes)
+    """Pick the field and its trainer on --device, seeded from --seed, as
+    the reference routes the recipes. The CP field and FastTrainer take
+    --backbone cp, and --backbone auto where the recipe allows it: no
+    --bg_radius, and for a dynamic scene --bound <= 1 and neither --basis
+    nor --hyper (the static field at any --bound and --dt_gamma, its VM
+    planes from --planes). Every other recipe takes the Instant-NGP field
+    (static; with the background sphere at --bg_radius > 0) or the D-NeRF
+    field (dynamic: --basis, --hyper, else deform) and Trainer's packed
+    march. --backbone cp on a recipe it does not allow exits."""
     from .train.fast import FastTrainer
+    from .train.trainer import Trainer
     backbone = getattr(opt, "backbone", "auto")
-    variant = dynamic and (getattr(opt, "basis", False)
-                           or getattr(opt, "hyper", False))
-    if variant:
-        raise NotImplementedError("--basis and --hyper (the NGP dynamic "
-                                  "variants) are not yet ported")
-    eligible = opt.bg_radius <= 0 and not (dynamic and opt.bound > 1.0)
-    if backbone == "cp" and not eligible:
+    eligible = _cp_eligible(opt, dynamic)
+    use_cp = backbone == "cp" or (backbone == "auto" and eligible)
+    if use_cp and not eligible:
         raise SystemExit("--backbone cp needs no --bg_radius (and "
                          "--bound <= 1 for dynamic scenes)")
-    if backbone == "ngp" or not eligible:
-        raise NotImplementedError(
-            "the NGP backbone (--backbone ngp, --bg_radius, dynamic scenes "
-            "at --bound > 1) is not yet ported")
     device = resolve_device(getattr(opt, "device", "cuda"))
     topt = to_train_options(opt, name=name, **topt_overrides)
-    planes = parse_planes(getattr(opt, "planes", "auto"), opt.bound)
     gen = torch.Generator().manual_seed(opt.seed)
+    kw = dict(metrics=metrics, workspace=opt.workspace,
+              use_checkpoint=use_checkpoint or opt.ckpt, device=device,
+              time_conditioned=dynamic)
+    if use_cp:
+        from .models.cp import (CPConfig, CPDNeRFConfig, make_cp_dnerf_field,
+                                make_cp_field, parse_planes)
+        planes = parse_planes(getattr(opt, "planes", "auto"), opt.bound)
+        if dynamic:
+            field = make_cp_dnerf_field(
+                gen, CPDNeRFConfig(bound=opt.bound, planes=planes), device)
+        else:
+            field = make_cp_field(
+                gen, CPConfig(bound=opt.bound, planes=planes), device)
+        return FastTrainer(name, topt, field, **kw), field
+    from .models.api import make_dnerf_field, make_ngp_field
     if dynamic:
-        field = make_cp_dnerf_field(
-            gen, CPDNeRFConfig(bound=opt.bound, planes=planes), device)
+        from .models.dnerf import DNeRFConfig
+        variant = ("basis" if getattr(opt, "basis", False) else
+                   "hyper" if getattr(opt, "hyper", False) else "deform")
+        # as in the reference, the dynamic field has no background sphere
+        field = make_dnerf_field(
+            gen, DNeRFConfig(bound=opt.bound, variant=variant), device)
     else:
-        field = make_cp_field(gen, CPConfig(bound=opt.bound, planes=planes),
-                              device)
-    trainer = FastTrainer(name, topt, field, metrics=metrics,
-                          workspace=opt.workspace,
-                          use_checkpoint=use_checkpoint or opt.ckpt,
-                          device=device, time_conditioned=dynamic)
-    return trainer, field
+        from .models.ngp import NGPConfig
+        field = make_ngp_field(gen, NGPConfig(bound=opt.bound,
+                                              bg_radius=opt.bg_radius),
+                               device)
+    return Trainer(name, topt, field, **kw), field
 
 
 def build_edit_trainers(opt, dynamic=False, metrics=None, **topt_overrides):
@@ -210,7 +237,8 @@ def build_edit_trainers(opt, dynamic=False, metrics=None, **topt_overrides):
     student, mapper).
 
     The teacher is the FastTrainer of the checkpoint that --teacher_ckpt
-    selects in --teacher_workspace, which must exist. Both fields take the
+    selects in --teacher_workspace, which must exist; a recipe that routes
+    to the Instant-NGP or D-NeRF field raises (its student is not ported). Both fields take the
     teacher checkpoint's shapes (models/cp.py:config_from_params); a
     --planes other than 'auto' that contradicts them is refused. The
     student is a FastStudentTrainer on a copy of the teacher's params, in
@@ -245,6 +273,12 @@ def build_edit_trainers(opt, dynamic=False, metrics=None, **topt_overrides):
                 f"{trainer.field.cfg.planes}")
         return trainer
 
+    backbone = getattr(opt, "backbone", "auto")
+    if backbone == "ngp" or (backbone == "auto"
+                             and not _cp_eligible(opt, dynamic)):
+        raise NotImplementedError(
+            "editing an Instant-NGP or D-NeRF teacher (the reference's "
+            "StudentTrainer) is not yet ported")
     teacher = load(opt.teacher_workspace, opt.teacher_ckpt)
     secondary = None
     if getattr(opt, "secondary_teacher_workspace", None):

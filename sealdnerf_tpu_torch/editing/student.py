@@ -6,7 +6,12 @@ starts as a copy of the teacher:
 - proxy_dataset: every view of the dataset is rendered through the
   edit-aware teacher; those images are the student's ground truth. For a
   dynamic edit the teacher renders at the pinned time_frame and the views'
-  times are replaced by it.
+  times are replaced by it. The teacher renders as the reference's does:
+  render_occ (render/renderer.py: the packed march of the teacher's
+  MarchConfig, up to max_steps samples a ray) on its force-filled
+  occupancy (the pinned frame's bin), in chunks of max_ray_batch rays with
+  a packed budget of eval_samples_per_ray a ray, through the wrapped
+  forward: K1, or K3 for a dynamic teacher, on the card.
 - init_pretraining: points on a grid in three zones, local (inside the
   edit; ground truth the mapped teacher), surrounding (a shell around the
   edit; the teacher as it is) and global (the box minus the edit), each
@@ -25,17 +30,6 @@ so they stay the teacher's bit for bit, and freezing never rebuilds an
 optimizer that has taken steps. The coarse-to-fine anneal is off: a student
 distils from a trained teacher and needs its fine scales from the first
 step.
-
-Divergence from the reference: the reference renders the teacher through
-render/renderer.py's render_occ, which the port does not have yet. The
-port renders it through its own renderers on the teacher's force-filled
-occupancy with the wrapped forward: render_dense (render/fast.py) for
-render_teacher_rays, the tiled whole-image renderer for proxy_dataset's
-views. Both march the occupancy at march resolution and take at most
-n_intervals occupied steps a ray (render_cfg: 32 of 4 samples), where
-render_occ steps up to 1024 times along the ray; tests/
-test_torch_edit_teacher.py bounds the difference by the reference's own
-render_dense-vs-render_occ gap.
 """
 
 import dataclasses
@@ -48,17 +42,18 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..data.rays import get_rays
 from ..models.cp import param_leaves
-from ..ops.field import dyn_field_train_forward, field_train_forward
+from ..ops.field import (dyn_field_forward, dyn_field_forward_plain,
+                         dyn_field_train_forward, field_forward,
+                         field_forward_plain, field_train_forward)
 from ..render.dynamic_grid import time_slice_index
-from ..render.fast import render_dense
-from ..render.fast_image import render_image_tiled
+from ..render.renderer import render_occ
 from ..train.fast import FastTrainer
 from .seal_utils import SealMapper
 from .teacher import TeacherField, force_fill_mask, hack_occ
 
 TEACHER_QUERY_CHUNK = 65536    # points of one teacher point query
-TEACHER_RAY_CHUNK = 4096       # rays of one render_teacher_rays pass
 
 
 def sample_zone_points(bounds, point_step: float, angle_step: int = 45):
@@ -224,81 +219,75 @@ class FastStudentTrainer(FastTrainer):
         return (t,), hack_occ(occ[t_idx], fill)
 
     # ---------------------------------------------------------- proxying
-    @torch.no_grad()
-    def render_teacher_rays(self, rays_o, rays_d, time=None,
-                            chunk: int = TEACHER_RAY_CHUNK):
-        """Render a flat ray batch [N, 3] through the edit-aware teacher ->
-        (image [N, 3], depth [N]), by render_dense on the teacher's
-        force-filled occupancy."""
+    def _teacher_forward(self, edited: bool, plain: bool):
+        """render_occ's forward_fn of the teacher: the wrapped field
+        (edited) or the bare one, through the kernels or (plain=True) their
+        plain versions."""
         tt = self.teacher_trainer
+        if edited and not plain:
+            return self.teacher_field.forward
+        if edited:
+            return TeacherField(tt.field, self.mapper,
+                                secondary=self.secondary_teacher,
+                                time_conditioned=self.time_conditioned,
+                                plain=True).forward
+        fn = ((dyn_field_forward_plain if plain else dyn_field_forward)
+              if self.time_conditioned else
+              (field_forward_plain if plain else field_forward))
+
+        def bare(params, x, d, *extra):
+            out = fn(tt.field.kernel_tables(params), tt.field.cfg,
+                     x.t().contiguous(), d.t().contiguous(), *extra)
+            return out[0], out[1:4].t()
+        return bare
+
+    @torch.no_grad()
+    def render_teacher_rays(self, rays_o, rays_d, time=None, chunk=None,
+                            edited: bool = True, plain: bool = False):
+        """Render a flat ray batch [N, 3] through the teacher -> (image
+        [N, 3], depth [N]), as the reference does: render_occ with the
+        teacher's MarchConfig in chunks of `chunk` rays (None:
+        max_ray_batch), each with a packed budget of eval_samples_per_ray
+        per ray of a whole chunk (a last, shorter chunk keeps it, as the
+        reference's padded chunk does). edited: the wrapped forward on the
+        force-filled occupancy, else the bare field on the teacher's own;
+        plain=True: through the kernels' plain versions. A dynamic teacher
+        renders at `time` (None: time_frame)."""
+        tt = self.teacher_trainer
+        chunk = chunk or self.opt.max_ray_batch
         extra, occ = self._teacher_extra(time)
-        cfg = tt.render_cfg
-        occ_m = tt.cascade_occ(occ, cfg)
+        if not edited:
+            occ = tt.grid_state["occ"]
+            if self.time_conditioned:
+                occ = occ[time_slice_index(extra[0], tt.dyn_grid_cfg)]
+        fwd = self._teacher_forward(edited, plain)
         params = self._teacher_params()
         imgs, deps = [], []
         for i in range(0, rays_o.shape[0], chunk):
-            res = render_dense(params, occ_m, rays_o[i:i + chunk],
-                               rays_d[i:i + chunk], cfg,
-                               self.teacher_field.forward,
-                               density_scale=tt.opt.density_scale,
-                               t_thresh=tt.opt.t_thresh, extra=extra)
+            res = render_occ(params, occ, rays_o[i:i + chunk],
+                             rays_d[i:i + chunk], tt.settings, fwd,
+                             m_budget=chunk * self.opt.eval_samples_per_ray,
+                             extra=extra)
             imgs.append(res["image"])
             deps.append(res["depth"])
         return (torch.nan_to_num(torch.cat(imgs)),
                 torch.nan_to_num(torch.cat(deps)))
 
-    @torch.no_grad()
     def render_teacher_image(self, pose, intrinsics, h: int, w: int,
                              time=None, edited: bool = True,
                              plain: bool = False):
-        """One whole view through the teacher's tiled renderer -> (rgb
-        [h, w, 3], depth [h, w]) numpy: edited, on its force-filled
-        occupancy with the wrapped forward, or (edited=False) the original
-        scene, on its own occupancy with the bare field, for comparison.
-        plain=True: the edited view through the kernels' plain versions."""
-        tt = self.teacher_trainer
-        dev = tt.device
-        extra, occ = self._teacher_extra(time)
-        if plain:
-            fwd = TeacherField(tt.field, self.mapper,
-                               secondary=self.secondary_teacher,
-                               time_conditioned=self.time_conditioned,
-                               plain=True).forward_planar
-        elif edited:
-            fwd = self.teacher_field.forward_planar
-        else:
-            occ = (tt.grid_state["occ"][time_slice_index(
-                extra[0], tt.dyn_grid_cfg)] if self.time_conditioned
-                else tt.grid_state["occ"])
-            fwd = tt._render_forward()
-        params = self._teacher_params()
-        if not edited:
-            params = tt.field.kernel_tables(params)
-        tile = self._teacher_tile(pose, intrinsics, h, w)
-        img, depth = render_image_tiled(
-            params, tt.cascade_occ(occ, tt.render_cfg),
-            torch.as_tensor(np.asarray(pose, np.float32), device=dev),
+        """One whole view through render_teacher_rays -> (rgb [h, w, 3],
+        depth [h, w]) numpy."""
+        dev = self.teacher_trainer.device
+        rays = get_rays(
+            torch.as_tensor(np.asarray(pose, np.float32), device=dev)[None],
             torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev),
-            h, w, tt.render_cfg, fwd, torch.ones(3, device=dev),
-            tile_px=tile, dilate=tt.opt.render_dilate if tile > 1 else 0,
-            density_scale=tt.opt.density_scale, t_thresh=tt.opt.t_thresh,
-            extra=extra)
-        return img.cpu().numpy(), depth.cpu().numpy()
-
-    def _teacher_tile(self, pose, intrinsics, h: int, w: int) -> int:
-        """The teacher renderer's tile: FastTrainer's pick while a tile's
-        half-diagonal footprint at the far side of the box (camera distance
-        to the centre plus the bound) stays within the occupancy dilation,
-        which makes the tile-centre march cover all of the tile's pixels
-        (true at 800 px with 10 px tiles, false at 32 px with 8 px ones);
-        else 1, a march per pixel, which needs no dilation."""
-        tt = self.teacher_trainer
-        tp = tt._pick_tile(h, w)
-        reach = float(np.linalg.norm(np.asarray(pose)[:3, 3])) + tt.opt.bound
-        fx = float(min(intrinsics[0], intrinsics[1]))
-        foot = tp * 0.5 * np.sqrt(2.0) * reach / fx
-        return tp if foot <= tt.render_cfg.voxel * tt.opt.render_dilate \
-            else 1
+            h, w)
+        img, dep = self.render_teacher_rays(rays["rays_o"][0],
+                                            rays["rays_d"][0], time=time,
+                                            edited=edited, plain=plain)
+        return (img.reshape(h, w, 3).cpu().numpy(),
+                dep.reshape(h, w).cpu().numpy())
 
     def proxy_dataset(self, dataset, time=None):
         """The dataset with every view rendered through the edit-aware

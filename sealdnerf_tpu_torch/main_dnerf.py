@@ -4,17 +4,21 @@ main_dnerf.py).
     python -m sealdnerf_tpu_torch.main_dnerf synthetic -O --bound 1 \\
         --dt_gamma 0 [--iters N] [--test] [--ckpt PATH] [--device cpu]
 
-Builds the time-conditioned CP field and its trainer (the checkpoint that
---ckpt selects, or the seeded init with --ckpt scratch).
+Builds the time-conditioned CP field and its FastTrainer, or, for --backbone
+ngp, --bound > 1 (the default 2), --basis or --hyper, the D-NeRF field
+(deform, basis or hyper) and Trainer's packed march, as the reference routes
+them; from the checkpoint that --ckpt selects, or the seeded init with
+--ckpt scratch. The rates default to 1e-2 (tables) and 1e-3 (MLPs) for the
+CP field and 5e-4 for both for the D-NeRF field.
 
-Training (the default): ceil(iters / n_train) epochs of FastTrainer.train
+Training (the default): ceil(iters / n_train) epochs of the trainer's train()
 (which stops at --iters steps), then PSNR on the test views when they have
 images, each at its own time, and the rendered frames as PNG.
 
 Serving (--test): rebuilds every time bin of the occupancy grid when the
 checkpoint has none, evaluates and writes the frames.
 
-Not ported yet: the GUI, --basis and --hyper, and the mp4 export.
+Not ported yet: the GUI and the mp4 export.
 """
 
 import math
@@ -57,6 +61,7 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    """Run the CLI on argv (None: sys.argv) -> the trainer."""
     opt = parse_args(argv)
     if opt.gui:
         raise SystemExit("the GUI is not yet ported")
@@ -75,6 +80,7 @@ def main(argv=None):
         trainer.evaluate(test)
     trainer.test(test)
     trainer.log("[INFO] mp4 export is not yet ported; frames saved as PNG")
+    return trainer
 
 
 if __name__ == "__main__":

@@ -1,11 +1,15 @@
 """Static NeRF CLI of the port (counterpart of the repository's main_nerf.py).
 
     python -m sealdnerf_tpu_torch.main_nerf synthetic -O [--bound B] \\
-        [--dt_gamma G] [--iters N] [--test] [--ckpt PATH] [--device cpu]
+        [--dt_gamma G] [--backbone ngp] [--bg_radius R] [--iters N] \\
+        [--test] [--ckpt PATH] [--device cpu]
 
 At the defaults (--bound 2, --dt_gamma 1/128) the CP field has no VM planes
 (--planes auto) and marches two cascades with growing steps; --bound 1
 --dt_gamma 0 is the single-cascade recipe with one (128, 8) plane scale.
+--backbone ngp, or --bg_radius > 0, trains the Instant-NGP field (with the
+background sphere) through Trainer's packed march instead, as the
+reference routes them.
 
 Training (no --test): builds the trainer (seeded init, or the checkpoint
 that --ckpt selects), trains ceil(iters / n_train) epochs, evaluates PSNR on

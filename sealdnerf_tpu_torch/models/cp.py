@@ -30,7 +30,6 @@ kept in f32, live in ops/field.py.
 from dataclasses import dataclass, replace
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from ..ops.activation import trunc_exp
@@ -38,6 +37,8 @@ from ..ops.freq_encode import freq_encode, freq_output_dim
 from ..ops.hat import bf16_round, hat_taps, line_interp
 from ..ops.sh_encode import sh_encode, sh_output_dim
 from .mlp import apply_mlp, init_mlp
+from .params import (map_params, param_leaves, params_from_jax,  # noqa: F401
+                     params_to_numpy, unflatten_like)
 
 
 @dataclass(frozen=True)
@@ -167,51 +168,6 @@ def config_from_params(params, base: CPConfig) -> CPConfig:
             raise ValueError(f"{name} shapes {got} do not match the field "
                              f"config (expected {dims})")
     return cfg
-
-
-def map_params(fn, tree):
-    """Apply fn to every leaf of a params tree of dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: map_params(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [map_params(fn, v) for v in tree]
-    return fn(tree)
-
-
-def param_leaves(tree):
-    """Leaves of a params tree, dict keys in sorted order and lists in
-    order: the leaf order of JAX's tree_leaves, so that leaf lists (the
-    optimizer's, a checkpoint's) line up between the two packages."""
-    if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in param_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in param_leaves(v)]
-    return [tree]
-
-
-def unflatten_like(tree, leaves):
-    """Inverse of param_leaves: a tree shaped like `tree` holding `leaves`."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return [build(v) for v in node]
-        return next(it)
-    return build(tree)
-
-
-def params_from_jax(tree, device=None):
-    """Reference params pytree (numpy leaves) -> dict of tensors with the
-    same names and layouts."""
-    return map_params(lambda a: torch.as_tensor(np.array(a)).to(device),
-                      tree)
-
-
-def params_to_numpy(params):
-    """Inverse of params_from_jax: tensors -> numpy arrays."""
-    return map_params(lambda t: t.detach().cpu().numpy(), params)
 
 
 def _plane_interp(plane, x01a, x01b):

@@ -39,3 +39,23 @@ def apply_mlp(params, x, final_activation=None, round_input: bool = True):
     if final_activation is not None:
         h = final_activation(h)
     return h
+
+
+def apply_tower(params, x, final_activation=None):
+    """apply_mlp's function, with the matmuls on bf16 tensor cores where
+    that gives the same numbers: on a CUDA tensor outside autograd (grid
+    sweeps, frames), each hidden product comes out of a bf16 GEMM (f32
+    accumulation, rounded once to bf16, which is the rounding apply_mlp
+    applies after the relu: the two commute) and the last one in f32 from
+    the bf16 operands. The Instant-NGP and D-NeRF towers run through it.
+    Elsewhere, and wherever a gradient is taken, apply_mlp."""
+    if not x.is_cuda or torch.is_grad_enabled():
+        return apply_mlp(params, x, final_activation)
+    ws = params["w"]
+    h = x.to(torch.bfloat16)
+    for w in ws[:-1]:
+        h = torch.relu(h @ w.to(torch.bfloat16))
+    h = h.float() @ bf16_round(ws[-1].float())
+    if final_activation is not None:
+        h = final_activation(h)
+    return h

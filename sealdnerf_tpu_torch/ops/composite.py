@@ -1,8 +1,16 @@
-"""Alpha compositing in the dense [N_rays, T] layout (port of
-`composite_rays` in sealdnerf_tpu/ops/composite.py).
+"""Alpha compositing (port of sealdnerf_tpu/ops/composite.py), in two
+layouts:
 
-Exclusive-cumprod transmittance with the reference's 1e-15 stabiliser and
-the transmittance early-stop threshold as a multiplicative mask.
+- composite_rays: dense [N_rays, T]. Exclusive-cumprod transmittance with
+  the reference's 1e-15 stabiliser and the transmittance early-stop
+  threshold as a multiplicative mask.
+- composite_packed: packed [M] (the samples of all rays in a row, ray ids
+  ascending, from ops/marching.py). The optical depth before each sample is
+  a segmented exclusive sum of sigma * dt. The reference takes it as a
+  global f32 cumsum less each segment's base; over ~1e6 samples the two
+  large sums cancel to a few 1e-3 of optical depth. Here the global sum and
+  the bases are taken in f64, so the segmented sum is exact to f32
+  rounding; it costs one f64 cumsum over the samples.
 """
 
 import torch
@@ -38,4 +46,39 @@ def composite_rays(sigmas, rgbs, deltas, ts=None, t_thresh: float = 0.0):
         "depth": (weights * ts).sum(dim=-1),
         "image": torch.stack([(weights * rgbs[..., c]).sum(dim=-1)
                               for c in range(rgbs.shape[-1])], dim=-1),
+    }
+
+
+def composite_packed(sigmas, rgbs, dts, ts, ray_id, valid, n_rays: int,
+                     t_thresh: float = 1e-4):
+    """Packed-layout compositing.
+
+    Args:
+      sigmas: [M] densities. rgbs: [M, 3]. dts, ts: [M] step sizes and
+        positions along the ray.
+      ray_id: [M] int64 ray ids in [0, n_rays), ascending.
+      valid: [M] bool (padding slots False).
+      t_thresh: samples reached with transmittance < t_thresh contribute 0.
+
+    Returns dict(weights [M], weights_sum [N], depth [N], image [N, 3]).
+    """
+    sdt = sigmas * dts * valid.to(sigmas.dtype)
+    sdt64 = sdt.double()
+    cum_excl = torch.cumsum(sdt64, 0) - sdt64
+    seg = torch.zeros(n_rays, dtype=torch.float64, device=sdt.device)
+    seg = seg.index_add(0, ray_id, sdt64)
+    base = torch.cumsum(seg, 0) - seg
+    trans = torch.exp(-(cum_excl - base[ray_id]).float())
+    alpha = 1.0 - torch.exp(-sdt)
+    weights = alpha * trans * valid.to(sigmas.dtype)
+    weights = weights * (trans >= t_thresh)
+
+    def seg_sum(v):
+        out = v.new_zeros((n_rays,) + v.shape[1:])
+        return out.index_add(0, ray_id, v)
+    return {
+        "weights": weights,
+        "weights_sum": seg_sum(weights),
+        "depth": seg_sum(weights * ts),
+        "image": seg_sum(weights[:, None] * rgbs),
     }

@@ -209,27 +209,23 @@ def _mip_from_val(mx, cascades: int):
     return e.clamp(0, cascades - 1).to(torch.int64)
 
 
-def coarse_ladder(nears, cfg: DenseMarchConfig):
-    """The cascade march's coarse steps -> (t_ent [N, Kc], dt [N, Kc]).
+def step_ladder(t0, k: int, g: float, lo: float, hi: float):
+    """The step ladder t <- t + clamp(t * g, lo, hi) from t0 [N] for k steps
+    -> (t [N, k], dt [N, k]), in closed form.
 
-    The reference runs t <- t + clamp(t * g, vox(0), vox(CAS - 1)) as a
-    sequential scan of K_c steps. The ladder has three phases, each in
-    closed form here, so that a march costs a fixed handful of tensor
-    operations instead of K_c small ones: steps of vox(0) while t * g <=
-    vox(0), geometric growth by 1 + g while vox(0) < t * g < vox(CAS - 1),
-    then steps of vox(CAS - 1). The scan's f32 sums accumulate their
-    rounding step by step, these round once: the entries lie within a few
-    f32 ulps of the scan's (rtol 1e-6, atol 1e-6 at bound 2 and 4:
-    tests/test_torch_cascade.py)."""
-    kc = cfg.k_coarse
-    g = cfg.coarse_growth
-    lo, hi = cfg.vox(0), cfg.vox(cfg.cascades - 1)
-    k = torch.arange(kc, dtype=torch.float32, device=nears.device)[None, :]
-    t0 = nears[:, None]
+    The reference runs it as a sequential scan. The ladder has three
+    phases, each in closed form here, so that a march costs a fixed handful
+    of tensor operations instead of k small ones: steps of lo while t * g <=
+    lo, geometric growth by 1 + g while lo < t * g < hi, then steps of hi.
+    The scan's f32 sums accumulate their rounding step by step, these round
+    once: the entries lie within a few f32 ulps of the scan's (rtol 1e-6,
+    atol 1e-6: tests/test_torch_cascade.py, tests/test_torch_packed.py)."""
+    ks = torch.arange(k, dtype=torch.float32, device=t0.device)[None, :]
+    t0 = t0[:, None]
     if g == 0.0:
-        return t0 + k * lo, torch.full((nears.shape[0], kc), lo,
-                                       dtype=torch.float32,
-                                       device=nears.device)
+        return t0 + ks * lo, torch.full((t0.shape[0], k), lo,
+                                        dtype=torch.float32,
+                                        device=t0.device)
     t_lin, t_geo = lo / g, hi / g       # where the clamp leaves lo, meets hi
     zero = torch.zeros_like(t0)
     # phase 1: the steps k < n1 that start at t <= t_lin
@@ -240,11 +236,19 @@ def coarse_ladder(nears, cfg: DenseMarchConfig):
     n2 = torch.where(s2 < t_geo, torch.ceil(
         torch.log(t_geo / s2) / math.log(r)).clamp(min=0.0), zero)
     s3 = s2 * torch.pow(r, n2)
-    t_ent = torch.where(
-        k < n1, t0 + k * lo,
-        torch.where(k < n1 + n2, s2 * torch.pow(r, k - n1),
-                    s3 + (k - n1 - n2) * hi))
-    return t_ent, (t_ent * g).clamp(lo, hi)
+    t = torch.where(
+        ks < n1, t0 + ks * lo,
+        torch.where(ks < n1 + n2, s2 * torch.pow(r, ks - n1),
+                    s3 + (ks - n1 - n2) * hi))
+    return t, (t * g).clamp(lo, hi)
+
+
+def coarse_ladder(nears, cfg: DenseMarchConfig):
+    """The cascade march's coarse steps -> (t_ent [N, Kc], dt [N, Kc]): the
+    step ladder from the nears with growth coarse_growth between vox(0) and
+    vox(CAS - 1)."""
+    return step_ladder(nears, cfg.k_coarse, cfg.coarse_growth, cfg.vox(0),
+                       cfg.vox(cfg.cascades - 1))
 
 
 def march_intervals_cascade(rays_o, rays_d, nears, fars, occ_cas,

@@ -1,4 +1,7 @@
-"""Ray/AABB slab intersection (port of sealdnerf_tpu/ops/ray.py)."""
+"""Ray/AABB slab intersection and background-sphere coordinates (port of
+sealdnerf_tpu/ops/ray.py)."""
+
+import math
 
 import torch
 
@@ -26,3 +29,19 @@ def near_far_from_aabb(rays_o, rays_d, aabb, min_near=0.2):
     near = torch.where(miss, torch.full_like(near, _MISS), near)
     far = torch.where(miss | (far < near), near, far)
     return near, far
+
+
+def sph_from_ray(rays_o, rays_d, radius: float):
+    """Where the rays leave the background sphere |o + t d| = radius, as
+    [..., 2] coordinates (theta, phi) scaled to [-1, 1], y up (the larger
+    root)."""
+    a = (rays_d * rays_d).sum(-1)
+    b = (rays_o * rays_d).sum(-1)
+    c = (rays_o * rays_o).sum(-1) - radius * radius
+    disc = (b * b - a * c).clamp(min=0.0)
+    t = (-b + torch.sqrt(disc)) / a
+    p = rays_o + t[..., None] * rays_d
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    theta = torch.atan2(torch.sqrt(x * x + z * z), y)
+    phi = torch.atan2(z, x)
+    return torch.stack([2.0 * theta / math.pi - 1.0, phi / math.pi], dim=-1)

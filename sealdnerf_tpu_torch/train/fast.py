@@ -1,5 +1,8 @@
 """FastTrainer for the CP field (port of sealdnerf_tpu/train/fast.py):
-training and serving of the static field and of the time-conditioned one.
+training and serving of the static field and of the time-conditioned one,
+on Trainer's host loop (train/trainer.py: epochs, evaluate and test,
+checkpoints, the optimizer and the EMA), as the reference's FastTrainer
+subclasses its Trainer.
 
 Training: a plain per-step loop (the reference's fori_loop segments only
 amortised host-device transfers). One step refreshes the occupancy grid
@@ -14,10 +17,10 @@ Static fields train and serve at any bound and dt_gamma: cascades > 1 or
 dt_gamma > 0 march through the cascade march (ops/marching_dense.py), on the
 occupancy of every cascade.
 
-Serving: checkpoint loading, occupancy-grid rebuild and frustum marking,
-whole-frame rendering, the evaluate/test loops. render_image takes the
-bucketed renderer with the termination trim (render/fast_image.py) while
-the occupied share of the grid is below 15 %, as a trained field's is, else
+Serving: occupancy-grid rebuild and whole-frame rendering. render_image
+takes the bucketed renderer with the termination trim
+(render/fast_image.py) while the occupied share of the grid is below 15 %,
+as a trained field's is, else
 the tiled one; the share is read from the device once per grid version, at
 the first frame after the grid changed. Unlike the reference, a bucketed
 eval frame subsamples no tile (the bucket ladder's shares group the tiles,
@@ -61,47 +64,36 @@ Not ported yet: error-map and patch sampling, host-resident images
 bound <= 1 only, as in the reference.
 """
 
-import os
-import time
-from typing import Optional, Sequence
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..data.rays import get_rays
-from ..models.cp import (CPConfig, CPDNeRFConfig, _params_version,
-                         config_from_params, map_params, param_leaves,
-                         params_from_jax, unflatten_like)
+from ..models.cp import CPConfig, CPDNeRFConfig, _params_version, \
+    config_from_params
 from ..ops.field import (dyn_field_forward, dyn_field_train_forward,
                          field_forward, field_train_forward)
 from ..ops.freq_encode import freq_output_dim
 from ..ops.marching_dense import DenseMarchConfig, downsample_occ
 from ..render.fast import render_dense
-from ..render.dynamic_grid import (DynGridConfig, init_dyn_grid_state,
-                                   mark_untrained_dyn_grid,
-                                   rebuild_dyn_density_grid,
+from ..render.dynamic_grid import (rebuild_dyn_density_grid,
                                    refresh_dyn_density_grid,
                                    time_slice_index)
 from ..render.fast_image import render_image_bucketed, render_image_tiled
-from ..render.grid import (GridConfig, init_grid_state, mark_untrained_grid,
-                           refresh_indices, update_density_grid)
-from ..utils.png import write_png
-from .checkpoint import (load_checkpoint, prune_checkpoints,
-                         resolve_checkpoint, save_checkpoint)
-from .metrics import PSNRMeter
-from .trainer import TrainOptions, cascades_for
+from ..render.grid import refresh_indices, update_density_grid
+from .trainer import Trainer, cascades_for
 
 N_ZERO_REG = 1024      # points of the deform regulariser per step
 BUCKET_OCC = 0.15      # occupied share of the grid below which frames bucket
 GUI_DOWNSCALES = (1, 2, 4, 8)
 
 
-class FastTrainer:
-    def __init__(self, name: str, opt: TrainOptions, field,
-                 metrics: Optional[Sequence] = None,
-                 workspace: Optional[str] = None,
-                 use_checkpoint: str = "latest", device=None,
-                 time_conditioned: bool = False):
+class FastTrainer(Trainer):
+    """The CP field's trainer: Trainer's host loop (train, evaluate, test,
+    checkpoints, the optimizer and the EMA) around the dense march and the
+    kernels."""
+
+    def _check_field(self, field, opt, time_conditioned: bool):
         if not isinstance(field.cfg, CPConfig):
             raise NotImplementedError("only the CP field is ported")
         if time_conditioned != isinstance(field.cfg, CPDNeRFConfig):
@@ -111,20 +103,10 @@ class FastTrainer:
             # the dynamic grid is single-cascade (D-NeRF recipes use bound 1)
             raise ValueError("the dynamic fast path serves bound <= 1 "
                              f"recipes (got bound={opt.bound})")
-        self.time_conditioned = time_conditioned
+
+    def _configure(self):
+        opt = self.opt
         cascades = cascades_for(opt.bound)
-        for flag, on in (("--error_map", opt.error_map),
-                         ("--patch_size > 1", opt.patch_size > 1),
-                         ("--no_preload", not opt.preload)):
-            if on:
-                raise NotImplementedError(f"{flag} is not yet ported")
-        self.name = name
-        self.opt = opt
-        self.field = field
-        self.metrics = list(metrics) if metrics is not None else [PSNRMeter()]
-        self.workspace = workspace or opt.workspace
-        self.device = torch.device(device) if device is not None \
-            else field.params["lines"][0][0].device
         # the kept-interval budget grows with the cascades: each cascade's
         # band of geometry takes its own slots (the reference measured 12
         # dB at bound 2 with 16 and 25.6 dB with 32)
@@ -140,42 +122,20 @@ class FastTrainer:
             steps_per_interval=(opt.render_steps_per_interval
                                 or opt.steps_per_interval),
             min_near=opt.min_near, cascades=cascades, dt_gamma=opt.dt_gamma)
-        self.grid_cfg = GridConfig(
-            bound=opt.bound, cascades=cascades, grid_size=opt.grid_size,
-            density_thresh=opt.density_thresh,
-            density_scale=opt.density_scale)
-        self._set_params(map_params(lambda t: t.to(self.device),
-                                    field.params))
-        self.ema_params = map_params(lambda t: t.detach().clone(),
-                                     self.params)
-        self.dyn_grid_cfg = DynGridConfig(
-            bound=opt.bound, cascades=cascades, grid_size=opt.grid_size,
-            density_thresh=opt.density_thresh,
-            density_scale=opt.density_scale) if time_conditioned else None
-        self.grid_state = self._init_grid_state()
-        self.generator = torch.Generator(self.device).manual_seed(opt.seed)
         self._occ_m = None
         self._time_sorted = False   # train() sorted the frames by time
         self._anneal_mask = self._build_anneal_mask()
         self._infer_cache = None    # (key, annealed inference params)
-        self._forget_dyn_host_state()
-        self.epoch = 0
-        self.global_step = 0
-        self.stats = {"loss": [], "valid_loss": [], "results": [],
-                      "best_result": None}
-        # per-step losses and sample counts and per-epoch seconds of train()
-        # (not checkpointed)
-        self.history = {"loss": [], "n_samples": [], "epoch_s": []}
-        os.makedirs(self.workspace, exist_ok=True)
-        self.log_path = os.path.join(self.workspace, f"log_{name}.txt")
-        if use_checkpoint != "scratch":
-            path = resolve_checkpoint(self.workspace, name, use_checkpoint)
-            if path is not None:
-                self.load_checkpoint(path,
-                                     model_only=use_checkpoint == "latest_model")
-            else:
-                self.log(f"[INFO] no checkpoint found for '{use_checkpoint}',"
-                         " starting from the seeded init")
+
+    def _adopt_params(self, params, path: str):
+        cfg = config_from_params(params, self.field.cfg)
+        if isinstance(cfg, CPDNeRFConfig) != self.time_conditioned:
+            raise ValueError(
+                f"{path} holds a "
+                f"{'time-conditioned' if isinstance(cfg, CPDNeRFConfig) else 'static'}"
+                " field, which this trainer does not serve")
+        self.field.cfg = cfg
+        self._anneal_mask = self._build_anneal_mask()
 
     @property
     def grid_state(self):
@@ -187,17 +147,6 @@ class FastTrainer:
         # next frame
         self._grid_state = state
         self._occ_frac = None
-
-    def log(self, *msg):
-        text = " ".join(str(m) for m in msg)
-        print(text, flush=True)
-        with open(self.log_path, "a") as f:
-            f.write(text + "\n")
-
-    def _init_grid_state(self):
-        if self.time_conditioned:
-            return init_dyn_grid_state(self.dyn_grid_cfg, self.device)
-        return init_grid_state(self.grid_cfg, self.device)
 
     def _infer_params(self):
         """The EMA params (the params when there are none); of a dynamic
@@ -257,147 +206,6 @@ class FastTrainer:
         out["sigma_mlp"] = {**params["sigma_mlp"],
                             "w": [w[0] * colw] + list(w[1:])}
         return out
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    # -------------------------------------------------------- optimizer
-    def _set_params(self, params):
-        """Install f32 leaf params that take gradients, and a fresh Adam
-        (betas 0.9/0.99, eps 1e-15) over `_param_groups` with the schedule
-        lr * 0.1 ** min(step / iters, 1), stepped after each update."""
-        self.params = map_params(
-            lambda t: t.detach().float().requires_grad_(True), params)
-        self.field.params = self.params
-        iters = self.opt.iters
-        self.optimizer = torch.optim.Adam(self._param_groups(), lr=self.opt.lr,
-                                          betas=(0.9, 0.99), eps=1e-15)
-        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
-            self.optimizer, lambda k: 0.1 ** min(k / iters, 1.0))
-
-    def _param_groups(self):
-        """The optimizer's param groups: every leaf at lr, or with lr_net the
-        MLP towers at lr_net and the tables at lr (the reference's
-        optax.multi_transform over the same two labels)."""
-        leaves = param_leaves(self.params)
-        if self.opt.lr_net is None:
-            return [{"params": leaves, "lr": self.opt.lr}]
-        labels = self._leaf_labels()
-        return [{"params": [p for p, lab in zip(leaves, labels)
-                            if lab == name], "lr": lr}
-                for name, lr in (("enc", self.opt.lr),
-                                 ("net", self.opt.lr_net))]
-
-    def _leaf_labels(self):
-        """"net" or "enc" per leaf in param_leaves order: "net" for the
-        leaves under a top-level key that contains "mlp" or "basis"."""
-        out = []
-        for k in sorted(self.params):
-            lab = "net" if ("mlp" in k or "basis" in k) else "enc"
-            out += [lab] * len(param_leaves(self.params[k]))
-        return out
-
-    def _optimizer_count(self) -> int:
-        st = self.optimizer.state.get(param_leaves(self.params)[0])
-        return int(st["step"]) if st else 0
-
-    def current_lr(self) -> float:
-        """The lr that the schedule gives at the optimizer's own update
-        count (reference Trainer.current_lr)."""
-        return float(self.opt.lr * 0.1 ** min(
-            self._optimizer_count() / self.opt.iters, 1.0))
-
-    def _optimizer_state(self):
-        """Adam's state in the reference's optax layout, so that a full
-        checkpoint resumes in either package. With one rate:
-        ((count, mu, nu), (schedule count,)), mu and nu shaped like the
-        params. With lr_net, optax.multi_transform's:
-        ({label: (((count, mu, nu), (schedule count,)),)},) for the labels
-        "enc" and "net", where mu and nu hold an empty tuple in place of
-        every leaf of the other label."""
-        leaves = param_leaves(self.params)
-        st = [self.optimizer.state.get(p, {}) for p in leaves]
-        mu = [s["exp_avg"] if s else torch.zeros_like(p)
-              for s, p in zip(st, leaves)]
-        nu = [s["exp_avg_sq"] if s else torch.zeros_like(p)
-              for s, p in zip(st, leaves)]
-        count = np.int32(self._optimizer_count())
-        sched = np.int32(self.scheduler.last_epoch)
-        if self.opt.lr_net is None:
-            return ((count, unflatten_like(self.params, mu),
-                     unflatten_like(self.params, nu)), (sched,))
-        labels = self._leaf_labels()
-
-        def only(vals, name):
-            return unflatten_like(self.params, [
-                v if lab == name else () for v, lab in zip(vals, labels)])
-        return ({name: (((count, only(mu, name), only(nu, name)),
-                         (sched,)),) for name in ("enc", "net")},)
-
-    def _load_optimizer_state(self, opt_state):
-        leaves = param_leaves(self.params)
-        multi = isinstance(opt_state[0], dict)
-        if multi != (self.opt.lr_net is not None):
-            self.log("[WARN] the checkpoint's optimizer state is for "
-                     f"{'two rates (lr_net)' if multi else 'one rate'}, this "
-                     "trainer's is not; not loaded")
-            return
-        if multi:
-            # merge the two labels' moments back into leaf order
-            labels = self._leaf_labels()
-            per = {}
-            for name in ("enc", "net"):
-                (count, m, v), (sched,) = opt_state[0][name][0]
-                per[name] = (iter(param_leaves(m)), iter(param_leaves(v)))
-            try:
-                mu = [next(per[lab][0]) for lab in labels]
-                nu = [next(per[lab][1]) for lab in labels]
-            except StopIteration:
-                mu = nu = []
-        else:
-            (count, mu, nu), (sched,) = opt_state
-            mu, nu = param_leaves(mu), param_leaves(nu)
-        if len(mu) != len(leaves) or len(nu) != len(leaves) or any(
-                tuple(np.shape(a)) != tuple(p.shape)
-                for a, p in zip(mu, leaves)):
-            self.log("[WARN] optimizer state does not match the params; "
-                     "not loaded")
-            return
-        count = int(count)
-        if count > 0:
-            for p, m, v in zip(leaves, mu, nu):
-                self.optimizer.state[p] = {
-                    "step": torch.tensor(float(count), dtype=torch.float32),
-                    "exp_avg": torch.as_tensor(np.asarray(m),
-                                               device=self.device).clone(),
-                    "exp_avg_sq": torch.as_tensor(np.asarray(v),
-                                                  device=self.device).clone()}
-        sched = int(sched)
-        self.scheduler.last_epoch = sched
-        for g, base, lam in zip(self.optimizer.param_groups,
-                                self.scheduler.base_lrs,
-                                self.scheduler.lr_lambdas):
-            g["lr"] = base * lam(sched)
-
-    @torch.no_grad()
-    def _ema_update(self):
-        """e = d * e + (1 - d) * p over every leaf."""
-        leaves = param_leaves(self.params)
-        if self.ema_params is None:
-            self.ema_params = map_params(lambda t: t.detach().clone(),
-                                         self.params)
-            return
-        d = self.opt.ema_decay
-        ema = param_leaves(self.ema_params)
-        torch._foreach_mul_(ema, d)
-        torch._foreach_add_(ema, leaves, alpha=1.0 - d)
-
-    def apply_gradients(self):
-        """Adam step on the leaves' .grad, then the schedule and the EMA."""
-        self.optimizer.step()
-        self.scheduler.step()
-        self._ema_update()
 
     def _density_fn(self, params):
         """The grid's density query on `params`: (pts [N, 3]) -> sigma [N],
@@ -478,13 +286,6 @@ class FastTrainer:
         if self._occ_frac is None:
             self._occ_frac = float(self.grid_state["occ"].float().mean())
         return self._occ_frac < BUCKET_OCC
-
-    def _forget_dyn_host_state(self):
-        """Drop what the trainer keeps beside the dynamic grid's state: the
-        host copies of iter_density and bin_cursor (read back from the state
-        at the next refresh) and the per-bin sums of the density grid. To be
-        called whenever the grid state is replaced or rewritten."""
-        self._dyn_calls = self._dyn_cursor = self._dyn_bin_sums = None
 
     def _dyn_host_counts(self):
         """(refresh calls so far, next bin): host copies of the grid state's
@@ -581,18 +382,6 @@ class FastTrainer:
             self.grid_state, self._density_fn(self._infer_params()),
             self.grid_cfg, full=True, generator=self.generator)
 
-    @torch.no_grad()
-    def mark_untrained_grid(self, poses, intrinsics):
-        t = lambda a: torch.as_tensor(np.asarray(a, np.float32),
-                                      device=self.device)
-        if self.time_conditioned:
-            self.grid_state = mark_untrained_dyn_grid(
-                self.grid_state, t(poses), t(intrinsics), self.dyn_grid_cfg)
-            self._forget_dyn_host_state()
-            return
-        self.grid_state = mark_untrained_grid(
-            self.grid_state, t(poses), t(intrinsics), self.grid_cfg)
-
     # --------------------------------------------------------- training
     def _train_forward(self, params, x, d, *t, plain=False):
         """render_dense's forward_fn: K1 forward and K2 backward, or with a
@@ -619,34 +408,15 @@ class FastTrainer:
                            n_images))
 
     def sample_batch(self, data, h: int, w: int):
-        """One step's draws: an image, num_rays pixels of it, a background
-        per ray (RGBA images) and per-ray march noise.
-        Returns (rays_o, rays_d, gt, bg, noise), and for a time-conditioned
-        field also the image's time t (a 0-d tensor on the device) and the
-        points x_reg [1024, 3] of the deform regulariser."""
-        g, dev, n = self.generator, self.device, self.opt.num_rays
-        images = data["images"]
-        c = images.shape[-1]
-        img = torch.randint(
-            0, self.n_allowed_images(self.global_step, images.shape[0]), (1,),
-            generator=g, device=dev)
-        rays = get_rays(data["poses"][img], data["intrinsics"], h, w, n,
-                        generator=g)
-        pix = images.reshape(-1, c)[img * (h * w) + rays["inds"][0]]
-        if c == 4:
-            bg = torch.rand((pix.shape[0], 3), generator=g, device=dev)
-            gt = pix[:, :3] * pix[:, 3:] + bg * (1.0 - pix[:, 3:])
-        else:
-            bg = torch.ones(3, device=dev)
-            gt = pix
-        noise = torch.rand((pix.shape[0],), generator=g, device=dev)
-        batch = (rays["rays_o"][0], rays["rays_d"][0], gt, bg, noise)
+        """Trainer.sample_batch's draws, and for a time-conditioned field
+        after them the points x_reg [1024, 3] of the deform regulariser."""
+        batch = super().sample_batch(data, h, w)
         if not self.time_conditioned:
             return batch
         b = self.opt.bound
-        x_reg = (torch.rand((N_ZERO_REG, 3), generator=g, device=dev)
-                 * 2.0 - 1.0) * b
-        return batch + (data["times"][img].reshape(()), x_reg)
+        x_reg = (torch.rand((N_ZERO_REG, 3), generator=self.generator,
+                            device=self.device) * 2.0 - 1.0) * b
+        return batch + (x_reg,)
 
     def loss_on(self, rays_o, rays_d, gt, bg, noise=None, t=None, x_reg=None,
                 plain: bool = False, params=None):
@@ -725,13 +495,9 @@ class FastTrainer:
             images=train_dataset.images[order],
             times=train_dataset.times[order])
 
-    def train(self, train_dataset, valid_dataset=None, max_epochs: int = 1):
-        """Epochs of max(n_images, segment_steps) steps until opt.iters;
-        evaluation and the best checkpoint every eval_interval epochs, a
-        full checkpoint at most once a minute and one at the end, as the
-        reference trainer does (a dynamic grid alone is 640 MB to fetch and
-        write). A time-conditioned field first resolves and switches on the
-        time curriculum."""
+    def _prepare_train(self, train_dataset):
+        """A time-conditioned field first resolves and switches on the time
+        curriculum; then the march occupancy."""
         if self.time_conditioned:
             if self.opt.time_curriculum_steps != 0:
                 self.opt.time_curriculum_steps = self.resolve_time_curriculum(
@@ -739,42 +505,8 @@ class FastTrainer:
             if self.opt.time_curriculum_steps > 0 and \
                     train_dataset.times is not None:
                 train_dataset = self.enable_time_curriculum(train_dataset)
-        self.mark_untrained_grid(train_dataset.poses,
-                                 train_dataset.intrinsics)
-        data = train_dataset.device(self.device)
-        h, w = train_dataset.h, train_dataset.w
-        steps_per_epoch = max(len(train_dataset), self.opt.segment_steps)
         self._occ_m = self._march_occ()
-        last_ckpt = time.perf_counter()
-        for _ in range(max_epochs):
-            if self.global_step >= self.opt.iters:
-                break
-            self.epoch += 1
-            self._sync()
-            t0 = time.perf_counter()
-            out = [self.train_step(data, h, w)
-                   for _ in range(steps_per_epoch)]
-            losses = torch.stack([o[0] for o in out]).tolist()
-            self._sync()
-            dt = time.perf_counter() - t0
-            self.history["loss"] += losses
-            self.history["n_samples"] += torch.stack(
-                [o[1] for o in out]).tolist()
-            self.history["epoch_s"].append(dt)
-            mean_loss = float(np.mean(losses))
-            self.stats["loss"].append(mean_loss)
-            rays_s = steps_per_epoch * self.opt.num_rays / dt
-            self.log(f"[epoch {self.epoch}] loss={mean_loss:.6f} "
-                     f"{dt:.2f}s ({rays_s:,.0f} rays/s) "
-                     f"step={self.global_step}")
-            if valid_dataset is not None and \
-                    self.epoch % self.opt.eval_interval == 0:
-                self.evaluate_one_epoch(valid_dataset)
-                self.save_checkpoint(best=True)
-            if time.perf_counter() - last_ckpt > 60.0:
-                self.save_checkpoint(full=True)
-                last_ckpt = time.perf_counter()
-        self.save_checkpoint(full=True)
+        return train_dataset
 
     # -------------------------------------------------------- rendering
     def _pick_tile(self, rh: int, rw: int) -> int:
@@ -866,150 +598,3 @@ class FastTrainer:
                                        downscale=downscale, time=time,
                                        lod=not need_depth)
         return {"image": img, "depth": depth if need_depth else None}
-
-    def _time_of(self, dataset, i):
-        """The i-th view's time for a time-conditioned field, else None."""
-        if self.time_conditioned and dataset.times is not None:
-            return dataset.times[i]
-        return None
-
-    def evaluate_one_epoch(self, dataset, name: Optional[str] = None):
-        self.log(f"++> Evaluate at epoch {self.epoch}")
-        for m in self.metrics:
-            m.clear()
-        losses = []
-        val_dir = os.path.join(self.workspace, "validation")
-        os.makedirs(val_dir, exist_ok=True)
-        name = name or f"{self.name}_ep{self.epoch:04d}"
-        for i in range(len(dataset)):
-            img, depth = self.render_image(dataset.poses[i],
-                                           dataset.intrinsics, dataset.h,
-                                           dataset.w,
-                                           time=self._time_of(dataset, i))
-            gt = dataset.images[i]
-            if gt.shape[-1] == 4:
-                gt = gt[..., :3] * gt[..., 3:] + 1.0 * (1 - gt[..., 3:])
-            losses.append(float(np.mean((img - gt) ** 2)))
-            for m in self.metrics:
-                m.update(img, gt)
-            write_png(os.path.join(val_dir, f"{name}_{i:04d}_rgb.png"),
-                      (np.clip(img, 0, 1) * 255).astype(np.uint8))
-            dmax = float(depth.max())
-            write_png(os.path.join(val_dir, f"{name}_{i:04d}_depth.png"),
-                      (np.clip(depth / dmax if dmax > 0 else depth, 0, 1)
-                       * 255).astype(np.uint8))
-        result = self.metrics[0].measure()
-        self.stats["results"].append(result)
-        self.stats["valid_loss"].append(float(np.mean(losses)))
-        self.log("++> " + " | ".join(m.report() for m in self.metrics))
-        return result
-
-    def evaluate(self, dataset, name=None):
-        return self.evaluate_one_epoch(dataset, name)
-
-    def test(self, dataset, save_path=None, name=None):
-        """Render every pose of the dataset and save the frames as PNG."""
-        save_path = save_path or os.path.join(self.workspace, "results")
-        name = name or f"{self.name}_ep{self.epoch:04d}"
-        os.makedirs(save_path, exist_ok=True)
-        for i in range(len(dataset)):
-            img, _ = self.render_image(dataset.poses[i], dataset.intrinsics,
-                                       dataset.h, dataset.w,
-                                       time=self._time_of(dataset, i))
-            write_png(os.path.join(save_path, f"{name}_{i:04d}_rgb.png"),
-                      (np.clip(img, 0, 1) * 255).astype(np.uint8))
-        self.log(f"==> Saved test results to {save_path}")
-
-    # ------------------------------------------------------ checkpoints
-    def save_checkpoint(self, path: Optional[str] = None, full: bool = False,
-                        best: bool = False) -> Optional[str]:
-        """Write params, EMA params and the grid in the reference's .npz
-        format; full=True adds the optimizer state. best=True writes the
-        slim {name}.npz (no density grid or occupancy) when the last
-        evaluation is the best so far. The epoch files keep a rolling window
-        of max_keep_ckpt. Returns the path written, or None."""
-        ckpt_dir = os.path.join(self.workspace, "checkpoints")
-        state = {"model": {"params": self.params, "ema": self.ema_params},
-                 "grid": self.grid_state}
-        if full:
-            state["optimizer"] = self._optimizer_state()
-        meta = {"epoch": self.epoch, "global_step": self.global_step,
-                "stats": {k: v for k, v in self.stats.items()
-                          if k != "best_result"}}
-        if best:
-            if not self.stats["results"]:
-                return None
-            result, prev = self.stats["results"][-1], self.stats["best_result"]
-            if prev is not None and result <= prev:   # PSNR: bigger is better
-                return None
-            self.stats["best_result"] = result
-            state["grid"] = {k: v for k, v in self.grid_state.items()
-                             if k not in ("density_grid", "occ")}
-            path = path or os.path.join(ckpt_dir, f"{self.name}.npz")
-            save_checkpoint(path, state, meta)
-            return path
-        if path is None:
-            path = os.path.join(ckpt_dir,
-                                f"{self.name}_ep{self.epoch:04d}.npz")
-            save_checkpoint(path, state, meta)
-            prune_checkpoints(self.workspace, self.name,
-                              self.opt.max_keep_ckpt)
-            return path
-        save_checkpoint(path, state, meta)
-        return path
-
-    def load_checkpoint(self, path: str, model_only: bool = False):
-        state, meta = load_checkpoint(path)
-        dev = self.device
-        cfg = config_from_params(state["model"]["params"], self.field.cfg)
-        if isinstance(cfg, CPDNeRFConfig) != self.time_conditioned:
-            raise ValueError(
-                f"{path} holds a "
-                f"{'time-conditioned' if isinstance(cfg, CPDNeRFConfig) else 'static'}"
-                " field, which this trainer does not serve")
-        self.field.cfg = cfg
-        self._anneal_mask = self._build_anneal_mask()
-        self._set_params(params_from_jax(state["model"]["params"], dev))
-        if not model_only:
-            # before the grid: a rebuild queries the params annealed at the
-            # checkpoint's step
-            self.epoch = meta.get("epoch", 0)
-            self.global_step = meta.get("global_step", 0)
-        if state["model"].get("ema") is not None:
-            self.ema_params = params_from_jax(state["model"]["ema"], dev)
-        else:
-            self.ema_params = None
-        if "grid" in state:
-            # a grid of this trainer's kind: [T, CAS, H^3] for a
-            # time-conditioned field, [CAS, H^3] for a static one
-            g = self._init_grid_state()
-            has_grid = "density_grid" in state["grid"]
-            if has_grid and tuple(state["grid"]["density_grid"].shape) \
-                    != tuple(g["density_grid"].shape):
-                raise ValueError(
-                    f"checkpoint density grid "
-                    f"{tuple(state['grid']['density_grid'].shape)} does not "
-                    f"fit this trainer's {tuple(g['density_grid'].shape)}")
-            g.update({k: torch.as_tensor(np.asarray(v), device=dev)
-                      for k, v in state["grid"].items()
-                      if k in g and k != "occ"})
-            if has_grid:
-                thresh = torch.clamp(g["mean_density"],
-                                     max=self.grid_cfg.density_thresh)
-                g["occ"] = (g["density_grid"] > thresh).reshape(
-                    g["occ"].shape)
-            self.grid_state = g
-            self._forget_dyn_host_state()
-            if not has_grid:
-                # slim checkpoints strip the grid: rebuild it from the
-                # loaded params with a full density sweep (of every time
-                # bin, for a time-conditioned field)
-                self.rebuild_grid()
-        if not model_only:
-            if "stats" in meta:
-                self.stats.update(meta["stats"])
-                self.stats.setdefault("best_result", None)
-            if "optimizer" in state:
-                self._load_optimizer_state(state["optimizer"])
-        self.log(f"[INFO] loaded checkpoint {path} "
-                 f"(epoch {self.epoch}, step {self.global_step})")

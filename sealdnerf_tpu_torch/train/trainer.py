@@ -1,19 +1,64 @@
-"""Training options (port of `TrainOptions` in
-sealdnerf_tpu/train/trainer.py).
+"""The Trainer (port of sealdnerf_tpu/train/trainer.py): the host loop, and
+the reference trainer of the Instant-NGP and D-NeRF fields.
 
-Only the fields that the ported paths read: the grid, march and render
-settings of serving (the bucket ladders, the termination trim and the LOD
-preview among them), the static trainer's settings (step count, learning
-rate and schedule, rays per step, grid-refresh interval, EMA, epochs,
-evaluation and checkpoint cadence), and the dynamic trainer's (the MLP
-learning rate, the time curriculum, the coarse-to-fine anneal and the
-deform regulariser). The other training fields of the reference come with
-the code that reads them.
+The host loop (FastTrainer in train/fast.py inherits it): the log, the
+optimizer (Adam with betas 0.9/0.99 and eps 1e-15, the schedule lr * 0.1
+** min(step / iters, 1), with lr_net the MLP towers in a group of their own
+at that rate), the EMA of the params, frustum marking, epochs of
+max(n_images, segment_steps) steps until opt.iters with evaluation every
+eval_interval epochs, evaluate and test, and checkpoints in the reference's
+.npz format.
+
+The reference trainer, for a models.api Field (NGPConfig, or DNeRFConfig
+with time_conditioned=True). One step refreshes the occupancy grid every
+update_extra_interval steps (a dynamic grid every 16 * 8 / 64 = 2 steps,
+eight of its 64 time bins a call): full sweeps for the first 16 passes, then
+H^3 / 2 random cells, on the current params, and from then on the packed
+budget follows the measured samples per ray (_update_budget). It draws one
+image and num_rays pixels of it, a random background per ray for RGBA
+images and the march's start offsets, renders through render_occ
+(render/renderer.py: the packed march, the field, packed compositing),
+and takes the MSE, plus tv_weight * the hash table's TV energy at num_rays
+random points. Frames are rendered by render_occ in chunks of 4 *
+max_ray_batch rays with a packed budget of eval_samples_per_ray a ray.
+
+Two faults of the reference are not copied: its rebuild sweeps 8 of the 64
+time bins of a dynamic grid (here every bin), and a slim checkpoint (no
+density grid) does not load into its dynamic trainer (here it does, and the
+grid of every bin is rebuilt).
+
+Not ported: error-map and patch sampling, host-resident images
+(preload=False), CCNeRF's rank losses (k_rank_fracs), CLIP guidance
+(clip_text), the GUI's train and render calls, and save_mesh.
 """
 
 import math
+import os
+import time
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..data.rays import get_rays
+from ..models.api import check_params
+from ..models.dnerf import DNeRFConfig
+from ..models.ngp import NGPConfig
+from ..models.params import (map_params, param_leaves, params_from_jax,
+                             unflatten_like)
+from ..ops.marching import MarchConfig
+from ..render.dynamic_grid import (DynGridConfig, init_dyn_grid_state,
+                                   mark_untrained_dyn_grid,
+                                   rebuild_dyn_density_grid,
+                                   time_slice_index, update_dyn_density_grid)
+from ..render.grid import (GridConfig, init_grid_state, mark_untrained_grid,
+                           update_density_grid)
+from ..render.renderer import RenderSettings, render_occ
+from ..utils.png import write_png
+from .checkpoint import (load_checkpoint, prune_checkpoints,
+                         resolve_checkpoint, save_checkpoint)
+from .metrics import PSNRMeter
 
 
 @dataclass
@@ -46,10 +91,12 @@ class TrainOptions:
     eval_interval: int = 50          # epochs between evaluations
     segment_steps: int = 128         # floor of the steps of an epoch
     max_keep_ckpt: int = 2
-    # not ported yet: FastTrainer raises when they are on
+    # not ported yet: the trainers raise when they are on
     error_map: bool = False
     patch_size: int = 1
     preload: bool = True
+    k_rank_fracs: Tuple[float, ...] = ()
+    clip_text: str = ""
     bound: float = 1.0
     dt_gamma: float = 1.0 / 128
     min_near: float = 0.2
@@ -58,6 +105,16 @@ class TrainOptions:
     t_thresh: float = 1e-4
     seed: int = 0
     grid_size: int = 128             # occupancy grid resolution
+    # the reference trainer's packed march (render/renderer.py)
+    max_steps: int = 1024            # candidates and sample cap per ray
+    samples_per_ray: int = 48        # packed budget per ray, training
+    eval_samples_per_ray: int = 64   # packed budget per ray, frames
+    max_ray_batch: int = 4096        # frames: chunks of 4x this many rays
+    num_steps: int = 128             # render_uniform's samples
+    upsample_steps: int = 128
+    bg_radius: float = -1.0          # > 0: the NGP background sphere
+    tv_weight: float = 0.0           # hash-table TV regulariser weight
+    # FastTrainer's dense march
     march_res: int = 64              # coarse march grid resolution
     n_intervals: int = 16            # kept occupied voxel-steps per ray
     steps_per_interval: int = 4      # fine samples per interval
@@ -90,3 +147,658 @@ class TrainOptions:
 
 def cascades_for(bound: float) -> int:
     return 1 + max(0, math.ceil(math.log2(max(bound, 1.0))))
+
+
+DENSITY_CHUNK = 1 << 20    # points of one density query of a grid refresh
+BUDGET_BUCKETS = (8, 12, 16, 24, 32)
+
+
+class Trainer:
+    def __init__(self, name: str, opt: TrainOptions, field,
+                 metrics: Optional[Sequence] = None,
+                 workspace: Optional[str] = None,
+                 use_checkpoint: str = "latest", device=None,
+                 time_conditioned: bool = False):
+        self._check_field(field, opt, time_conditioned)
+        for flag, on in (("--error_map", opt.error_map),
+                         ("--patch_size > 1", opt.patch_size > 1),
+                         ("--no_preload", not opt.preload),
+                         ("k_rank_fracs (CCNeRF)", bool(opt.k_rank_fracs)),
+                         ("--clip_text", bool(opt.clip_text))):
+            if on:
+                raise NotImplementedError(f"{flag} is not yet ported")
+        self.time_conditioned = time_conditioned
+        self.name = name
+        self.opt = opt
+        self.field = field
+        self.metrics = list(metrics) if metrics is not None else [PSNRMeter()]
+        self.workspace = workspace or opt.workspace
+        self.device = torch.device(device) if device is not None \
+            else param_leaves(field.params)[0].device
+        cascades = cascades_for(opt.bound)
+        self.march = MarchConfig(
+            bound=opt.bound, cascades=cascades, grid_size=opt.grid_size,
+            dt_gamma=opt.dt_gamma, max_steps=opt.max_steps,
+            min_near=opt.min_near)
+        self.settings = RenderSettings(
+            march=self.march, density_scale=opt.density_scale,
+            bg_radius=opt.bg_radius, t_thresh=opt.t_thresh,
+            num_steps=opt.num_steps, upsample_steps=opt.upsample_steps,
+            samples_per_ray=opt.samples_per_ray)
+        self.grid_cfg = GridConfig(
+            bound=opt.bound, cascades=cascades, grid_size=opt.grid_size,
+            density_thresh=opt.density_thresh,
+            density_scale=opt.density_scale)
+        self.dyn_grid_cfg = DynGridConfig(
+            bound=opt.bound, cascades=cascades, grid_size=opt.grid_size,
+            density_thresh=opt.density_thresh,
+            density_scale=opt.density_scale) if time_conditioned else None
+        self._configure()
+        self._set_params(map_params(lambda t: t.to(self.device),
+                                    field.params))
+        self.ema_params = map_params(lambda t: t.detach().clone(),
+                                     self.params)
+        self.grid_state = self._init_grid_state()
+        self.generator = torch.Generator(self.device).manual_seed(opt.seed)
+        self._forget_dyn_host_state()
+        self.epoch = 0
+        self.global_step = 0
+        self.stats = {"loss": [], "valid_loss": [], "results": [],
+                      "best_result": None}
+        # per-step losses and sample counts and per-epoch seconds of train()
+        # (not checkpointed)
+        self.history = {"loss": [], "n_samples": [], "epoch_s": []}
+        os.makedirs(self.workspace, exist_ok=True)
+        self.log_path = os.path.join(self.workspace, f"log_{name}.txt")
+        if use_checkpoint != "scratch":
+            path = resolve_checkpoint(self.workspace, name, use_checkpoint)
+            if path is not None:
+                self.load_checkpoint(path,
+                                     model_only=use_checkpoint == "latest_model")
+            else:
+                self.log(f"[INFO] no checkpoint found for '{use_checkpoint}',"
+                         " starting from the seeded init")
+
+    # ---------------------------------------------- field-specific set-up
+    def _check_field(self, field, opt, time_conditioned: bool):
+        if not isinstance(field.cfg, (NGPConfig, DNeRFConfig)):
+            raise TypeError("Trainer takes an Instant-NGP or D-NeRF field "
+                            "(models/api.py); FastTrainer the CP field")
+        if time_conditioned != isinstance(field.cfg, DNeRFConfig):
+            raise ValueError("time_conditioned goes with a DNeRFConfig "
+                             "field, and only with one")
+
+    def _configure(self):
+        """Set-up of the subclass before the params are installed."""
+        # the adaptive packed budget: the measured mean samples per ray,
+        # kept as an EMA, and the budget of training steps
+        self.mean_count = 0.0
+        self.local_step = 0
+        self._cur_budget = self.opt.samples_per_ray
+
+    def _adopt_params(self, params, path: str):
+        """Check a checkpoint's params against the field (a checkpoint
+        stores no field config)."""
+        check_params(params, self.field)
+
+    # ------------------------------------------------------------- util
+    def log(self, *msg):
+        text = " ".join(str(m) for m in msg)
+        print(text, flush=True)
+        with open(self.log_path, "a") as f:
+            f.write(text + "\n")
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _init_grid_state(self):
+        if self.time_conditioned:
+            return init_dyn_grid_state(self.dyn_grid_cfg, self.device)
+        return init_grid_state(self.grid_cfg, self.device)
+
+    def _forget_dyn_host_state(self):
+        """Drop what a trainer keeps beside the dynamic grid's state: the
+        host copies of iter_density and bin_cursor and the per-bin sums of
+        the density grid (FastTrainer). To be called whenever the grid state
+        is replaced or rewritten."""
+        self._dyn_calls = self._dyn_cursor = self._dyn_bin_sums = None
+
+    def _infer_params(self):
+        """The EMA params (the params when there are none)."""
+        return self.ema_params if self.ema_params is not None \
+            else self.params
+
+    # -------------------------------------------------------- optimizer
+    def _set_params(self, params):
+        """Install f32 leaf params that take gradients, and a fresh Adam
+        (betas 0.9/0.99, eps 1e-15) over `_param_groups` with the schedule
+        lr * 0.1 ** min(step / iters, 1), stepped after each update."""
+        self.params = map_params(
+            lambda t: t.detach().float().requires_grad_(True), params)
+        self.field.params = self.params
+        iters = self.opt.iters
+        self.optimizer = torch.optim.Adam(self._param_groups(), lr=self.opt.lr,
+                                          betas=(0.9, 0.99), eps=1e-15)
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
+            self.optimizer, lambda k: 0.1 ** min(k / iters, 1.0))
+
+    def _param_groups(self):
+        """The optimizer's param groups: every leaf at lr, or with lr_net the
+        MLP towers at lr_net and the tables at lr (the reference's
+        optax.multi_transform over the same two labels)."""
+        leaves = param_leaves(self.params)
+        if self.opt.lr_net is None:
+            return [{"params": leaves, "lr": self.opt.lr}]
+        labels = self._leaf_labels()
+        return [{"params": [p for p, lab in zip(leaves, labels)
+                            if lab == name], "lr": lr}
+                for name, lr in (("enc", self.opt.lr),
+                                 ("net", self.opt.lr_net))]
+
+    def _leaf_labels(self):
+        """"net" or "enc" per leaf in param_leaves order: "net" for the
+        leaves under a top-level key that contains "mlp" or "basis"."""
+        out = []
+        for k in sorted(self.params):
+            lab = "net" if ("mlp" in k or "basis" in k) else "enc"
+            out += [lab] * len(param_leaves(self.params[k]))
+        return out
+
+    def _optimizer_count(self) -> int:
+        st = self.optimizer.state.get(param_leaves(self.params)[0])
+        return int(st["step"]) if st else 0
+
+    def current_lr(self) -> float:
+        """The lr that the schedule gives at the optimizer's own update
+        count (reference Trainer.current_lr)."""
+        return float(self.opt.lr * 0.1 ** min(
+            self._optimizer_count() / self.opt.iters, 1.0))
+
+    def _optimizer_state(self):
+        """Adam's state in the reference's optax layout, so that a full
+        checkpoint resumes in either package. With one rate:
+        ((count, mu, nu), (schedule count,)), mu and nu shaped like the
+        params. With lr_net, optax.multi_transform's:
+        ({label: (((count, mu, nu), (schedule count,)),)},) for the labels
+        "enc" and "net", where mu and nu hold an empty tuple in place of
+        every leaf of the other label."""
+        leaves = param_leaves(self.params)
+        st = [self.optimizer.state.get(p, {}) for p in leaves]
+        mu = [s["exp_avg"] if s else torch.zeros_like(p)
+              for s, p in zip(st, leaves)]
+        nu = [s["exp_avg_sq"] if s else torch.zeros_like(p)
+              for s, p in zip(st, leaves)]
+        count = np.int32(self._optimizer_count())
+        sched = np.int32(self.scheduler.last_epoch)
+        if self.opt.lr_net is None:
+            return ((count, unflatten_like(self.params, mu),
+                     unflatten_like(self.params, nu)), (sched,))
+        labels = self._leaf_labels()
+
+        def only(vals, name):
+            return unflatten_like(self.params, [
+                v if lab == name else () for v, lab in zip(vals, labels)])
+        return ({name: (((count, only(mu, name), only(nu, name)),
+                         (sched,)),) for name in ("enc", "net")},)
+
+    def _load_optimizer_state(self, opt_state):
+        leaves = param_leaves(self.params)
+        multi = isinstance(opt_state[0], dict)
+        if multi != (self.opt.lr_net is not None):
+            self.log("[WARN] the checkpoint's optimizer state is for "
+                     f"{'two rates (lr_net)' if multi else 'one rate'}, this "
+                     "trainer's is not; not loaded")
+            return
+        if multi:
+            # merge the two labels' moments back into leaf order
+            labels = self._leaf_labels()
+            per = {}
+            for name in ("enc", "net"):
+                (count, m, v), (sched,) = opt_state[0][name][0]
+                per[name] = (iter(param_leaves(m)), iter(param_leaves(v)))
+            try:
+                mu = [next(per[lab][0]) for lab in labels]
+                nu = [next(per[lab][1]) for lab in labels]
+            except StopIteration:
+                mu = nu = []
+        else:
+            (count, mu, nu), (sched,) = opt_state
+            mu, nu = param_leaves(mu), param_leaves(nu)
+        if len(mu) != len(leaves) or len(nu) != len(leaves) or any(
+                tuple(np.shape(a)) != tuple(p.shape)
+                for a, p in zip(mu, leaves)):
+            self.log("[WARN] optimizer state does not match the params; "
+                     "not loaded")
+            return
+        count = int(count)
+        if count > 0:
+            for p, m, v in zip(leaves, mu, nu):
+                self.optimizer.state[p] = {
+                    "step": torch.tensor(float(count), dtype=torch.float32),
+                    "exp_avg": torch.as_tensor(np.asarray(m),
+                                               device=self.device).clone(),
+                    "exp_avg_sq": torch.as_tensor(np.asarray(v),
+                                                  device=self.device).clone()}
+        sched = int(sched)
+        self.scheduler.last_epoch = sched
+        for g, base, lam in zip(self.optimizer.param_groups,
+                                self.scheduler.base_lrs,
+                                self.scheduler.lr_lambdas):
+            g["lr"] = base * lam(sched)
+
+    @torch.no_grad()
+    def _ema_update(self):
+        """e = d * e + (1 - d) * p over every leaf."""
+        leaves = param_leaves(self.params)
+        if self.ema_params is None:
+            self.ema_params = map_params(lambda t: t.detach().clone(),
+                                         self.params)
+            return
+        d = self.opt.ema_decay
+        ema = param_leaves(self.ema_params)
+        torch._foreach_mul_(ema, d)
+        torch._foreach_add_(ema, leaves, alpha=1.0 - d)
+
+    def apply_gradients(self):
+        """Adam step on the leaves' .grad, then the schedule and the EMA."""
+        self.optimizer.step()
+        self.scheduler.step()
+        self._ema_update()
+
+    # ------------------------------------------------------------- grid
+    def _density_fn(self, params):
+        """The grid's density query on `params`: (pts [N, 3][, t]) -> sigma
+        [N], in chunks of DENSITY_CHUNK points."""
+        density = self.field.density
+
+        def query(pts, *t):
+            return torch.cat([density(params, pts[i:i + DENSITY_CHUNK], *t)[0]
+                              for i in range(0, pts.shape[0], DENSITY_CHUNK)])
+        return query
+
+    def _update_interval(self) -> int:
+        """Steps between grid refreshes; a dynamic refresh covers
+        bins_per_call of time_size bins, so its interval shrinks in that
+        proportion (16 * 8 / 64 = 2)."""
+        if self.time_conditioned:
+            d = self.dyn_grid_cfg
+            return max(1, int(self.opt.update_extra_interval
+                              * d.bins_per_call / d.time_size))
+        return self.opt.update_extra_interval
+
+    def _update_budget(self):
+        """Shrink the packed budget toward 1.5 x the measured mean samples
+        per ray, to the smallest of 8, 12, 16, 24, 32 and samples_per_ray
+        that holds it (never above samples_per_ray)."""
+        if self.mean_count <= 0:
+            return
+        want = 1.5 * self.mean_count
+        bucket = self.opt.samples_per_ray
+        for b in sorted(set(BUDGET_BUCKETS) | {self.opt.samples_per_ray}):
+            if b >= want:
+                bucket = b
+                break
+        if bucket != self._cur_budget:
+            self.log(f"[INFO] packed sample budget {self._cur_budget} -> "
+                     f"{bucket} (mean {self.mean_count:.1f} samples/ray)")
+            self._cur_budget = bucket
+
+    @torch.no_grad()
+    def update_extra_state(self):
+        """One grid refresh of training, on the current params: full sweeps
+        while iter_density < 16 (a dynamic grid counts passes over its bins),
+        then H^3 / 2 random cells; a dynamic grid freezes after
+        freeze_calls. Past the first 16 the packed budget may shrink."""
+        it = int(self.grid_state["iter_density"])
+        if it >= 16:
+            self._update_budget()
+        if self.time_conditioned:
+            if it >= self.dyn_grid_cfg.freeze_calls:
+                return
+            self.grid_state = update_dyn_density_grid(
+                self.grid_state, self._density_fn(self.params),
+                self.dyn_grid_cfg, full=it < 16, generator=self.generator)
+            return
+        self.grid_state = update_density_grid(
+            self.grid_state, self._density_fn(self.params), self.grid_cfg,
+            full=it < 16, generator=self.generator)
+
+    @torch.no_grad()
+    def rebuild_grid(self):
+        """Full-sweep occupancy rebuild from the inference params; of a
+        time-conditioned grid, of every time bin (its pass count kept)."""
+        fn = self._density_fn(self._infer_params())
+        if self.time_conditioned:
+            passes = self.grid_state["iter_density"].clone()
+            self.grid_state = rebuild_dyn_density_grid(
+                self.grid_state, fn, self.dyn_grid_cfg,
+                generator=self.generator)
+            self.grid_state["iter_density"] = passes
+            return
+        self.grid_state = update_density_grid(
+            self.grid_state, fn, self.grid_cfg, full=True,
+            generator=self.generator)
+
+    @torch.no_grad()
+    def mark_untrained_grid(self, poses, intrinsics):
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                      device=self.device)
+        if self.time_conditioned:
+            self.grid_state = mark_untrained_dyn_grid(
+                self.grid_state, t(poses), t(intrinsics), self.dyn_grid_cfg)
+            self._forget_dyn_host_state()
+            return
+        self.grid_state = mark_untrained_grid(
+            self.grid_state, t(poses), t(intrinsics), self.grid_cfg)
+
+    def _occ_at(self, t):
+        """The occupancy that a ray batch at time t marches: the grid of a
+        static field, the bin of t (picked on the device) of a dynamic one."""
+        occ = self.grid_state["occ"]
+        if not self.time_conditioned:
+            return occ
+        return occ.index_select(
+            0, time_slice_index(t, self.dyn_grid_cfg).reshape(1))[0]
+
+    # --------------------------------------------------------- training
+    def sample_batch(self, data, h: int, w: int):
+        """One step's draws: an image, num_rays pixels of it, a background
+        per ray (RGBA images) and per-ray march noise -> (rays_o, rays_d,
+        gt, bg, noise), and for a time-conditioned field also the image's
+        time t (a 0-d tensor on the device)."""
+        g, dev, n = self.generator, self.device, self.opt.num_rays
+        images = data["images"]
+        c = images.shape[-1]
+        img = torch.randint(
+            0, self.n_allowed_images(self.global_step, images.shape[0]), (1,),
+            generator=g, device=dev)
+        rays = get_rays(data["poses"][img], data["intrinsics"], h, w, n,
+                        generator=g)
+        pix = images.reshape(-1, c)[img * (h * w) + rays["inds"][0]]
+        if c == 4:
+            bg = torch.rand((pix.shape[0], 3), generator=g, device=dev)
+            gt = pix[:, :3] * pix[:, 3:] + bg * (1.0 - pix[:, 3:])
+        else:
+            bg = torch.ones(3, device=dev)
+            gt = pix
+        noise = torch.rand((pix.shape[0],), generator=g, device=dev)
+        batch = (rays["rays_o"][0], rays["rays_d"][0], gt, bg, noise)
+        if self.time_conditioned:
+            batch += (data["times"][img].reshape(()),)
+        return batch
+
+    def n_allowed_images(self, step: int, n_images: int) -> int:
+        """How many of the frames step `step` may draw from: all of them
+        (FastTrainer's time curriculum narrows this)."""
+        return n_images
+
+    def loss_on(self, rays_o, rays_d, gt, bg, noise=None, t=None, x_tv=None,
+                params=None):
+        """MSE of render_occ at the current packed budget, with the march's
+        start offsets `noise`, on the current occupancy (of t's bin for a
+        time-conditioned field), plus tv_weight * the table's TV energy at
+        points x_tv [N, 3] in [0, 1] when given -> (loss, n_samples),
+        differentiable in the params."""
+        params = self.params if params is None else params
+        extra = () if t is None else (t,)
+        res = render_occ(params, self._occ_at(t), rays_o, rays_d,
+                         self.settings, self.field.forward,
+                         self.field.background, bg_color=bg, perturb=True,
+                         noise=noise,
+                         m_budget=rays_o.shape[0] * self._cur_budget,
+                         extra=extra)
+        loss = torch.mean((res["image"] - gt) ** 2)
+        if x_tv is not None and self.field.tv_loss is not None:
+            loss = loss + self.opt.tv_weight * self.field.tv_loss(params,
+                                                                  x_tv)
+        return loss, res["n_samples"]
+
+    def train_step(self, data, h: int, w: int):
+        """One training step -> (loss, n_samples) as device tensors."""
+        if self.global_step % self._update_interval() == 0:
+            self.update_extra_state()
+        batch = self.sample_batch(data, h, w)
+        x_tv = None
+        if self.opt.tv_weight > 0 and self.field.tv_loss is not None:
+            x_tv = torch.rand((self.opt.num_rays, 3),
+                              generator=self.generator, device=self.device)
+        ro, rd, gt, bg, noise = batch[:5]
+        loss, n_samples = self.loss_on(ro, rd, gt, bg, noise, *batch[5:],
+                                       x_tv=x_tv)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.apply_gradients()
+        self.global_step += 1
+        self.local_step += 1
+        if self.local_step % 16 == 0:
+            per_ray = float(n_samples) / self.opt.num_rays
+            self.mean_count = per_ray if self.mean_count == 0 else \
+                0.8 * self.mean_count + 0.2 * per_ray
+        return loss.detach(), n_samples
+
+    def _prepare_train(self, train_dataset):
+        """The dataset that train() trains on (FastTrainer sorts a dynamic
+        one by time for its curriculum)."""
+        return train_dataset
+
+    def train(self, train_dataset, valid_dataset=None, max_epochs: int = 1):
+        """Epochs of max(n_images, segment_steps) steps until opt.iters;
+        evaluation and the best checkpoint every eval_interval epochs, a
+        full checkpoint at most once a minute and one at the end (a dynamic
+        grid alone is 640 MB to fetch and write)."""
+        train_dataset = self._prepare_train(train_dataset)
+        self.mark_untrained_grid(train_dataset.poses,
+                                 train_dataset.intrinsics)
+        data = train_dataset.device(self.device)
+        h, w = train_dataset.h, train_dataset.w
+        steps_per_epoch = max(len(train_dataset), self.opt.segment_steps)
+        last_ckpt = time.perf_counter()
+        for _ in range(max_epochs):
+            if self.global_step >= self.opt.iters:
+                break
+            self.epoch += 1
+            self._sync()
+            t0 = time.perf_counter()
+            out = [self.train_step(data, h, w)
+                   for _ in range(steps_per_epoch)]
+            losses = torch.stack([o[0] for o in out]).tolist()
+            self._sync()
+            dt = time.perf_counter() - t0
+            self.history["loss"] += losses
+            self.history["n_samples"] += torch.stack(
+                [torch.as_tensor(o[1]) for o in out]).tolist()
+            self.history["epoch_s"].append(dt)
+            mean_loss = float(np.mean(losses))
+            self.stats["loss"].append(mean_loss)
+            rays_s = steps_per_epoch * self.opt.num_rays / dt
+            self.log(f"[epoch {self.epoch}] loss={mean_loss:.6f} "
+                     f"{dt:.2f}s ({rays_s:,.0f} rays/s) "
+                     f"step={self.global_step}")
+            if valid_dataset is not None and \
+                    self.epoch % self.opt.eval_interval == 0:
+                self.evaluate_one_epoch(valid_dataset)
+                self.save_checkpoint(best=True)
+            if time.perf_counter() - last_ckpt > 60.0:
+                self.save_checkpoint(full=True)
+                last_ckpt = time.perf_counter()
+        self.save_checkpoint(full=True)
+
+    # -------------------------------------------------------- rendering
+    @torch.no_grad()
+    def render_image(self, pose, intrinsics, h, w, bg_color=None,
+                     downscale: int = 1, params=None, time=None):
+        """Whole-frame render -> (rgb f32 [rh, rw, 3] in [0, 1], depth f32
+        [rh, rw]) as numpy arrays: render_occ over chunks of 4 *
+        max_ray_batch rays, each with a packed budget of
+        eval_samples_per_ray per ray of a whole chunk (a last, shorter
+        chunk keeps the budget of a whole one, as the reference's padded
+        chunk does). A time-conditioned field renders at `time` (None: 0)
+        on the occupancy of that time's bin."""
+        rh, rw = int(h // downscale), int(w // downscale)
+        dev = self.device
+        params = params if params is not None else self._infer_params()
+        pose_t = torch.as_tensor(np.asarray(pose, np.float32), device=dev)
+        intr = torch.as_tensor(np.asarray(intrinsics, np.float32),
+                               device=dev) / downscale
+        rays = get_rays(pose_t[None], intr, rh, rw)
+        ro, rd = rays["rays_o"][0], rays["rays_d"][0]
+        occ, extra = self.grid_state["occ"], ()
+        if self.time_conditioned:
+            t = 0.0 if time is None else float(time)
+            occ = occ[time_slice_index(t, self.dyn_grid_cfg)]
+            extra = (t,)
+        bg = None if bg_color is None else \
+            torch.as_tensor(np.asarray(bg_color, np.float32), device=dev)
+        chunk = 4 * self.opt.max_ray_batch
+        imgs, deps = [], []
+        for i in range(0, ro.shape[0], chunk):
+            res = render_occ(params, occ, ro[i:i + chunk], rd[i:i + chunk],
+                             self.settings, self.field.forward,
+                             self.field.background, bg_color=bg,
+                             m_budget=chunk * self.opt.eval_samples_per_ray,
+                             extra=extra)
+            imgs.append(res["image"])
+            deps.append(res["depth"])
+        img = torch.cat(imgs).clamp(0.0, 1.0).reshape(rh, rw, 3)
+        return img.cpu().numpy(), torch.cat(deps).reshape(rh, rw).cpu().numpy()
+
+    def _time_of(self, dataset, i):
+        """The i-th view's time for a time-conditioned field, else None."""
+        if self.time_conditioned and dataset.times is not None:
+            return dataset.times[i]
+        return None
+
+    def evaluate_one_epoch(self, dataset, name: Optional[str] = None):
+        self.log(f"++> Evaluate at epoch {self.epoch}")
+        for m in self.metrics:
+            m.clear()
+        losses = []
+        val_dir = os.path.join(self.workspace, "validation")
+        os.makedirs(val_dir, exist_ok=True)
+        name = name or f"{self.name}_ep{self.epoch:04d}"
+        for i in range(len(dataset)):
+            img, depth = self.render_image(dataset.poses[i],
+                                           dataset.intrinsics, dataset.h,
+                                           dataset.w,
+                                           time=self._time_of(dataset, i))
+            gt = dataset.images[i]
+            if gt.shape[-1] == 4:
+                gt = gt[..., :3] * gt[..., 3:] + 1.0 * (1 - gt[..., 3:])
+            losses.append(float(np.mean((img - gt) ** 2)))
+            for m in self.metrics:
+                m.update(img, gt)
+            write_png(os.path.join(val_dir, f"{name}_{i:04d}_rgb.png"),
+                      (np.clip(img, 0, 1) * 255).astype(np.uint8))
+            dmax = float(depth.max())
+            write_png(os.path.join(val_dir, f"{name}_{i:04d}_depth.png"),
+                      (np.clip(depth / dmax if dmax > 0 else depth, 0, 1)
+                       * 255).astype(np.uint8))
+        result = self.metrics[0].measure()
+        self.stats["results"].append(result)
+        self.stats["valid_loss"].append(float(np.mean(losses)))
+        self.log("++> " + " | ".join(m.report() for m in self.metrics))
+        return result
+
+    def evaluate(self, dataset, name=None):
+        return self.evaluate_one_epoch(dataset, name)
+
+    def test(self, dataset, save_path=None, name=None):
+        """Render every pose of the dataset and save the frames as PNG."""
+        save_path = save_path or os.path.join(self.workspace, "results")
+        name = name or f"{self.name}_ep{self.epoch:04d}"
+        os.makedirs(save_path, exist_ok=True)
+        for i in range(len(dataset)):
+            img, _ = self.render_image(dataset.poses[i], dataset.intrinsics,
+                                       dataset.h, dataset.w,
+                                       time=self._time_of(dataset, i))
+            write_png(os.path.join(save_path, f"{name}_{i:04d}_rgb.png"),
+                      (np.clip(img, 0, 1) * 255).astype(np.uint8))
+        self.log(f"==> Saved test results to {save_path}")
+
+    # ------------------------------------------------------ checkpoints
+    def save_checkpoint(self, path: Optional[str] = None, full: bool = False,
+                        best: bool = False) -> Optional[str]:
+        """Write params, EMA params and the grid in the reference's .npz
+        format; full=True adds the optimizer state. best=True writes the
+        slim {name}.npz (no density grid or occupancy) when the last
+        evaluation is the best so far. The epoch files keep a rolling window
+        of max_keep_ckpt. Returns the path written, or None."""
+        ckpt_dir = os.path.join(self.workspace, "checkpoints")
+        state = {"model": {"params": self.params, "ema": self.ema_params},
+                 "grid": self.grid_state}
+        if full:
+            state["optimizer"] = self._optimizer_state()
+        meta = {"epoch": self.epoch, "global_step": self.global_step,
+                "stats": {k: v for k, v in self.stats.items()
+                          if k != "best_result"}}
+        if best:
+            if not self.stats["results"]:
+                return None
+            result, prev = self.stats["results"][-1], self.stats["best_result"]
+            if prev is not None and result <= prev:   # PSNR: bigger is better
+                return None
+            self.stats["best_result"] = result
+            state["grid"] = {k: v for k, v in self.grid_state.items()
+                             if k not in ("density_grid", "occ")}
+            path = path or os.path.join(ckpt_dir, f"{self.name}.npz")
+            save_checkpoint(path, state, meta)
+            return path
+        if path is None:
+            path = os.path.join(ckpt_dir,
+                                f"{self.name}_ep{self.epoch:04d}.npz")
+            save_checkpoint(path, state, meta)
+            prune_checkpoints(self.workspace, self.name,
+                              self.opt.max_keep_ckpt)
+            return path
+        save_checkpoint(path, state, meta)
+        return path
+
+    def load_checkpoint(self, path: str, model_only: bool = False):
+        state, meta = load_checkpoint(path)
+        dev = self.device
+        self._adopt_params(state["model"]["params"], path)
+        self._set_params(params_from_jax(state["model"]["params"], dev))
+        if not model_only:
+            # before the grid: FastTrainer's rebuild queries the params
+            # annealed at the checkpoint's step
+            self.epoch = meta.get("epoch", 0)
+            self.global_step = meta.get("global_step", 0)
+        if state["model"].get("ema") is not None:
+            self.ema_params = params_from_jax(state["model"]["ema"], dev)
+        else:
+            self.ema_params = None
+        if "grid" in state:
+            # a grid of this trainer's kind: [T, CAS, H^3] for a
+            # time-conditioned field, [CAS, H^3] for a static one
+            g = self._init_grid_state()
+            has_grid = "density_grid" in state["grid"]
+            if has_grid and tuple(state["grid"]["density_grid"].shape) \
+                    != tuple(g["density_grid"].shape):
+                raise ValueError(
+                    f"checkpoint density grid "
+                    f"{tuple(state['grid']['density_grid'].shape)} does not "
+                    f"fit this trainer's {tuple(g['density_grid'].shape)}")
+            g.update({k: torch.as_tensor(np.asarray(v), device=dev)
+                      for k, v in state["grid"].items()
+                      if k in g and k != "occ"})
+            if has_grid:
+                thresh = torch.clamp(g["mean_density"],
+                                     max=self.grid_cfg.density_thresh)
+                g["occ"] = (g["density_grid"] > thresh).reshape(
+                    g["occ"].shape)
+            self.grid_state = g
+            self._forget_dyn_host_state()
+            if not has_grid:
+                # slim checkpoints strip the grid: rebuild it from the
+                # loaded params with a full density sweep (of every time
+                # bin, for a time-conditioned field)
+                self.rebuild_grid()
+        if not model_only:
+            if "stats" in meta:
+                self.stats.update(meta["stats"])
+                self.stats.setdefault("best_result", None)
+            if "optimizer" in state:
+                self._load_optimizer_state(state["optimizer"])
+        self.log(f"[INFO] loaded checkpoint {path} "
+                 f"(epoch {self.epoch}, step {self.global_step})")

@@ -920,3 +920,59 @@ def test_termination_trim_probe_through_the_kernel(card, dynamic):
     assert int(kept[1].sum()) < int(iv.sum())           # the trim acts
     differ = (kept[0] != kept[1]).any(dim=1).float().mean().item()
     assert differ <= 0.01, differ
+
+
+@pytest.mark.parametrize("bound", [1.0, 2.0])
+def test_render_occ_over_a_cp_field_through_the_kernel(card, bound):
+    """render_occ (the packed march, K1 on the kept samples, packed
+    compositing) over the seeded default CP field against the same through
+    K1's plain version: one launch, frames within the serving limit."""
+    from sealdnerf_tpu_torch.models.cp import default_planes
+    from sealdnerf_tpu_torch.ops.marching import MarchConfig
+    from sealdnerf_tpu_torch.render.renderer import RenderSettings, render_occ
+    cfg = CPConfig(bound=bound, planes=default_planes(bound))
+    tables = pack_tables(init_cp(torch.Generator().manual_seed(0), cfg, card),
+                         cfg)
+    cas = 1 if bound <= 1 else 2
+    settings = RenderSettings(march=MarchConfig(
+        bound=bound, cascades=cas, dt_gamma=0.0 if bound <= 1 else 1 / 128))
+    occ = torch.rand((cas, 128, 128, 128), generator=torch.Generator(
+        card).manual_seed(1), device=card) < 0.2
+    _, train, _ = make_synthetic_scene(n_train=1, n_val=1, res=64)
+    rays = get_rays(torch.from_numpy(train.poses[:1]).to(card),
+                    torch.from_numpy(train.intrinsics).to(card), 64, 64)
+
+    def fwd(fn):
+        def f(_, x, d):
+            out = fn(tables, cfg, x.t().contiguous(), d.t().contiguous())
+            return out[0], out[1:4].t()
+        return f
+
+    args = (None, occ, rays["rays_o"][0], rays["rays_d"][0], settings)
+    before = field_forward.launches
+    got = render_occ(*args, fwd(field_forward), m_budget=4096 * 64)
+    assert field_forward.launches == before + 1
+    ref = render_occ(*args, fwd(field_forward_plain), m_budget=4096 * 64)
+    assert field_forward.launches == before + 1
+    assert int(got["n_samples"]) > 10000
+    assert float((got["image"] - ref["image"]).abs().max()) <= 2e-2
+    assert float((got["depth"] - ref["depth"]).abs().max()) <= 2e-2 * bound
+
+
+def test_tower_on_tensor_cores_matches_apply_mlp(card):
+    """apply_tower outside autograd on the card (bf16 GEMMs) against
+    apply_mlp (f32 products of the bf16-rounded operands): the same
+    rounding points, f32 sums in other orders."""
+    from sealdnerf_tpu_torch.models.mlp import apply_mlp, apply_tower, \
+        init_mlp
+    params = init_mlp(torch.Generator().manual_seed(0),
+                      [76, 128, 128, 128, 3])
+    params = {"w": [w.to(card) for w in params["w"]]}
+    x = torch.randn((100_003, 76), generator=torch.Generator(
+        card).manual_seed(1), device=card)
+    with torch.no_grad():
+        got = apply_tower(params, x)
+        ref = apply_mlp(params, x)
+    np.testing.assert_allclose(got.cpu(), ref.cpu(), rtol=2e-2, atol=1e-3)
+    with torch.enable_grad():
+        assert torch.equal(apply_tower(params, x), apply_mlp(params, x))

@@ -274,11 +274,17 @@ def test_what_is_not_ported_raises(trained, port, tmp_path):
     with pytest.raises(SystemExit, match="GUI is not yet ported"):
         main_dnerf.main(["synthetic", "--gui", "--test", "--device", "cpu",
                          "--workspace", ws])
-    for flags in (["--basis"], ["--hyper"], ["--backbone", "ngp"],
-                  ["--bound", "2"], ["--bg_radius", "3"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            cli.build_trainer(_opt(ws, "--test", "--ckpt", "scratch", *flags),
-                              dynamic=True, **NARROW)
+    # the reference's D-NeRF fields are ported: these recipes route to
+    # them on Trainer, as in the reference
+    for flags, variant in ((["--basis"], "basis"), (["--hyper"], "hyper"),
+                           (["--backbone", "ngp"], "deform"),
+                           (["--bound", "2"], "deform"),
+                           (["--bg_radius", "3"], "deform")):
+        tr, field = cli.build_trainer(
+            _opt(ws, "--test", "--ckpt", "scratch", *flags), dynamic=True,
+            **NARROW)
+        assert type(tr).__name__ == "Trainer" and tr.time_conditioned
+        assert field.cfg.variant == variant
     with pytest.raises(SystemExit, match="--bound <= 1 for dynamic"):
         cli.build_trainer(_opt(ws, "--test", "--backbone", "cp", "--bound",
                                "2"), dynamic=True, **NARROW)

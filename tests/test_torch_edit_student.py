@@ -43,7 +43,6 @@ from sealdnerf_tpu.models.cp import make_cp_dnerf_field as jax_dyn_field
 from sealdnerf_tpu.models.cp import make_cp_field as jax_cp_field
 from sealdnerf_tpu.ops.pallas_field import (make_fused_dyn_train_forward,
                                             make_fused_train_forward)
-from sealdnerf_tpu.render.fast import render_dense as jax_render_dense
 from sealdnerf_tpu_torch import cli, main_seald, main_SealNeRF
 from sealdnerf_tpu_torch.editing.student import (FastStudentTrainer,
                                                  freeze_labels,
@@ -281,26 +280,12 @@ def test_distillation_in_jax_band(teachers, tmp_path):
     _, tt, jt = teachers(True)
     mj, mt = setup.mappers(setup.seal_config())
     ep = DISTIL_STEPS // 16
-    # the reference main_seald's rates, in both packages
-    kw = dict(iters=10_000, lr=5e-4, lr_net=5e-5)
+    # the reference main_seald's rates, in both packages; the teacher's
+    # proxy renders a 32 px view (1,024 rays) in one chunk of 1,024 rays
+    kw = dict(iters=10_000, lr=5e-4, lr_net=5e-5, max_ray_batch=1024)
     np.random.seed(0)
     js = _jax_student(jt, str(tmp_path / "js"), True, mj, cls=JaxFast, **kw)
-    # the reference's proxy renders through render_occ, which lies ~14 dB
-    # from its own render_dense on this narrow dynamic teacher
-    # (test_torch_edit_teacher.py prints both); its students distil here
-    # from render_dense proxies, the renderer of the port's proxy, so that
-    # the band compares the distillation alone
-    from sealdnerf_tpu.ops.marching_dense import downsample_occ
-
-    def dense_teacher_rays(rays_o, rays_d, time=None, chunk=None):
-        extra, occ = js._teacher_extra(time)
-        res = jax_render_dense(
-            jt.params, downsample_occ(occ[0], jt.render_cfg.march_res),
-            rays_o, rays_d, jt.render_cfg, js.teacher_field.forward,
-            extra=extra)
-        return res["image"], res["depth"]
-
-    js.render_teacher_rays = dense_teacher_rays
+    # both packages' proxies render through render_occ
     init = jax.tree_util.tree_map(np.asarray, js.params)
     grid0 = jax.tree_util.tree_map(lambda x: x.copy(), js.grid_state)
     js.init_pretraining(time_frame=0.5, epochs=1, batch_size=PRE_BATCH,
@@ -406,7 +391,7 @@ def test_main_edit_end_to_end_on_the_cpu(tmp_path, monkeypatch, teachers,
             "--pretraining_batch_size", "2048",
             "--pretraining_local_point_step", "0.05",
             "--pretraining_surrounding_point_step", "0.1",
-            "--extra_epochs", "1", "--num_rays", "128"]
+            "--extra_epochs", "1", "--num_rays", "128", "--max_steps", "256"]
     if dynamic:
         argv += ["--seal_config", "seal.json", "--time_frame", "0.5"]
     if case == "custom_pose":

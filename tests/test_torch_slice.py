@@ -163,10 +163,16 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
              "--device", "cpu", "--workspace", str(tmp_path), *flag]))
         with pytest.raises(NotImplementedError, match="not yet ported"):
             build_trainer(opt)
+    # the Instant-NGP backbone is ported (--backbone ngp builds Trainer);
+    # the CP backbone with a background sphere still exits
     opt = postprocess(base_parser().parse_args(
         ["synthetic", "--test", "--device", "cpu", "--backbone", "ngp",
-         "--workspace", str(tmp_path)]))
-    with pytest.raises(NotImplementedError):
+         "--workspace", str(tmp_path), "--ckpt", "scratch"]))
+    assert type(build_trainer(opt, grid_size=32)[0]).__name__ == "Trainer"
+    opt = postprocess(base_parser().parse_args(
+        ["synthetic", "--test", "--device", "cpu", "--backbone", "cp",
+         "--bg_radius", "1", "--workspace", str(tmp_path)]))
+    with pytest.raises(SystemExit, match="needs no --bg_radius"):
         build_trainer(opt)
     if not torch.cuda.is_available():
         opt = postprocess(base_parser().parse_args(
