@@ -191,10 +191,27 @@ Phases (any failure raises and exits non-zero):
      the loss does not move within 256 steps): 256 finite losses whose last
      64 lie below the first 64, and a finite 800x800 frame at t = 0.5
      (timed), which differs from the frame at t = 0.
+  11. D-NeRF edit: `main_seald.main([...])` at the CLI's defaults (bound 2,
+     dt_gamma 1/128, backbone auto: the D-NeRF field and the non-fast
+     StudentTrainer, in plain PyTorch) on phase 10b's trained field, phase
+     8's edit at `--time_frame 0.5`; cut: 2 pretraining epochs (100), local
+     point step 0.01 (0.001), 3 epochs of 128 distillation steps (625), at
+     phase 10b's rates (1e-2 / 1e-3; the script prints why). Checks: the
+     trainer and the full-width DNeRFConfig(bound=2); K1-K4 not launched
+     under main; the student starts at the teacher's iter_density; the
+     tower and deform leaves bit for bit the teacher's after every
+     pretraining epoch, the deform leaves after the edit, the grid moved;
+     on the val views at t = 0.5 the student's MSE to the edited teacher's
+     proxy at most 0.8 x the unedited teacher's; 6 test frames. Prints
+     main's wall seconds and its split (proxy, queries and zone sizes,
+     pretraining and distillation ms/step, the rest), iter_density.
+  11b. Instant-NGP edit: the same through `main_SealNeRF.main([...])` at
+     its defaults (its rate 1e-2) on phase 10's field, NGPConfig(bound=2),
+     2 epochs of distillation.
 The launch counts of the kernels record are read from the main paths'
 runs (phases 4, 5, 5c, 6, 7, 7c, 8, 8b, 9 and 9b; 8 and 8b include the
-proxy's launches through render_occ), with the counters set to 0 just
-before each. Each
+proxy's launches through render_occ; 10, 10b, 11 and 11b launch none),
+with the counters set to 0 just before each. Each
 kernel's bound_ms is the least time the card could take for the work of its
 vs-plain phase: the larger of bytes moved over the memory rate and
 operations over the peak rate of their type (PEAK). The line before last is
@@ -249,6 +266,11 @@ NGP_DYN_STEPS = 256
 # phases 8 and 8b: pretraining epochs and distillation epochs of 128 steps
 EDIT_PRE_EPOCHS, EDIT_EPOCHS = 2, 4
 EDIT_PRE_EPOCHS_STATIC, EDIT_EPOCHS_STATIC = 2, 2
+# phases 11 and 11b: the same for the NGP-family edits, and their local
+# zone's point step (the CLI's 0.001 puts ~7.5e8 points in the edit)
+NGP_EDIT_PRE_EPOCHS = 2
+NGP_EDIT_EPOCHS, NGP_EDIT_EPOCHS_STATIC = 3, 2
+NGP_EDIT_LOCAL_STEP = 0.01
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores (the towers' bf16 x
 # bf16 -> f32 products), the FP32 pipe (taps, encodings, activations), HBM3
 PEAK = {"tensor_flops": 989e12, "fp32_flops": 67e12, "bytes": 3.35e12}
@@ -2060,6 +2082,172 @@ def phase_dnerf_ngp_training():
     torch.cuda.empty_cache()
 
 
+def _frozen_leaves_moved(st):
+    """The keys of the student's tower ('mlp') and deform leaves that
+    differ from the teacher's."""
+    import torch
+    from sealdnerf_tpu_torch.editing.student import freeze_labels
+    from sealdnerf_tpu_torch.models.params import param_leaves
+    tt = st.teacher_trainer
+    labels = freeze_labels(st.params)
+    return sorted(k for k in st.params if labels[k] != "enc" and not all(
+        torch.equal(a, b) for a, b in zip(param_leaves(st.params[k]),
+                                          param_leaves(tt.params[k]))))
+
+
+def phase_ngp_edit(dynamic, teacher_ws, extra_epochs,
+                   pre_epochs=NGP_EDIT_PRE_EPOCHS, res=800):
+    """Phase 11 (main_seald on phase 10b's D-NeRF teacher) or 11b
+    (main_SealNeRF on phase 10's Instant-NGP teacher) at the CLI's
+    defaults, phase 8's edit; the student is the non-fast StudentTrainer in
+    plain PyTorch. Returns main's wall seconds."""
+    import torch
+    from sealdnerf_tpu_torch import main_seald, main_SealNeRF
+    from sealdnerf_tpu_torch.editing.student import (StudentTrainer,
+                                                     freeze_labels)
+    from sealdnerf_tpu_torch.models.dnerf import DNeRFConfig
+    from sealdnerf_tpu_torch.models.ngp import NGPConfig
+    from sealdnerf_tpu_torch.train.metrics import psnr
+
+    tag = "11" if dynamic else "11b"
+    mod = main_seald if dynamic else main_SealNeRF
+    ws = os.path.join(REPO, "workspace", "chip_smoke_ngp_edit"
+                      + ("_dyn" if dynamic else ""))
+    os.makedirs(ws, exist_ok=True)
+    with open(os.path.join(ws, "seal.json"), "w") as f:
+        json.dump(_edit_config(), f)
+    argv = ["synthetic", "-O", "--synthetic_res", str(res),
+            "--teacher_workspace", teacher_ws, "--workspace", ws,
+            "--seal_config", "seal.json",
+            "--pretraining_epochs", str(pre_epochs),
+            "--pretraining_local_point_step", str(NGP_EDIT_LOCAL_STEP),
+            "--extra_epochs", str(extra_epochs)]
+    if dynamic:
+        argv += ["--time_frame", "0.5"]
+    opt = mod.parse_args(argv)
+    if (opt.bound, opt.dt_gamma, opt.backbone) != (2.0, 1 / 128, "auto") \
+            or (opt.lr, getattr(opt, "lr_net", None)) != \
+            ((5e-4, 5e-5) if dynamic else (1e-2, None)):
+        raise AssertionError(f"phase {tag}: not the CLI's defaults: {opt}")
+    print(f"phase {tag} cuts: pretraining epochs 100 -> {pre_epochs}; local "
+          f"point step 0.001 -> {NGP_EDIT_LOCAL_STEP} (the edit's two "
+          "0.72-wide boxes hold ~7.5e8 points at 0.001, ~90,000 batches of "
+          f"8,192 an epoch); distillation ceil(30,000 / 48) = 625 epochs -> "
+          f"--extra_epochs {extra_epochs} of 128 steps", flush=True)
+    if dynamic:
+        print(f"phase {tag}: at main_seald's rates (5e-4 / 5e-5) the student "
+              "does not meet the criterion within the cut depth (it lay "
+              "further from the edited proxy than the unedited teacher), so "
+              "it distils at phase 10b's rates, 1e-2 (tables) and 1e-3 "
+              "(towers)", flush=True)
+        argv += ["--lr", "1e-2", "--lr_net", "1e-3"]
+    # after every pretraining epoch: the grid's pass count and the tower
+    # and deform leaves that moved
+    seen = []
+    pre = StudentTrainer.pretrain_one_epoch
+
+    def checked(self):
+        it = int(self.grid_state["iter_density"])
+        loss = pre(self)
+        seen.append((it, _frozen_leaves_moved(self)))
+        return loss
+
+    fns = _kernel_launches()
+    for fn in fns:
+        fn.launches = 0
+    StudentTrainer.pretrain_one_epoch = checked
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        StudentTrainer.pretrain_one_epoch = pre
+    launches = [fn.launches for fn in fns]
+    tt = st.teacher_trainer
+    full = DNeRFConfig(bound=2.0) if dynamic else NGPConfig(bound=2.0)
+    if type(st) is not StudentTrainer or st.field.cfg != full or \
+            st.time_conditioned != dynamic:
+        raise AssertionError(f"phase {tag}: trainer {type(st)}, field "
+                             f"{st.field.cfg}")
+    if launches != [0, 0, 0, 0]:
+        raise AssertionError(f"phase {tag}: K1-K4 launched {launches}")
+    it_teacher = int(tt.grid_state["iter_density"])
+    if len(seen) != pre_epochs or seen[0][0] != it_teacher:
+        raise AssertionError(f"phase {tag}: pretraining epochs {seen}, the "
+                             f"teacher's iter_density {it_teacher}")
+    moved = [m for _, m in seen if m]
+    if moved:
+        raise AssertionError(f"phase {tag}: pretraining moved {moved}")
+    labels = freeze_labels(st.params)
+    after = _frozen_leaves_moved(st)
+    if any(labels[k] == "deform" for k in after):
+        raise AssertionError(f"phase {tag}: the edit moved {after}")
+    if torch.equal(st.params["grid"], tt.params["grid"]):
+        raise AssertionError(f"phase {tag}: the student's grid did not move")
+    # the student against the edited teacher's proxy on the val views, and
+    # the unedited teacher against it (phase 8's criterion)
+    tv = st.proxied["valid"]
+    t = 0.5 if dynamic else None
+    mse_s, mse_u, ps, pu = [], [], [], []
+    for i in range(len(tv)):
+        img, _ = st.render_image(tv.poses[i], tv.intrinsics, tv.h, tv.w,
+                                 time=t)
+        ref, _ = st.render_teacher_image(tv.poses[i], tv.intrinsics, tv.h,
+                                         tv.w, time=t, edited=False)
+        gt = tv.images[i]
+        if not (np.isfinite(img).all() and img.shape == gt.shape):
+            raise AssertionError(f"phase {tag}: bad student frame")
+        mse_s.append(float(np.mean((img - gt) ** 2)))
+        mse_u.append(float(np.mean((ref - gt) ** 2)))
+        ps.append(psnr(img, gt))
+        pu.append(psnr(img, ref))
+    hist = st.history
+    spe = max(len(st.proxied["train"]), st.opt.segment_steps)
+    warm = hist["epoch_s"][1:] or hist["epoch_s"]
+    dist_ms = sum(warm) / (len(warm) * spe) * 1e3
+    zones = {k: int(z["weight"].sum()) for k, z in
+             st.pretraining_data.items()}
+    n_pre = sum(z["points"].shape[0] for z in st.pretraining_data.values())
+    pre_s = st.time_inspector["pretraining"]
+    pre_ms = float(np.mean(pre_s)) / n_pre * 1e3
+    dist_s = sum(st.time_inspector["training"])
+    rest = wall - st.proxy_seconds - st.query_seconds - sum(pre_s) - dist_s
+    frames = sorted(os.listdir(os.path.join(ws, "results")))
+    print(f"phase {tag} NGP-family edit ({mod.__name__.split('.')[-1]} at "
+          f"the CLI defaults, {type(st.field.cfg).__name__}, "
+          f"StudentTrainer) on {_card()}: {wall:.2f} s wall for main: proxy "
+          f"{len(st.proxied['train'])} + {len(tv)} views at {tv.h}x{tv.w} "
+          f"through render_occ {st.proxy_seconds:.2f} s; teacher point "
+          f"queries {st.query_points} in {st.query_seconds:.2f} s, zones "
+          f"{zones}; pretraining {pre_epochs} x {n_pre} steps of "
+          f"{st.pretraining_batch_size} points, {sum(pre_s):.2f} s, "
+          f"{pre_ms:.3f} ms/step; distillation {len(hist['loss'])} steps, "
+          f"{dist_s:.2f} s, {dist_ms:.3f} ms/step, "
+          f"{st.opt.num_rays * 1e3 / dist_ms:.1f} rays/s over epochs "
+          f"2-{len(hist['epoch_s'])}; the rest (teacher checkpoint, "
+          f"student, datasets, {len(frames)} test frames) {rest:.2f} s; "
+          f"iter_density teacher {it_teacher}, student at its first "
+          f"pretraining epoch {seen[0][0]}, at the end "
+          f"{int(st.grid_state['iter_density'])}; launches K1-K4 "
+          f"{launches}", flush=True)
+    print(f"phase {tag} edit: val MSE student vs edited teacher "
+          f"{np.mean(mse_s):.6f}, unedited vs edited teacher "
+          f"{np.mean(mse_u):.6f}; PSNR student vs edited teacher "
+          f"{np.mean(ps):.3f} dB, vs unedited teacher {np.mean(pu):.3f} dB",
+          flush=True)
+    if not np.mean(mse_s) <= 0.8 * np.mean(mse_u):
+        raise AssertionError(f"phase {tag}: the student is not nearer the "
+                             f"edit: MSE {np.mean(mse_s)} vs "
+                             f"{np.mean(mse_u)}")
+    if len(frames) != 6:
+        raise AssertionError(f"phase {tag}: test frames written: {frames}")
+    del st, tt
+    torch.cuda.empty_cache()
+    return wall
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ckpt", default=None,
@@ -2116,6 +2304,11 @@ def main():
     torch.cuda.empty_cache()
     phase_ngp_training()
     phase_dnerf_ngp_training()
+    phase_ngp_edit(True, os.path.join(REPO, "workspace",
+                                      "chip_smoke_dnerf_ngp"),
+                   NGP_EDIT_EPOCHS)
+    phase_ngp_edit(False, os.path.join(REPO, "workspace", "chip_smoke_ngp"),
+                   NGP_EDIT_EPOCHS_STATIC)
 
     print(smi)
     print(json.dumps({"kernels": [{

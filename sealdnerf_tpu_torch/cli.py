@@ -117,6 +117,20 @@ def cp_route(opt) -> bool:
                                     and _cp_eligible(opt, dynamic=True))
 
 
+def edit_cp_route(opt, dynamic: bool) -> bool:
+    """Whether an edit recipe (main_seald, main_SealNeRF) edits a CP field:
+    --backbone cp, or auto where the reference's edit CLIs take their fast
+    path (--bound <= 1, --dt_gamma 0, no background sphere, and for a
+    dynamic scene neither --basis nor --hyper). The other recipes edit an
+    Instant-NGP or D-NeRF teacher (StudentTrainer)."""
+    backbone = getattr(opt, "backbone", "auto")
+    return backbone == "cp" or (
+        backbone == "auto" and opt.bound <= 1.0 and opt.dt_gamma == 0.0
+        and opt.bg_radius <= 0
+        and not (dynamic and (getattr(opt, "basis", False)
+                              or getattr(opt, "hyper", False))))
+
+
 def resolve_device(name: str) -> torch.device:
     """The device to run on. 'cuda' without a card raises: the CPU is used
     only when asked for with --device cpu."""
@@ -181,7 +195,7 @@ def _cp_eligible(opt, dynamic: bool) -> bool:
 
 
 def build_trainer(opt, name="ngp", dynamic=False, metrics=None,
-                  use_checkpoint=None, **topt_overrides):
+                  use_checkpoint=None, edit=False, **topt_overrides):
     """Pick the field and its trainer on --device, seeded from --seed, as
     the reference routes the recipes. The CP field and FastTrainer take
     --backbone cp, and --backbone auto where the recipe allows it: no
@@ -190,12 +204,18 @@ def build_trainer(opt, name="ngp", dynamic=False, metrics=None,
     planes from --planes). Every other recipe takes the Instant-NGP field
     (static; with the background sphere at --bg_radius > 0) or the D-NeRF
     field (dynamic: --basis, --hyper, else deform) and Trainer's packed
-    march. --backbone cp on a recipe it does not allow exits."""
+    march. --backbone cp on a recipe it does not allow exits.
+
+    edit=True builds the teacher of an edit CLI as the reference's
+    main_seald and main_SealNeRF build theirs: routed by edit_cp_route, the
+    Instant-NGP field with --log2_hashmap_size and the D-NeRF field with
+    the background sphere of --bg_radius."""
     from .train.fast import FastTrainer
     from .train.trainer import Trainer
     backbone = getattr(opt, "backbone", "auto")
     eligible = _cp_eligible(opt, dynamic)
-    use_cp = backbone == "cp" or (backbone == "auto" and eligible)
+    use_cp = edit_cp_route(opt, dynamic) if edit else \
+        backbone == "cp" or (backbone == "auto" and eligible)
     if use_cp and not eligible:
         raise SystemExit("--backbone cp needs no --bg_radius (and "
                          "--bound <= 1 for dynamic scenes)")
@@ -221,14 +241,18 @@ def build_trainer(opt, name="ngp", dynamic=False, metrics=None,
         from .models.dnerf import DNeRFConfig
         variant = ("basis" if getattr(opt, "basis", False) else
                    "hyper" if getattr(opt, "hyper", False) else "deform")
-        # as in the reference, the dynamic field has no background sphere
-        field = make_dnerf_field(
-            gen, DNeRFConfig(bound=opt.bound, variant=variant), device)
+        # as in the reference, main_dnerf's field has no background sphere
+        # and main_seald's takes --bg_radius
+        field = make_dnerf_field(gen, DNeRFConfig(
+            bound=opt.bound, variant=variant,
+            bg_radius=opt.bg_radius if edit else -1.0), device)
     else:
         from .models.ngp import NGPConfig
+        hashmap = {"log2_hashmap_size": opt.log2_hashmap_size} if edit \
+            else {}
         field = make_ngp_field(gen, NGPConfig(bound=opt.bound,
-                                              bg_radius=opt.bg_radius),
-                               device)
+                                              bg_radius=opt.bg_radius,
+                                              **hashmap), device)
     return Trainer(name, topt, field, **kw), field
 
 
@@ -236,25 +260,31 @@ def build_edit_trainers(opt, dynamic=False, metrics=None, **topt_overrides):
     """The trainers of a Seal edit (main_seald, main_SealNeRF) -> (teacher,
     student, mapper).
 
-    The teacher is the FastTrainer of the checkpoint that --teacher_ckpt
-    selects in --teacher_workspace, which must exist; a recipe that routes
-    to the Instant-NGP or D-NeRF field raises (its student is not ported). Both fields take the
+    The teacher is the trainer of the checkpoint that --teacher_ckpt
+    selects in --teacher_workspace, which must exist, built as the edit
+    CLIs build it (build_trainer with edit=True): the CP field and
+    FastTrainer where edit_cp_route allows, else the Instant-NGP field
+    (static) or the D-NeRF field (dynamic) and Trainer. A CP field takes the
     teacher checkpoint's shapes (models/cp.py:config_from_params); a
     --planes other than 'auto' that contradicts them is refused. The
-    student is a FastStudentTrainer on a copy of the teacher's params, in
-    --workspace, with a copy of its grid state; the mapper is built from
-    --seal_config (a path under --workspace, or absolute), or for a static
-    edit from --workspace/seal.json; a dynamic edit without --seal_config
-    has none. A static edit's --secondary_teacher_workspace loads the
-    secondary teacher in the same way. topt_overrides go to the options of
-    every trainer."""
+    student is a FastStudentTrainer (CP) or a StudentTrainer on a field of
+    the teacher's config with a copy of the teacher's params, in
+    --workspace, with a copy of its whole grid state (iter_density
+    included, so that a dynamic student does not enter the grid's warm-up
+    again); the mapper is built from --seal_config (a path under
+    --workspace, or absolute), or for a static edit from
+    --workspace/seal.json; a dynamic edit without --seal_config has none.
+    --secondary_teacher_workspace loads the secondary teacher in the same
+    way. topt_overrides go to the options of every trainer."""
     import copy
 
     from .editing.seal_utils import get_seal_mapper
-    from .editing.student import FastStudentTrainer
-    from .models.cp import CPField, cp_dnerf_deform_raw, map_params, \
-        parse_planes
+    from .editing.student import FastStudentTrainer, StudentTrainer
+    from .models.cp import CPField, cp_dnerf_deform_raw, parse_planes
+    from .models.params import map_params
     from .train.checkpoint import resolve_checkpoint
+
+    cp = edit_cp_route(opt, dynamic)
 
     def load(workspace, ckpt):
         if resolve_checkpoint(workspace, "ngp", ckpt) is None:
@@ -263,7 +293,9 @@ def build_edit_trainers(opt, dynamic=False, metrics=None, **topt_overrides):
         topt = copy.copy(opt)
         topt.workspace, topt.ckpt = workspace, ckpt
         trainer, _ = build_trainer(topt, name="ngp", dynamic=dynamic,
-                                   **topt_overrides)
+                                   edit=True, **topt_overrides)
+        if not cp:
+            return trainer
         want = parse_planes(getattr(opt, "planes", "auto"), opt.bound)
         if getattr(opt, "planes", "auto").strip().lower() != "auto" and \
                 tuple(want) != tuple(trainer.field.cfg.planes):
@@ -273,33 +305,35 @@ def build_edit_trainers(opt, dynamic=False, metrics=None, **topt_overrides):
                 f"{trainer.field.cfg.planes}")
         return trainer
 
-    backbone = getattr(opt, "backbone", "auto")
-    if backbone == "ngp" or (backbone == "auto"
-                             and not _cp_eligible(opt, dynamic)):
-        raise NotImplementedError(
-            "editing an Instant-NGP or D-NeRF teacher (the reference's "
-            "StudentTrainer) is not yet ported")
     teacher = load(opt.teacher_workspace, opt.teacher_ckpt)
     secondary = None
     if getattr(opt, "secondary_teacher_workspace", None):
         secondary = load(opt.secondary_teacher_workspace,
                          opt.secondary_teacher_ckpt).field
+    params = map_params(lambda t: t.detach().clone(), teacher.params)
     cfg = teacher.field.cfg
-    field = CPField(map_params(lambda t: t.detach().clone(), teacher.params),
-                    cfg)
-    if dynamic:
-        field.deform_raw = lambda params, x, t: cp_dnerf_deform_raw(
-            params, cfg, x, t)
+    if cp:
+        field = CPField(params, cfg)
+        if dynamic:
+            field.deform_raw = lambda params, x, t: cp_dnerf_deform_raw(
+                params, cfg, x, t)
+    else:
+        # the field's functions take the params as an argument
+        field = copy.copy(teacher.field)
+        field.params = params
     if getattr(opt, "seal_config", ""):
         mapper = get_seal_mapper(opt.workspace, None, opt.seal_config)
     elif dynamic:
         mapper = None
     else:
         mapper = get_seal_mapper(opt.workspace)
-    student = FastStudentTrainer(
+    cls = FastStudentTrainer if cp else StudentTrainer
+    student = cls(
         "ngp", to_train_options(opt, name="ngp", **topt_overrides), field,
         teacher, mapper=mapper, secondary_teacher=secondary,
         metrics=metrics, workspace=opt.workspace, use_checkpoint="scratch",
         device=teacher.device, time_conditioned=dynamic)
     student.adopt_grid_state(teacher.grid_state)
+    student.log(f"[INFO] the student took over the teacher's grid state: "
+                f"iter_density {int(student.grid_state['iter_density'])}")
     return teacher, student, mapper

@@ -1,8 +1,9 @@
-"""Student distillation trainer: the Seal editing engine (port of
-sealdnerf_tpu/editing/student.py, on the port's FastTrainer).
+"""Student distillation trainers: the Seal editing engine (port of
+sealdnerf_tpu/editing/student.py).
 
-FastStudentTrainer distils an edited teacher into a student field that
-starts as a copy of the teacher:
+StudentTrainer (on train/trainer.py's Trainer: the Instant-NGP and D-NeRF
+fields, in plain PyTorch) distils an edited teacher into a student field
+that starts as a copy of the teacher:
 - proxy_dataset: every view of the dataset is rendered through the
   edit-aware teacher; those images are the student's ground truth. For a
   dynamic edit the teacher renders at the pinned time_frame and the views'
@@ -11,25 +12,33 @@ starts as a copy of the teacher:
   MarchConfig, up to max_steps samples a ray) on its force-filled
   occupancy (the pinned frame's bin), in chunks of max_ray_batch rays with
   a packed budget of eval_samples_per_ray a ray, through the wrapped
-  forward: K1, or K3 for a dynamic teacher, on the card.
+  forward, with the teacher's background (--bg_radius > 0).
 - init_pretraining: points on a grid in three zones, local (inside the
   edit; ground truth the mapped teacher), surrounding (a shell around the
   edit; the teacher as it is) and global (the box minus the edit), each
   with a direction drawn from a fixed set, and the teacher's sigma and
-  colour at them, queried once in chunks of 65,536 points.
+  colour at them, queried once in chunks of 65,536 points and kept on the
+  device.
 - pretraining epochs: the weighted L1 of the student's sigma and colour
   against the cached ones, Adam at lr 0.07 over the encoder tables only
   (the towers stay as they are, which keeps the scene from being globally
-  disturbed), through field_train_forward or dyn_field_train_forward: K1 and
-  K2, or K3 and K4, on the card.
-- then ray distillation on the proxied dataset through FastTrainer.train,
-  with the edit region force-filled in the student's march occupancy.
-The deform tower of a dynamic student is frozen throughout: its leaves are
-in no optimizer the student builds (optax's set_to_zero in the reference),
-so they stay the teacher's bit for bit, and freezing never rebuilds an
-optimizer that has taken steps. The coarse-to-fine anneal is off: a student
-distils from a trained teacher and needs its fine scales from the first
-step.
+  disturbed), through the student's forward under autograd.
+- then ray distillation on the proxied dataset through the trainer's own
+  train(), with the edit region force-filled in the occupancy that the
+  student's training rays march (_occ_at).
+
+FastStudentTrainer (StudentTrainer on the CP field's FastTrainer) keeps
+what binds it to the CP kernels: the teacher's planar forward (TeacherField:
+K1, or K3 for a dynamic teacher), the pretraining step through
+field_train_forward or dyn_field_train_forward (K1 and K2, or K3 and K4),
+the force-fill of the dense march's occupancy (_segment_occ_fill), and the
+coarse-to-fine anneal, which is off: a student distils from a trained
+teacher and needs its fine scales from the first step.
+
+The deform tower (and the other time-conditioning networks) of a dynamic
+student is frozen throughout: its leaves are in no optimizer the student
+builds (optax's set_to_zero in the reference), so they stay the teacher's
+bit for bit, and freezing never rebuilds an optimizer that has taken steps.
 """
 
 import dataclasses
@@ -43,15 +52,17 @@ import numpy as np
 import torch
 
 from ..data.rays import get_rays
-from ..models.cp import param_leaves
+from ..models.params import param_leaves
 from ..ops.field import (dyn_field_forward, dyn_field_forward_plain,
                          dyn_field_train_forward, field_forward,
                          field_forward_plain, field_train_forward)
 from ..render.dynamic_grid import time_slice_index
 from ..render.renderer import render_occ
 from ..train.fast import FastTrainer
+from ..train.trainer import Trainer
 from .seal_utils import SealMapper
-from .teacher import TeacherField, force_fill_mask, hack_occ
+from .teacher import (TeacherField, force_fill_mask, hack_occ,
+                      make_teacher_field)
 
 TEACHER_QUERY_CHUNK = 65536    # points of one teacher point query
 
@@ -110,15 +121,16 @@ def freeze_labels(params):
     return out
 
 
-class FastStudentTrainer(FastTrainer):
+class StudentTrainer(Trainer):
     """Distils an edited teacher into the student field.
 
-    teacher_trainer: a FastTrainer holding the original scene (its params
-    and occupancy grid are the teacher's); the edit is `mapper`'s. A
-    secondary teacher (a CPField) answers the edited samples instead.
+    teacher_trainer: a trainer holding the original scene (its params and
+    occupancy grid are the teacher's); the edit is `mapper`'s. A secondary
+    teacher (a field of the teacher's kind) answers the edited samples
+    instead.
     """
 
-    def __init__(self, name, opt, field, teacher_trainer: FastTrainer,
+    def __init__(self, name, opt, field, teacher_trainer: Trainer,
                  mapper: Optional[SealMapper] = None, secondary_teacher=None,
                  time_conditioned: bool = False, **kw):
         self.teacher_trainer = teacher_trainer
@@ -147,27 +159,32 @@ class FastStudentTrainer(FastTrainer):
         force-fill of the teacher's grid shape."""
         tt = self.teacher_trainer
         self.mapper = mapper.to(tt.device)
-        self.teacher_field = TeacherField(
-            tt.field, self.mapper, secondary=self.secondary_teacher,
-            time_conditioned=self.time_conditioned)
+        self.teacher_field = self._make_teacher_field()
         g = tt.dyn_grid_cfg if tt.time_conditioned else tt.grid_cfg
         self.fill_mask = force_fill_mask(
             self.mapper, g.grid_size, g.cascades, g.bound,
             time_size=g.time_size if tt.time_conditioned else 0,
             device=tt.device)
-        if self._occ_m is not None:
-            self._occ_m = self._march_occ()
 
-    def _segment_occ_fill(self):
-        return self.fill_mask
+    def _make_teacher_field(self, plain: bool = False):
+        """The edit-aware teacher of teacher_trainer's field (plain: the
+        kernels' plain versions, for a field that has kernels)."""
+        return make_teacher_field(self.teacher_trainer.field, self.mapper,
+                                  secondary=self.secondary_teacher)
 
-    def _build_anneal_mask(self):
-        # the anneal is for training from scratch; a student distils from a
-        # trained teacher and keeps its fine scales live from the first step
-        return None
+    def _occ_at(self, t):
+        """Trainer's occupancy of a training ray batch with the edit region
+        forced on (the reference's _train_occ), so that distillation rays
+        sample geometry that the edit added before the student's own grid
+        refresh finds it. The fill is the same in every time bin."""
+        occ = super()._occ_at(t)
+        if self.fill_mask is None:
+            return occ
+        return occ | (self.fill_mask[0] if self.time_conditioned
+                      else self.fill_mask)
 
     def _param_groups(self):
-        """FastTrainer's groups without the deform leaves, which are frozen
+        """The trainer's groups without the deform leaves, which are frozen
         (and take no gradient)."""
         frozen = self._deform_leaves()
         for p in frozen:
@@ -178,10 +195,16 @@ class FastStudentTrainer(FastTrainer):
             g["params"] = [p for p in g["params"] if id(p) not in ids]
         return [g for g in groups if g["params"]]
 
-    def _deform_leaves(self):
+    def _leaves_labelled(self, label):
         labels = freeze_labels(self.params)
-        return [p for k in sorted(self.params) if labels[k] == "deform"
+        return [p for k in sorted(self.params) if labels[k] == label
                 for p in param_leaves(self.params[k])]
+
+    def _deform_leaves(self):
+        return self._leaves_labelled("deform")
+
+    def _enc_leaves(self):
+        return self._leaves_labelled("enc")
 
     def _ensure_deform_frozen(self):
         """Take the deform leaves out of the optimizer if they are in it,
@@ -221,38 +244,26 @@ class FastStudentTrainer(FastTrainer):
     # ---------------------------------------------------------- proxying
     def _teacher_forward(self, edited: bool, plain: bool):
         """render_occ's forward_fn of the teacher: the wrapped field
-        (edited) or the bare one, through the kernels or (plain=True) their
-        plain versions."""
+        (edited) or the bare one; plain=True through the kernels' plain
+        versions, where the field has kernels."""
         tt = self.teacher_trainer
-        if edited and not plain:
-            return self.teacher_field.forward
-        if edited:
-            return TeacherField(tt.field, self.mapper,
-                                secondary=self.secondary_teacher,
-                                time_conditioned=self.time_conditioned,
-                                plain=True).forward
-        fn = ((dyn_field_forward_plain if plain else dyn_field_forward)
-              if self.time_conditioned else
-              (field_forward_plain if plain else field_forward))
-
-        def bare(params, x, d, *extra):
-            out = fn(tt.field.kernel_tables(params), tt.field.cfg,
-                     x.t().contiguous(), d.t().contiguous(), *extra)
-            return out[0], out[1:4].t()
-        return bare
+        if not edited:
+            return tt.field.forward
+        return self._make_teacher_field(plain=True).forward if plain \
+            else self.teacher_field.forward
 
     @torch.no_grad()
     def render_teacher_rays(self, rays_o, rays_d, time=None, chunk=None,
                             edited: bool = True, plain: bool = False):
         """Render a flat ray batch [N, 3] through the teacher -> (image
         [N, 3], depth [N]), as the reference does: render_occ with the
-        teacher's MarchConfig in chunks of `chunk` rays (None:
-        max_ray_batch), each with a packed budget of eval_samples_per_ray
-        per ray of a whole chunk (a last, shorter chunk keeps it, as the
-        reference's padded chunk does). edited: the wrapped forward on the
-        force-filled occupancy, else the bare field on the teacher's own;
-        plain=True: through the kernels' plain versions. A dynamic teacher
-        renders at `time` (None: time_frame)."""
+        teacher's MarchConfig and background in chunks of `chunk` rays
+        (None: max_ray_batch), each with a packed budget of
+        eval_samples_per_ray per ray of a whole chunk (a last, shorter
+        chunk keeps it, as the reference's padded chunk does). edited: the
+        wrapped forward on the force-filled occupancy, else the bare field
+        on the teacher's own; plain=True: through the kernels' plain
+        versions. A dynamic teacher renders at `time` (None: time_frame)."""
         tt = self.teacher_trainer
         chunk = chunk or self.opt.max_ray_batch
         extra, occ = self._teacher_extra(time)
@@ -261,11 +272,12 @@ class FastStudentTrainer(FastTrainer):
             if self.time_conditioned:
                 occ = occ[time_slice_index(extra[0], tt.dyn_grid_cfg)]
         fwd = self._teacher_forward(edited, plain)
+        bg_fn = getattr(tt.field, "background", None)
         params = self._teacher_params()
         imgs, deps = [], []
         for i in range(0, rays_o.shape[0], chunk):
             res = render_occ(params, occ, rays_o[i:i + chunk],
-                             rays_d[i:i + chunk], tt.settings, fwd,
+                             rays_d[i:i + chunk], tt.settings, fwd, bg_fn,
                              m_budget=chunk * self.opt.eval_samples_per_ray,
                              extra=extra)
             imgs.append(res["image"])
@@ -291,8 +303,9 @@ class FastStudentTrainer(FastTrainer):
 
     def proxy_dataset(self, dataset, time=None):
         """The dataset with every view rendered through the edit-aware
-        teacher as its images (RGB on white); for a dynamic edit rendered at
-        `time` (None: time_frame), which replaces the views' times."""
+        teacher as its images (RGB on white, or on the teacher's
+        background); for a dynamic edit rendered at `time` (None:
+        time_frame), which replaces the views' times."""
         if self.time_conditioned and time is None:
             time = self.time_frame
         imgs = [self.render_teacher_image(dataset.poses[i],
@@ -307,34 +320,25 @@ class FastStudentTrainer(FastTrainer):
     # ------------------------------------------------------- pretraining
     @torch.no_grad()
     def _teacher_query(self, points, dirs, extra, mapped: bool):
-        """Teacher sigma [N] and colour [N, 3] (numpy) at points and dirs
-        (numpy [N, 3]) in chunks of TEACHER_QUERY_CHUNK: through the mapper
+        """Teacher sigma [N] and colour [N, 3] at points and dirs (device
+        tensors [N, 3]) in chunks of TEACHER_QUERY_CHUNK: through the mapper
         (the local zone's ground truth) or the bare field."""
         tt = self.teacher_trainer
+        fwd = self.teacher_field.forward if mapped else tt.field.forward
         params = self._teacher_params()
-        fwd = self.teacher_field.forward_planar if mapped \
-            else tt._render_forward()
-        if not mapped:
-            params = tt.field.kernel_tables(params)
         sig, col = [], []
-        for i in range(0, len(points), TEACHER_QUERY_CHUNK):
-            x3 = torch.as_tensor(np.ascontiguousarray(
-                points[i:i + TEACHER_QUERY_CHUNK].T), device=tt.device)
-            d3 = torch.as_tensor(np.ascontiguousarray(
-                dirs[i:i + TEACHER_QUERY_CHUNK].T), device=tt.device)
-            out = fwd(params, x3, d3, *extra)
-            sig.append(out[0].cpu().numpy())
-            col.append(out[1:4].t().cpu().numpy())
-        return np.concatenate(sig), np.concatenate(col)
+        for i in range(0, points.shape[0], TEACHER_QUERY_CHUNK):
+            out = fwd(params, points[i:i + TEACHER_QUERY_CHUNK],
+                      dirs[i:i + TEACHER_QUERY_CHUNK], *extra)
+            sig.append(out[0])
+            col.append(out[1])
+        return torch.cat(sig), torch.cat(col)
 
     def _edit_mask(self, pts):
-        """mapper mask of numpy points [N, 3] (host bool)."""
-        if not len(pts):
-            return np.zeros(0, bool)
-        p = torch.as_tensor(pts, device=self.teacher_trainer.device)
-        probe = torch.zeros_like(p)
+        """The mapper's mask of the points [N, 3] (device bool [N])."""
+        probe = torch.zeros_like(pts)
         probe[:, 0] = 1.0
-        return self.mapper.map_to_origin_compact(p, probe)[2].cpu().numpy()
+        return self.mapper.map_to_origin_compact(pts, probe)[2]
 
     def init_pretraining(self, time_frame: Optional[float] = None, epochs=0,
                          batch_size=4096, lr=0.07,
@@ -343,8 +347,9 @@ class FastStudentTrainer(FastTrainer):
                          surrounding_angle_step=45,
                          surrounding_bounds_extend=0.2,
                          global_point_step=0.05, global_angle_step=45):
-        """Cache the teacher's point ground truth of the three zones. The
-        directions are drawn from np.random.default_rng(opt.seed)."""
+        """Cache the teacher's point ground truth of the three zones on the
+        device. The directions are drawn from
+        np.random.default_rng(opt.seed)."""
         if self.mapper is None:
             raise RuntimeError("init_mapper first")
         self.pretraining_epochs = epochs
@@ -357,81 +362,84 @@ class FastStudentTrainer(FastTrainer):
         rng = np.random.default_rng(self.opt.seed)
         md = self.mapper.map_data
         bound = self.opt.bound
+        dev = self.teacher_trainer.device
         fill = np.asarray(md["force_fill_bound"].cpu())
         if fill.ndim == 2:
             fill = fill[None]
         extra, _ = self._teacher_extra(time_frame)
         zones = {}
 
+        def grid(bounds, step, angle_step):
+            pts, dirs = sample_zone_points(bounds, step, angle_step)
+            return torch.as_tensor(pts, device=dev), dirs
+
         def add(name, pts, dirs, mapped):
-            dsel = dirs[rng.integers(0, len(dirs), len(pts))]
+            dsel = torch.as_tensor(
+                dirs[rng.integers(0, len(dirs), pts.shape[0])], device=dev)
+            self._sync()
             t0 = time.perf_counter()
             sig, col = self._teacher_query(pts, dsel, extra, mapped)
+            self._sync()
             self.query_seconds += time.perf_counter() - t0
-            self.query_points += len(pts)
+            self.query_points += pts.shape[0]
             zones[name] = (pts, dsel, sig, col)
 
         t0 = time.perf_counter()
         if local_point_step > 0:
-            pts, dirs = sample_zone_points(fill, local_point_step,
-                                           local_angle_step)
-            if len(pts):
-                if "map_source" not in md:
-                    pts = pts[self._edit_mask(pts)]
-                if len(pts):
-                    add("local", pts, dirs, mapped=True)
+            pts, dirs = grid(fill, local_point_step, local_angle_step)
+            if pts.shape[0] and "map_source" not in md:
+                pts = pts[self._edit_mask(pts)]
+            if pts.shape[0]:
+                add("local", pts, dirs, mapped=True)
         self.log(f"Local x generation: {time.perf_counter() - t0:.2f}s")
         t0 = time.perf_counter()
         if surrounding_point_step > 0:
             sb = fill.copy()
             sb[:, 0] = np.maximum(sb[:, 0] - surrounding_bounds_extend, -bound)
             sb[:, 1] = np.minimum(sb[:, 1] + surrounding_bounds_extend, bound)
-            pts, dirs = sample_zone_points(sb, surrounding_point_step,
-                                           surrounding_angle_step)
-            pts = pts[~self._edit_mask(pts)]
-            if len(pts):
+            pts, dirs = grid(sb, surrounding_point_step,
+                             surrounding_angle_step)
+            if pts.shape[0]:
+                pts = pts[~self._edit_mask(pts)]
+            if pts.shape[0]:
                 add("surrounding", pts, dirs, mapped=False)
         self.log(f"Surrounding x generation: {time.perf_counter() - t0:.2f}s")
         t0 = time.perf_counter()
         if global_point_step > 0:
             gb = np.array([[-bound] * 3, [bound] * 3], dtype=np.float32)
-            pts, dirs = sample_zone_points(gb[None], global_point_step,
-                                           global_angle_step)
-            pts = pts[~self._edit_mask(pts)]
-            if len(pts):
+            pts, dirs = grid(gb[None], global_point_step, global_angle_step)
+            if pts.shape[0]:
+                pts = pts[~self._edit_mask(pts)]
+            if pts.shape[0]:
                 add("global", pts, dirs, mapped=False)
         self.log(f"Global x generation: {time.perf_counter() - t0:.2f}s")
 
-        # each zone padded to whole batches (weight 0) and put on the device
+        # each zone padded to whole batches (weight 0), on the student's
+        # device
         self.pretraining_data = {}
-        dev = self.device
         for k, (pts, dirs, sig, col) in zones.items():
-            n = len(pts)
+            n = pts.shape[0]
             pad = (-n) % batch_size
-            w = np.concatenate([np.ones(n, np.float32),
-                                np.zeros(pad, np.float32)])
-            pts = np.concatenate([pts, np.zeros((pad, 3), np.float32)])
-            dirs = np.concatenate([dirs, np.tile(
-                np.array([[1, 0, 0]], np.float32), (pad, 1))])
-            sig = np.concatenate([sig, np.zeros(pad, np.float32)])
-            col = np.concatenate([col, np.zeros((pad, 3), np.float32)])
+            w = torch.cat([torch.ones(n, device=dev),
+                           torch.zeros(pad, device=dev)])
+            d_pad = torch.zeros((pad, 3), device=dev)
+            d_pad[:, 0] = 1.0
 
-            def put(a, *shape):
-                return torch.as_tensor(a.reshape(-1, batch_size, *shape),
-                                       device=dev)
+            def put(a, tail, *shape):
+                return torch.cat([a, tail]).reshape(
+                    -1, batch_size, *shape).to(self.device)
             self.pretraining_data[k] = {
-                "points": put(pts, 3), "dirs": put(dirs, 3),
-                "sigma": put(sig), "color": put(col, 3), "weight": put(w)}
+                "points": put(pts, torch.zeros((pad, 3), device=dev), 3),
+                "dirs": put(dirs, d_pad, 3),
+                "sigma": put(sig, torch.zeros(pad, device=dev)),
+                "color": put(col, torch.zeros((pad, 3), device=dev), 3),
+                "weight": put(w, w[:0])}
         self._build_pretrain_optimizer()
         vis = os.path.join(self.workspace, "pretrain_vis")
         os.makedirs(vis, exist_ok=True)
         for k, v in zones.items():
-            _export_ply_points(os.path.join(vis, f"{k}.ply"), v[0], v[3])
-
-    def _enc_leaves(self):
-        labels = freeze_labels(self.params)
-        return [p for k in sorted(self.params) if labels[k] == "enc"
-                for p in param_leaves(self.params[k])]
+            _export_ply_points(os.path.join(vis, f"{k}.ply"),
+                               v[0].cpu().numpy(), v[3].cpu().numpy())
 
     def _build_pretrain_optimizer(self):
         """Adam (betas 0.9/0.99, eps 1e-15) at the constant pretraining lr
@@ -442,30 +450,23 @@ class FastStudentTrainer(FastTrainer):
             eps=1e-15)
 
     def pretrain_loss(self, batch):
-        """pretrain_l1 of the student at the batch's points, at time_frame
-        for a time-conditioned field, through the field's kernels: K1 and
-        K2, or K3 and K4."""
-        x3 = batch["points"].t().contiguous()
-        d3 = batch["dirs"].t().contiguous()
-        cfg = self.field.cfg
-        tables = self.field.kernel_tables(self.params)
-        if self.time_conditioned:
-            out = dyn_field_train_forward(self.params, cfg, x3, d3,
-                                          float(self.time_frame or 0.0),
-                                          tables=tables)
-        else:
-            out = field_train_forward(self.params, cfg, x3, d3,
-                                      tables=tables)
-        return pretrain_l1(out, batch)
+        """pretrain_l1 of the student's forward at the batch's points, at
+        time_frame for a time-conditioned field."""
+        extra = (float(self.time_frame or 0.0),) if self.time_conditioned \
+            else ()
+        out = self.field.forward(self.params, batch["points"], batch["dirs"],
+                                 *extra)
+        return pretrain_l1(torch.cat([out[0][None], out[1].t()]), batch)
 
     def pretrain_step(self, batch):
         """One Adam step of the encoder leaves on one batch -> loss (a
-        device tensor)."""
+        device tensor). A table that the forward does not read (the
+        background's) takes a zero gradient, as in the reference."""
         leaves = self._enc_leaves()
         loss = self.pretrain_loss(batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         for p, g in zip(leaves, grads):
-            p.grad = g
+            p.grad = torch.zeros_like(p) if g is None else g
         self._pretrain_optimizer.step()
         for p in leaves:
             p.grad = None
@@ -487,9 +488,9 @@ class FastStudentTrainer(FastTrainer):
     def train(self, train_dataset, valid_dataset=None, max_epochs: int = 1,
               time_frame: Optional[float] = None):
         """Proxy the datasets, pretraining epochs, then ray distillation for
-        the remaining epochs (FastTrainer.train, which stops at opt.iters
-        steps counted with the pretraining's). The proxied datasets are
-        kept as self.proxied["train"] and ["valid"]."""
+        the remaining epochs (the trainer's train(), which stops at
+        opt.iters steps counted with the pretraining's). The proxied
+        datasets are kept as self.proxied["train"] and ["valid"]."""
         if time_frame is not None:
             self.time_frame = time_frame
         self._ensure_deform_frozen()
@@ -544,6 +545,83 @@ class FastStudentTrainer(FastTrainer):
             out[f"{k}_total"] = float(np.sum(ti[k]))
         with open(os.path.join(self.workspace, "timer.json"), "w") as f:
             json.dump(out, f, indent=2)
+
+
+class FastStudentTrainer(StudentTrainer, FastTrainer):
+    """StudentTrainer on the CP field's FastTrainer: the teacher and the
+    pretraining step through the CP kernels, the edit region force-filled
+    in the dense march's occupancy. teacher_trainer is a FastTrainer; a
+    secondary teacher is a CPField."""
+
+    def init_mapper(self, mapper: SealMapper):
+        super().init_mapper(mapper)
+        if self._occ_m is not None:
+            self._occ_m = self._march_occ()
+
+    def _make_teacher_field(self, plain: bool = False):
+        return TeacherField(self.teacher_trainer.field, self.mapper,
+                            secondary=self.secondary_teacher,
+                            time_conditioned=self.time_conditioned,
+                            plain=plain)
+
+    def _segment_occ_fill(self):
+        return self.fill_mask
+
+    def _build_anneal_mask(self):
+        # the anneal is for training from scratch; a student distils from a
+        # trained teacher and keeps its fine scales live from the first step
+        return None
+
+    def _teacher_forward(self, edited: bool, plain: bool):
+        """The wrapped field (edited) or the bare one, through the kernels
+        or (plain=True) their plain versions."""
+        if edited:
+            return super()._teacher_forward(edited, plain)
+        tt = self.teacher_trainer
+        fn = ((dyn_field_forward_plain if plain else dyn_field_forward)
+              if self.time_conditioned else
+              (field_forward_plain if plain else field_forward))
+
+        def bare(params, x, d, *extra):
+            out = fn(tt.field.kernel_tables(params), tt.field.cfg,
+                     x.t().contiguous(), d.t().contiguous(), *extra)
+            return out[0], out[1:4].t()
+        return bare
+
+    @torch.no_grad()
+    def _teacher_query(self, points, dirs, extra, mapped: bool):
+        """StudentTrainer's query through the planar forward of the
+        kernels: K1, or K3 for a dynamic teacher."""
+        tt = self.teacher_trainer
+        params = self._teacher_params()
+        fwd = self.teacher_field.forward_planar if mapped \
+            else tt._render_forward()
+        if not mapped:
+            params = tt.field.kernel_tables(params)
+        sig, col = [], []
+        for i in range(0, points.shape[0], TEACHER_QUERY_CHUNK):
+            out = fwd(params, points[i:i + TEACHER_QUERY_CHUNK].t().contiguous(),
+                      dirs[i:i + TEACHER_QUERY_CHUNK].t().contiguous(), *extra)
+            sig.append(out[0])
+            col.append(out[1:4].t())
+        return torch.cat(sig), torch.cat(col)
+
+    def pretrain_loss(self, batch):
+        """pretrain_l1 of the student at the batch's points, at time_frame
+        for a time-conditioned field, through the field's kernels: K1 and
+        K2, or K3 and K4."""
+        x3 = batch["points"].t().contiguous()
+        d3 = batch["dirs"].t().contiguous()
+        cfg = self.field.cfg
+        tables = self.field.kernel_tables(self.params)
+        if self.time_conditioned:
+            out = dyn_field_train_forward(self.params, cfg, x3, d3,
+                                          float(self.time_frame or 0.0),
+                                          tables=tables)
+        else:
+            out = field_train_forward(self.params, cfg, x3, d3,
+                                      tables=tables)
+        return pretrain_l1(out, batch)
 
 
 def _export_ply_points(path, pts, colors):

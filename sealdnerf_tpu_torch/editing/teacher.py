@@ -1,12 +1,20 @@
 """The edit-aware teacher and the occupancy force-fill (port of
 sealdnerf_tpu/editing/teacher.py).
 
-`TeacherField` wraps a trained field (a CPField, static or time-conditioned)
-so that a sample inside the edit is answered by the original scene: the
-mapper's map_to_origin on the spatial coordinates, then the field (for a
-time-conditioned field at time t, after the mapping: the deform tower warps
-the mapped point), then map_color where the mask holds. A secondary teacher,
-when given, answers the mapped samples instead of the base field. The field
+A teacher wraps a trained field so that a sample inside the edit is
+answered by the original scene: the mapper's map_to_origin on the spatial
+coordinates, then the field (for a time-conditioned field at time t, after
+the mapping: the deform tower warps the mapped point), then map_color where
+the mask holds. A secondary teacher, when given, answers the mapped samples
+instead of the base field.
+
+`make_teacher_field` wraps a models.api Field (the Instant-NGP or D-NeRF
+field; the reference's make_teacher_field): a Field with the same
+signatures, forward(params, x [S, 3], d [S, 3], *extra) -> (sigma, rgb[,
+deform]) and density(params, x, *extra) -> (sigma, geo_feat), and the base
+field's colour tower and background, in plain PyTorch.
+
+`TeacherField` wraps a CPField, static or time-conditioned; the field
 runs through the port's kernels: K1 (field_forward) for a static field, K3
 (dyn_field_forward) for a time-conditioned one, or their plain versions on
 CPU tensors. The wrapper is given in the two layouts of the port's
@@ -30,10 +38,46 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..models.api import Field
 from ..ops.field import (FieldTables, dyn_field_forward,
                          dyn_field_forward_plain, field_forward,
                          field_forward_plain)
 from .seal_utils import SealMapper
+
+
+def make_teacher_field(base: Field, mapper: SealMapper,
+                       secondary: Optional[Field] = None) -> Field:
+    """`base` wrapped so that the samples inside the edit are answered by
+    the original scene (the secondary field where given), recoloured.
+    Extra outputs of base.forward (a D-NeRF field's deform) are kept."""
+
+    def forward(params, x, d, *extra):
+        xm, dm, mask = mapper.map_to_origin_compact(x, d)
+        out = base.forward(params, xm, dm, *extra)
+        sigma, rgb = out[0], out[1]
+        idx = mask.nonzero()[:, 0]
+        if idx.numel():
+            sigma, rgb = sigma.clone(), rgb.clone()
+            if secondary is not None:
+                out2 = secondary.forward(secondary.params, xm[idx], dm[idx],
+                                         *extra)
+                sigma[idx], rgb[idx] = out2[0], out2[1]
+            v_means = mapper.color_means(xm, rgb)
+            rgb[idx] = mapper.map_color(xm[idx], dm[idx], rgb[idx], v_means)
+        return (sigma, rgb) + tuple(out[2:])
+
+    def density(params, x, *extra):
+        xm, _, mask = mapper.map_to_origin_compact(x)
+        out = base.density(params, xm, *extra)
+        idx = mask.nonzero()[:, 0]
+        if secondary is None or not idx.numel():
+            return out
+        sigma = out[0].clone()
+        sigma[idx] = secondary.density(secondary.params, xm[idx], *extra)[0]
+        return (sigma,) + tuple(out[1:])
+
+    return Field(base.params, base.cfg, forward, density, base.color,
+                 base.background)
 
 
 class TeacherField:

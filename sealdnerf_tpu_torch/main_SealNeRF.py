@@ -1,24 +1,27 @@
 """Static Seal editing CLI of the port (counterpart of the repository's
 main_SealNeRF.py).
 
-    python -m sealdnerf_tpu_torch.main_SealNeRF synthetic -O --bound 1 \\
-        --dt_gamma 0 --teacher_workspace T --workspace W \\
-        [--seal_config seal.json] [--custom_pose] \\
-        [--secondary_teacher_workspace S] [--device cpu]
+    python -m sealdnerf_tpu_torch.main_SealNeRF synthetic -O \\
+        --teacher_workspace T --workspace W [--seal_config seal.json] \\
+        [--custom_pose] [--secondary_teacher_workspace S] [--device cpu]
 
-The teacher is the static CP field of the checkpoint that --teacher_ckpt
-selects in --teacher_workspace; the student starts as its copy. The mapper
-comes from --seal_config (default: seal.json in --workspace). The student
-pretrains on the teacher's point queries (K1) through K1/K2, then distils on
-the views the teacher renders (K1), through K1/K2; then the test views are
-rendered and written as PNG. --custom_pose trains on random orbit poses
+At the CLI's defaults (bound 2, dt_gamma 1/128) the teacher is the
+Instant-NGP field (2^--log2_hashmap_size entries a level; with the
+background sphere at --bg_radius > 0) of the checkpoint that --teacher_ckpt
+selects in --teacher_workspace, and the student a StudentTrainer on a copy
+of it, in plain PyTorch. --bound 1 --dt_gamma 0 (or --backbone cp) edits
+the static CP field instead, through the kernels (FastStudentTrainer: K1
+forward, K2 backward). The mapper comes from --seal_config (default:
+seal.json in --workspace). The student pretrains on the teacher's point
+queries, then distils on the views the teacher renders; then the test views
+are rendered and written as PNG. --custom_pose trains on random orbit poses
 around the edit instead of the dataset's (the teacher provides their
 images); --secondary_teacher_workspace answers the edited samples with a
 second model.
 
-Both fields take the teacher checkpoint's shapes; --planes other than
-'auto' must agree with them. Not ported yet: the GUI, LPIPS and the NGP
-backbone (--backbone ngp, --bg_radius), which raise.
+A CP field takes the teacher checkpoint's shapes; --planes other than
+'auto' must agree with them. Not ported: the GUI, and LPIPS, whose
+network weights would have to be downloaded (PSNR only).
 """
 
 import numpy as np
@@ -107,7 +110,8 @@ def main(argv=None):
         global_angle_step=opt.pretraining_global_angle_step)
     trainer.train(train, val, max_epochs(opt, len(train)))
     trainer.test(test)
-    trainer.log("[INFO] LPIPS is not yet ported; PSNR only")
+    trainer.log("[INFO] LPIPS is not ported (its network weights would "
+                "have to be downloaded); PSNR only")
     return trainer
 
 

@@ -1,33 +1,38 @@
 """SealD-NeRF dynamic editing CLI of the port (counterpart of the
 repository's main_seald.py).
 
-    python -m sealdnerf_tpu_torch.main_seald synthetic -O --bound 1 \\
-        --dt_gamma 0 --teacher_workspace T --workspace W \\
-        --seal_config seal.json --time_frame 0.5 [--device cpu]
+    python -m sealdnerf_tpu_torch.main_seald synthetic -O \\
+        --teacher_workspace T --workspace W --seal_config seal.json \\
+        --time_frame 0.5 [--basis | --hyper] [--device cpu]
 
-The teacher is the time-conditioned CP field of the checkpoint that
---teacher_ckpt selects in --teacher_workspace; the student starts as its
-copy, with its occupancy grid. The edit of --seal_config is pinned to
---time_frame: the teacher renders every view at that time (K3), the student
-pretrains on the teacher's point queries there and then distils on the
-proxied views (K3 forward, K4 backward), with its deform tower frozen. Then
-the test views are rendered (each at its own time) and written as PNG.
---test only renders the test views of the student as built.
+At the CLI's defaults (bound 2, dt_gamma 1/128) the teacher is the D-NeRF
+field (deform, or --basis / --hyper; with the background sphere at
+--bg_radius > 0) of the checkpoint that --teacher_ckpt selects in
+--teacher_workspace, and the student a StudentTrainer on a copy of it, in
+plain PyTorch. --bound 1 --dt_gamma 0 (or --backbone cp) edits the
+time-conditioned CP field instead, through the kernels (FastStudentTrainer:
+K3 forward, K4 backward). The student starts as the teacher's copy, with
+its occupancy grid. The edit of --seal_config is pinned to --time_frame:
+the teacher renders every view at that time, the student pretrains on the
+teacher's point queries there and then distils on the proxied views, with
+its deform tower frozen. Then the test views are rendered (each at its own
+time) and written as PNG. --test only renders the test views of the
+student as built.
 
-Two faults of the reference are pinned. Both fields take the teacher
+Two faults of the reference are pinned. A CP field takes the teacher
 checkpoint's shapes, and --planes other than 'auto' must agree with them
 (the reference builds CPDNeRFConfig(bound) and ignores the flag). The rate
 defaults follow the backbone as main_dnerf's do: 1e-2 (tables) and 1e-3
 (MLPs) for the CP field (the reference keeps its hash backbone's 5e-4 and
 5e-5 for every backbone, at which a CP student does not reach the edit in
-hundreds of steps). Not ported yet: the GUI, --basis and --hyper (the NGP
-dynamic backbones) and bound > 1, which raise.
+hundreds of steps), the reference's 5e-4 and 5e-5 for the D-NeRF field.
+Not ported yet: the GUI and the mp4 export.
 """
 
 import numpy as np
 
-from .cli import (base_parser, build_edit_trainers, cp_route, load_datasets,
-                  postprocess)
+from .cli import (base_parser, build_edit_trainers, edit_cp_route,
+                  load_datasets, postprocess)
 from .train.metrics import PSNRMeter
 
 
@@ -64,7 +69,7 @@ def parse_args(argv=None):
     1e-3 for the CP field, the reference's 5e-4 and 5e-5 for the hash
     one."""
     opt = postprocess(build_parser().parse_args(argv))
-    cp = cp_route(opt)
+    cp = edit_cp_route(opt, dynamic=True)
     if opt.lr is None:
         opt.lr = 1e-2 if cp else 5e-4
     if opt.lr_net is None:

@@ -151,3 +151,11 @@ def update_density_grid(state, density_fn: Callable, cfg: GridConfig,
         "mean_density": mean_density,
         "iter_density": state["iter_density"] + 1,
     }
+
+
+def occupancy_bitfield(state, cfg: GridConfig):
+    """The grid as the reference's packed uint8 bitfield: cells above
+    min(mean_density, density_thresh), in raster order."""
+    from ..ops.packbits import packbits
+    thresh = torch.clamp(state["mean_density"], max=cfg.density_thresh)
+    return packbits(state["density_grid"].reshape(-1), thresh)

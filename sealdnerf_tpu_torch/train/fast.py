@@ -271,9 +271,7 @@ class FastTrainer(Trainer):
         (the editing student starts from its teacher's): the host copies of
         the dynamic grid's counters are dropped and the march occupancy is
         recomputed, with the fill."""
-        self.grid_state = {k: v.detach().clone().to(self.device)
-                           for k, v in grid_state.items()}
-        self._forget_dyn_host_state()
+        super().adopt_grid_state(grid_state)
         self._occ_m = self._march_occ()
 
     def _use_buckets(self) -> bool:

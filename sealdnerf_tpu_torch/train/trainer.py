@@ -22,6 +22,12 @@ and takes the MSE, plus tv_weight * the hash table's TV energy at num_rays
 random points. Frames are rendered by render_occ in chunks of 4 *
 max_ray_batch rays with a packed budget of eval_samples_per_ray a ray.
 
+Editing hooks (overridden by editing/student.py's StudentTrainer):
+`_occ_at` (the occupancy a training ray batch marches: the student forces
+its edit region on), `_param_groups` (the leaves the optimizer steps: the
+student leaves its deform tower out) and `adopt_grid_state` (a grid state
+taken over from another trainer, iter_density included).
+
 Two faults of the reference are not copied: its rebuild sweeps 8 of the 64
 time bins of a dynamic grid (here every bin), and a slim checkpoint (no
 density grid) does not load into its dynamic trainer (here it does, and the
@@ -491,6 +497,15 @@ class Trainer:
             return
         self.grid_state = mark_untrained_grid(
             self.grid_state, t(poses), t(intrinsics), self.grid_cfg)
+
+    def adopt_grid_state(self, grid_state):
+        """Take over a copy of another trainer's grid state of the same kind
+        (the editing student starts from its teacher's), iter_density
+        included; the host copies of the dynamic grid's counters are
+        dropped."""
+        self.grid_state = {k: v.detach().clone().to(self.device)
+                           for k, v in grid_state.items()}
+        self._forget_dyn_host_state()
 
     def _occ_at(self, t):
         """The occupancy that a ray batch at time t marches: the grid of a

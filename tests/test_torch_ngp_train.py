@@ -323,12 +323,20 @@ def test_main_nerf_ngp_on_the_cpu(tmp_path, monkeypatch):
     tr = main_nerf.main(base + ["--test"])
     log = open(os.path.join(ws, "log_ngp.txt")).read()
     assert "loaded checkpoint" in log and "(epoch 1, step 48)" in log
-    # its editing student is not ported: main_SealNeRF refuses the teacher
+    # main_SealNeRF edits it with the StudentTrainer (the CLI end to end:
+    # tests/test_torch_ngp_edit_cli.py)
+    import json
     from sealdnerf_tpu_torch import main_SealNeRF
-    with pytest.raises(NotImplementedError, match="StudentTrainer"):
-        main_SealNeRF.main(["synthetic", "-O", "--backbone", "ngp",
-                            "--device", "cpu", "--teacher_workspace", ws,
-                            "--workspace", str(tmp_path / "edit")])
+    from sealdnerf_tpu_torch.editing.student import StudentTrainer
+    from torch_edit_setup import seal_config
+    os.makedirs(tmp_path / "edit")
+    with open(tmp_path / "edit" / "seal.json", "w") as f:
+        json.dump(seal_config(), f)
+    _, st, _ = cli.build_edit_trainers(main_SealNeRF.parse_args(
+        ["synthetic", "-O", "--backbone", "ngp", "--device", "cpu",
+         "--teacher_workspace", ws, "--workspace", str(tmp_path / "edit"),
+         "--log2_hashmap_size", "12"]), grid_size=32)
+    assert type(st) is StudentTrainer and st.global_step == 0
 
 
 def test_main_dnerf_bound2_on_the_cpu(tmp_path, monkeypatch):
