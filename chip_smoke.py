@@ -188,7 +188,8 @@ Phases (any failure raises and exits non-zero):
      "256", ...])` routes to the D-NeRF deform field (8 x 128 deform tower,
      tiled canonical grid, NGP towers) and Trainer; cut from 300,000 steps,
      with the tables at 1e-2 and the towers at 1e-3 (at the backbone's 5e-4
-     the loss does not move within 256 steps): 256 finite losses whose last
+     the loss does not move within 256 steps, as in the reference at a cut
+     schedule: tests/test_torch_dnerf_band.py): 256 finite losses whose last
      64 lie below the first 64, and a finite 800x800 frame at t = 0.5
      (timed), which differs from the frame at t = 0.
   11. D-NeRF edit: `main_seald.main([...])` at the CLI's defaults (bound 2,
@@ -208,9 +209,27 @@ Phases (any failure raises and exits non-zero):
   11b. Instant-NGP edit: the same through `main_SealNeRF.main([...])` at
      its defaults (its rate 1e-2) on phase 10's field, NGPConfig(bound=2),
      2 epochs of distillation.
+  12. main-CLI options, at full width: `main_nerf synthetic -O --bound 1
+     --dt_gamma 0` through cli.build_trainer, 256 steps each, preloaded,
+     with --error_map, with --patch_size 8 (4,096 rays: 64 patches) and with
+     --no_preload; `main_nerf --backbone ngp --error_map` and `main_dnerf
+     -O --bound 1 --dt_gamma 0 --error_map` (K3 and K4), 128 steps each;
+     then phase 5's trained field as `main_nerf --test` serves it:
+     test(write_video=True) on the 6 val views and save_mesh(resolution=256,
+     threshold=10). Checks: every loss finite; the error map's rows moved
+     away from ones (>= 0.75 of the rows a run could draw) and the rays of
+     16 further draws fall in their row's top-decile cells more often than
+     uniform draws would (> 10 %); the patch term positive; under
+     --no_preload the images in pinned host memory and no device copy of
+     them, and the val PSNR within 1 dB of the preloaded run's (the same
+     seed draws the same rays); the dynamic run launched K3 and K4 (one a
+     step); the 6 PNG frames written (and the mp4 where an encoder
+     imports); a mesh of more than 0 triangles through K1. Prints each
+     run's ms/step beside phases 5, 7 and 10's, the mesh's seconds split
+     into the density sweep and the tetrahedra, and the launches.
 The launch counts of the kernels record are read from the main paths'
-runs (phases 4, 5, 5c, 6, 7, 7c, 8, 8b, 9 and 9b; 8 and 8b include the
-proxy's launches through render_occ; 10, 10b, 11 and 11b launch none),
+runs (phases 4, 5, 5c, 6, 7, 7c, 8, 8b, 9, 9b and 12; 8 and 8b include
+the proxy's launches through render_occ; 10, 10b, 11 and 11b launch none),
 with the counters set to 0 just before each. Each
 kernel's bound_ms is the least time the card could take for the work of its
 vs-plain phase: the larger of bytes moved over the memory rate and
@@ -271,6 +290,10 @@ EDIT_PRE_EPOCHS_STATIC, EDIT_EPOCHS_STATIC = 2, 2
 NGP_EDIT_PRE_EPOCHS = 2
 NGP_EDIT_EPOCHS, NGP_EDIT_EPOCHS_STATIC = 3, 2
 NGP_EDIT_LOCAL_STEP = 0.01
+# phase 12: steps of the static runs and of the NGP and dynamic ones
+OPTION_STEPS, OPTION_STEPS_SHORT = 256, 128
+# ms/step of phases 5, 7 and 10, printed beside phase 12's runs
+STEP_MS = {}
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores (the towers' bf16 x
 # bf16 -> f32 products), the FP32 pipe (taps, encodings, activations), HBM3
 PEAK = {"tensor_flops": 989e12, "fp32_flops": 67e12, "bytes": 3.35e12}
@@ -1054,6 +1077,7 @@ def phase_training(served):
     warm_s = sum(hist["epoch_s"][1:])
     warm_steps = steps - steps_per_epoch
     ms_step = warm_s / warm_steps * 1e3
+    STEP_MS["5"] = ms_step
     first, last = losses[:64].mean(), losses[-64:].mean()
     occ = trainer.grid_state["occ"].float().mean().item()
     print(f"train: {steps} steps x {trainer.opt.num_rays} rays in {wall:.2f} s"
@@ -1410,6 +1434,7 @@ def phase_dynamic_training(train, val):
     refresh_ms = [a.elapsed_time(b) for a, b in refresh_ev]
     warm_s = sum(hist["epoch_s"][1:])
     ms_step = warm_s / (steps - steps_per_epoch) * 1e3
+    STEP_MS["7"] = ms_step
     first, last = losses[:64].mean(), losses[-64:].mean()
     occ = trainer.grid_state["occ"]
     per_bin = occ.reshape(occ.shape[0], -1).float().mean(dim=1)
@@ -1987,6 +2012,7 @@ def phase_ngp_training():
     wall = time.perf_counter() - t0
     launches = [fn.launches for fn in fns]
     ms_step, first, last = _train_stats(trainer, TRAIN_STEPS, "10")
+    STEP_MS["10"] = ms_step
     dg = trainer.grid_state["density_grid"]
     written = [int((dg[c] > 0).sum()) for c in range(dg.shape[0])]
     occ = [round(trainer.grid_state["occ"][c].float().mean().item(), 4)
@@ -2038,10 +2064,13 @@ def phase_dnerf_ngp_training():
     opt = main_dnerf.parse_args(argv)
     if (opt.lr, opt.lr_net) != (5e-4, 5e-4):
         raise AssertionError(f"phase 10b rates {opt.lr}, {opt.lr_net}")
+    # At 5e-4 / 5e-4 the reference's D-NeRF field does not train within a
+    # cut schedule either: tests/test_torch_dnerf_band.py holds the port in
+    # the band of three JAX seeds at these rates (ROADMAP section C, C7).
     print(f"phase 10b cuts: 300,000 steps -> {NGP_DYN_STEPS}; at the hash "
           "backbone's rates (5e-4 / 5e-4) the loss does not move within "
-          "them, so the tables train at 1e-2 (main_nerf's rate) and the "
-          "towers at 1e-3", flush=True)
+          "them, in the reference as in the port, so the tables train at "
+          "1e-2 (main_nerf's rate) and the towers at 1e-3", flush=True)
     argv += ["--lr", "1e-2", "--lr_net", "1e-3"]
     fns = _kernel_launches()
     for fn in fns:
@@ -2135,11 +2164,14 @@ def phase_ngp_edit(dynamic, teacher_ws, extra_epochs,
           f"8,192 an epoch); distillation ceil(30,000 / 48) = 625 epochs -> "
           f"--extra_epochs {extra_epochs} of 128 steps", flush=True)
     if dynamic:
+        # The reference's D-NeRF student misses the criterion at these
+        # rates too: tests/test_torch_dnerf_band_student.py holds the port in
+        # the band of three JAX seeds there (ROADMAP section C, C7).
         print(f"phase {tag}: at main_seald's rates (5e-4 / 5e-5) the student "
               "does not meet the criterion within the cut depth (it lay "
-              "further from the edited proxy than the unedited teacher), so "
-              "it distils at phase 10b's rates, 1e-2 (tables) and 1e-3 "
-              "(towers)", flush=True)
+              "further from the edited proxy than the unedited teacher, in "
+              "the reference as in the port), so it distils at phase 10b's "
+              "rates, 1e-2 (tables) and 1e-3 (towers)", flush=True)
         argv += ["--lr", "1e-2", "--lr_net", "1e-3"]
     # after every pretraining epoch: the grid's pass count and the tower
     # and deform leaves that moved
@@ -2248,6 +2280,218 @@ def phase_ngp_edit(dynamic, teacher_ws, extra_epochs,
     return wall
 
 
+def _option_ms(trainer, steps):
+    """ms/step of a phase-12 run: over the epochs after the first, or the
+    one epoch's (kernels built, the first steps included) when there is
+    one."""
+    hist = trainer.history
+    spe = max(48, trainer.opt.segment_steps)
+    if len(hist["epoch_s"]) > 1:
+        return sum(hist["epoch_s"][1:]) / (steps - spe) * 1e3
+    return hist["epoch_s"][0] / steps * 1e3
+
+
+def _error_map_checks(trainer, data, h, w, tag, draws=16):
+    """The error map of a trained run: the share of the rows that the run
+    could draw from (all 48, or the time curriculum's window) that moved
+    away from ones (>= 0.75: an image a step, so 128 steps leave ~7 % of
+    48 rows undrawn), and the share of `draws` steps' rays drawn in the
+    top-decile cells of their image's row (> 0.1, uniform's share) ->
+    (rows moved, share)."""
+    import torch
+    em = trainer.error_map
+    n = trainer.n_allowed_images(trainer.global_step - 1, em.shape[0])
+    moved = float((em[:n] != 1).any(dim=1).float().mean())
+    k = em.shape[1] // 10
+    shares = []
+    for _ in range(draws):
+        trainer.sample_batch(data, h, w)
+        img, ic = trainer._draw
+        row = em[img].reshape(-1)
+        top = torch.zeros_like(row, dtype=torch.bool)
+        top[row.topk(k).indices] = True
+        shares.append(float(top[ic].float().mean()))
+    share = float(np.mean(shares))
+    if not moved >= 0.75:
+        raise AssertionError(f"phase 12 {tag}: {moved:.3f} of the error "
+                             "map's rows moved away from ones")
+    if not share > 0.1:
+        raise AssertionError(f"phase 12 {tag}: {share:.4f} of the rays drawn "
+                             "in the top-decile cells")
+    return moved, share
+
+
+def _option_run(tag, argv, train, dynamic=False, **kw):
+    """One phase-12 training run through the CLI's parser and
+    cli.build_trainer -> (trainer, its device data, K1-K4 launches of the
+    run). Checks that every loss is finite."""
+    import torch
+    from sealdnerf_tpu_torch import main_dnerf
+    from sealdnerf_tpu_torch.cli import base_parser, build_trainer, postprocess
+
+    opt = (main_dnerf.parse_args(argv) if dynamic else
+           postprocess(base_parser().parse_args(argv)))
+    if dynamic:
+        kw["lr_net"] = opt.lr_net
+    trainer, _ = build_trainer(opt, name="ngp", dynamic=dynamic, **kw)
+    seen = {}
+    device_data = trainer._device_data
+    trainer._device_data = lambda ds: seen.setdefault("data",
+                                                      device_data(ds))
+    fns = _kernel_launches()
+    before = [fn.launches for fn in fns]
+    trainer.train(train, None, int(np.ceil(opt.iters / len(train))))
+    torch.cuda.synchronize()
+    launched = [fn.launches - b for fn, b in zip(fns, before)]
+    losses = np.asarray(trainer.history["loss"])
+    if len(losses) != opt.iters or not np.isfinite(losses).all():
+        raise AssertionError(f"phase 12 {tag}: {len(losses)} losses, "
+                             f"finite: {np.isfinite(losses).all()}")
+    return trainer, seen["data"], launched
+
+
+def phase_cli_options():
+    """Phase 12: the main CLIs' training and export options at full width.
+    Returns the K1-K4 launches over the phase."""
+    import torch
+    from sealdnerf_tpu_torch import main_dnerf
+    from sealdnerf_tpu_torch.cli import (base_parser, build_trainer,
+                                         load_datasets, postprocess)
+    from sealdnerf_tpu_torch.train.metrics import LPIPSMeter, PSNRMeter
+
+    fns = _kernel_launches()
+    for fn in fns:
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    ws = os.path.join(REPO, "workspace", "chip_smoke_options")
+    base = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--iters",
+            str(OPTION_STEPS), "--ckpt", "scratch", "--synthetic_res", "800"]
+    t0 = time.perf_counter()
+    # --error_map gives the training split its map of ones
+    train, val, _ = load_datasets(postprocess(base_parser().parse_args(
+        base + ["--error_map"])))
+    data_s = time.perf_counter() - t0
+    h, w = train.h, train.w
+    ref5 = STEP_MS.get("5", float("nan"))
+    rows, psnrs = [], {}
+    for tag, flags in (("preloaded", []), ("--error_map", ["--error_map"]),
+                       ("--patch_size 8", ["--patch_size", "8"]),
+                       ("--no_preload", ["--no_preload"])):
+        trainer, data, launched = _option_run(
+            tag, base + ["--workspace", os.path.join(ws, tag.strip("-"))]
+            + flags, train)
+        ms = _option_ms(trainer, OPTION_STEPS)
+        note = ""
+        if tag == "--error_map":
+            moved, share = _error_map_checks(trainer, data, h, w, tag)
+            note = (f"; map rows moved {moved:.3f}, rays in top-decile "
+                    f"cells {share:.4f}")
+        elif tag == "--patch_size 8":
+            batch = trainer.sample_batch(data, h, w)
+            with torch.no_grad():
+                loss, _ = trainer.loss_on(*batch)
+            term = float(loss) - float(trainer._loss_per_ray.mean())
+            n_rays = trainer.opt.num_rays
+            if not (batch[0].shape[0] == n_rays and term > 0):
+                raise AssertionError(f"phase 12 {tag}: {batch[0].shape[0]} "
+                                     f"rays, patch term {term}")
+            note = (f"; {n_rays // 64} patches a step, patch term "
+                    f"{term:.3e}")
+        elif tag == "--no_preload":
+            imgs = data["host_images"]
+            if "images" in data or imgs.device.type != "cpu" or \
+                    not imgs.is_pinned():
+                raise AssertionError(f"phase 12 {tag}: images not in pinned "
+                                     f"host memory: {imgs.device}, "
+                                     f"{sorted(data)}")
+            note = "; images in pinned host memory"
+        if tag in ("preloaded", "--no_preload"):
+            psnrs[tag] = trainer.evaluate(val)
+            note += f"; val PSNR {psnrs[tag]:.3f} dB"
+        rows.append(f"{tag}: {ms:.3f} ms/step (phase 5 {ref5:.3f}), "
+                    f"launches K1-K4 {launched}{note}")
+        del trainer, data
+        torch.cuda.empty_cache()
+    if not abs(psnrs["--no_preload"] - psnrs["preloaded"]) <= 1.0:
+        raise AssertionError(f"phase 12: --no_preload's val PSNR "
+                             f"{psnrs['--no_preload']:.3f} not within 1 dB "
+                             f"of the preloaded run's "
+                             f"{psnrs['preloaded']:.3f}")
+    # main_nerf --backbone ngp --error_map
+    ngp = ["synthetic", "-O", "--backbone", "ngp", "--error_map", "--iters",
+           str(OPTION_STEPS_SHORT), "--ckpt", "scratch", "--synthetic_res",
+           "800", "--workspace", os.path.join(ws, "ngp")]
+    trainer, data, launched = _option_run("ngp --error_map", ngp, train)
+    moved, share = _error_map_checks(trainer, data, h, w, "ngp")
+    rows.append(f"--backbone ngp --error_map: "
+                f"{_option_ms(trainer, OPTION_STEPS_SHORT):.3f} ms/step "
+                f"(phase 10 {STEP_MS.get('10', float('nan')):.3f}), launches "
+                f"K1-K4 {launched}; map rows moved {moved:.3f}, rays in "
+                f"top-decile cells {share:.4f}")
+    del trainer, data, train
+    torch.cuda.empty_cache()
+    # main_dnerf -O --bound 1 --error_map: K3 and K4
+    dyn = base[:7] + [str(OPTION_STEPS_SHORT)] + base[8:] + [
+        "--error_map", "--workspace", os.path.join(ws, "dyn")]
+    t0 = time.perf_counter()
+    dtrain, _, _ = load_datasets(main_dnerf.parse_args(dyn), with_time=True)
+    data_s += time.perf_counter() - t0
+    trainer, data, launched = _option_run("dnerf --error_map", dyn, dtrain,
+                                          dynamic=True)
+    if not (launched[2] > 0 and launched[3] == OPTION_STEPS_SHORT):
+        raise AssertionError(f"phase 12 dnerf --error_map: launches K1-K4 "
+                             f"{launched}")
+    moved, share = _error_map_checks(trainer, data, h, w, "dnerf")
+    rows.append(f"main_dnerf --bound 1 --error_map: "
+                f"{_option_ms(trainer, OPTION_STEPS_SHORT):.3f} ms/step "
+                f"(phase 7 {STEP_MS.get('7', float('nan')):.3f}), launches "
+                f"K1-K4 {launched}; map rows moved {moved:.3f}, rays in "
+                f"top-decile cells {share:.4f}")
+    del trainer, data, dtrain
+    torch.cuda.empty_cache()
+    # phase 5's trained field, served as main_nerf --test serves it: the
+    # test frames with the mp4 when an encoder imports, then the mesh
+    opt = postprocess(base_parser().parse_args(
+        ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--test",
+         "--synthetic_res", "800", "--workspace",
+         os.path.join(REPO, "workspace", "chip_smoke_train")]))
+    trainer, _ = build_trainer(opt, name="ngp",
+                               metrics=[PSNRMeter(), LPIPSMeter()])
+    if trainer.global_step != TRAIN_STEPS:
+        raise AssertionError(f"phase 12: phase 5's checkpoint is at step "
+                             f"{trainer.global_step}")
+    before = [fn.launches for fn in fns]
+    t0 = time.perf_counter()
+    video = trainer.test(val, save_path=os.path.join(ws, "results"),
+                         write_video=True)
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    frames = [f for f in os.listdir(os.path.join(ws, "results"))
+              if f.endswith(".png")]
+    if len(frames) != len(val):
+        raise AssertionError(f"phase 12: test frames written: {frames}")
+    path, verts, tris = trainer.save_mesh(resolution=256, threshold=10)
+    launched = [fn.launches - b for fn, b in zip(fns, before)]
+    if not len(tris) > 0 or launched[0] < 1:
+        raise AssertionError(f"phase 12: mesh of {len(tris)} triangles, "
+                             f"launches K1-K4 {launched}")
+    sec = trainer.mesh_seconds
+    rows.append(f"test (6 val views at 800x800) {test_s:.2f} s: "
+                + (f"mp4 {os.path.basename(video)}" if video else
+                   "no encoder importable, PNG frames only")
+                + f"; save_mesh(256, 10) {len(verts)} verts {len(tris)} tris"
+                f", sweep {sec['sweep']:.3f} s, tetrahedra "
+                f"{sec['tetrahedra']:.3f} s; launches K1-K4 {launched}")
+    del trainer
+    torch.cuda.empty_cache()
+    launches = [fn.launches for fn in fns]
+    print(f"phase 12 main-CLI options on {_card()} ("
+          f"{time.perf_counter() - t_phase:.2f} s, data {data_s:.2f} s): "
+          + "; ".join(rows) + f"; launches over the phase K1-K4 {launches}",
+          flush=True)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ckpt", default=None,
@@ -2309,6 +2553,7 @@ def main():
                    NGP_EDIT_EPOCHS)
     phase_ngp_edit(False, os.path.join(REPO, "workspace", "chip_smoke_ngp"),
                    NGP_EDIT_EPOCHS_STATIC)
+    k_opts = phase_cli_options()
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -2316,20 +2561,20 @@ def main():
         "source": "sealdnerf_tpu_torch/ops/csrc/field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:185",
         "launches": served["launches"] + k1_train + k1_frames + k1_edit
-        + k1_b2, **rec}, {
+        + k1_b2 + k_opts[0], **rec}, {
         "name": "field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:574",
-        "launches": k2_train + k2_edit + k2_b2, **rec_bwd}, {
+        "launches": k2_train + k2_edit + k2_b2 + k_opts[1], **rec_bwd}, {
         "name": "dyn_field_fwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:200",
-        "launches": k3_served + k3_train + k3_frames + k3_edit,
-        **rec_dyn}, {
+        "launches": k3_served + k3_train + k3_frames + k3_edit
+        + k_opts[2], **rec_dyn}, {
         "name": "dyn_field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:805",
-        "launches": k4_train + k4_edit, **rec_dbwd}]}))
+        "launches": k4_train + k4_edit + k_opts[3], **rec_dbwd}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

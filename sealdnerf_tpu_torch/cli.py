@@ -5,12 +5,13 @@ sealdnerf_tpu/cli.py).
 Flags of parts that are not ported yet parse but nothing reads them;
 `build_trainer` routes the recipes as the reference does (the CP field and
 FastTrainer where the recipe allows it, else the Instant-NGP or D-NeRF field
-and Trainer), and the trainers raise for training options that are not
-ported (--error_map, --patch_size > 1, --no_preload, --clip_text).
+and Trainer), and the trainers raise for the training option that is not
+ported (--clip_text).
 """
 
 import argparse
 
+import numpy as np
 import torch
 
 from .train.trainer import TrainOptions
@@ -79,7 +80,8 @@ def base_parser(default_bound=2.0, default_lr=1e-2, default_iters=30000,
     parser.add_argument("--fovy", type=float, default=50)
     parser.add_argument("--max_spp", type=int, default=64)
     # experimental
-    parser.add_argument("--error_map", action="store_true")
+    parser.add_argument("--error_map", action="store_true",
+                        help="sample pixels by a per-image error map")
     parser.add_argument("--clip_text", type=str, default="")
     parser.add_argument("--rand_pose", type=int, default=-1)
     parser.add_argument("--tv_weight", type=float, default=0.0,
@@ -163,12 +165,20 @@ def to_train_options(opt, name="ngp", **overrides) -> TrainOptions:
 
 
 def load_datasets(opt, with_time=False):
-    """Returns (train, val, test) NeRFDatasets; `synthetic` is procedural."""
+    """Returns (train, val, test) NeRFDatasets; `synthetic` is procedural.
+    With --error_map the training split carries an error map of ones, as
+    NeRFDataset.load gives one to a training split."""
+    import dataclasses
+
     from .data.provider import NeRFDataset
+    from .data.rays import ERROR_MAP_RES
     from .data.synthetic import make_synthetic_scene
     if opt.path.startswith("synthetic"):
         _, train, val = make_synthetic_scene(
             n_train=48, n_val=6, res=opt.synthetic_res, dynamic=with_time)
+        if opt.error_map:
+            train = dataclasses.replace(train, error_map=np.ones(
+                (len(train), ERROR_MAP_RES ** 2), np.float32))
         return train, val, val
     train = NeRFDataset.load(opt.path, "train", downscale=opt.downscale,
                              scale=opt.scale, offset=tuple(opt.offset),

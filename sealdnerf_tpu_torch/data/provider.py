@@ -70,25 +70,32 @@ class NeRFDataset:
     def __len__(self):
         return self.poses.shape[0]
 
-    def device(self, torch_device):
-        """Put the training data on `torch_device` once: images as
-        [n, h*w, c] f32, poses [n, 4, 4], intrinsics [4] and, for a dynamic
-        set, times [n]. This is the reference's preload mode; its host-resident batches (--no_preload)
-        are not ported."""
+    def device(self, torch_device, preload: bool = True):
+        """The training data for `torch_device`: poses [n, 4, 4],
+        intrinsics [4] and, for a dynamic set, times [n] on the device, and
+        the images as [n, h*w, c] f32: with preload (the reference's preload
+        mode) on the device as "images"; with preload=False (--no_preload)
+        kept on the host as "host_images", pinned when the device is a CUDA
+        one, and no "images" entry goes to the device (host_pixels gathers a
+        step's pixels)."""
         import torch
         if self.images is None:
             raise ValueError("the dataset has no images to train on")
         n = len(self)
+        images = torch.as_tensor(np.ascontiguousarray(
+            self.images, dtype=np.float32).reshape(n, self.h * self.w, -1))
         out = {
-            "images": torch.as_tensor(
-                np.ascontiguousarray(self.images, dtype=np.float32).reshape(
-                    n, self.h * self.w, -1), device=torch_device),
             "poses": torch.as_tensor(self.poses, dtype=torch.float32,
                                      device=torch_device),
             "intrinsics": torch.as_tensor(self.intrinsics,
                                           dtype=torch.float32,
                                           device=torch_device),
         }
+        if preload:
+            out["images"] = images.to(torch_device)
+        else:
+            pin = torch.device(torch_device).type == "cuda"
+            out["host_images"] = images.pin_memory() if pin else images
         if self.times is not None:
             out["times"] = torch.as_tensor(self.times, dtype=torch.float32,
                                            device=torch_device)
@@ -219,3 +226,17 @@ class NeRFDataset:
 
         return cls(poses=poses, images=images, intrinsics=intrinsics, h=h,
                    w=w, times=times_arr, error_map=emap, mode=mode)
+
+
+def host_pixels(host_images, img: int, inds, device):
+    """Gather one step's pixels on the host and send them to `device`:
+    host_images [n, h*w, c] (NeRFDataset.device with preload=False), image
+    img, flat pixel indices inds [N] (int64, on the host) -> the pixels
+    [N, c] f32 on `device`. On a CUDA device the gather lands in pinned
+    memory and the copy is asynchronous."""
+    import torch
+    pin = torch.device(device).type == "cuda"
+    pix = torch.empty((inds.shape[0], host_images.shape[-1]),
+                      dtype=torch.float32, pin_memory=pin)
+    torch.index_select(host_images[img], 0, inds, out=pix)
+    return pix.to(device, non_blocking=True)

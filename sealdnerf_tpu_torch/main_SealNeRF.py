@@ -20,15 +20,17 @@ images); --secondary_teacher_workspace answers the edited samples with a
 second model.
 
 A CP field takes the teacher checkpoint's shapes; --planes other than
-'auto' must agree with them. Not ported: the GUI, and LPIPS, whose
-network weights would have to be downloaded (PSNR only).
+'auto' must agree with them. The meters are PSNR and LPIPS (available only
+where the lpips package and its weights are on the disk; nothing is
+downloaded). The frames go to PNG, and to an mp4 when an encoder is
+installed. Not ported: the GUI.
 """
 
 import numpy as np
 
 from .cli import base_parser, build_edit_trainers, load_datasets, postprocess
 from .main_seald import max_epochs
-from .train.metrics import PSNRMeter
+from .train.metrics import LPIPSMeter, PSNRMeter
 
 
 def build_parser():
@@ -80,7 +82,7 @@ def main(argv=None):
         raise SystemExit("the GUI is not yet ported")
     print(opt)
     _, trainer, mapper = build_edit_trainers(
-        opt, dynamic=False, metrics=[PSNRMeter()],
+        opt, dynamic=False, metrics=[PSNRMeter(), LPIPSMeter()],
         eval_interval=opt.eval_interval)
     train, val, test = load_datasets(opt)
     if opt.custom_pose:
@@ -96,7 +98,7 @@ def main(argv=None):
             intrinsics=train.intrinsics, center=center,
             radius=min(max(radius, 0.5), 2.0 * opt.bound), seed=opt.seed)
     if opt.test:
-        trainer.test(test)
+        trainer.test(test, write_video=True)
         return trainer
     trainer.init_pretraining(
         epochs=opt.pretraining_epochs,
@@ -109,9 +111,7 @@ def main(argv=None):
         global_point_step=opt.pretraining_global_point_step,
         global_angle_step=opt.pretraining_global_angle_step)
     trainer.train(train, val, max_epochs(opt, len(train)))
-    trainer.test(test)
-    trainer.log("[INFO] LPIPS is not ported (its network weights would "
-                "have to be downloaded); PSNR only")
+    trainer.test(test, write_video=True)
     return trainer
 
 

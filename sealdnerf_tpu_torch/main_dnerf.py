@@ -16,9 +16,10 @@ Training (the default): ceil(iters / n_train) epochs of the trainer's train()
 images, each at its own time, and the rendered frames as PNG.
 
 Serving (--test): rebuilds every time bin of the occupancy grid when the
-checkpoint has none, evaluates and writes the frames.
+checkpoint has none, evaluates and writes the frames. The frames go to PNG,
+and to an mp4 when an encoder is installed.
 
-Not ported yet: the GUI and the mp4 export.
+Not ported yet: the GUI.
 """
 
 import math
@@ -78,8 +79,7 @@ def main(argv=None):
         trainer.rebuild_grid()
     if test.images is not None:
         trainer.evaluate(test)
-    trainer.test(test)
-    trainer.log("[INFO] mp4 export is not yet ported; frames saved as PNG")
+    trainer.test(test, write_video=True)
     return trainer
 
 

@@ -12,23 +12,28 @@ background sphere) through Trainer's packed march instead, as the
 reference routes them.
 
 Training (no --test): builds the trainer (seeded init, or the checkpoint
-that --ckpt selects), trains ceil(iters / n_train) epochs, evaluates PSNR on
-the val views as it goes and on the test views at the end, and writes the
-test frames as PNG. Frames of a trained field (occupancy below 15 %) come
-from the bucketed renderer.
+that --ckpt selects), trains ceil(iters / n_train) epochs, evaluates PSNR
+(and LPIPS where its weights are on the disk) on the val views as it goes
+and on the test views at the end, writes the test frames as PNG (and an mp4
+when an encoder is installed) and the density's iso-surface as a PLY mesh
+(save_mesh on a 256^3 grid at density 10, as the reference). Frames of a
+trained field (occupancy below 15 %) come from the bucketed renderer.
+--error_map, --patch_size and --no_preload select the trainers' sampling.
 
 Serving (--test): loads the checkpoint (or starts from the seeded init with
 --ckpt scratch), rebuilds the occupancy grid when the checkpoint has none,
-evaluates PSNR on the test views when they have images, and writes the
-rendered frames as PNG.
+evaluates the test views when they have images, and writes the frames and
+the mesh.
 
-Not ported yet: the GUI, mesh export and LPIPS.
+Not ported yet: the GUI.
 """
 
 import numpy as np
 
 from .cli import base_parser, postprocess, load_datasets, build_trainer
-from .train.metrics import PSNRMeter
+from .train.metrics import LPIPSMeter, PSNRMeter
+
+MESH_RESOLUTION, MESH_THRESHOLD = 256, 10.0    # the reference's save_mesh
 
 
 def main(argv=None):
@@ -37,7 +42,8 @@ def main(argv=None):
     if opt.gui:
         raise SystemExit("the GUI is not yet ported")
     print(opt)
-    trainer, _ = build_trainer(opt, name="ngp", metrics=[PSNRMeter()])
+    trainer, _ = build_trainer(opt, name="ngp",
+                               metrics=[PSNRMeter(), LPIPSMeter()])
     train, val, test = load_datasets(opt)
     if not opt.test:
         trainer.train(train, val, int(np.ceil(opt.iters / len(train))))
@@ -48,10 +54,8 @@ def main(argv=None):
         trainer.rebuild_grid()
     if test.images is not None:
         trainer.evaluate(test)
-    trainer.test(test)
-    if not opt.test:
-        trainer.log("[INFO] mesh export (save_mesh) is not yet ported; "
-                    "skipped")
+    trainer.test(test, write_video=True)
+    trainer.save_mesh(resolution=MESH_RESOLUTION, threshold=MESH_THRESHOLD)
     return trainer
 
 

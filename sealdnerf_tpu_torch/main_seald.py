@@ -16,8 +16,8 @@ its occupancy grid. The edit of --seal_config is pinned to --time_frame:
 the teacher renders every view at that time, the student pretrains on the
 teacher's point queries there and then distils on the proxied views, with
 its deform tower frozen. Then the test views are rendered (each at its own
-time) and written as PNG. --test only renders the test views of the
-student as built.
+time) and written as PNG, and as an mp4 when an encoder is installed.
+--test only renders the test views of the student as built.
 
 Two faults of the reference are pinned. A CP field takes the teacher
 checkpoint's shapes, and --planes other than 'auto' must agree with them
@@ -26,7 +26,7 @@ defaults follow the backbone as main_dnerf's do: 1e-2 (tables) and 1e-3
 (MLPs) for the CP field (the reference keeps its hash backbone's 5e-4 and
 5e-5 for every backbone, at which a CP student does not reach the edit in
 hundreds of steps), the reference's 5e-4 and 5e-5 for the D-NeRF field.
-Not ported yet: the GUI and the mp4 export.
+Not ported yet: the GUI.
 """
 
 import numpy as np
@@ -96,7 +96,7 @@ def main(argv=None):
         eval_interval=opt.eval_interval)
     train, val, test = load_datasets(opt, with_time=True)
     if opt.test:
-        trainer.test(test)
+        trainer.test(test, write_video=True)
         return trainer
     if mapper is not None:
         trainer.init_pretraining(
@@ -107,8 +107,7 @@ def main(argv=None):
             global_point_step=opt.pretraining_global_point_step)
     trainer.train(train, val, max_epochs(opt, len(train)),
                   time_frame=opt.time_frame)
-    trainer.test(test)
-    trainer.log("[INFO] mp4 export is not yet ported; frames saved as PNG")
+    trainer.test(test, write_video=True)
     return trainer
 
 

@@ -59,9 +59,14 @@ brought to march resolution: the grid refresh, the start of train() and
 render_image), `_param_groups` (the leaves that the optimizer steps and their
 rates) and `adopt_grid_state` (a grid state taken over from another trainer).
 
-Not ported yet: error-map and patch sampling, host-resident images
-(preload=False) and train_gui. Time-conditioned fields serve and train at
-bound <= 1 only, as in the reference.
+The main CLIs' training options (Trainer's sampling and loss): the error
+map and its update, p x p patches with the patch term, and, unlike Trainer,
+host-resident images (preload=False): the images stay in pinned host memory,
+and each step gathers only its drawn pixels there and copies them
+asynchronously (patches are refused there, as in the reference); the draws
+are those of a preloaded run of the same seed. train_gui runs steps for the
+GUI. Time-conditioned fields serve and train at bound <= 1 only, as in the
+reference.
 """
 
 from typing import Optional
@@ -81,11 +86,10 @@ from ..render.dynamic_grid import (rebuild_dyn_density_grid,
                                    time_slice_index)
 from ..render.fast_image import render_image_bucketed, render_image_tiled
 from ..render.grid import refresh_indices, update_density_grid
-from .trainer import Trainer, cascades_for
+from .trainer import GUI_DOWNSCALES, Trainer, cascades_for
 
 N_ZERO_REG = 1024      # points of the deform regulariser per step
 BUCKET_OCC = 0.15      # occupied share of the grid below which frames bucket
-GUI_DOWNSCALES = (1, 2, 4, 8)
 
 
 class FastTrainer(Trainer):
@@ -440,7 +444,7 @@ class FastTrainer(Trainer):
                            self.march_cfg, fwd, bg_color=bg,
                            noise=noise, density_scale=self.opt.density_scale,
                            t_thresh=self.opt.t_thresh, extra=extra)
-        loss = torch.mean((res["image"] - gt) ** 2)
+        loss = self._image_loss(res["image"], gt)
         if self.time_conditioned and x_reg is not None and \
                 self.opt.deform_zero_reg > 0:
             h0 = self.field.deform_raw(params, x_reg, 0.0)
@@ -462,6 +466,7 @@ class FastTrainer(Trainer):
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.apply_gradients()
+        self._update_error_map()
         self.global_step += 1
         return loss.detach(), n_samples
 
@@ -488,10 +493,12 @@ class FastTrainer(Trainer):
         import dataclasses
         order = np.argsort(train_dataset.times, kind="stable")
         self._time_sorted = True
+        emap = train_dataset.error_map
         return dataclasses.replace(
             train_dataset, poses=train_dataset.poses[order],
             images=train_dataset.images[order],
-            times=train_dataset.times[order])
+            times=train_dataset.times[order],
+            error_map=None if emap is None else emap[order])
 
     def _prepare_train(self, train_dataset):
         """A time-conditioned field first resolves and switches on the time
@@ -505,6 +512,20 @@ class FastTrainer(Trainer):
                 train_dataset = self.enable_time_curriculum(train_dataset)
         self._occ_m = self._march_occ()
         return train_dataset
+
+    def _device_data(self, train_dataset):
+        """The training data: on the device, or with preload=False the
+        images kept on the host (NeRFDataset.device), which patches do not
+        support."""
+        if not self.opt.preload and self.opt.patch_size > 1:
+            raise ValueError("preload=False does not support patch "
+                             "sampling (--patch_size > 1)")
+        return train_dataset.device(self.device, preload=self.opt.preload)
+
+    def _ready_for_steps(self, data):
+        super()._ready_for_steps(data)
+        if self._occ_m is None:
+            self._occ_m = self._march_occ()
 
     # -------------------------------------------------------- rendering
     def _pick_tile(self, rh: int, rw: int) -> int:

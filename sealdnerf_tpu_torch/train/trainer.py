@@ -33,9 +33,21 @@ time bins of a dynamic grid (here every bin), and a slim checkpoint (no
 density grid) does not load into its dynamic trainer (here it does, and the
 grid of every bin is rebuilt).
 
-Not ported: error-map and patch sampling, host-resident images
-(preload=False), CCNeRF's rank losses (k_rank_fracs), CLIP guidance
-(clip_text), the GUI's train and render calls, and save_mesh.
+Training options of the main CLIs:
+- error_map: pixels are drawn by a per-image [n, 128 * 128] error map that
+  lives on the device (ones at the start), and after each step the drawn
+  cells of the step's image are set to 0.1 x old + 0.9 x the rays' MSE
+  (update_error_map);
+- patch_size > 1: num_rays // p^2 random p x p patches, and the structural
+  term patch_criterion (1e-3 x mean(1 - SSIM) per patch) on the loss;
+- preload=False: the reference's Trainer warns and preloads, and so does
+  this one (FastTrainer keeps the images on the host).
+Export: test() writes PNG frames and, when an encoder can be imported, an
+mp4; save_mesh() writes the density's iso-surface as PLY. The GUI's calls:
+train_gui() and test_gui().
+
+Not ported: CCNeRF's rank losses (k_rank_fracs) and CLIP guidance
+(clip_text).
 """
 
 import math
@@ -47,7 +59,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..data.rays import get_rays
+from ..data.provider import host_pixels
+from ..data.rays import ERROR_MAP_RES, get_rays
 from ..models.api import check_params
 from ..models.dnerf import DNeRFConfig
 from ..models.ngp import NGPConfig
@@ -65,6 +78,7 @@ from ..utils.png import write_png
 from .checkpoint import (load_checkpoint, prune_checkpoints,
                          resolve_checkpoint, save_checkpoint)
 from .metrics import PSNRMeter
+from .patch_loss import patch_criterion
 
 
 @dataclass
@@ -97,10 +111,10 @@ class TrainOptions:
     eval_interval: int = 50          # epochs between evaluations
     segment_steps: int = 128         # floor of the steps of an epoch
     max_keep_ckpt: int = 2
+    error_map: bool = False          # sample pixels by the error map
+    patch_size: int = 1              # > 1: p x p patches, the patch term
+    preload: bool = True             # False: images stay on the host
     # not ported yet: the trainers raise when they are on
-    error_map: bool = False
-    patch_size: int = 1
-    preload: bool = True
     k_rank_fracs: Tuple[float, ...] = ()
     clip_text: str = ""
     bound: float = 1.0
@@ -157,6 +171,21 @@ def cascades_for(bound: float) -> int:
 
 DENSITY_CHUNK = 1 << 20    # points of one density query of a grid refresh
 BUDGET_BUCKETS = (8, 12, 16, 24, 32)
+GUI_DOWNSCALES = (1, 2, 4, 8)
+VIDEO_FPS = 25
+
+
+def update_error_map(emap, img_idx, inds_coarse, err):
+    """The error map's update after a step, in place: row img_idx (a [1]
+    tensor) of emap [n, 128 * 128] at the step's cells inds_coarse [N] is
+    set to 0.1 x its old value + 0.9 x err [N], the rays' MSE (the
+    reference's direction). Where a cell was drawn more than once, which
+    ray's value lands is unspecified, as in the reference's scatter.
+    Returns emap."""
+    rows = img_idx.reshape(1).expand_as(inds_coarse)
+    old = emap[rows, inds_coarse]
+    emap.index_put_((rows, inds_coarse), 0.1 * old + 0.9 * err.to(old.dtype))
+    return emap
 
 
 class Trainer:
@@ -166,13 +195,13 @@ class Trainer:
                  use_checkpoint: str = "latest", device=None,
                  time_conditioned: bool = False):
         self._check_field(field, opt, time_conditioned)
-        for flag, on in (("--error_map", opt.error_map),
-                         ("--patch_size > 1", opt.patch_size > 1),
-                         ("--no_preload", not opt.preload),
-                         ("k_rank_fracs (CCNeRF)", bool(opt.k_rank_fracs)),
-                         ("--clip_text", bool(opt.clip_text))):
+        for flag, on, why in (
+                ("k_rank_fracs", bool(opt.k_rank_fracs),
+                 "its rank-residual loss needs the CCNeRF field"),
+                ("--clip_text", bool(opt.clip_text),
+                 "CLIP guidance needs the CLIP model and local weights")):
             if on:
-                raise NotImplementedError(f"{flag} is not yet ported")
+                raise NotImplementedError(f"{flag} is not yet ported: {why}")
         self.time_conditioned = time_conditioned
         self.name = name
         self.opt = opt
@@ -206,6 +235,9 @@ class Trainer:
                                      self.params)
         self.grid_state = self._init_grid_state()
         self.generator = torch.Generator(self.device).manual_seed(opt.seed)
+        self.error_map = None      # [n, 128 * 128] on the device
+        self._draw = None          # the last step's (image, inds_coarse)
+        self._loss_per_ray = None  # and its rays' MSE
         self._forget_dyn_host_state()
         self.epoch = 0
         self.global_step = 0
@@ -518,19 +550,37 @@ class Trainer:
 
     # --------------------------------------------------------- training
     def sample_batch(self, data, h: int, w: int):
-        """One step's draws: an image, num_rays pixels of it, a background
-        per ray (RGBA images) and per-ray march noise -> (rays_o, rays_d,
-        gt, bg, noise), and for a time-conditioned field also the image's
-        time t (a 0-d tensor on the device)."""
+        """One step's draws: an image, num_rays pixels of it (uniform, p x p
+        patches, or by the error map), a background per ray (RGBA images)
+        and per-ray march noise -> (rays_o, rays_d, gt, bg, noise), and for
+        a time-conditioned field also the image's time t (a 0-d tensor on
+        the device). The image and the error map's cells are kept in
+        self._draw for the error map's update.
+
+        Everything is drawn on the device from the trainer's generator.
+        With host-resident images (data["host_images"], preload=False) the
+        image's index and the pixel indices then come back to the host in
+        one fetch, which waits for the device, and only those pixels are
+        gathered there and copied: the draws are the preloaded run's, so a
+        seed trains the same field either way."""
         g, dev, n = self.generator, self.device, self.opt.num_rays
-        images = data["images"]
-        c = images.shape[-1]
-        img = torch.randint(
-            0, self.n_allowed_images(self.global_step, images.shape[0]), (1,),
-            generator=g, device=dev)
+        n_img = self.n_allowed_images(self.global_step,
+                                      data["poses"].shape[0])
+        img = torch.randint(0, n_img, (1,), generator=g, device=dev)
+        emap = None if self.error_map is None else self.error_map[img]
         rays = get_rays(data["poses"][img], data["intrinsics"], h, w, n,
-                        generator=g)
-        pix = images.reshape(-1, c)[img * (h * w) + rays["inds"][0]]
+                        generator=g, error_map=emap,
+                        patch_size=self.opt.patch_size)
+        inds, ic = rays["inds"][0], rays["inds_coarse"]
+        if "images" in data:
+            c = data["images"].shape[-1]
+            pix = data["images"].reshape(-1, c)[img * (h * w) + inds]
+        else:
+            host = torch.cat([img, inds]).cpu()
+            pix = host_pixels(data["host_images"], int(host[0]), host[1:],
+                              dev)
+            c = pix.shape[-1]
+        self._draw = (img, None if ic is None else ic[0])
         if c == 4:
             bg = torch.rand((pix.shape[0], 3), generator=g, device=dev)
             gt = pix[:, :3] * pix[:, 3:] + bg * (1.0 - pix[:, 3:])
@@ -563,11 +613,27 @@ class Trainer:
                          noise=noise,
                          m_budget=rays_o.shape[0] * self._cur_budget,
                          extra=extra)
-        loss = torch.mean((res["image"] - gt) ** 2)
+        loss = self._image_loss(res["image"], gt)
         if x_tv is not None and self.field.tv_loss is not None:
             loss = loss + self.opt.tv_weight * self.field.tv_loss(params,
                                                                   x_tv)
         return loss, res["n_samples"]
+
+    def _image_loss(self, image, gt):
+        """The photometric loss of a step: the mean over the rays of their
+        MSE over the channels (kept, detached, in self._loss_per_ray for the
+        error map), plus with patch_size > 1 the patch term."""
+        per_ray = torch.mean((image - gt) ** 2, dim=-1)
+        self._loss_per_ray = per_ray.detach()
+        return torch.mean(per_ray) + patch_criterion(image, gt,
+                                                     self.opt.patch_size)
+
+    def _update_error_map(self):
+        """After a step with the error map on: its update at the step's
+        image and cells."""
+        if self.error_map is not None and self._draw[1] is not None:
+            update_error_map(self.error_map, self._draw[0], self._draw[1],
+                             self._loss_per_ray)
 
     def train_step(self, data, h: int, w: int):
         """One training step -> (loss, n_samples) as device tensors."""
@@ -584,6 +650,7 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.apply_gradients()
+        self._update_error_map()
         self.global_step += 1
         self.local_step += 1
         if self.local_step % 16 == 0:
@@ -597,6 +664,31 @@ class Trainer:
         one by time for its curriculum)."""
         return train_dataset
 
+    def _device_data(self, train_dataset):
+        """The training data on the device. preload=False: as the
+        reference's Trainer, warn and preload (FastTrainer keeps the images
+        on the host)."""
+        if not self.opt.preload:
+            self.log("[WARN] preload=False is supported on the fast path "
+                     "(FastTrainer) only; preloading to the device")
+        return train_dataset.device(self.device)
+
+    def _init_error_map(self, n_images: int, error_map=None):
+        """With opt.error_map and no map yet: the map of the training
+        images on the device, from the dataset's (error_map [n, 128 *
+        128]) or ones."""
+        if not self.opt.error_map or self.error_map is not None:
+            return
+        if error_map is None:
+            error_map = np.ones((n_images, ERROR_MAP_RES ** 2), np.float32)
+        self.error_map = torch.as_tensor(np.asarray(error_map, np.float32),
+                                         device=self.device).clone()
+
+    def _ready_for_steps(self, data):
+        """Per-run state that training steps read, set before the first
+        step of train() or train_gui() on the device data `data`."""
+        self._init_error_map(data["poses"].shape[0])
+
     def train(self, train_dataset, valid_dataset=None, max_epochs: int = 1):
         """Epochs of max(n_images, segment_steps) steps until opt.iters;
         evaluation and the best checkpoint every eval_interval epochs, a
@@ -605,7 +697,9 @@ class Trainer:
         train_dataset = self._prepare_train(train_dataset)
         self.mark_untrained_grid(train_dataset.poses,
                                  train_dataset.intrinsics)
-        data = train_dataset.device(self.device)
+        data = self._device_data(train_dataset)
+        self._init_error_map(len(train_dataset), train_dataset.error_map)
+        self._ready_for_steps(data)
         h, w = train_dataset.h, train_dataset.w
         steps_per_epoch = max(len(train_dataset), self.opt.segment_steps)
         last_ckpt = time.perf_counter()
@@ -718,18 +812,98 @@ class Trainer:
     def evaluate(self, dataset, name=None):
         return self.evaluate_one_epoch(dataset, name)
 
-    def test(self, dataset, save_path=None, name=None):
-        """Render every pose of the dataset and save the frames as PNG."""
+    def test(self, dataset, save_path=None, name=None,
+             write_video: bool = True):
+        """Render every pose of the dataset and save the frames as PNG, and
+        with write_video also as {name}_rgb.mp4 at 25 fps when an encoder
+        (imageio with an ffmpeg backend) can be imported; else log that and
+        keep the PNGs. Returns the mp4's path, or None."""
         save_path = save_path or os.path.join(self.workspace, "results")
         name = name or f"{self.name}_ep{self.epoch:04d}"
         os.makedirs(save_path, exist_ok=True)
+        frames = []
         for i in range(len(dataset)):
             img, _ = self.render_image(dataset.poses[i], dataset.intrinsics,
                                        dataset.h, dataset.w,
                                        time=self._time_of(dataset, i))
-            write_png(os.path.join(save_path, f"{name}_{i:04d}_rgb.png"),
-                      (np.clip(img, 0, 1) * 255).astype(np.uint8))
+            u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+            write_png(os.path.join(save_path, f"{name}_{i:04d}_rgb.png"), u8)
+            frames.append(u8)
+        video = None
+        if write_video and frames:
+            video = self._write_video(
+                os.path.join(save_path, f"{name}_rgb.mp4"), frames)
         self.log(f"==> Saved test results to {save_path}")
+        return video
+
+    def _write_video(self, path, frames):
+        """frames as an mp4 at VIDEO_FPS through imageio -> path, or None
+        (logged) when no encoder can be imported or it fails."""
+        try:
+            import imageio
+            imageio.mimwrite(path, np.stack(frames), fps=VIDEO_FPS,
+                             quality=8, macro_block_size=1)
+        except Exception as e:
+            if os.path.exists(path):
+                os.remove(path)
+            self.log(f"[WARN] mp4 export unavailable ({e!r}); frames saved "
+                     "as PNG")
+            return None
+        return path
+
+    # -------------------------------------------------------------- GUI
+    def train_gui(self, data, h: int, w: int, step: int = 16):
+        """`step` training steps for the GUI on data, a dataset's device()
+        dict of h x w images -> {"loss": their mean loss, "lr":
+        current_lr(), "time": seconds}."""
+        t0 = time.perf_counter()
+        self._ready_for_steps(data)
+        losses = [self.train_step(data, h, w)[0] for _ in range(step)]
+        loss = float(torch.stack(losses).mean())
+        return {"loss": loss, "lr": self.current_lr(),
+                "time": time.perf_counter() - t0}
+
+    def test_gui(self, pose, intrinsics, w, h, bg_color=None, spp=1,
+                 downscale=1, time=None, need_depth=True):
+        """A GUI frame -> {"image": f32 [rh, rw, 3], "depth": f32 [rh,
+        rw]}. downscale snaps to the nearest of 1, 2, 4 and 8; the depth is
+        always returned (need_depth is advisory here)."""
+        downscale = min(GUI_DOWNSCALES, key=lambda b: abs(b - downscale))
+        img, depth = self.render_image(pose, intrinsics, h, w,
+                                       bg_color=bg_color,
+                                       downscale=downscale, time=time)
+        return {"image": img, "depth": depth}
+
+    # ------------------------------------------------------------- mesh
+    def save_mesh(self, save_path=None, resolution: int = 256,
+                  threshold: float = 10.0):
+        """The inference field's density on a resolution^3 grid of the
+        bound box (through _density_fn: K1 density-only on a CP field; a
+        time-conditioned field at t = 0), its iso-surface at threshold by
+        marching tetrahedra, written as PLY -> (path, verts, tris). The
+        seconds of the sweep and of the tetrahedra are kept in
+        self.mesh_seconds."""
+        from ..utils.meshing import extract_fields, marching_tetrahedra, \
+            save_ply
+        save_path = save_path or os.path.join(
+            self.workspace, "meshes", f"{self.name}_{self.epoch}.ply")
+        os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+        b = self.opt.bound
+        bmin, bmax = np.full(3, -b), np.full(3, b)
+        fn = self._density_fn(self._infer_params())
+        query = (lambda pts: fn(pts, 0.0)) if self.time_conditioned else fn
+        self._sync()
+        t0 = time.perf_counter()
+        field = extract_fields(bmin, bmax, resolution, query, self.device)
+        t1 = time.perf_counter()
+        verts, tris = marching_tetrahedra(field, threshold, bmin, bmax)
+        t2 = time.perf_counter()
+        save_ply(save_path, verts, tris)
+        self.mesh_seconds = {"sweep": t1 - t0, "tetrahedra": t2 - t1}
+        self.log(f"==> Saved mesh to {save_path} ({len(verts)} verts, "
+                 f"{len(tris)} tris; sweep {t1 - t0:.2f} s, tetrahedra "
+                 f"{t2 - t1:.2f} s)")
+        return save_path, verts, tris
 
     # ------------------------------------------------------ checkpoints
     def save_checkpoint(self, path: Optional[str] = None, full: bool = False,

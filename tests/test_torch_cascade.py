@@ -479,12 +479,15 @@ def test_main_nerf_at_the_cli_defaults_on_the_cpu(tmp_path, monkeypatch):
         main_nerf, "build_trainer",
         lambda opt, **kw: cli.build_trainer(opt, **kw, **NARROW,
                                             segment_steps=16))
+    monkeypatch.setattr(main_nerf, "MESH_RESOLUTION", 32)
     ws = str(tmp_path)
     base = ["synthetic", "-O", "--device", "cpu", "--synthetic_res", "32",
             "--workspace", ws]
     main_nerf.main(base + ["--ckpt", "scratch", "--iters", "16",
                            "--num_rays", "64"])
-    assert len(os.listdir(os.path.join(ws, "results"))) == 6
+    assert len([f for f in os.listdir(os.path.join(ws, "results"))
+                if f.endswith(".png")]) == 6
+    assert os.listdir(os.path.join(ws, "meshes")) == ["ngp_1.ply"]
     log = open(os.path.join(ws, "log_ngp.txt")).read()
     assert "[epoch 1]" in log and "step=48" in log and "PSNR" in log
     main_nerf.main(base + ["--test"])

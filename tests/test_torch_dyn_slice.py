@@ -252,10 +252,13 @@ def test_main_dnerf_serves_on_the_cpu(tmp_path, monkeypatch):
                      "--test", "--device", "cpu", "--ckpt", "scratch",
                      "--synthetic_res", "64", "--workspace", ws])
     frames = sorted(os.listdir(os.path.join(ws, "results")))
-    assert len(frames) == 6 and all(f.endswith("_rgb.png") for f in frames)
+    pngs = [f for f in frames if f.endswith(".png")]
+    assert len(pngs) == 6 and all(f.endswith("_rgb.png") for f in pngs)
     assert len(os.listdir(os.path.join(ws, "validation"))) == 12
     log = open(os.path.join(ws, "log_ngp.txt")).read()
-    assert "PSNR" in log and "mp4 export is not yet ported" in log
+    # the frames go to an mp4 too where an encoder imports
+    assert "PSNR" in log and ("mp4 export unavailable" in log
+                              or frames == pngs + ["ngp_ep0000_rgb.mp4"])
 
 
 def test_what_is_not_ported_raises(trained, port, tmp_path):
@@ -265,12 +268,18 @@ def test_what_is_not_ported_raises(trained, port, tmp_path):
     data = train.device("cpu")
     assert data["times"].dtype == torch.float32
     np.testing.assert_array_equal(data["times"].numpy(), train.times)
-    # dynamic training is ported (tests/test_torch_dyn_train.py); the
-    # training options that are not still raise, for a dynamic scene too
-    for flags in (["--error_map"], ["--patch_size", "2"], ["--no_preload"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            cli.build_trainer(_opt(ws, "--ckpt", "scratch", *flags),
-                              dynamic=True, **NARROW)
+    # dynamic training is ported (tests/test_torch_dyn_train.py), and so
+    # are the main CLIs' sampling options, for a dynamic scene too; the
+    # training option that is not still raises
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.build_trainer(_opt(ws, "--ckpt", "scratch", "--clip_text",
+                               "a red car"), dynamic=True, **NARROW)
+    for flags, (key, want) in ((["--error_map"], ("error_map", True)),
+                               (["--patch_size", "2"], ("patch_size", 2)),
+                               (["--no_preload"], ("preload", False))):
+        tr, _ = cli.build_trainer(_opt(ws, "--ckpt", "scratch", *flags),
+                                  dynamic=True, **NARROW)
+        assert getattr(tr.opt, key) == want and tr.time_conditioned
     with pytest.raises(SystemExit, match="GUI is not yet ported"):
         main_dnerf.main(["synthetic", "--gui", "--test", "--device", "cpu",
                          "--workspace", ws])

@@ -397,7 +397,7 @@ def test_main_edit_end_to_end_on_the_cpu(tmp_path, monkeypatch, teachers,
     if case == "custom_pose":
         argv += ["--custom_pose"]
     st = mod.main(argv)
-    frames = _artefacts(ws)
+    frames = [f for f in _artefacts(ws) if f.endswith(".png")]
     assert len(frames) == 6 and frames[0].endswith("_rgb.png")
     assert st.global_step > 8 and st.epoch == 2
     proxied = st.proxied["train"]
@@ -411,5 +411,6 @@ def test_main_edit_end_to_end_on_the_cpu(tmp_path, monkeypatch, teachers,
         assert len(proxied) == 48
     log = open(os.path.join(ws, "log_ngp.txt")).read()
     assert "proxy_dataset" in log and "[pretrain epoch 1]" in log
-    if dynamic:
-        assert "mp4 export is not yet ported" in log
+    # the frames go to an mp4 too where an encoder imports
+    assert "mp4 export unavailable" in log or any(
+        f.endswith(".mp4") for f in _artefacts(ws))

@@ -314,11 +314,14 @@ def test_main_nerf_ngp_on_the_cpu(tmp_path, monkeypatch):
     ws = str(tmp_path)
     base = ["synthetic", "-O", "--backbone", "ngp", "--device", "cpu",
             "--synthetic_res", "32", "--workspace", ws, "--max_steps", "256"]
+    monkeypatch.setattr(main_nerf, "MESH_RESOLUTION", 32)
     tr = main_nerf.main(base + ["--ckpt", "scratch", "--iters", "16",
                                 "--num_rays", "64"])
     assert type(tr) is Trainer and tr.global_step == 48
     assert tr.march.cascades == 2 and tr.march.dt_gamma == 1 / 128
-    assert len(os.listdir(os.path.join(ws, "results"))) == 6
+    assert len([f for f in os.listdir(os.path.join(ws, "results"))
+                if f.endswith(".png")]) == 6
+    assert os.listdir(os.path.join(ws, "meshes")) == ["ngp_1.ply"]
     assert np.isfinite(tr.history["loss"]).all()
     tr = main_nerf.main(base + ["--test"])
     log = open(os.path.join(ws, "log_ngp.txt")).read()

@@ -157,12 +157,20 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(SystemExit, match="GUI is not yet ported"):
         main(["synthetic", "--gui", "--device", "cpu", "--workspace",
               str(tmp_path)])
-    for flag in (["--error_map"], ["--patch_size", "2"], ["--no_preload"]):
-        opt = postprocess(base_parser().parse_args(
-            ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0",
-             "--device", "cpu", "--workspace", str(tmp_path), *flag]))
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            build_trainer(opt)
+    base = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0",
+            "--device", "cpu", "--workspace", str(tmp_path)]
+    opt = postprocess(base_parser().parse_args(base + ["--clip_text",
+                                                       "a red car"]))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        build_trainer(opt)
+    # the main CLIs' sampling options are ported: they build, and reach the
+    # trainer's options
+    for flag, want in ((["--error_map"], ("error_map", True)),
+                       (["--patch_size", "2"], ("patch_size", 2)),
+                       (["--no_preload"], ("preload", False))):
+        opt = postprocess(base_parser().parse_args(base + flag))
+        tr, _ = build_trainer(opt)
+        assert getattr(tr.opt, want[0]) == want[1], flag
     # the Instant-NGP backbone is ported (--backbone ngp builds Trainer);
     # the CP backbone with a background sphere still exits
     opt = postprocess(base_parser().parse_args(
