@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--ckpt PATH]
+    python3 chip_smoke.py [--ckpt PATH] [--only 13]
 
 Phases (any failure raises and exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit.
@@ -227,10 +227,41 @@ Phases (any failure raises and exits non-zero):
      imports); a mesh of more than 0 triangles through K1. Prints each
      run's ms/step beside phases 5, 7 and 10's, the mesh's seconds split
      into the density sweep and the tetrahedra, and the launches.
+  13. the remaining workloads, at full width: (a) `main_tensoRF.main([...])`
+     at the CLI's defaults (VM, bound 2, resolution 128 -> 300, ranks 16 /
+     48, 27 appearance features, the 3 x 64 colour tower, lr0 2e-2 / lr1
+     1e-3) on phase 9's procedural scene at 800x800, 4096 rays a step; cut:
+     30,000 iterations to 640, its five upsamples at steps 64-320 (the CLI's
+     2000-7000 lie past the cut and the flag appends, so the phase sets the
+     parsed list). Checks: each upsample at its step with the reference's
+     resolutions (152, 180, 213, 253, 300), 640 finite losses, the last 64
+     below the first 64, the val PSNR above the seeded field's, the 6 test
+     frames. (d) on that field, 16 GT-free semantic steps at 128x128 with an
+     injected objective (the image's mean square): its value on 4 fixed views
+     falls and the params move; whether local CLIP weights exist is printed.
+     (b) `main_CCNeRF.main([...])` at its defaults (CP rank 64 at 128, bound
+     1, the K-loss at 0.25 and 0.5: three renders a step), 256 steps: finite
+     losses whose last 64 lie below the first 64, a frame at rank 0.25 that
+     differs from full rank; then `--compose --compose_models WS WS`: 6
+     finite composed 800x800 frames. (c) `main_sdf.main([...])` on the
+     procedural sphere at the CLI's 2^18 points a step and 512^3 export; cut:
+     20 epochs to 2 (200 steps). Checks: epoch 2's mean loss below epoch 1's,
+     a mesh with triangles whose vertices' mean radius lies within 0.05 of
+     the normalised training mesh's. Prints ms/step (the step alone,
+     synchronised, as medians) before the first and after the last upsample,
+     ms per frame, ms/step split into the host's draws and BVH queries and
+     the device's step, and the export's sweep and tetrahedra seconds. K1-K4
+     launch 0 times (plain PyTorch, as the reference's XLA). `--only 13`
+     runs this phase alone after the device check; its functions take the
+     device and the frame size, so that it can be rehearsed on the CPU at a
+     small one.
+The procedural scene of given arguments is made once per run (~13 s at
+800x800) and each later caller gets a copy, so the "data" times after a
+scene's first use are those of the copy.
 The launch counts of the kernels record are read from the main paths'
-runs (phases 4, 5, 5c, 6, 7, 7c, 8, 8b, 9, 9b and 12; 8 and 8b include
-the proxy's launches through render_occ; 10, 10b, 11 and 11b launch none),
-with the counters set to 0 just before each. Each
+runs (phases 4, 5, 5c, 6, 7, 7c, 8, 8b, 9, 9b, 12 and 13; 8 and 8b include
+the proxy's launches through render_occ; 10, 10b, 11, 11b and 13 launch
+none), with the counters set to 0 just before each. Each
 kernel's bound_ms is the least time the card could take for the work of its
 vs-plain phase: the larger of bytes moved over the memory rate and
 operations over the peak rate of their type (PEAK). The line before last is
@@ -294,6 +325,15 @@ NGP_EDIT_LOCAL_STEP = 0.01
 OPTION_STEPS, OPTION_STEPS_SHORT = 256, 128
 # ms/step of phases 5, 7 and 10, printed beside phase 12's runs
 STEP_MS = {}
+# phase 13: main_tensoRF's iterations (cut from 30,000) and the steps of its
+# five upsamples (the CLI's 2000-7000 lie past the cut), main_CCNeRF's steps
+# (cut from 30,000), main_sdf's epochs (cut from 20), and the semantic steps
+# at their render size
+TENSORF_STEPS = 640
+TENSORF_UPSAMPLES = (64, 128, 192, 256, 320)
+CCNERF_STEPS = 256
+SDF_EPOCHS = 2
+SEMANTIC_STEPS, SEMANTIC_RES = 16, 128
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores (the towers' bf16 x
 # bf16 -> f32 products), the FP32 pipe (taps, encodings, activations), HBM3
 PEAK = {"tensor_flops": 989e12, "fp32_flops": 67e12, "bytes": 3.35e12}
@@ -2492,11 +2532,372 @@ def phase_cli_options():
     return launches
 
 
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _pngs(path):
+    return [f for f in os.listdir(path) if f.endswith(".png")]
+
+
+def _patched(obj, name, fn):
+    """Set obj.name = fn -> a function that restores the old value."""
+    old = getattr(obj, name)
+    setattr(obj, name, fn)
+    return lambda: setattr(obj, name, old)
+
+
+def _frame(trainer, val, device, i=0):
+    """View i of val through render_image, warm: (ms, rgb)."""
+    trainer.render_image(val.poses[i], val.intrinsics, val.h, val.w)
+    _sync(device)
+    t0 = time.perf_counter()
+    img, _ = trainer.render_image(val.poses[i], val.intrinsics, val.h, val.w)
+    _sync(device)
+    return (time.perf_counter() - t0) * 1e3, img
+
+
+def phase_tensorf(device="cuda", res=800, extra=()):
+    """Phase 13a: main_tensoRF at the CLI's defaults, cut to TENSORF_STEPS
+    with five upsamples at TENSORF_UPSAMPLES -> (the trainer, val)."""
+    import torch
+    from sealdnerf_tpu_torch import main_tensoRF
+    from sealdnerf_tpu_torch.main_tensoRF import (TensoRFTrainer,
+                                                  upsample_resolutions)
+    from sealdnerf_tpu_torch.models.api import make_tensorf_field
+    from sealdnerf_tpu_torch.models.tensorf import TensoRFConfig
+    from sealdnerf_tpu_torch.train.trainer import Trainer
+
+    ws = os.path.join(REPO, "workspace", "chip_smoke_tensorf")
+    argv = ["synthetic", "--iters", str(TENSORF_STEPS), "--ckpt", "scratch",
+            "--synthetic_res", str(res), "--workspace", ws, "--device",
+            device, *extra]
+    for step in TENSORF_UPSAMPLES:
+        argv += ["--upsample_model_steps", str(step)]
+    defaults = list(main_tensoRF.UPSAMPLE_STEPS)
+    restore = [_patched(main_tensoRF, "UPSAMPLE_STEPS", ())]
+    try:
+        opt = main_tensoRF.build_parser().parse_args(argv)
+        if (opt.bound, opt.lr0, opt.lr1, opt.resolution0, opt.resolution1,
+                opt.cp) != (2.0, 2e-2, 1e-3, 128, 300, False):
+            raise AssertionError(f"phase 13a: not the CLI's defaults: {opt}")
+        print(f"phase 13a cut: {TENSORF_STEPS} of 30,000 iterations, "
+              f"upsamples at {list(TENSORF_UPSAMPLES)} in place of the "
+              f"CLI's {defaults} (the flag appends to those, so the phase "
+              "sets the parsed list itself)", flush=True)
+        train, val, _ = main_tensoRF.load_datasets(opt)
+        cfg = TensoRFConfig(bound=2.0, resolution=128)
+        seeded = Trainer("tensorf", main_tensoRF.to_train_options(
+            opt, name="tensorf", lr=opt.lr0, lr_net=opt.lr1),
+            make_tensorf_field(torch.Generator().manual_seed(opt.seed), cfg,
+                               device), workspace=ws + "_seeded",
+            use_checkpoint="scratch", device=device)
+        seeded.mark_untrained_grid(train.poses, train.intrinsics)
+        seeded.rebuild_grid()
+        psnr0 = seeded.evaluate(val)
+        del seeded
+        steps_ms, ups = [], []
+        gt_step, upsample = TensoRFTrainer.train_step_gt, \
+            TensoRFTrainer.upsample
+
+        def timed_step(self, data, h, w):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = gt_step(self, data, h, w)
+            _sync(device)
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def logged_upsample(self):
+            upsample(self)
+            ups.append((self.global_step, self.field.cfg.resolution))
+        restore += [_patched(TensoRFTrainer, "train_step_gt", timed_step),
+                    _patched(TensoRFTrainer, "upsample", logged_upsample)]
+        _sync(device)
+        t0 = time.perf_counter()
+        trainer = main_tensoRF.main(argv)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        for r in restore[::-1]:
+            r()
+    want = list(zip(TENSORF_UPSAMPLES, upsample_resolutions(128, 300, 5)))
+    losses = np.asarray(trainer.history["loss"])
+    psnr = trainer.stats["results"][-1]
+    frames = _pngs(os.path.join(ws, "results"))
+    frame_ms, img = _frame(trainer, val, device)
+    first, last = TENSORF_UPSAMPLES[0], TENSORF_UPSAMPLES[-1]
+    before = float(np.median(steps_ms[8:first]))
+    after = float(np.median(steps_ms[last + 8:]))
+    print(f"phase 13a main_tensoRF (VM, bound 2, 128 -> 300, ranks 16 / "
+          f"48, app 27) on {_card()}: main {wall:.2f} s wall; "
+          f"{len(losses)} steps x {trainer.opt.num_rays} rays; upsamples "
+          f"(step, res) {ups}; ms/step (median, the step alone) "
+          f"{before:.3f} at 128^3 before the first, {after:.3f} at 300^3 "
+          f"after the last; {sum(trainer.history['epoch_s']):.2f} s in "
+          f"train's epochs; loss first 64 {losses[:64].mean():.6f} last 64 "
+          f"{losses[-64:].mean():.6f}; val PSNR {psnr0:.3f} seeded -> "
+          f"{psnr:.3f} dB; {res}x{res} frame {frame_ms:.1f} ms; "
+          f"{len(frames)} test frames", flush=True)
+    if ups != want or trainer.field.cfg.resolution != 300 or \
+            tuple(trainer.params["app_planes"][0].shape) != (48, 300, 300):
+        raise AssertionError(f"phase 13a: upsamples {ups}, want {want}")
+    if len(losses) != TENSORF_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"phase 13a: {len(losses)} losses, finite "
+                             f"{np.isfinite(losses).all()}")
+    if not losses[-64:].mean() < losses[:64].mean():
+        raise AssertionError("phase 13a: the loss did not fall")
+    if not psnr > psnr0:
+        raise AssertionError(f"phase 13a: val PSNR {psnr:.3f} not above the "
+                             f"seeded field's {psnr0:.3f}")
+    if len(frames) != len(val) or not np.isfinite(img).all():
+        raise AssertionError(f"phase 13a: test frames {frames}")
+    return trainer, val
+
+
+def _semantic_probe(trainer, val, res):
+    """The semantic objective (the image's mean square) on the current
+    params, averaged over 4 fixed orbit views at res x res (radius 1.25,
+    white background): each semantic step draws its own pose, so their
+    losses do not compare from one step to the next."""
+    from sealdnerf_tpu_torch.data.rays import rand_poses
+    intr = np.asarray(val.intrinsics, np.float32) * (res / val.h)
+    intr[2:] = res / 2.0
+    poses = rand_poses(np.random.default_rng(7), 4, radius=1.25)
+    return float(np.mean([(trainer.render_image(
+        p, intr, res, res, bg_color=np.ones(3, np.float32),
+        params=trainer.params)[0] ** 2).mean() for p in poses]))
+
+
+def phase_semantic(trainer, val, device="cuda"):
+    """Phase 13d: SEMANTIC_STEPS GT-free steps on 13a's field at
+    SEMANTIC_RES with an injected objective (the image's mean square)."""
+    from sealdnerf_tpu_torch.models.params import param_leaves
+    from sealdnerf_tpu_torch.train.clip_guidance import CLIPGuidance
+    trainer.opt.clip_res = SEMANTIC_RES
+    trainer.semantic_loss_fn = lambda img: (img ** 2).mean()
+    before = [p.detach().clone() for p in param_leaves(trainer.params)]
+    probe0 = _semantic_probe(trainer, val, SEMANTIC_RES)
+    step0 = trainer.global_step
+    _sync(device)
+    t0 = time.perf_counter()
+    losses = [float(trainer.train_step_semantic(val.intrinsics, val.h))
+              for _ in range(SEMANTIC_STEPS)]
+    ms = (time.perf_counter() - t0) * 1e3 / SEMANTIC_STEPS
+    moved = sum(not bool((a == b).all()) for a, b in
+                zip(before, param_leaves(trainer.params)))
+    probe1 = _semantic_probe(trainer, val, SEMANTIC_RES)
+    clip = CLIPGuidance("a red car", device=device)
+    print(f"phase 13d semantic steps on 13a's field: {SEMANTIC_STEPS} at "
+          f"{SEMANTIC_RES}x{SEMANTIC_RES}, {ms:.3f} ms/step; the steps' "
+          f"losses {losses[0]:.6f} ... {losses[-1]:.6f} (each at its own "
+          f"pose); the objective on 4 fixed views {probe0:.6f} -> "
+          f"{probe1:.6f}; {moved} of {len(before)} leaves moved; local CLIP "
+          f"weights: "
+          f"{'yes' if clip.available else 'no (' + clip.reason + ')'}",
+          flush=True)
+    if not (np.isfinite(losses).all() and probe1 < probe0
+            and moved > 0 and trainer.global_step == step0 + SEMANTIC_STEPS):
+        raise AssertionError(f"phase 13d: losses {losses}, objective "
+                             f"{probe0} -> {probe1}, {moved} leaves moved")
+
+
+def phase_ccnerf(device="cuda", res=800, extra=()):
+    """Phase 13b: main_CCNeRF at its defaults (CP rank 64, the K-loss at
+    0.25 and 0.5) for CCNERF_STEPS, then --compose of the workspace
+    twice."""
+    import copy
+    import functools
+    from sealdnerf_tpu_torch import main_CCNeRF
+    from sealdnerf_tpu_torch.train.trainer import Trainer
+
+    ws = os.path.join(REPO, "workspace", "chip_smoke_ccnerf")
+    argv = ["synthetic", "--iters", str(CCNERF_STEPS), "--ckpt", "scratch",
+            "--synthetic_res", str(res), "--workspace", ws, "--device",
+            device, *extra]
+    opt = main_CCNeRF.build_parser().parse_args(argv)
+    if (opt.bound, opt.rank, opt.rank_fracs) != (1.0, 64, [0.25, 0.5]):
+        raise AssertionError(f"phase 13b: not the CLI's defaults: {opt}")
+    steps_ms = []
+    gt_step = Trainer.train_step_gt
+
+    def timed_step(self, data, h, w):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = gt_step(self, data, h, w)
+        _sync(device)
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    restore = _patched(Trainer, "train_step_gt", timed_step)
+    try:
+        t0 = time.perf_counter()
+        trainer = main_CCNeRF.main(argv)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    losses = np.asarray(trainer.history["loss"])
+    _, _, val = main_CCNeRF.load_datasets(opt)
+    frame_ms, full = _frame(trainer, val, device)
+    field = trainer.field
+    trunc = copy.copy(field)
+    trunc.forward = functools.partial(field.forward_trunc, frac=0.25)
+    trainer.field = trunc
+    img_lo, _ = trainer.render_image(val.poses[0], val.intrinsics, val.h,
+                                     val.w)
+    trainer.field = field
+    trunc_diff = float(np.abs(img_lo - full).mean())
+    del trainer
+    cws = ws + "_compose"
+    t0 = time.perf_counter()
+    viewer = main_CCNeRF.main(["synthetic", "--compose", "--compose_models",
+                               ws, ws, "--synthetic_res", str(res),
+                               "--workspace", cws, "--device", device,
+                               *extra])
+    _sync(device)
+    compose_s = time.perf_counter() - t0
+    frames = _pngs(os.path.join(cws, "compose"))
+    compose_ms, img = _frame(viewer, val, device)
+    occ = float(viewer.grid_state["occ"].float().mean())
+    print(f"phase 13b main_CCNeRF (CP rank 64, K-loss 0.25 / 0.5, bound 1) "
+          f"on {_card()}: main {wall:.2f} s wall; {len(losses)} steps x "
+          f"{opt.num_rays} rays, {float(np.median(steps_ms[8:])):.3f} "
+          f"ms/step (median, the step alone: three renders); loss first 64 "
+          f"{losses[:64].mean():.6f} last 64 {losses[-64:].mean():.6f}; "
+          f"frame {frame_ms:.1f} ms; rank 0.25 vs full: mean |diff| "
+          f"{trunc_diff:.4f}; --compose (the workspace twice) {compose_s:.2f}"
+          f" s, occupancy {occ:.4f}, {len(frames)} frames, {res}x{res} "
+          f"composed frame {compose_ms:.1f} ms", flush=True)
+    if len(losses) != CCNERF_STEPS or not np.isfinite(losses).all() or \
+            not losses[-64:].mean() < losses[:64].mean():
+        raise AssertionError(f"phase 13b: {len(losses)} losses, first 64 "
+                             f"{losses[:64].mean()}, last 64 "
+                             f"{losses[-64:].mean()}")
+    if not (np.isfinite(img_lo).all() and trunc_diff > 1e-3):
+        raise AssertionError(f"phase 13b: the 0.25 truncation's frame: mean "
+                             f"|diff| {trunc_diff}")
+    if len(frames) != len(val) or not np.isfinite(img).all() or \
+            img.shape != (val.h, val.w, 3):
+        raise AssertionError(f"phase 13b: composed frames {frames}")
+
+
+def phase_sdf(device="cuda", extra=()):
+    """Phase 13c: main_sdf synthetic at the CLI's --num_samples and
+    --mesh_resolution, SDF_EPOCHS epochs."""
+    import torch
+    from sealdnerf_tpu_torch import main_sdf
+    from sealdnerf_tpu_torch.data.sdf_provider import SDFDataset
+
+    ws = os.path.join(REPO, "workspace", "chip_smoke_sdf")
+    argv = ["synthetic", "--workspace", ws, "--epochs", str(SDF_EPOCHS),
+            "--device", device, *extra]
+    opt = main_sdf.build_parser().parse_args(argv)
+    if not extra and (opt.num_samples, opt.mesh_resolution) != (2 ** 18,
+                                                                512):
+        raise AssertionError(f"phase 13c: not the CLI's values: {opt}")
+    print(f"phase 13c cut: {SDF_EPOCHS} of 20 epochs", flush=True)
+    t0 = time.perf_counter()
+    fitter, (verts, tris, secs) = main_sdf.main(argv)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    hist = fitter.history
+    n = main_sdf.STEPS_PER_EPOCH
+    loss = np.asarray(hist["loss"])
+    epochs = [float(loss[i * n:(i + 1) * n].mean())
+              for i in range(SDF_EPOCHS)]
+    ds = SDFDataset(os.path.join(ws, "synthetic_sphere.ply"), size=1,
+                    num_samples=opt.num_samples, seed=1)
+    radius = float(np.linalg.norm(ds.verts, axis=-1).mean())
+    got = float(np.linalg.norm(verts, axis=-1).mean()) if len(verts) else 0
+    # the host's work a step, split: the draws and the BVH's queries
+    t0 = time.perf_counter()
+    batch = ds.sample_batch()
+    draw_s = time.perf_counter() - t0
+    half = batch["points"][opt.num_samples // 2:]
+    t0 = time.perf_counter()
+    ds.query(half)
+    bvh_s = time.perf_counter() - t0
+    # the device's step alone, on one batch
+    dev = fitter.params["grid"].device
+    pts = torch.from_numpy(batch["points"]).to(dev)
+    sdfs = torch.from_numpy(batch["sdfs"]).to(dev)
+    fitter.step(pts, sdfs)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(8):
+        fitter.step(pts, sdfs)
+    _sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3 / 8
+    steps = len(loss)
+    print(f"phase 13c main_sdf synthetic ({opt.num_samples} points a step, "
+          f"{opt.mesh_resolution}^3 export) on {_card()}: main {wall:.2f} s "
+          f"wall; {steps} steps, {sum(hist['epoch_s']) * 1e3 / steps:.3f} "
+          f"ms/step in all, of which the host's draws "
+          f"{sum(hist['draw_s']) * 1e3 / steps:.3f} (one batch apart: "
+          f"{draw_s * 1e3:.3f} ms, the BVH's {len(half)} queries "
+          f"{bvh_s * 1e3:.3f} ms of it); the device's step alone "
+          f"{step_ms:.3f} ms; epoch losses {[round(e, 6) for e in epochs]}; "
+          f"export sweep {secs['sweep']:.2f} s, tetrahedra "
+          f"{secs['tetrahedra']:.2f} s, {len(verts)} verts {len(tris)} "
+          f"tris, mean radius {got:.4f} vs the mesh's {radius:.4f}",
+          flush=True)
+    if not (np.isfinite(loss).all() and epochs[-1] < epochs[0]):
+        raise AssertionError(f"phase 13c: epoch losses {epochs}")
+    if not (len(tris) > 0 and abs(got - radius) <= 0.05):
+        raise AssertionError(f"phase 13c: {len(tris)} triangles, mean radius "
+                             f"{got} vs {radius}")
+
+
+def phase_other_workloads(device="cuda", res=800, extra=None):
+    """Phase 13: main_tensoRF, the semantic step, main_CCNeRF and main_sdf.
+    Returns the K1-K4 launches over the phase (all 0: the workloads are
+    plain PyTorch)."""
+    import torch
+    extra = extra or {}
+    fns = _kernel_launches()
+    for fn in fns:
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    trainer, val = phase_tensorf(device, res, extra.get("tensorf", ()))
+    phase_semantic(trainer, val, device)
+    del trainer
+    torch.cuda.empty_cache()
+    phase_ccnerf(device, res, extra.get("ccnerf", ()))
+    torch.cuda.empty_cache()
+    phase_sdf(device, extra.get("sdf", ()))
+    launches = [fn.launches for fn in fns]
+    print(f"phase 13 other workloads: {time.perf_counter() - t_phase:.2f} s; "
+          f"launches K1-K4 {launches} (plain PyTorch, as the reference's "
+          f"XLA)", flush=True)
+    if any(launches):
+        raise AssertionError(f"phase 13 launched K1-K4: {launches}")
+    return launches
+
+
+def _made_once(fn):
+    """fn with its results kept by its arguments; each call returns a deep
+    copy, so that no caller sees what another changed."""
+    import copy
+    cache = {}
+
+    def made(*a, **kw):
+        key = (a, tuple(sorted(kw.items())))
+        if key not in cache:
+            cache[key] = fn(*a, **kw)
+        return copy.deepcopy(cache[key])
+    return made
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint to serve (default: seeded init)")
+    ap.add_argument("--only", choices=["13"], default=None,
+                    help="run the device check and this phase alone")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -2507,6 +2908,15 @@ def main():
           f"{sys.version.split()[0]}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    # the procedural scene of given arguments is made once (~13 s at
+    # 800x800) and copied to each later caller
+    from sealdnerf_tpu_torch.data import synthetic
+    synthetic.make_synthetic_scene = _made_once(
+        synthetic.make_synthetic_scene)
+    if args.only == "13":
+        phase_other_workloads()
+        return
 
     from sealdnerf_tpu_torch.ops import build
     t0 = time.perf_counter()
@@ -2554,27 +2964,32 @@ def main():
     phase_ngp_edit(False, os.path.join(REPO, "workspace", "chip_smoke_ngp"),
                    NGP_EDIT_EPOCHS_STATIC)
     k_opts = phase_cli_options()
+    k_other = phase_other_workloads()
 
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "field_fwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:185",
         "launches": served["launches"] + k1_train + k1_frames + k1_edit
-        + k1_b2 + k_opts[0], **rec}, {
+        + k1_b2 + k_opts[0] + k_other[0], **rec}, {
         "name": "field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:574",
-        "launches": k2_train + k2_edit + k2_b2 + k_opts[1], **rec_bwd}, {
+        "launches": k2_train + k2_edit + k2_b2 + k_opts[1] + k_other[1],
+        **rec_bwd}, {
         "name": "dyn_field_fwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:200",
         "launches": k3_served + k3_train + k3_frames + k3_edit
-        + k_opts[2], **rec_dyn}, {
+        + k_opts[2] + k_other[2], **rec_dyn}, {
         "name": "dyn_field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:805",
-        "launches": k4_train + k4_edit + k_opts[3], **rec_dbwd}]}))
+        "launches": k4_train + k4_edit + k_opts[3] + k_other[3],
+        **rec_dbwd}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,14 +6,12 @@ the module of the same path there and is held against it by the
 `tests/test_torch_*.py` parity tests. This package imports `torch` and never
 `jax`.
 
-Ported so far: the static CP render path (`main_nerf.py ... --test`),
-training of the same field (`main_nerf.py`), and serving of the
-time-conditioned CP-D-NeRF field (`main_dnerf.py ... --test`): ray
-generation, the dense march, the CP field and its deform tower, compositing,
-the static and the time-binned occupancy grids, the tiled whole-frame
-renderer, checkpoint IO and `FastTrainer`. The Pallas kernels
-`_field_kernel`, `_field_bwd_kernel` and `_dyn_field_kernel` are hand-written
-Hopper kernels (ops/csrc/field_fwd.cu, field_bwd.cu, dyn_field_fwd.cu).
+Ported: every CLI of the reference but the GUI (main_nerf, main_dnerf,
+main_seald, main_SealNeRF, main_tensoRF, main_CCNeRF, main_sdf), on the CP
+fields through the four hand-written Hopper kernels that replace the Pallas
+ones (ops/csrc/field_fwd.cu, field_bwd.cu, dyn_field_fwd.cu,
+dyn_field_bwd.cu), and on the Instant-NGP, D-NeRF, TensoRF and SDF fields in
+plain PyTorch, as the reference computes those in plain XLA.
 """
 
 __version__ = "0.1.0"

@@ -2,11 +2,11 @@
 sealdnerf_tpu/cli.py).
 
 `base_parser` keeps every flag of the reference parser, plus --device.
-Flags of parts that are not ported yet parse but nothing reads them;
-`build_trainer` routes the recipes as the reference does (the CP field and
-FastTrainer where the recipe allows it, else the Instant-NGP or D-NeRF field
-and Trainer), and the trainers raise for the training option that is not
-ported (--clip_text).
+Flags of parts that are not ported yet (--gui) parse, and the CLIs refuse
+them; `build_trainer` routes the recipes as the reference does (the CP field
+and FastTrainer where the recipe allows it, else the Instant-NGP or D-NeRF
+field and Trainer). --clip_text with --rand_pose >= 0 gives the trainers
+CLIP guidance when its weights are on the disk (train/clip_guidance.py).
 """
 
 import argparse
@@ -158,6 +158,7 @@ def to_train_options(opt, name="ngp", **overrides) -> TrainOptions:
         upsample_steps=opt.upsample_steps,
         tv_weight=getattr(opt, "tv_weight", 0.0),
         clip_text=getattr(opt, "clip_text", ""),
+        rand_pose=getattr(opt, "rand_pose", -1),
         time_curriculum_steps=getattr(opt, "time_curriculum_steps", 0),
     )
     kw.update(overrides)

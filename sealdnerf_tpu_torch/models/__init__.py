@@ -1,2 +1,2 @@
-"""Fields of the port: the static CP/VM field (models/cp.py) and its MLP
-towers."""
+"""Fields of the port: the CP/VM fields (models/cp.py), Instant-NGP,
+D-NeRF, TensoRF and the SDF network, their MLP towers and parameter trees."""

@@ -1,5 +1,5 @@
 """The Trainer (port of sealdnerf_tpu/train/trainer.py): the host loop, and
-the reference trainer of the Instant-NGP and D-NeRF fields.
+the reference trainer of the Instant-NGP, D-NeRF and TensoRF fields.
 
 The host loop (FastTrainer in train/fast.py inherits it): the log, the
 optimizer (Adam with betas 0.9/0.99 and eps 1e-15, the schedule lr * 0.1
@@ -9,18 +9,19 @@ max(n_images, segment_steps) steps until opt.iters with evaluation every
 eval_interval epochs, evaluate and test, and checkpoints in the reference's
 .npz format.
 
-The reference trainer, for a models.api Field (NGPConfig, or DNeRFConfig
-with time_conditioned=True). One step refreshes the occupancy grid every
-update_extra_interval steps (a dynamic grid every 16 * 8 / 64 = 2 steps,
-eight of its 64 time bins a call): full sweeps for the first 16 passes, then
-H^3 / 2 random cells, on the current params, and from then on the packed
-budget follows the measured samples per ray (_update_budget). It draws one
-image and num_rays pixels of it, a random background per ray for RGBA
-images and the march's start offsets, renders through render_occ
-(render/renderer.py: the packed march, the field, packed compositing),
-and takes the MSE, plus tv_weight * the hash table's TV energy at num_rays
-random points. Frames are rendered by render_occ in chunks of 4 *
-max_ray_batch rays with a packed budget of eval_samples_per_ray a ray.
+The reference trainer, for a models.api Field (NGPConfig or TensoRFConfig,
+or DNeRFConfig with time_conditioned=True). One step refreshes the
+occupancy grid every update_extra_interval steps (a dynamic grid every 16 *
+8 / 64 = 2 steps, eight of its 64 time bins a call): full sweeps for the
+first 16 passes, then H^3 / 2 random cells, on the current params, and from
+then on the packed budget follows the measured samples per ray
+(_update_budget). It draws one image and num_rays pixels of it, a random
+background per ray for RGBA images and the march's start offsets, renders
+through render_occ (render/renderer.py: the packed march, the field, packed
+compositing), and takes the MSE, plus tv_weight * the hash table's TV
+energy at num_rays random points. Frames are rendered by render_occ in
+chunks of 4 * max_ray_batch rays with a packed budget of
+eval_samples_per_ray a ray.
 
 Editing hooks (overridden by editing/student.py's StudentTrainer):
 `_occ_at` (the occupancy a training ray batch marches: the student forces
@@ -46,10 +47,21 @@ Export: test() writes PNG frames and, when an encoder can be imported, an
 mp4; save_mesh() writes the density's iso-surface as PLY. The GUI's calls:
 train_gui() and test_gui().
 
-Not ported: CCNeRF's rank losses (k_rank_fracs) and CLIP guidance
-(clip_text).
+CCNeRF's rank-residual K-loss (k_rank_fracs, on a field with
+forward_trunc): each truncation level renders the step's rays with the same
+march offsets, and the MSE is (L_full + sum of L_k) / (1 + K).
+
+GT-free semantic steps (--clip_text with --rand_pose >= 0): the CLIP model
+is loaded from local files only (train/clip_guidance.py); without them the
+trainer logs the reference's warning and takes no semantic step. With a
+semantic_loss_fn (CLIP's, or one a caller sets), a step whose index k gives
+rand_pose == 0 or k % (rand_pose + 1) == rand_pose renders a random orbit
+pose at clip_res x clip_res instead (train_step_semantic) and steps both
+Adam groups and the EMA on semantic_loss_fn(image). FastTrainer's loop
+takes no semantic step, as the reference's does not.
 """
 
+import functools
 import math
 import os
 import time
@@ -60,10 +72,11 @@ import numpy as np
 import torch
 
 from ..data.provider import host_pixels
-from ..data.rays import ERROR_MAP_RES, get_rays
+from ..data.rays import ERROR_MAP_RES, get_rays, rand_poses
 from ..models.api import check_params
 from ..models.dnerf import DNeRFConfig
 from ..models.ngp import NGPConfig
+from ..models.tensorf import TensoRFConfig
 from ..models.params import (map_params, param_leaves, params_from_jax,
                              unflatten_like)
 from ..ops.marching import MarchConfig
@@ -114,9 +127,12 @@ class TrainOptions:
     error_map: bool = False          # sample pixels by the error map
     patch_size: int = 1              # > 1: p x p patches, the patch term
     preload: bool = True             # False: images stay on the host
-    # not ported yet: the trainers raise when they are on
+    # CCNeRF's rank-residual K-loss: truncation fractions trained jointly
+    # with the full rank (a field with forward_trunc)
     k_rank_fracs: Tuple[float, ...] = ()
-    clip_text: str = ""
+    clip_text: str = ""              # GT-free CLIP guidance prompt
+    rand_pose: int = -1              # < 0 off; 0 every step; k every k+1th
+    clip_res: int = 128              # the semantic step's render resolution
     bound: float = 1.0
     dt_gamma: float = 1.0 / 128
     min_near: float = 0.2
@@ -195,13 +211,6 @@ class Trainer:
                  use_checkpoint: str = "latest", device=None,
                  time_conditioned: bool = False):
         self._check_field(field, opt, time_conditioned)
-        for flag, on, why in (
-                ("k_rank_fracs", bool(opt.k_rank_fracs),
-                 "its rank-residual loss needs the CCNeRF field"),
-                ("--clip_text", bool(opt.clip_text),
-                 "CLIP guidance needs the CLIP model and local weights")):
-            if on:
-                raise NotImplementedError(f"{flag} is not yet ported: {why}")
         self.time_conditioned = time_conditioned
         self.name = name
         self.opt = opt
@@ -248,6 +257,19 @@ class Trainer:
         self.history = {"loss": [], "n_samples": [], "epoch_s": []}
         os.makedirs(self.workspace, exist_ok=True)
         self.log_path = os.path.join(self.workspace, f"log_{name}.txt")
+        # GT-free semantic guidance: image [H, W, 3] -> scalar,
+        # differentiable; callers may set their own
+        self.semantic_loss_fn = None
+        self._pose_rng = np.random.default_rng(opt.seed)
+        if opt.rand_pose >= 0 and opt.clip_text:
+            from .clip_guidance import CLIPGuidance
+            guide = CLIPGuidance(opt.clip_text, device=self.device)
+            if guide.available:
+                self.semantic_loss_fn = guide.loss_fn
+            else:
+                self.log("[WARN] --clip_text set but CLIP weights are "
+                         "unavailable offline; GT-free semantic steps "
+                         f"disabled ({guide.reason})")
         if use_checkpoint != "scratch":
             path = resolve_checkpoint(self.workspace, name, use_checkpoint)
             if path is not None:
@@ -259,9 +281,9 @@ class Trainer:
 
     # ---------------------------------------------- field-specific set-up
     def _check_field(self, field, opt, time_conditioned: bool):
-        if not isinstance(field.cfg, (NGPConfig, DNeRFConfig)):
-            raise TypeError("Trainer takes an Instant-NGP or D-NeRF field "
-                            "(models/api.py); FastTrainer the CP field")
+        if not isinstance(field.cfg, (NGPConfig, DNeRFConfig, TensoRFConfig)):
+            raise TypeError("Trainer takes an Instant-NGP, D-NeRF or TensoRF "
+                            "field (models/api.py); FastTrainer the CP field")
         if time_conditioned != isinstance(field.cfg, DNeRFConfig):
             raise ValueError("time_conditioned goes with a DNeRFConfig "
                              "field, and only with one")
@@ -607,26 +629,35 @@ class Trainer:
         differentiable in the params."""
         params = self.params if params is None else params
         extra = () if t is None else (t,)
-        res = render_occ(params, self._occ_at(t), rays_o, rays_d,
-                         self.settings, self.field.forward,
-                         self.field.background, bg_color=bg, perturb=True,
-                         noise=noise,
-                         m_budget=rays_o.shape[0] * self._cur_budget,
-                         extra=extra)
-        loss = self._image_loss(res["image"], gt)
+        render = functools.partial(
+            render_occ, params, self._occ_at(t), rays_o, rays_d,
+            self.settings, bg_fn=self.field.background, bg_color=bg,
+            perturb=True, noise=noise,
+            m_budget=rays_o.shape[0] * self._cur_budget, extra=extra)
+        res = render(self.field.forward)
+        # CCNeRF's K-loss: every truncation level on the same samples
+        trunc = getattr(self.field, "forward_trunc", None)
+        levels = [render(functools.partial(trunc, frac=frac))["image"]
+                  for frac in self.opt.k_rank_fracs] if trunc else []
+        loss = self._image_loss(res["image"], gt, levels)
         if x_tv is not None and self.field.tv_loss is not None:
             loss = loss + self.opt.tv_weight * self.field.tv_loss(params,
                                                                   x_tv)
         return loss, res["n_samples"]
 
-    def _image_loss(self, image, gt):
+    def _image_loss(self, image, gt, levels=()):
         """The photometric loss of a step: the mean over the rays of their
         MSE over the channels (kept, detached, in self._loss_per_ray for the
-        error map), plus with patch_size > 1 the patch term."""
+        error map), averaged with the MSE of each truncation level's image
+        in `levels` (CCNeRF's K-loss), plus with patch_size > 1 the patch
+        term."""
         per_ray = torch.mean((image - gt) ** 2, dim=-1)
         self._loss_per_ray = per_ray.detach()
-        return torch.mean(per_ray) + patch_criterion(image, gt,
-                                                     self.opt.patch_size)
+        loss = torch.mean(per_ray)
+        if levels:
+            loss = (loss + sum(torch.mean((im - gt) ** 2) for im in levels)
+                    ) / (1 + len(levels))
+        return loss + patch_criterion(image, gt, self.opt.patch_size)
 
     def _update_error_map(self):
         """After a step with the error map on: its update at the step's
@@ -635,10 +666,29 @@ class Trainer:
             update_error_map(self.error_map, self._draw[0], self._draw[1],
                              self._loss_per_ray)
 
+    def semantic_due(self, step: int) -> bool:
+        """Whether step `step` of the loop is a GT-free semantic step: with
+        a semantic_loss_fn and rand_pose >= 0, every step (rand_pose 0) or
+        every (rand_pose + 1)-th (step % (rand_pose + 1) == rand_pose)."""
+        rp = self.opt.rand_pose
+        return self.semantic_loss_fn is not None and rp >= 0 and \
+            (rp == 0 or step % (rp + 1) == rp)
+
     def train_step(self, data, h: int, w: int):
-        """One training step -> (loss, n_samples) as device tensors."""
+        """One step of the loop -> (loss, n_samples) as device tensors: the
+        grid refresh when it is due, then a semantic step when
+        semantic_due (n_samples 0), else train_step_gt."""
         if self.global_step % self._update_interval() == 0:
             self.update_extra_state()
+        if self.semantic_due(self.global_step):
+            loss = self.train_step_semantic(data["intrinsics"], h)
+            return loss, torch.zeros((), dtype=torch.int64,
+                                     device=self.device)
+        return self.train_step_gt(data, h, w)
+
+    def train_step_gt(self, data, h: int, w: int):
+        """One step on the ground truth: draw the rays, take the loss,
+        Adam, the schedule and the EMA -> (loss, n_samples)."""
         batch = self.sample_batch(data, h, w)
         x_tv = None
         if self.opt.tv_weight > 0 and self.field.tv_loss is not None:
@@ -658,6 +708,36 @@ class Trainer:
             self.mean_count = per_ray if self.mean_count == 0 else \
                 0.8 * self.mean_count + 0.2 * per_ray
         return loss.detach(), n_samples
+
+    def train_step_semantic(self, intrinsics, h: int):
+        """One GT-free step: a random orbit pose (radius U(1, 1.5)) rendered
+        at clip_res x clip_res through render_occ with a white background
+        and no march jitter, on the current occupancy (a time-conditioned
+        field at t = 0), with the intrinsics of an h-high frame scaled to
+        it and the principal point at its centre; Adam, the schedule and the
+        EMA on semantic_loss_fn(image [clip_res, clip_res, 3]) -> the loss,
+        a 0-d device tensor."""
+        res, dev = self.opt.clip_res, self.device
+        intr = torch.as_tensor(intrinsics, dtype=torch.float32,
+                               device=dev) * (res / float(h))
+        intr = torch.cat([intr[:2], intr.new_full((2,), res / 2.0)])
+        radius = self._pose_rng.uniform(1.0, 1.5)
+        pose = torch.as_tensor(rand_poses(self._pose_rng, 1, radius=radius),
+                               device=dev)
+        rays = get_rays(pose, intr, res, res)
+        t = torch.zeros((), device=dev) if self.time_conditioned else None
+        out = render_occ(self.params, self._occ_at(t), rays["rays_o"][0],
+                         rays["rays_d"][0], self.settings, self.field.forward,
+                         self.field.background,
+                         bg_color=torch.ones(3, device=dev),
+                         extra=() if t is None else (t,))
+        loss = self.semantic_loss_fn(out["image"].reshape(res, res, 3))
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.apply_gradients()
+        self.global_step += 1
+        self.local_step += 1
+        return loss.detach()
 
     def _prepare_train(self, train_dataset):
         """The dataset that train() trains on (FastTrainer sorts a dynamic

@@ -269,11 +269,16 @@ def test_what_is_not_ported_raises(trained, port, tmp_path):
     assert data["times"].dtype == torch.float32
     np.testing.assert_array_equal(data["times"].numpy(), train.times)
     # dynamic training is ported (tests/test_torch_dyn_train.py), and so
-    # are the main CLIs' sampling options, for a dynamic scene too; the
-    # training option that is not still raises
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.build_trainer(_opt(ws, "--ckpt", "scratch", "--clip_text",
-                               "a red car"), dynamic=True, **NARROW)
+    # are the main CLIs' sampling options, for a dynamic scene too; so is
+    # --clip_text: as in the reference, the trainer builds, and with
+    # --rand_pose 0 and no CLIP weights on the disk it logs that the
+    # semantic steps are off
+    tr, _ = cli.build_trainer(_opt(ws, "--ckpt", "scratch", "--clip_text",
+                                   "a red car", "--rand_pose", "0"),
+                              dynamic=True, **NARROW)
+    assert tr.time_conditioned and tr.semantic_loss_fn is None
+    with open(tr.log_path) as f:
+        assert "CLIP weights are unavailable offline" in f.read()
     for flags, (key, want) in ((["--error_map"], ("error_map", True)),
                                (["--patch_size", "2"], ("patch_size", 2)),
                                (["--no_preload"], ("preload", False))):

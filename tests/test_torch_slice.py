@@ -159,10 +159,19 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
               str(tmp_path)])
     base = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0",
             "--device", "cpu", "--workspace", str(tmp_path)]
+    # --clip_text is ported: as in the reference, the trainer builds, and
+    # with --rand_pose 0 and no CLIP weights on the disk it logs that the
+    # semantic steps are off
     opt = postprocess(base_parser().parse_args(base + ["--clip_text",
                                                        "a red car"]))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_trainer(opt)
+    tr, _ = build_trainer(opt)
+    assert tr.opt.clip_text == "a red car" and tr.semantic_loss_fn is None
+    opt = postprocess(base_parser().parse_args(
+        base + ["--clip_text", "a red car", "--rand_pose", "0"]))
+    tr, _ = build_trainer(opt)
+    assert tr.opt.rand_pose == 0 and tr.semantic_loss_fn is None
+    with open(tr.log_path) as f:
+        assert "CLIP weights are unavailable offline" in f.read()
     # the main CLIs' sampling options are ported: they build, and reach the
     # trainer's options
     for flag, want in ((["--error_map"], ("error_map", True)),
