@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--ckpt PATH] [--only 13]
+    python3 chip_smoke.py [--ckpt PATH]
 
 Phases (any failure raises and exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit.
@@ -250,14 +250,14 @@ Phases (any failure raises and exits non-zero):
      the normalised training mesh's. Prints ms/step (the step alone,
      synchronised, as medians) before the first and after the last upsample,
      ms per frame, ms/step split into the host's draws and BVH queries and
-     the device's step, and the export's sweep and tetrahedra seconds. K1-K4
-     launch 0 times (plain PyTorch, as the reference's XLA). `--only 13`
-     runs this phase alone after the device check; its functions take the
-     device and the frame size, so that it can be rehearsed on the CPU at a
-     small one.
+     the device's step (the BVH's queries of one batch timed on one host
+     thread, as the reference's, and split over QUERY_THREADS), and the
+     export's sweep and tetrahedra seconds. K1-K4 launch 0 times (plain
+     PyTorch, as the reference's XLA).
 The procedural scene of given arguments is made once per run (~13 s at
 800x800) and each later caller gets a copy, so the "data" times after a
-scene's first use are those of the copy.
+scene's first use are those of the copy; the script prints how many scenes
+were made and how many copies handed out.
 The launch counts of the kernels record are read from the main paths'
 runs (phases 4, 5, 5c, 6, 7, 7c, 8, 8b, 9, 9b, 12 and 13; 8 and 8b include
 the proxy's launches through render_occ; 10, 10b, 11, 11b and 13 launch
@@ -2532,10 +2532,9 @@ def phase_cli_options():
     return launches
 
 
-def _sync(device):
+def _sync():
     import torch
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
 
 
 def _pngs(path):
@@ -2549,17 +2548,17 @@ def _patched(obj, name, fn):
     return lambda: setattr(obj, name, old)
 
 
-def _frame(trainer, val, device, i=0):
+def _frame(trainer, val, i=0):
     """View i of val through render_image, warm: (ms, rgb)."""
     trainer.render_image(val.poses[i], val.intrinsics, val.h, val.w)
-    _sync(device)
+    _sync()
     t0 = time.perf_counter()
     img, _ = trainer.render_image(val.poses[i], val.intrinsics, val.h, val.w)
-    _sync(device)
+    _sync()
     return (time.perf_counter() - t0) * 1e3, img
 
 
-def phase_tensorf(device="cuda", res=800, extra=()):
+def phase_tensorf():
     """Phase 13a: main_tensoRF at the CLI's defaults, cut to TENSORF_STEPS
     with five upsamples at TENSORF_UPSAMPLES -> (the trainer, val)."""
     import torch
@@ -2572,8 +2571,7 @@ def phase_tensorf(device="cuda", res=800, extra=()):
 
     ws = os.path.join(REPO, "workspace", "chip_smoke_tensorf")
     argv = ["synthetic", "--iters", str(TENSORF_STEPS), "--ckpt", "scratch",
-            "--synthetic_res", str(res), "--workspace", ws, "--device",
-            device, *extra]
+            "--synthetic_res", "800", "--workspace", ws]
     for step in TENSORF_UPSAMPLES:
         argv += ["--upsample_model_steps", str(step)]
     defaults = list(main_tensoRF.UPSAMPLE_STEPS)
@@ -2592,8 +2590,8 @@ def phase_tensorf(device="cuda", res=800, extra=()):
         seeded = Trainer("tensorf", main_tensoRF.to_train_options(
             opt, name="tensorf", lr=opt.lr0, lr_net=opt.lr1),
             make_tensorf_field(torch.Generator().manual_seed(opt.seed), cfg,
-                               device), workspace=ws + "_seeded",
-            use_checkpoint="scratch", device=device)
+                               "cuda"), workspace=ws + "_seeded",
+            use_checkpoint="scratch", device="cuda")
         seeded.mark_untrained_grid(train.poses, train.intrinsics)
         seeded.rebuild_grid()
         psnr0 = seeded.evaluate(val)
@@ -2603,10 +2601,10 @@ def phase_tensorf(device="cuda", res=800, extra=()):
             TensoRFTrainer.upsample
 
         def timed_step(self, data, h, w):
-            _sync(device)
+            _sync()
             t0 = time.perf_counter()
             out = gt_step(self, data, h, w)
-            _sync(device)
+            _sync()
             steps_ms.append((time.perf_counter() - t0) * 1e3)
             return out
 
@@ -2615,10 +2613,10 @@ def phase_tensorf(device="cuda", res=800, extra=()):
             ups.append((self.global_step, self.field.cfg.resolution))
         restore += [_patched(TensoRFTrainer, "train_step_gt", timed_step),
                     _patched(TensoRFTrainer, "upsample", logged_upsample)]
-        _sync(device)
+        _sync()
         t0 = time.perf_counter()
         trainer = main_tensoRF.main(argv)
-        _sync(device)
+        _sync()
         wall = time.perf_counter() - t0
     finally:
         for r in restore[::-1]:
@@ -2627,7 +2625,7 @@ def phase_tensorf(device="cuda", res=800, extra=()):
     losses = np.asarray(trainer.history["loss"])
     psnr = trainer.stats["results"][-1]
     frames = _pngs(os.path.join(ws, "results"))
-    frame_ms, img = _frame(trainer, val, device)
+    frame_ms, img = _frame(trainer, val)
     first, last = TENSORF_UPSAMPLES[0], TENSORF_UPSAMPLES[-1]
     before = float(np.median(steps_ms[8:first]))
     after = float(np.median(steps_ms[last + 8:]))
@@ -2639,7 +2637,7 @@ def phase_tensorf(device="cuda", res=800, extra=()):
           f"after the last; {sum(trainer.history['epoch_s']):.2f} s in "
           f"train's epochs; loss first 64 {losses[:64].mean():.6f} last 64 "
           f"{losses[-64:].mean():.6f}; val PSNR {psnr0:.3f} seeded -> "
-          f"{psnr:.3f} dB; {res}x{res} frame {frame_ms:.1f} ms; "
+          f"{psnr:.3f} dB; 800x800 frame {frame_ms:.1f} ms; "
           f"{len(frames)} test frames", flush=True)
     if ups != want or trainer.field.cfg.resolution != 300 or \
             tuple(trainer.params["app_planes"][0].shape) != (48, 300, 300):
@@ -2671,7 +2669,7 @@ def _semantic_probe(trainer, val, res):
         params=trainer.params)[0] ** 2).mean() for p in poses]))
 
 
-def phase_semantic(trainer, val, device="cuda"):
+def phase_semantic(trainer, val):
     """Phase 13d: SEMANTIC_STEPS GT-free steps on 13a's field at
     SEMANTIC_RES with an injected objective (the image's mean square)."""
     from sealdnerf_tpu_torch.models.params import param_leaves
@@ -2681,7 +2679,7 @@ def phase_semantic(trainer, val, device="cuda"):
     before = [p.detach().clone() for p in param_leaves(trainer.params)]
     probe0 = _semantic_probe(trainer, val, SEMANTIC_RES)
     step0 = trainer.global_step
-    _sync(device)
+    _sync()
     t0 = time.perf_counter()
     losses = [float(trainer.train_step_semantic(val.intrinsics, val.h))
               for _ in range(SEMANTIC_STEPS)]
@@ -2689,7 +2687,7 @@ def phase_semantic(trainer, val, device="cuda"):
     moved = sum(not bool((a == b).all()) for a, b in
                 zip(before, param_leaves(trainer.params)))
     probe1 = _semantic_probe(trainer, val, SEMANTIC_RES)
-    clip = CLIPGuidance("a red car", device=device)
+    clip = CLIPGuidance("a red car", device="cuda")
     print(f"phase 13d semantic steps on 13a's field: {SEMANTIC_STEPS} at "
           f"{SEMANTIC_RES}x{SEMANTIC_RES}, {ms:.3f} ms/step; the steps' "
           f"losses {losses[0]:.6f} ... {losses[-1]:.6f} (each at its own "
@@ -2704,7 +2702,7 @@ def phase_semantic(trainer, val, device="cuda"):
                              f"{probe0} -> {probe1}, {moved} leaves moved")
 
 
-def phase_ccnerf(device="cuda", res=800, extra=()):
+def phase_ccnerf():
     """Phase 13b: main_CCNeRF at its defaults (CP rank 64, the K-loss at
     0.25 and 0.5) for CCNERF_STEPS, then --compose of the workspace
     twice."""
@@ -2715,8 +2713,7 @@ def phase_ccnerf(device="cuda", res=800, extra=()):
 
     ws = os.path.join(REPO, "workspace", "chip_smoke_ccnerf")
     argv = ["synthetic", "--iters", str(CCNERF_STEPS), "--ckpt", "scratch",
-            "--synthetic_res", str(res), "--workspace", ws, "--device",
-            device, *extra]
+            "--synthetic_res", "800", "--workspace", ws]
     opt = main_CCNeRF.build_parser().parse_args(argv)
     if (opt.bound, opt.rank, opt.rank_fracs) != (1.0, 64, [0.25, 0.5]):
         raise AssertionError(f"phase 13b: not the CLI's defaults: {opt}")
@@ -2724,23 +2721,23 @@ def phase_ccnerf(device="cuda", res=800, extra=()):
     gt_step = Trainer.train_step_gt
 
     def timed_step(self, data, h, w):
-        _sync(device)
+        _sync()
         t0 = time.perf_counter()
         out = gt_step(self, data, h, w)
-        _sync(device)
+        _sync()
         steps_ms.append((time.perf_counter() - t0) * 1e3)
         return out
     restore = _patched(Trainer, "train_step_gt", timed_step)
     try:
         t0 = time.perf_counter()
         trainer = main_CCNeRF.main(argv)
-        _sync(device)
+        _sync()
         wall = time.perf_counter() - t0
     finally:
         restore()
     losses = np.asarray(trainer.history["loss"])
     _, _, val = main_CCNeRF.load_datasets(opt)
-    frame_ms, full = _frame(trainer, val, device)
+    frame_ms, full = _frame(trainer, val)
     field = trainer.field
     trunc = copy.copy(field)
     trunc.forward = functools.partial(field.forward_trunc, frac=0.25)
@@ -2753,13 +2750,12 @@ def phase_ccnerf(device="cuda", res=800, extra=()):
     cws = ws + "_compose"
     t0 = time.perf_counter()
     viewer = main_CCNeRF.main(["synthetic", "--compose", "--compose_models",
-                               ws, ws, "--synthetic_res", str(res),
-                               "--workspace", cws, "--device", device,
-                               *extra])
-    _sync(device)
+                               ws, ws, "--synthetic_res", "800",
+                               "--workspace", cws])
+    _sync()
     compose_s = time.perf_counter() - t0
     frames = _pngs(os.path.join(cws, "compose"))
-    compose_ms, img = _frame(viewer, val, device)
+    compose_ms, img = _frame(viewer, val)
     occ = float(viewer.grid_state["occ"].float().mean())
     print(f"phase 13b main_CCNeRF (CP rank 64, K-loss 0.25 / 0.5, bound 1) "
           f"on {_card()}: main {wall:.2f} s wall; {len(losses)} steps x "
@@ -2768,7 +2764,7 @@ def phase_ccnerf(device="cuda", res=800, extra=()):
           f"{losses[:64].mean():.6f} last 64 {losses[-64:].mean():.6f}; "
           f"frame {frame_ms:.1f} ms; rank 0.25 vs full: mean |diff| "
           f"{trunc_diff:.4f}; --compose (the workspace twice) {compose_s:.2f}"
-          f" s, occupancy {occ:.4f}, {len(frames)} frames, {res}x{res} "
+          f" s, occupancy {occ:.4f}, {len(frames)} frames, 800x800 "
           f"composed frame {compose_ms:.1f} ms", flush=True)
     if len(losses) != CCNERF_STEPS or not np.isfinite(losses).all() or \
             not losses[-64:].mean() < losses[:64].mean():
@@ -2783,24 +2779,23 @@ def phase_ccnerf(device="cuda", res=800, extra=()):
         raise AssertionError(f"phase 13b: composed frames {frames}")
 
 
-def phase_sdf(device="cuda", extra=()):
+def phase_sdf():
     """Phase 13c: main_sdf synthetic at the CLI's --num_samples and
     --mesh_resolution, SDF_EPOCHS epochs."""
     import torch
     from sealdnerf_tpu_torch import main_sdf
-    from sealdnerf_tpu_torch.data.sdf_provider import SDFDataset
+    from sealdnerf_tpu_torch.data.sdf_provider import (QUERY_THREADS,
+                                                       SDFDataset)
 
     ws = os.path.join(REPO, "workspace", "chip_smoke_sdf")
-    argv = ["synthetic", "--workspace", ws, "--epochs", str(SDF_EPOCHS),
-            "--device", device, *extra]
+    argv = ["synthetic", "--workspace", ws, "--epochs", str(SDF_EPOCHS)]
     opt = main_sdf.build_parser().parse_args(argv)
-    if not extra and (opt.num_samples, opt.mesh_resolution) != (2 ** 18,
-                                                                512):
+    if (opt.num_samples, opt.mesh_resolution) != (2 ** 18, 512):
         raise AssertionError(f"phase 13c: not the CLI's values: {opt}")
     print(f"phase 13c cut: {SDF_EPOCHS} of 20 epochs", flush=True)
     t0 = time.perf_counter()
     fitter, (verts, tris, secs) = main_sdf.main(argv)
-    _sync(device)
+    _sync()
     wall = time.perf_counter() - t0
     hist = fitter.history
     n = main_sdf.STEPS_PER_EPOCH
@@ -2816,19 +2811,26 @@ def phase_sdf(device="cuda", extra=()):
     batch = ds.sample_batch()
     draw_s = time.perf_counter() - t0
     half = batch["points"][opt.num_samples // 2:]
-    t0 = time.perf_counter()
-    ds.query(half)
-    bvh_s = time.perf_counter() - t0
+    # the BVH's queries of one batch on one host thread (the reference's)
+    # and split over QUERY_THREADS, alternated: medians of 3 each
+    bvh_ms = {1: [], QUERY_THREADS: []}
+    for _ in range(3):
+        for threads, times in bvh_ms.items():
+            t0 = time.perf_counter()
+            ds.query(half, threads=threads)
+            times.append((time.perf_counter() - t0) * 1e3)
+    bvh = "; ".join(f"{np.median(t):.3f} ms on {n} thread(s)"
+                    for n, t in bvh_ms.items())
     # the device's step alone, on one batch
     dev = fitter.params["grid"].device
     pts = torch.from_numpy(batch["points"]).to(dev)
     sdfs = torch.from_numpy(batch["sdfs"]).to(dev)
     fitter.step(pts, sdfs)
-    _sync(device)
+    _sync()
     t0 = time.perf_counter()
     for _ in range(8):
         fitter.step(pts, sdfs)
-    _sync(device)
+    _sync()
     step_ms = (time.perf_counter() - t0) * 1e3 / 8
     steps = len(loss)
     print(f"phase 13c main_sdf synthetic ({opt.num_samples} points a step, "
@@ -2836,8 +2838,8 @@ def phase_sdf(device="cuda", extra=()):
           f"wall; {steps} steps, {sum(hist['epoch_s']) * 1e3 / steps:.3f} "
           f"ms/step in all, of which the host's draws "
           f"{sum(hist['draw_s']) * 1e3 / steps:.3f} (one batch apart: "
-          f"{draw_s * 1e3:.3f} ms, the BVH's {len(half)} queries "
-          f"{bvh_s * 1e3:.3f} ms of it); the device's step alone "
+          f"{draw_s * 1e3:.3f} ms; the BVH's {len(half)} queries {bvh}); "
+          f"the device's step alone "
           f"{step_ms:.3f} ms; epoch losses {[round(e, 6) for e in epochs]}; "
           f"export sweep {secs['sweep']:.2f} s, tetrahedra "
           f"{secs['tetrahedra']:.2f} s, {len(verts)} verts {len(tris)} "
@@ -2850,23 +2852,22 @@ def phase_sdf(device="cuda", extra=()):
                              f"{got} vs {radius}")
 
 
-def phase_other_workloads(device="cuda", res=800, extra=None):
+def phase_other_workloads():
     """Phase 13: main_tensoRF, the semantic step, main_CCNeRF and main_sdf.
     Returns the K1-K4 launches over the phase (all 0: the workloads are
     plain PyTorch)."""
     import torch
-    extra = extra or {}
     fns = _kernel_launches()
     for fn in fns:
         fn.launches = 0
     t_phase = time.perf_counter()
-    trainer, val = phase_tensorf(device, res, extra.get("tensorf", ()))
-    phase_semantic(trainer, val, device)
+    trainer, val = phase_tensorf()
+    phase_semantic(trainer, val)
     del trainer
     torch.cuda.empty_cache()
-    phase_ccnerf(device, res, extra.get("ccnerf", ()))
+    phase_ccnerf()
     torch.cuda.empty_cache()
-    phase_sdf(device, extra.get("sdf", ()))
+    phase_sdf()
     launches = [fn.launches for fn in fns]
     print(f"phase 13 other workloads: {time.perf_counter() - t_phase:.2f} s; "
           f"launches K1-K4 {launches} (plain PyTorch, as the reference's "
@@ -2878,7 +2879,8 @@ def phase_other_workloads(device="cuda", res=800, extra=None):
 
 def _made_once(fn):
     """fn with its results kept by its arguments; each call returns a deep
-    copy, so that no caller sees what another changed."""
+    copy, so that no caller sees what another changed. made.counts holds
+    the results made and the copies handed out."""
     import copy
     cache = {}
 
@@ -2886,7 +2888,10 @@ def _made_once(fn):
         key = (a, tuple(sorted(kw.items())))
         if key not in cache:
             cache[key] = fn(*a, **kw)
+            made.counts["made"] += 1
+        made.counts["copies"] += 1
         return copy.deepcopy(cache[key])
+    made.counts = {"made": 0, "copies": 0}
     return made
 
 
@@ -2894,8 +2899,6 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint to serve (default: seeded init)")
-    ap.add_argument("--only", choices=["13"], default=None,
-                    help="run the device check and this phase alone")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2910,14 +2913,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # the procedural scene of given arguments is made once (~13 s at
-    # 800x800) and copied to each later caller
+    # 800x800) and copied to each later caller (cli.load_datasets imports
+    # it when called), so a later phase's printed data seconds time a copy
     from sealdnerf_tpu_torch.data import synthetic
-    synthetic.make_synthetic_scene = _made_once(
+    scenes = synthetic.make_synthetic_scene = _made_once(
         synthetic.make_synthetic_scene)
-    if args.only == "13":
-        phase_other_workloads()
-        return
-
     from sealdnerf_tpu_torch.ops import build
     t0 = time.perf_counter()
     lib = build.build()
@@ -2966,6 +2966,8 @@ def main():
     k_opts = phase_cli_options()
     k_other = phase_other_workloads()
 
+    print(f"procedural scenes: {scenes.counts['made']} made, "
+          f"{scenes.counts['copies']} copies handed out", flush=True)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)

@@ -636,7 +636,7 @@ class Trainer:
             m_budget=rays_o.shape[0] * self._cur_budget, extra=extra)
         res = render(self.field.forward)
         # CCNeRF's K-loss: every truncation level on the same samples
-        trunc = getattr(self.field, "forward_trunc", None)
+        trunc = self.field.forward_trunc
         levels = [render(functools.partial(trunc, frac=frac))["image"]
                   for frac in self.opt.k_rank_fracs] if trunc else []
         loss = self._image_loss(res["image"], gt, levels)

@@ -5,6 +5,12 @@ Trainer, and train/clip_guidance.py, against the JAX package.
   square, as tests/test_regressions.py's test_semantic_rand_pose_branch
   injects one) on a narrow TensoRF field: finite losses that fall, params
   that move, global_step and the optimizer's count that count each step;
+- one train_step_semantic against the reference's on the same params,
+  occupancy and orbit pose (rand_poses fixed on both sides), with the
+  full frame's intrinsics off centre so that their scaling to clip_res
+  and the centred principal point show: loss rtol 1e-3, each leaf's
+  gradient within 5e-2 in relative L2 norm (the tolerance of
+  tests/test_torch_tensorf_train.py's train step);
 - CLIPGuidance.loss_fn on stub models: clip_pixels against the reference's
   jax.image.resize "bilinear" and CLIP's mean and std (atol 5e-5 after the
   division by std, f32 sums of the resize weights; growing and shrinking),
@@ -24,16 +30,19 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from sealdnerf_tpu.data import rays as jax_rays
 from sealdnerf_tpu.data.synthetic import make_synthetic_scene as jax_scene
 from sealdnerf_tpu.models import tensorf as jt
 from sealdnerf_tpu.parallel.mesh import make_mesh
 from sealdnerf_tpu.train.clip_guidance import FlaxCLIPGuidance
 from sealdnerf_tpu.train.trainer import Trainer as JaxTrainer
 from sealdnerf_tpu.train.trainer import TrainOptions as JaxOptions
+from sealdnerf_tpu_torch.data.rays import rand_poses
 from sealdnerf_tpu_torch.data.synthetic import make_synthetic_scene
 from sealdnerf_tpu_torch.models import tensorf as tt
 from sealdnerf_tpu_torch.models.api import make_tensorf_field
-from sealdnerf_tpu_torch.models.params import param_leaves
+from sealdnerf_tpu_torch.models.params import param_leaves, params_from_jax
+from sealdnerf_tpu_torch.train import trainer as trainer_mod
 from sealdnerf_tpu_torch.train.clip_guidance import CLIPGuidance, clip_pixels
 from sealdnerf_tpu_torch.train.trainer import Trainer, TrainOptions
 
@@ -50,11 +59,12 @@ def _few_torch_threads():
     torch.set_num_threads(n)
 
 
+_OPTS = dict(iters=50, num_rays=64, bound=1.0, dt_gamma=0.0, grid_size=32,
+             clip_res=16, max_steps=64, samples_per_ray=16, segment_steps=8)
+
+
 def _opts(ws, **kw):
-    return TrainOptions(**{**dict(iters=50, num_rays=64, bound=1.0,
-                                  dt_gamma=0.0, grid_size=32, workspace=ws,
-                                  clip_res=16, max_steps=64,
-                                  samples_per_ray=16, segment_steps=8), **kw})
+    return TrainOptions(**{**_OPTS, "workspace": ws, **kw})
 
 
 def _trainer(ws, **kw):
@@ -81,6 +91,78 @@ def test_semantic_step_with_an_injected_loss(tmp_path):
     data = make_synthetic_scene(n_train=2, n_val=1, res=16)[1].device("cpu")
     loss, n = tr.train_step(data, 16, 16)
     assert tr.global_step == 12 and int(n) == 0 and torch.isfinite(loss)
+
+
+def test_semantic_step_matches_the_reference(tmp_path, monkeypatch):
+    """One semantic step of each package on the same params, occupancy and
+    pose: the reference's render_occ at clip_res with a white background
+    and no jitter, against the port's. The full frame is 32 px high with
+    its principal point off centre; the step scales the focal lengths to
+    clip_res (16) and centres the principal point."""
+    intr_full = np.array([30.0, 28.0, 15.5, 17.0], np.float32)
+    pose = rand_poses(np.random.default_rng(2), 1, radius=1.3)
+    c = (np.arange(32) + 0.5) / 32 * 2 - 1
+    r = np.sqrt(sum(np.meshgrid(c * c, c * c, c * c, indexing="ij")))
+    occ = ((r < 0.8) | (np.random.default_rng(1).uniform(
+        size=r.shape) < 0.1))[None]
+
+    def mean_square(img):
+        return (img ** 2).mean()
+    jfield = jt.make_tensorf_field(jax.random.PRNGKey(0), jt.TensoRFConfig(
+        **NARROW))
+    params0 = params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                     jfield.params))
+    ws = str(tmp_path / "j")
+    jtr = JaxTrainer("j", JaxOptions(**{**_OPTS, "rand_pose": 0,
+                                        "workspace": ws}),
+                     jfield, workspace=ws, use_checkpoint="scratch",
+                     mesh=make_mesh(jax.devices()[:1]))
+    jtr.grid_state["occ"] = jnp.asarray(occ)
+    jtr.semantic_loss_fn = mean_square
+    monkeypatch.setattr(jax_rays, "rand_poses",
+                        lambda key, n, radius=1.0: jnp.asarray(pose))
+    jgrads = []
+
+    class _SpyTx:
+        """The reference's optimizer, recording the gradients it is given."""
+
+        def __init__(self, tx):
+            self.tx = tx
+
+        def update(self, grads, state, params=None):
+            jax.debug.callback(lambda g: jgrads.append(g), grads)
+            return self.tx.update(grads, state, params)
+    jtr.tx = _SpyTx(jtr.tx)
+    lj = jtr.train_step_semantic(intr_full, 32)
+
+    field = make_tensorf_field(None, tt.TensoRFConfig(**NARROW),
+                               params=params0)
+    ws = str(tmp_path / "t")
+    tr = Trainer("t", _opts(ws, rand_pose=0), field, workspace=ws,
+                 use_checkpoint="scratch", device="cpu")
+    tr.grid_state["occ"] = torch.from_numpy(occ)
+    tr.semantic_loss_fn = mean_square
+    monkeypatch.setattr(trainer_mod, "rand_poses",
+                        lambda rng, n, radius=1.0: pose)
+    tgrads = []
+    apply = tr.apply_gradients
+
+    def spy_apply():
+        tgrads.extend(p.grad.clone() for p in param_leaves(tr.params))
+        apply()
+    tr.apply_gradients = spy_apply
+    lt = float(tr.train_step_semantic(intr_full, 32))
+    assert tr.global_step == 1 and jtr.global_step == 1
+    np.testing.assert_allclose(lt, lj, rtol=1e-3)
+    names = [k for k in sorted(tr.params) for _ in param_leaves(tr.params[k])]
+    errs = {}
+    for name, gt, gj in zip(names, tgrads,
+                            jax.tree_util.tree_leaves(jgrads[0])):
+        gj = np.asarray(gj)
+        errs[name] = max(errs.get(name, 0.0), float(
+            np.linalg.norm(gt.numpy() - gj) / np.linalg.norm(gj)))
+    assert len(tgrads) == len(jax.tree_util.tree_leaves(jgrads[0]))
+    assert max(errs.values()) <= 5e-2, errs
 
 
 class _StubTorch:
