@@ -39,8 +39,10 @@ Phases (any failure raises and exits non-zero):
      in one pass bit for bit. The seeded deform tower is re-gained
      (see _dyn_seeded_params) so that it warps by ~0.1: the mean |dx| of the
      plain version at t = 0.37 must exceed 1e-2. K3 at t = 0 must equal K1
-     on the same canonical params bit for bit, in all three variants. Then
-     the main paths' shapes as in phase 3.
+     on the same canonical params bit for bit, in all three variants. The
+     entry's two device kernels are timed by themselves (torch.profiler),
+     the tower's beside its own bound. Then the main paths' shapes as in
+     phase 3.
   3d. dynamic backward kernel vs plain: the dynamic field backward kernel
      (K4: deform tower recomputed, canonical backward at the warped point,
      tower backward) against its plain version at the full default
@@ -55,7 +57,8 @@ Phases (any failure raises and exits non-zero):
      half a cell of the finest tables, so end to end it is held to 0.35
      (the reference's envelope for its dynamic kernels against its XLA
      model). With either tower each stage is held on the kernel's own
-     input: the warp; the canonical backward and g_x at the kernel's warped
+     input: the warp (the listed samples' warped positions equal K3's bit
+     for bit: one device function); the canonical backward and g_x at the kernel's warped
      positions (1e-2); the activations that the tower's backward recomputed
      (at most 2e-3 of the entries differ from the plain chain's at all and
      at most 5e-3 of the samples hold a relu mask that differs); the
@@ -63,7 +66,8 @@ Phases (any failure raises and exits non-zero):
      matrix; the time rows, rounded to bf16 after the sum, 1e-2). At t = 0
      every deform gradient must be exactly 0 and the canonical gradients
      within 1e-2 of K2's on the same inputs. Timings of K4, its plain
-     version and K2.
+     version and K2, and of each of K4's device kernels by itself beside
+     the warp's and the tower backward's own bounds.
   4. served path: cli.build_trainer on `synthetic -O --bound 1 --dt_gamma 0
      --test --synthetic_res 800` (seeded init, or --ckpt), frustum marking
      and two full 128^3 occupancy sweeps (the first is timed cold, the
@@ -347,11 +351,25 @@ def _field_work(cfg, m, mode="fwd", density_only=False, m_live=None,
     """Bytes moved (each input read once, each output written once) and
     operations, by type, of one field call on m samples. mode: "fwd" (K1),
     "bwd" (K2: recompute, then dX and dW of every product), "dyn" (K3) or
-    "dyn_bwd" (K4: K2's work plus the deform tower's recompute, dX and dW).
+    "dyn_bwd" (K4: K2's work plus the deform tower's recompute, dX and dW),
+    or the deform tower alone: "tower" (K3's warp, xw = x + dx) and
+    "tower_bwd" (K4's tower: recompute, input and weight gradients of the
+    live samples, from x and g_x to the matrices' gradients).
     m_live: the samples whose cotangent is not all zero, which alone cost a
     backward kernel operations (default: all). lod_skip: line scales whose
     features are zero, which need no taps and no rows of the first matrix."""
     from sealdnerf_tpu_torch.models.cp import _deform_dims, _tower_dims
+    if mode in ("tower", "tower_bwd"):
+        dd = _deform_dims(cfg)
+        nx = cfg.deform_space_dim
+        dmacs = nx * dd[1] + sum(a * b for a, b in zip(dd[1:-1], dd[2:]))
+        d_elems = dmacs + (dd[0] - nx) * dd[1]
+        enc = 2 * 6 * cfg.multires_deform
+        if mode == "tower":
+            return m * 24 + 2 * d_elems, 2 * dmacs * m, enc * m
+        live = m if m_live is None else m_live
+        return (live * 24 + (2 + 4) * d_elems, 3 * 2 * dmacs * live,
+                enc * live)
     sigma, color = _tower_dims(cfg)
     ranks = sum(r for s, (_, r) in enumerate(cfg.scales) if s not in lod_skip)
     skipped = sum(r for _, r in cfg.scales) - ranks
@@ -413,6 +431,28 @@ def _card():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _kernel_ms(fn, reps, names):
+    """Device ms a call of each named device kernel (a substring of its
+    name) over `reps` calls of fn, by torch.profiler, after one warm call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = torch.autograd.DeviceType.CUDA
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if e.device_type == dev:
+            for n in names:
+                if n in e.key:
+                    out[n] += e.device_time_total / 1e3 / reps
+    return out
 
 
 def _cuda_ms(fn, reps):
@@ -615,6 +655,18 @@ def phase_dyn_kernel_vs_plain():
                          f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
                 if tag == "full":
                     rec = {"ms": ms, "plain_ms": pms, **b}
+                    # each device kernel of the entry by itself; the
+                    # tower's bound from a tower-only count
+                    split = _kernel_ms(lambda: dyn_field_forward(
+                        tables, cfg, x3, d3, t), 10,
+                        ("deform_fwd_kernel", "field_fwd_kernel"))
+                    tb_ = _bound(cfg, m, mode="tower")
+                    print(f"K3 t={t} by device kernel (profiler): "
+                          f"deform_fwd_kernel "
+                          f"{split['deform_fwd_kernel']:.4f} ms against the "
+                          f"tower's bound {tb_['bound_ms']:.4f} ms by "
+                          f"{tb_['bound_by']}; field_fwd_kernel "
+                          f"{split['field_fwd_kernel']:.4f} ms", flush=True)
                     if not mean_dx > 1e-2:
                         raise AssertionError(
                             f"mean |dx| {mean_dx} <= 1e-2: the deform tower "
@@ -820,6 +872,7 @@ def phase_dyn_backward_vs_plain():
     from sealdnerf_tpu_torch.ops.field import (dyn_canonical_backward_plain,
                                                dyn_field_backward,
                                                dyn_field_backward_plain,
+                                               dyn_field_forward,
                                                dyn_tower_backward_plain,
                                                dyn_warp_plain, field_backward,
                                                pack_tables)
@@ -911,6 +964,15 @@ def phase_dyn_backward_vs_plain():
                 # against its XLA model.
                 check(f"{tower} vs plain, end to end", ratios, REGAINED_TOL)
             # Each stage, tightly, on the kernel's own input (both towers).
+            # 0. K4's warp is K3's (one device function): bit for bit.
+            fwd = {}
+            dyn_field_forward(tables, cfg, x3, d3, t, parts=fwd)
+            live = parts["live"]
+            if not torch.equal(parts["xw"][:, live], fwd["xw"][:, live]):
+                raise AssertionError(f"K4's warp differs from K3's ({tower})")
+            print(f"K4 {tower}: the warped positions of its {live.numel()} "
+                  "listed samples equal K3's bit for bit", flush=True)
+            del fwd
             # 1. The warp.
             if not (dxw.mean().item() <= 1e-5
                     and (dxw > 1e-3).float().mean().item() <= 1e-3):
@@ -980,6 +1042,19 @@ def phase_dyn_backward_vs_plain():
     print(f"K4: M={m} kernel {ms:.3f} ms ({m / ms * 1e3:.4g} samples/s), "
           f"plain {pms:.3f} ms ({m / pms * 1e3:.4g} samples/s); K2 on the "
           f"same samples and cotangents {ms2:.3f} ms", flush=True)
+    names = ("compact_live_kernel", "warp_kernel", "field_bwd_kernel",
+             "tower_bwd_kernel", "tower_wgrad_kernel", "time_rows_kernel")
+    split = _kernel_ms(lambda: dyn_field_backward(tables, cfg, x3, d3, 0.37,
+                                                  g), 10, names)
+    tw = _bound(cfg, m_live, mode="tower")
+    tb_ = _bound(cfg, m, mode="tower_bwd", m_live=m_live)
+    print("K4 by device kernel (profiler): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in split.items())
+        + f"; the warp's bound {tw['bound_ms']:.4f} ms by {tw['bound_by']} "
+        f"({m_live} listed samples), the tower backward's (tower_bwd_kernel "
+        f"+ tower_wgrad_kernel + time_rows_kernel: "
+        f"{split['tower_bwd_kernel'] + split['tower_wgrad_kernel'] + split['time_rows_kernel']:.4f}"
+        f" ms) {tb_['bound_ms']:.4f} ms by {tb_['bound_by']}", flush=True)
     rec = {"ms": ms, "plain_ms": pms, "max_abs_err": max_abs}
     rec.update(_bound(cfg, m, mode="dyn_bwd", m_live=m_live))
     print(f"K4 bound: {rec['bound_ms']:.4f} ms by {rec['bound_by']}",

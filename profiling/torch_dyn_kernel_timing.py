@@ -26,6 +26,13 @@ samples of a 64x64 pinhole frame (the first 262,181 of 65 a ray), each with
 every cotangent live and with 30 % of the columns zero (what the march
 leaves empty); the worst gradient leaf against the plain version beside it.
 Then K2 at the widest config the kernels take (16 k-blocks).
+
+Both modes also time K3 (K4) with t held on the card, which spares the
+call the host round trip of a float t (the trainers pass a tensor), and
+split the entry into its device kernels by torch.profiler
+(chip_smoke._kernel_ms): deform_fwd_kernel and field_fwd_kernel; K4's
+compaction, warp, canonical, tower backward, weight-gradient and time-row
+kernels (a name the tree lacks reads 0).
 """
 
 import importlib.util
@@ -78,6 +85,7 @@ def time_backward(tag, smoke):
     g_all = rng.normal(size=(4, m)).astype(np.float32)
     g_part = g_all.copy()
     g_part[:, rng.random(m) < 0.3] = 0.0
+    t_dev = torch.tensor(0.37, device="cuda")
     for label, x3, d3 in (("random", xr, dr), ("ray-coherent", xc, dc)):
         for live, g in (("every cotangent live", g_all),
                         ("30 % of the cotangents zero", g_part)):
@@ -101,6 +109,16 @@ def time_backward(tag, smoke):
                   f"{ms(lambda: dyn_field_backward(tables, cfg, x3, d3, 0.0, g), 10):.3f}"
                   f" ms; worst leaf against plain: K2 {worst['K2']:.3g}, K4 "
                   f"{worst['K4']:.3g}", flush=True)
+            split = smoke._kernel_ms(
+                lambda: dyn_field_backward(tables, cfg, x3, d3, 0.37, g), 10,
+                ("compact_live_kernel", "warp_kernel", "field_bwd_kernel",
+                 "tower_bwd_kernel", "tower_wgrad_kernel",
+                 "time_rows_kernel"))
+            print(f"{tag} backward, {label}, {live}: K4 with t on the card "
+                  f"{ms(lambda: dyn_field_backward(tables, cfg, x3, d3, t_dev, g), 10):.3f}"
+                  " ms; by device kernel " + ", ".join(
+                      f"{k} {v:.4f} ms" for k, v in split.items()),
+                  flush=True)
     # the widest config the kernels take, 16 k-blocks of feature columns
     wide = CPConfig(
         scales=CPConfig().scales + ((64, 32), (256, 64), (256, 64)),
@@ -168,6 +186,13 @@ def main():
               f"{ms(lambda: fn(xs3, None, density_only=True), 20):.3f} ms; "
               f"{xc3.shape[1]} frame-like samples, full "
               f"{ms(lambda: fn(xc3, dc3), 5):.3f} ms", flush=True)
+    t_dev = torch.tensor(0.37, device="cuda")
+    split = smoke._kernel_ms(lambda: k3(x3, d3), 10,
+                             ("deform_fwd_kernel", "field_fwd_kernel"))
+    print(f"{tag} K3, {m} random samples, t on the card: full "
+          f"{ms(lambda: dyn_field_forward(tables, cfg, x3, d3, t_dev), 20):.3f}"
+          " ms; by device kernel " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in split.items()), flush=True)
     eq = torch.equal(dyn_field_forward(tables, cfg, x3, d3, 0.0),
                      field_forward(tables, cfg, x3, d3))
     cfg2 = CPDNeRFConfig(num_layers_deform=2)

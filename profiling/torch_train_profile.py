@@ -20,7 +20,7 @@ first line is the card's name and power limit.
 --dynamic profiles dynamic (CP-D-NeRF) training instead: the trainer of
 chip_smoke.py's dynamic training phase (main_dnerf's defaults: two learning
 rates, time curriculum, anneal, deform regulariser). The forward is then
-the march, K3 and compositing, the backward holds K4 (K3's two and K4's five
+the march, K3 and compositing, the backward holds K4 (K3's two and K4's six
 device kernels are listed one by one), a grid refresh is 8 time bins through K3
 density-only and fires every 2 steps until step 256 and every 4 after it,
 and the regulariser's tower (plain PyTorch) has a range of its own for its
@@ -51,7 +51,7 @@ from sealdnerf_tpu_torch.cli import (base_parser, build_trainer,  # noqa: E402
 STEP_PARTS = ("grid_refresh", "sample", "forward", "adam", "schedule", "ema")
 SUB_PARTS = ("march", "composite", "zero_reg")
 K4_KERNELS = ("compact_live_kernel", "warp_kernel", "field_bwd_kernel",
-              "tower_bwd_kernel", "time_rows_kernel")
+              "tower_bwd_kernel", "tower_wgrad_kernel", "time_rows_kernel")
 # K3 runs two device kernels behind one entry: the warp, then K1's kernel
 K3_KERNELS = ("deform_fwd_kernel", "field_fwd_kernel")
 

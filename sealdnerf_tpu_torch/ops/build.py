@@ -114,7 +114,7 @@ def load_library() -> ctypes.CDLL:
     lib.sdn_dyn_field_fwd.restype = ctypes.c_int
     lib.sdn_dyn_field_bwd.argtypes = (
         [vp, vp, vp, i64, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong), f32,
-         vp, vp, ctypes.POINTER(ctypes.c_longlong), vp, i32, i32]
-        + [vp] * 12)
+         vp, ctypes.POINTER(ctypes.c_longlong), vp, i32, i32]
+        + [vp] * 13)
     lib.sdn_dyn_field_bwd.restype = ctypes.c_int
     return lib

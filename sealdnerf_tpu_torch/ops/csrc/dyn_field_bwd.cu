@@ -18,60 +18,87 @@
 //     sums) and through the frequency features (W0^T bf16(g_h0), then
 //     2^f cos and -2^f sin in f32);
 //   - tower backward: g_h = g_x; per matrix l, from the last to the second,
-//     g_W[l] += bf16(g_h) (x) bf16(r[l-1]) and g_h = (bf16(g_h) W[l]^T) masked
-//     by r[l-1] > 0, f32 sums; the first matrix's spatial rows from ex; its
-//     time rows from bf16(sum over samples of g_h) (x) bf16(freq(t)). The
-//     Pallas kernel rounds that sum once per tile of its grid, this one once
-//     for the whole call, after summing in f32.
+//     g_W[l] += bf16(g_h) (x) r[l-1] and g_h = (bf16(g_h) W[l]^T) masked by
+//     r[l-1] > 0, f32 sums (r[l-1]: the relu'd bf16 input of matrix l); the
+//     first matrix's spatial rows from ex; its time rows from bf16(sum over
+//     samples of g_h) (x) bf16(freq(t)). The Pallas kernel rounds that sum
+//     once per tile of its grid, this one once for the whole call, after
+//     summing the f32 g_h in f64.
 //   - t == 0: the flag arrives in device memory beside the time bias, as in
 //     the forward kernel; then dx = 0, every deform gradient is exactly 0 and
 //     the canonical gradients are those of the static backward at x.
 //
 // What bounds it: operations. Per live sample the tower costs ~107k MACs each
-// for the recompute, the input gradients and the weight gradients, and the
-// canonical half the static backward's ~72k, all bf16 x bf16 -> f32 on
-// mma.sync.m16n8k16; beside them the canonical half's feature arithmetic and
-// its vector atomics.
+// for the recompute, the input gradients and the weight gradients (0.119 ms
+// for all three on 183,223 live samples at the tensor cores' 989 TFLOP/s),
+// and the canonical half the static backward's ~72k; beside them the
+// canonical half's feature arithmetic and its vector atomics.
 //
-// Design. The entry point runs five kernels on the caller's stream, all
+// Design. The entry point runs six kernels on the caller's stream, all
 // written here or in the headers, and counts as one launch:
 //   1. compact_live_kernel (field_bwd_body.cuh) lists the samples that carry
 //      a cotangent; everything after it walks that list, so the march's
 //      invalid samples cost nothing, the warp included.
 //   2. warp_kernel (warp_tiles of deform_tower.cuh, which the forward entry
-//      runs too): the tower's forward (deform_tower_forward, tiles of 256
-//      samples) writes xw of the listed samples to device memory.
+//      runs too): xw of the listed samples, the same device function as K3's
+//      warp, so the two agree bit for bit.
 //   3. field_bwd_kernel<true>: the static backward's body at xw; it also
 //      writes g_x of each listed sample, in the list's order.
-//   4. tower_bwd_kernel: persistent blocks of 256 threads walk the list in
-//      tiles of 64 samples. A tile recomputes the tower keeping all hidden
-//      activations in shared memory (bf16 [7][64][136], 122 KB), then walks
-//      back through the matrices. Input gradients are the forward's product
-//      with the matrix staged input-major (a second packed copy, wdef_in);
-//      weight gradients are products over the tile's samples whose operands
-//      are read transposed with ldmatrix.trans, warp w owning 16 output rows.
-//   5. time_rows_kernel: the outer product for the first matrix's time rows.
-// Why still separate kernels, now that the canonical half keeps a sample in
-// registers: its block holds the canonical matrices twice and the partial
-// weight gradients (220 KB at the default widths), the tower's backward its
-// activations, two gradient buffers and a staged matrix (206 KB); one block
+//   4. tower_bwd_kernel: the blocks of the warp kernel (a producer warp that
+//      brings the matrices into shared memory once a block, three consumer
+//      warpgroups on tiles of 64 listed samples). A tile recomputes the
+//      tower's forward in registers with the forward's own device function,
+//      writes ex and every hidden activation to a scratch of tile images in
+//      device memory and keeps their relu masks (64 bits a layer a thread),
+//      then walks back through the matrices with the output gradient in
+//      registers: g_h (x) W^T on wgmma with the matrix image read transposed
+//      (MN-major), masked, rounded to bf16, and that tile written to a second
+//      scratch. Each consumer warp sums the first matrix's output gradient
+//      in f64 for the time rows in its own row of shared memory; the block
+//      writes their sum out at its end.
+//   5. tower_wgrad_kernel: the weight gradients as products over samples,
+//      g_W[l] = G_l^T A_l with G_l, A_l the scratch tiles of matrix l's
+//      output gradient and input: blocks (chunk of tiles, matrix), a producer
+//      warp streams the tile pairs through a ring of three stages with
+//      cp.async.bulk, two warpgroups (64 output rows each) sum them on wgmma
+//      (both operands transposed from shared memory) in registers over all
+//      the chunk's tiles, and each entry leaves the block once, as one f32
+//      reduction into device memory.
+//   6. time_rows_kernel: sums those rows in a fixed order (the time rows are
+//      the same bits in every run) and forms the first matrix's time rows.
+// Reductions into device memory. The design before this one added every
+// tile's products (tiles of 64) with one atomic per entry: 6 * 16,384 + 128 *
+// 64 + 3 * 128 = 106,880 per 64 samples, 1,670 a live sample. Now each
+// tower_wgrad_kernel block adds its sums once: n_chunks * (H * 16,384 + 128 *
+// in_pad + 3 * 128) a call (H hidden matrices; n_chunks = min(ceil(2 SMs /
+// n_layers), ceil(M / 1024))); the time rows take none. At the default tower
+// on 132 SMs: 33 * 106,880 = 3,527,040 a call whatever the number of live
+// samples: 19.2 a live sample on the 183,223 of chip_smoke's phase 3d, 87
+// times fewer; at most 106,880 / 1,024 = 104 a sample when every sample is
+// live. The price: the operands of
+// the weight gradients make one round trip through device memory, 4 KB a
+// live sample written by tower_bwd_kernel and read by tower_wgrad_kernel
+// (two bf16 [128] rows a sample and matrix). The sums' order changes with
+// the grid, so results may differ from run to run in their last bits, as
+// the static backward's do.
+// Why still separate kernels from the canonical half: its block holds the
+// canonical matrices twice and the partial weight gradients (220 KB at the
+// default widths), the tower's backward its 212 KB of matrices; one block
 // cannot hold both, and the 12 bytes of xw and of g_x a sample that pass
 // between them through device memory are nothing beside either kernel's
 // gathers.
-// Cross-block weight sums of the tower: each tile adds its [128, 128] product
-// to the gradient buffer with one atomicAdd per nonzero entry (the buffer, 434
-// KB, stays in L2). So the results differ from run to run in their last bits,
-// as the static backward's do. Later work: wider tiles by recomputing
-// activations, wgmma.
 //
-// C interface for ctypes: sdn_dyn_field_bwd adds into g_tab, g_w, g_wdef
-// (laid out like wdef) and g_tsum [128], which the caller zeroes along with
-// `count`; it writes g_wtime [tdim, 128]; xw [3, M] (the listed samples'
-// columns are written), idx [M] and gx [3, M] are scratch. acts, unless null, is bf16 [n_layers, M, 128] and receives the
-// tower backward's recomputed ex and hidden activations in the list's order
-// (for checks); rec_out is null or [4, M] and receives the forward's output
-// that the canonical kernel recomputed. Returns the first error of any
-// launch, else 0.
+// C interface for ctypes: sdn_dyn_field_bwd adds into g_tab, g_w and g_wdef
+// (f32 [n_layers][128][128], matrix l output-major: row o, column i), which
+// the caller zeroes along with `count`; it writes g_wtime [tdim, 128]; tsum
+// (f64 [SMs][128]) is scratch; xw [3, M] (the listed samples' columns are written),
+// idx [M] and gx [3, M] are scratch. gscr and ascr are the tower's scratch,
+// bf16 [n_layers][ceil(M / 64)][64 x 128 tile image] each: ascr receives ex
+// and the hidden activations that the tower's backward recomputed, tile by
+// tile in the list's order (for checks too), gscr the bf16 output gradients
+// of every matrix. rec_out is null or [4, M] and receives the forward's
+// output that the canonical kernel recomputed. Returns the first error of
+// any launch, else 0.
 
 #include "deform_tower.cuh"
 #include "field_bwd_body.cuh"
@@ -80,11 +107,14 @@ namespace {
 
 using namespace sdn;
 
-constexpr int kBT = 64;         // samples per tile of the tower's backward
-constexpr int kBThreads = 256;  // 8 warps
+constexpr int kWgConsumers = 2;  // tower_wgrad_kernel's warpgroups: 64 output rows each
+constexpr int kWgThreads = 128 * kWgConsumers + 32;  // and one producer warp
+constexpr int kWgStages = 3;                       // tile pairs in tower_wgrad_kernel's ring
+constexpr int kWgStageBytes = 2 * kTileBytes;      // G tile | A tile
+constexpr int kChunkTiles = 16;                    // least tiles a chunk of the weight gradients
 
 // ---------------------------------------------------------------- phase 2
-__global__ void __launch_bounds__(kTowerTile)
+__global__ void __launch_bounds__(kTowerThreads, 1)
 warp_kernel(const float* __restrict__ x3, long long m, const __nv_bfloat16* __restrict__ wdef,
             const float* __restrict__ tcond, const DeformMeta dm, float* __restrict__ xw,
             const int* __restrict__ list, const int* __restrict__ count) {
@@ -92,253 +122,228 @@ warp_kernel(const float* __restrict__ x3, long long m, const __nv_bfloat16* __re
 }
 
 // ---------------------------------------------------------------- phase 4
-// Four 8x8 b16 matrices, transposed, from the shared-memory rows that the
-// lanes address (lanes 8j..8j+7 give the rows of matrix j).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// out[o][i] += sum_s G[s][o] R[s][i] over the tile's kBT samples, for the 16
-// rows o = 16 warp .. 16 warp + 15 and i < 16 n_pairs; G and R are bf16
-// [kBT][kLd] in shared memory, out is f32 with row stride ld_out in device
-// memory. The product's A operand is G^T and its B operand R, both stored
-// sample-major, so both are read with ldmatrix.trans:
-//   A (16 o x 16 s): matrices (s 0-7, o 0-7) (s 0-7, o 8-15) (s 8-15, o 0-7)
-//                    (s 8-15, o 8-15) are a0..a3;
-//   B (16 s x 16 i): matrices (s 0-7, i 0-7) (s 8-15, i 0-7) are b0, b1 of one
-//                    n-tile, (s 0-7, i 8-15) (s 8-15, i 8-15) of the next.
-__device__ __forceinline__ void warp_outer(const __nv_bfloat16* G, const __nv_bfloat16* R,
-                                           int n_pairs, float* out, int ld_out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int r8 = lane & 7, hi3 = (lane >> 3) & 1, hi4 = (lane >> 4) & 1;
-  float acc[kDefHid / 8][4];
+// acc[i] = 0 where bit i of the mask is clear.
+__device__ __forceinline__ void apply_mask(float (&acc)[64], uint2 mk) {
 #pragma unroll
-  for (int nt = 0; nt < kDefHid / 8; ++nt)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
-  for (int k0 = 0; k0 < kBT; k0 += 16) {
-    uint32_t a[4];
-    ldmatrix_x4_trans(a, G + (k0 + hi4 * 8 + r8) * kLd + 16 * warp + hi3 * 8);
-#pragma unroll
-    for (int np = 0; np < kDefHid / 16; ++np) {
-      if (np < n_pairs) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, R + (k0 + hi3 * 8 + r8) * kLd + 16 * np + hi4 * 8);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-  }
-  float* o0 = out + (long long)(16 * warp + g) * ld_out + 2 * t;
-  float* o1 = o0 + 8 * (long long)ld_out;
-#pragma unroll
-  for (int nt = 0; nt < kDefHid / 8; ++nt) {
-    if (nt < 2 * n_pairs) {
-      red_add(o0 + nt * 8, acc[nt][0]);
-      red_add(o0 + nt * 8 + 1, acc[nt][1]);
-      red_add(o1 + nt * 8, acc[nt][2]);
-      red_add(o1 + nt * 8 + 1, acc[nt][3]);
-    }
+  for (int i = 0; i < 64; ++i) {
+    const uint32_t w = i < 32 ? mk.x : mk.y;
+    if (!((w >> (i & 31)) & 1u)) acc[i] = 0.f;
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// g_h [64 x 128] (+)= the A fragments [64 x 16 k] . W^T for a matrix image of
+// `rows` rows (output-major) read transposed: the input gradient.
+__device__ __forceinline__ void chain_product(float (&acc)[64], const uint32_t (&a)[8][4],
+                                              uint32_t wimg, int rows, int k_steps) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    if (kk < k_steps) wgmma_rs128<1>(acc, a[kk], desc_mnmajor(wimg, rows, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(acc);
 }
 
-// Shared memory of tower_bwd_kernel, in bytes from the start:
-//   wst [128][kLd] bf16 | ex [kBT][kLd] | act [n_layers - 1][kBT][kLd] |
-//   ga, gb [kBT][kLd] | tb f32 [128 + 4] | rowsum f32 [128] | gxs f32 [kBT][4]
-inline size_t tower_bwd_smem(int n_layers) {
-  return (size_t)(kDefHid + (size_t)(n_layers + 2) * kBT) * kLd * sizeof(__nv_bfloat16) +
-         (size_t)(kDefHid + 4 + kDefHid + 4 * kBT) * sizeof(float);
-}
-
-__global__ void __launch_bounds__(kBThreads)
+__global__ void __launch_bounds__(kTowerThreads, 1)
 tower_bwd_kernel(const float* __restrict__ x3, long long m, const int* __restrict__ count,
                  const int* __restrict__ idx, const float* __restrict__ gxc,
-                 const __nv_bfloat16* __restrict__ wdef,
-                 const __nv_bfloat16* __restrict__ wdef_in, const float* __restrict__ tcond,
-                 const DeformMeta dm, float* __restrict__ g_wdef, float* __restrict__ g_tsum,
-                 __nv_bfloat16* __restrict__ acts_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* wst = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ex = wst + kDefHid * kLd;
-  __nv_bfloat16* act = ex + kBT * kLd;  // act[l]: relu'd bf16 output of matrix l
-  __nv_bfloat16* ga = act + (dm.n_layers - 1) * kBT * kLd;
-  __nv_bfloat16* gb = ga + kBT * kLd;
-  float* tb = reinterpret_cast<float*>(gb + kBT * kLd);
-  float* rowsum = tb + kDefHid + 4;
-  float* gxs = rowsum + kDefHid;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+                 const __nv_bfloat16* __restrict__ wdef, const float* __restrict__ tcond,
+                 const DeformMeta dm, unsigned char* __restrict__ gscr,
+                 unsigned char* __restrict__ ascr, double* __restrict__ tsum) {
   if (tcond[kDefHid] == 0.f) return;  // t == 0: the warp is gated off, no gradient
-  const int n = *count;
-  for (int j = tid; j < kDefHid; j += kBThreads) {
-    tb[j] = tcond[j];
-    rowsum[j] = 0.f;
-  }
-  const int n_hidden = dm.n_layers - 1;  // matrices whose output is kept
-  const int mt = warp & 3, nh = warp >> 2;  // this warp's 16 samples x 64 columns
-  const int row0 = mt * 16 + g;
-
-  for (int base = blockIdx.x * kBT; base < n; base += gridDim.x * kBT) {
-    __syncthreads();  // the previous tile's buffers are no longer read
-    // ---- the tile's samples: position, g_x; ex = freq(x), bf16 ----
-    {
-      const int s = tid & (kBT - 1), part = tid >> 6;  // four threads a sample
-      const bool live = base + s < n;
-      const long long i = live ? idx[base + s] : 0;
-      float x[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) x[a] = live ? x3[a * m + i] : 0.f;
-      encode_position(dm, x, ex + s * kLd, part, kBThreads / kBT);
-      if (part == 0) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) gxs[4 * s + a] = live ? gxc[a * m + base + s] : 0.f;
-      }
-    }
-
-    // ---- forward, every hidden activation kept ----
-    for (int l = 0; l < n_hidden; ++l) {
-      const int k_dim = l == 0 ? dm.in_pad : kDefHid;
-      __syncthreads();  // the staged matrix is no longer read
-      stage_matrix<kBThreads>(wdef + dm.off[l], kDefHid, k_dim, wst);
-      __syncthreads();  // the matrix and the layer's input rows are in place
-      const __nv_bfloat16* in = l == 0 ? ex : act + (l - 1) * kBT * kLd;
-      __nv_bfloat16* outp = act + l * kBT * kLd;
-      float acc[1][8][4];
-      warp_layer<1, 8>(in + mt * 16 * kLd, wst + nh * 64 * kLd, k_dim, acc);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = nh * 64 + nt * 8 + 2 * t;
-        float* c = acc[0][nt];
-        if (l == 0) {
-          c[0] += tb[col]; c[1] += tb[col + 1];
-          c[2] += tb[col]; c[3] += tb[col + 1];
-        }
-        *reinterpret_cast<uint32_t*>(outp + row0 * kLd + col) = pack_relu_bf16(c[0], c[1]);
-        *reinterpret_cast<uint32_t*>(outp + (row0 + 8) * kLd + col) = pack_relu_bf16(c[2], c[3]);
-      }
-    }
-
-    // ---- the last matrix [hidden, 3]: K = 3, on the FP32 pipe ----
-    __syncthreads();
-    if (acts_out) {
-      // for checks: ex and every hidden activation of the tile's samples, as
-      // 16-byte chunks of rows of 128 (ex: the columns below in_pad hold data)
-      for (int c = tid; c < dm.n_layers * kBT * (kDefHid / 8); c += kBThreads) {
-        const int q = c & 15, s = (c >> 4) & (kBT - 1), l = c / (16 * kBT);
-        if (base + s < n && (l > 0 || q * 8 < dm.in_pad)) {
-          const __nv_bfloat16* src = (l == 0 ? ex : act + (l - 1) * kBT * kLd) + s * kLd + q * 8;
-          *reinterpret_cast<uint4*>(acts_out + ((long long)l * m + base + s) * kDefHid + q * 8) =
-              *reinterpret_cast<const uint4*>(src);
-        }
-      }
-    }
-    stage_matrix<kBThreads>(wdef + dm.off[dm.n_layers - 1], kLastRows, kDefHid, wst);
-    __syncthreads();
-    const __nv_bfloat16* r_last = act + (n_hidden - 1) * kBT * kLd;
-    {
-      // g_W[last][o][i] += sum_s bf16(g_x[s][o]) r[s][i]: a column i and half
-      // of the samples per thread
-      const int i = tid & (kDefHid - 1), s0 = (tid >> 7) * (kBT / 2);
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-      for (int s = s0; s < s0 + kBT / 2; ++s) {
-        const float r = ldbf(r_last + s * kLd + i);
-        a0 = fmaf(bf16r(gxs[4 * s]), r, a0);
-        a1 = fmaf(bf16r(gxs[4 * s + 1]), r, a1);
-        a2 = fmaf(bf16r(gxs[4 * s + 2]), r, a2);
-      }
-      float* gl = g_wdef + dm.off[dm.n_layers - 1];
-      red_add(gl + i, a0);
-      red_add(gl + kDefHid + i, a1);
-      red_add(gl + 2 * kDefHid + i, a2);
-    }
-    __nv_bfloat16* gcur = ga;
-    __nv_bfloat16* gnext = gb;
-    {
-      // g_h = (bf16(g_x) W[last]^T) masked by r > 0, rounded to bf16
-      const float w0 = ldbf(wst + (tid & (kDefHid - 1))),
-                  w1 = ldbf(wst + kLd + (tid & (kDefHid - 1))),
-                  w2 = ldbf(wst + 2 * kLd + (tid & (kDefHid - 1)));
-      const int i = tid & (kDefHid - 1), s0 = (tid >> 7) * (kBT / 2);
-      float colsum = 0.f;
-      for (int s = s0; s < s0 + kBT / 2; ++s) {
-        float v = bf16r(gxs[4 * s]) * w0;
-        v = fmaf(bf16r(gxs[4 * s + 1]), w1, v);
-        v = fmaf(bf16r(gxs[4 * s + 2]), w2, v);
-        v = ldbf(r_last + s * kLd + i) > 0.f ? v : 0.f;
-        colsum += v;
-        gcur[s * kLd + i] = __float2bfloat16_rn(v);
-      }
-      // a tower of two matrices: this is the first matrix's output gradient
-      if (n_hidden == 1) atomicAdd(rowsum + i, colsum);
-    }
-
-    // ---- hidden matrices, from the last to the second ----
-    for (int l = n_hidden - 1; l >= 1; --l) {
-      const __nv_bfloat16* r_in = act + (l - 1) * kBT * kLd;  // this matrix's input
-      __syncthreads();  // g_h of this layer is complete; wst is no longer read
-      stage_matrix<kBThreads>(wdef_in + (long long)(l - 1) * kDefHid * kDefHid, kDefHid, kDefHid, wst);
-      warp_outer(gcur, r_in, kDefHid / 16, g_wdef + dm.off[l], kDefHid);
-      __syncthreads();  // the input-major matrix is in place
-      float acc[1][8][4];
-      warp_layer<1, 8>(gcur + mt * 16 * kLd, wst + nh * 64 * kLd, kDefHid, acc);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = nh * 64 + nt * 8 + 2 * t;
-        float* c = acc[0][nt];
-        const __nv_bfloat162 m0 =
-            *reinterpret_cast<const __nv_bfloat162*>(r_in + row0 * kLd + col);
-        const __nv_bfloat162 m1 =
-            *reinterpret_cast<const __nv_bfloat162*>(r_in + (row0 + 8) * kLd + col);
-        c[0] = __low2float(m0) > 0.f ? c[0] : 0.f;
-        c[1] = __high2float(m0) > 0.f ? c[1] : 0.f;
-        c[2] = __low2float(m1) > 0.f ? c[2] : 0.f;
-        c[3] = __high2float(m1) > 0.f ? c[3] : 0.f;
-        *reinterpret_cast<uint32_t*>(gnext + row0 * kLd + col) = pack_bf16(c[0], c[1]);
-        *reinterpret_cast<uint32_t*>(gnext + (row0 + 8) * kLd + col) = pack_bf16(c[2], c[3]);
-        if (l == 1) {
-          // the time rows need the f32 sum over samples of the first
-          // matrix's output gradient: over this warp's 16 rows by shuffles
-          float s0 = c[0] + c[2], s1 = c[1] + c[3];
-#pragma unroll
-          for (int d = 4; d < 32; d <<= 1) {
-            s0 += __shfl_xor_sync(0xffffffffu, s0, d);
-            s1 += __shfl_xor_sync(0xffffffffu, s1, d);
-          }
-          if (g == 0) {
-            atomicAdd(rowsum + col, s0);
-            atomicAdd(rowsum + col + 1, s1);
-          }
-        }
-      }
-      __nv_bfloat16* sw = gcur;
-      gcur = gnext;
-      gnext = sw;
-    }
-
-    // ---- the first matrix: spatial rows from ex ----
-    __syncthreads();
-    warp_outer(gcur, ex, dm.in_pad / 16, g_wdef + dm.off[0], dm.in_pad);
-  }
+  const int tid = threadIdx.x;
+  const TowerSmem sm = carve_tower_smem(dm);
+  if (tid == 0) init_tower_barriers(sm);
+  for (int j = tid; j < kDefHid; j += blockDim.x) sm.tb[j] = tcond[j];
+  for (int j = tid; j < 4 * kConsumers * kDefHid; j += blockDim.x) sm.wsum[j] = 0.0;
   __syncthreads();
-  for (int j = tid; j < kDefHid; j += kBThreads) red_add(g_tsum + j, rowsum[j]);
+  const long long n = *count;
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  const long long layer_stride = (m + kTile - 1) / kTile * (long long)kTileBytes;
+  const int rounds = tower_rounds(n_tiles);
+  const Ring rg = make_ring(dm, true);
+  const int wg = tid >> 7;
+  if (wg == kConsumers) {
+    tower_producer(dm, sm, rg, wdef, rounds);
+    return;
+  }
+  const int lane = tid & 31, w4 = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const int L = dm.n_layers;
+  uint2 mask[kMaxDefLayers];
+  for (int r = 0; r < rounds; ++r) {
+    const long long tile = ((long long)r * gridDim.x + blockIdx.x) * kConsumers + wg;
+    if (tile >= n_tiles) {
+      ring_dry_round(rg, sm, r);
+      continue;
+    }
+    long long p[2], i[2];
+    bool live[2];
+    float x0[3], x1[3];
+    tile_rows(x3, m, idx, n, tile, p, i, live, x0, x1);
+    float gx0[3], gx1[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      gx0[a] = live[0] ? gxc[a * m + p[0]] : 0.f;
+      gx1[a] = live[1] ? gxc[a * m + p[1]] : 0.f;
+    }
+    uint32_t a[8][4];
+    float acc[64];
+    const TileKeep keep = {ascr + tile * kTileBytes, layer_stride, mask};
+    tower_forward_tile<true>(dm, sm, rg, r, x0, x1, a, acc, keep);
+
+    // the last matrix: its output gradient bf16(g_x) in columns 0..2
+    unsigned char* gt = gscr + tile * kTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[kk][q] = 0u;
+    if (t == 0) {
+      a[0][0] = pack_bf16(gx0[0], gx0[1]);
+      a[0][1] = pack_bf16(gx1[0], gx1[1]);
+    } else if (t == 1) {
+      a[0][0] = pack_bf16(gx0[2], 0.f);
+      a[0][1] = pack_bf16(gx1[2], 0.f);
+    }
+    store_tile(gt + (L - 1) * layer_stride, a, w4, g, t, 1);
+    chain_product(acc, a, smem_u32(sm.wlast), kLastRows, 1);
+    apply_mask(acc, mask[L - 1]);
+    // the hidden matrices, from the last to the second
+    for (int l = L - 2; l >= 1; --l) {
+      acc_to_frags(acc, a, false);
+      store_tile(gt + l * layer_stride, a, w4, g, t);
+      int slot;
+      uint32_t parity;
+      ring_pos(rg, r, 2 * rg.H - l, slot, parity);
+      mbar_wait(sm.full + 1 + slot, parity);
+      chain_product(acc, a, smem_u32(sm.slots + (size_t)slot * kHidBytes), kDefHid, 8);
+      ring_release(rg, sm, slot);
+      apply_mask(acc, mask[l]);
+    }
+    // the first matrix: its output gradient summed over the warp's 16
+    // samples in f64 into the warp's own row of sums (the time rows). The
+    // f32 gradients of a sample are its own whatever the list's order, and
+    // their f64 sum is as good as exact, so the sum that time_rows_kernel
+    // rounds does not depend on which samples shared a tile, a block or a run
+    double* ws = sm.wsum + (tid >> 5) * kDefHid;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        double s = (double)acc[4 * j + h] + (double)acc[4 * j + 2 + h];
+#pragma unroll
+        for (int d = 4; d < 32; d <<= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
+        if (g == 0) ws[8 * j + 2 * t + h] += s;
+      }
+    acc_to_frags(acc, a, false);
+    store_tile(gt, a, w4, g, t);
+  }
+  // the consumer warps' time-row sums are complete: the block's sum, over
+  // its warps in order, to device memory for time_rows_kernel
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+  if (tid < kDefHid) {
+    double s = 0.0;
+    for (int w = 0; w < 4 * kConsumers; ++w) s += sm.wsum[w * kDefHid + tid];
+    tsum[(long long)blockIdx.x * kDefHid + tid] = s;
+  }
 }
 
 // ---------------------------------------------------------------- phase 5
-// g_wtime [tdim][128] = bf16(freq(t)) (x) bf16(g_tsum), the time rows of the
-// first matrix; tcond holds freq(t) behind the bias and the flag.
-__global__ void time_rows_kernel(const float* __restrict__ tcond, int tdim,
-                                 const float* __restrict__ g_tsum, float* __restrict__ g_wtime) {
-  const int j = threadIdx.x;
-  const float s = tcond[kDefHid] != 0.f ? bf16r(g_tsum[j]) : 0.f;
-  for (int k = 0; k < tdim; ++k) g_wtime[k * kDefHid + j] = s * bf16r(tcond[kDefHid + 1 + k]);
+// g_wdef[l] [128 o][128 i] += sum over the listed samples of G_l[s][o] A_l[s][i]
+// for matrix l = blockIdx.y, over the tiles blockIdx.x, + gridDim.x, ... of
+// the scratch. Consumer group w owns the output rows 64 w .. 64 w + 63.
+__global__ void __launch_bounds__(kWgThreads, 2)
+tower_wgrad_kernel(const int* __restrict__ count, const float* __restrict__ tcond,
+                   const DeformMeta dm, long long m, const unsigned char* __restrict__ gscr,
+                   const unsigned char* __restrict__ ascr, float* __restrict__ g_wdef) {
+  if (tcond[kDefHid] == 0.f) return;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t s0 = smem_u32(smem_raw);
+  unsigned char* stages = smem_raw + ((1024u - (s0 & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + kWgStages * kWgStageBytes);
+  uint64_t* empty = full + kWgStages;
+  const int tid = threadIdx.x, l = blockIdx.y;
+  const long long n_tiles = ((long long)*count + kTile - 1) / kTile;
+  const long long c = blockIdx.x, n_chunks = gridDim.x;
+  const long long mine = c < n_tiles ? (n_tiles - c + n_chunks - 1) / n_chunks : 0;
+  if (mine == 0) return;
+  if (tid == 0) {
+    for (int k = 0; k < kWgStages; ++k) {
+      mbar_init(full + k, 1);
+      mbar_init(empty + k, 4 * kWgConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const long long layer = (long long)l * ((m + kTile - 1) / kTile) * kTileBytes;
+  const int wg = tid >> 7;
+  if (wg == kWgConsumers) {
+    if ((tid & 31) != 0) return;
+    for (long long j = 0; j < mine; ++j) {
+      const int st = (int)(j % kWgStages);
+      if (j >= kWgStages) mbar_wait(empty + st, (uint32_t)((j / kWgStages - 1) & 1));
+      const long long tile = c + j * n_chunks;
+      unsigned char* dst = stages + st * kWgStageBytes;
+      mbar_expect_tx(full + st, kWgStageBytes);
+      bulk_load(dst, gscr + layer + tile * kTileBytes, kTileBytes, full + st);
+      bulk_load(dst + kTileBytes, ascr + layer + tile * kTileBytes, kTileBytes, full + st);
+    }
+    for (long long j = mine - kWgStages; j < mine; ++j)
+      if (j >= 0) mbar_wait(full + (int)(j % kWgStages), (uint32_t)((j / kWgStages) & 1));
+    return;
+  }
+  float acc[64];
+#pragma unroll
+  for (int q = 0; q < 64; ++q) acc[q] = 0.f;
+  for (long long j = 0; j < mine; ++j) {
+    const int st = (int)(j % kWgStages);
+    mbar_wait(full + st, (uint32_t)((j / kWgStages) & 1));
+    const uint32_t gs = smem_u32(stages + st * kWgStageBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wgmma_ss128_tt(acc, desc_mnmajor(gs + wg * (kTile * 128), kTile, kk),
+                     desc_mnmajor(gs + kTileBytes, kTile, kk), 1);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+    if ((tid & 31) == 0) mbar_arrive(empty + st);
+  }
+  // acc[4 j + q]: row o = 64 wg + 16 w4 + g (+ 8 for q >= 2), column 8 j + 2 t + (q & 1)
+  const int lane = tid & 31, w4 = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const int rows = l == dm.n_layers - 1 ? 3 : kDefHid;
+  const int cols = l == 0 ? 16 * first_ksteps(dm) : kDefHid;
+  float* out = g_wdef + (long long)l * kDefHid * kDefHid;
+#pragma unroll
+  for (int q = 0; q < 64; ++q) {
+    const int o = 64 * wg + 16 * w4 + g + ((q & 2) ? 8 : 0);
+    const int i = 8 * (q >> 2) + 2 * t + (q & 1);
+    if (o < rows && i < cols) red_add(out + o * kDefHid + i, acc[q]);
+  }
+}
+
+// ---------------------------------------------------------------- phase 6
+// g_wtime [tdim][128] = bf16(freq(t)) (x) bf16(sum), the time rows of the
+// first matrix; sum: the f64 sum of tower_bwd_kernel's block sums tsum
+// [blocks][128], in a fixed order (block b on thread row b % 8, then the
+// rows in order), rounded to f32: a call's time rows are the same bits in
+// every run. tcond holds freq(t) behind the bias and the flag. One block of
+// 8 x 128 threads.
+__global__ void __launch_bounds__(8 * kDefHid)
+time_rows_kernel(const float* __restrict__ tcond, int tdim, int blocks,
+                 const double* __restrict__ tsum, float* __restrict__ g_wtime) {
+  __shared__ double part[8][kDefHid];
+  const int c = threadIdx.x % kDefHid, w = threadIdx.x / kDefHid;
+  const bool moving = tcond[kDefHid] != 0.f;  // at t == 0 tsum was not written
+  double s = 0.0;
+  if (moving)
+    for (int b = w; b < blocks; b += 8) s += tsum[(long long)b * kDefHid + c];
+  part[w][c] = s;
+  __syncthreads();
+  if (w != 0) return;
+  double total = 0.0;
+  for (int k = 0; k < 8; ++k) total += part[k][c];
+  const float v = moving ? bf16r((float)total) : 0.f;
+  for (int k = 0; k < tdim; ++k) g_wtime[k * kDefHid + c] = v * bf16r(tcond[kDefHid + 1 + k]);
 }
 
 }  // namespace
@@ -346,10 +351,11 @@ __global__ void time_rows_kernel(const float* __restrict__ tcond, int tdim,
 extern "C" int sdn_dyn_field_bwd(const float* x3, const float* d3, const float* g_out,
                                  long long m, const void* tab, const void* wfwd,
                                  const void* wbwd, const long long* meta, float bound,
-                                 const void* wdef, const void* wdef_in, const long long* dmeta,
-                                 const float* tcond, int tdim, int cutoff, float* xw, int* count, int* idx, float* gx, float* g_tab,
-                                 float* g_w, float* g_wdef, float* g_tsum, float* g_wtime,
-                                 void* acts, float* rec_out, void* stream_) {
+                                 const void* wdef, const long long* dmeta, const float* tcond,
+                                 int tdim, int cutoff, float* xw, int* count, int* idx, float* gx,
+                                 float* g_tab, float* g_w, float* g_wdef, double* tsum,
+                                 float* g_wtime, void* gscr, void* ascr, float* rec_out,
+                                 void* stream_) {
   FieldMeta fm;
   TileMeta tm;
   BwdMeta bm;
@@ -370,8 +376,8 @@ extern "C" int sdn_dyn_field_bwd(const float* x3, const float* d3, const float* 
   if (bad) return bad;
 
   // 2. xw = x + dx of the listed samples
-  bad = launch_warp(warp_kernel, x3, m, (const __nv_bfloat16*)wdef, tcond, dm, xw,
-                    idx, count, stream);
+  bad = launch_warp(warp_kernel, x3, m, (const __nv_bfloat16*)wdef, tcond, dm, xw, idx, count,
+                    stream);
   if (bad) return bad;
 
   // 3. canonical backward at xw, and g_x in the list's order
@@ -381,21 +387,36 @@ extern "C" int sdn_dyn_field_bwd(const float* x3, const float* d3, const float* 
                                bm, g_tab, g_w, gxo, rec_out, stream);
   if (bad) return bad;
 
-  // 4. the tower's backward over the list
-  const size_t smem3 = tower_bwd_smem(dm.n_layers);
-  if (smem3 > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      tower_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
+  // 4. the tower's recompute and chain over the list
+  const long long tiles = (m + kTile - 1) / kTile;
+  const size_t smem4 = tower_smem_bytes(dm.first_bytes, dm.n_slots);
+  cudaError_t err = cudaFuncSetAttribute(tower_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem4);
   if (err != cudaSuccess) return (int)err;
-  long long blocks = (m + kBT - 1) / kBT;
-  if (blocks > n_sm) blocks = n_sm;
-  tower_bwd_kernel<<<(unsigned)blocks, kBThreads, smem3, stream>>>(
-      x3, m, count, idx, gx, (const __nv_bfloat16*)wdef, (const __nv_bfloat16*)wdef_in, tcond,
-      dm, g_wdef, g_tsum, (__nv_bfloat16*)acts);
+  const long long pairs = (tiles + kConsumers - 1) / kConsumers;
+  const long long blocks4 = pairs < n_sm ? pairs : n_sm;
+  tower_bwd_kernel<<<(unsigned)blocks4, kTowerThreads, smem4, stream>>>(
+      x3, m, count, idx, gx, (const __nv_bfloat16*)wdef, tcond, dm, (unsigned char*)gscr,
+      (unsigned char*)ascr, tsum);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  // 5. the first matrix's time rows
-  time_rows_kernel<<<1, kDefHid, 0, stream>>>(tcond, tdim, g_tsum, g_wtime);
+  // 5. the weight gradients, summed over chunks of tiles
+  const size_t smem5 = 1024 + (size_t)kWgStages * kWgStageBytes + 2 * kWgStages * sizeof(uint64_t);
+  err = cudaFuncSetAttribute(tower_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem5);
+  if (err != cudaSuccess) return (int)err;
+  long long chunks = (2LL * n_sm + dm.n_layers - 1) / dm.n_layers;
+  const long long by_size = (tiles + kChunkTiles - 1) / kChunkTiles;
+  if (chunks > by_size) chunks = by_size;
+  if (chunks < 1) chunks = 1;
+  tower_wgrad_kernel<<<dim3((unsigned)chunks, (unsigned)dm.n_layers), kWgThreads, smem5,
+                       stream>>>(count, tcond, dm, m, (const unsigned char*)gscr,
+                                 (const unsigned char*)ascr, g_wdef);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // 6. the first matrix's time rows
+  time_rows_kernel<<<1, 8 * kDefHid, 0, stream>>>(tcond, tdim, (int)blocks4, tsum, g_wtime);
   return (int)cudaGetLastError();
 }

@@ -14,35 +14,30 @@
 // The time bias W0[nx:]^T freq(t) and the flag arrive as 129 floats in device
 // memory (`tcond`), so a caller that holds t on the card never synchronises.
 //
-// What bounds it: both halves are bf16 x bf16 -> f32 products on
-// mma.sync.m16n8k16, and they want opposite things of an SM. The tower is
-// ~107k MACs per sample (4.5 times the canonical towers) and lives in shared
-// memory: a block of 256 threads owns a tile of 256 samples, whose
-// activations are bf16 [256, 128] (rows padded to 136 against bank
-// conflicts); warp w owns rows 32w..32w+31 through every layer, multiplies
-// them by the layer's matrix into 128 f32 accumulators per thread and writes
-// relu'd bf16 back in place, so layers need no block barrier for the
-// activations; each layer's 32 KB matrix is staged from L2 into one shared
-// buffer by the whole block, between two barriers (the matrices, 217 KB, do
-// not fit at once). The canonical half is bound by the instruction rate of
-// its feature arithmetic and by its gathers (2.8 KB of table rows a sample), keeps
-// everything of a sample in registers, and wants many warps and a large L1.
-// The Pallas kernel fused the two so that the warp never left the chip. Here
-// a fused kernel holds the canonical half to the tower's one block of 8 warps
-// an SM (109 KB of tower buffers beside 56 KB of canonical matrices): on an
-// NVIDIA H100 80GB HBM3 at 700 W it took 15.49 ms on 8,388,608 ray-coherent
-// samples and 2.36-2.39 ms on 1,048,613 random ones, against 13.71-13.78 and
-// 2.29-2.31 ms for the two halves as two kernels
-// (profiling/torch_dyn_kernel_timing.py). The warp is 12 bytes a sample,
-// written once and read once, against 2.8 KB of gathers. So the entry runs
-// two kernels on the caller's stream and counts as one launch:
+// What bounds it: both halves are bf16 x bf16 -> f32 products, and they want
+// opposite things of an SM. The tower is ~107k MACs per sample (4.5 times the
+// canonical towers, 0.226 ms at M = 1,048,613 on the tensor cores' 989
+// TFLOP/s); it wants its 212 KB of matrices in shared memory and warpgroup
+// products (deform_tower.cuh). The canonical half is bound by the instruction
+// rate of its feature arithmetic and by its gathers (2.8 KB of table rows a
+// sample), keeps everything of a sample in registers, and wants many warps
+// and a large L1. The Pallas kernel fused the two so that the warp never left
+// the chip; here one block cannot hold the tower's matrices beside the
+// canonical ones, and the warp is 12 bytes a sample, written once and read
+// once, against 2.8 KB of gathers. So the entry runs two kernels on the
+// caller's stream and counts as one launch:
 //   1. deform_fwd_kernel (warp_tiles of deform_tower.cuh, which the backward
-//      entry runs too): xw [3, M] = x + dx; its 128 accumulators a thread
-//      hold it to one block of 8 warps an SM;
+//      entry runs too): xw [3, M] = x + dx. One persistent block an SM: a
+//      producer warp brings the eight matrices into shared memory once, three
+//      warpgroups walk tiles of 64 samples on wgmma.mma_async m64n128k16 with
+//      the activations in registers;
 //   2. field_fwd_kernel at xw, two blocks of 8 warps an SM, as the static
 //      entry runs it.
-// Later work: the tower is now two thirds of the entry's time; wgmma, which
-// reads a matrix from shared memory once per four warps, is its lever.
+// The design before this one (mma.sync on activations in shared memory,
+// every matrix copied from L2 for every tile of 256 samples between two
+// block barriers, one block of 8 warps an SM) took 2.200 ms on 1,048,613
+// random samples, the tower 61-65 % of it, on an NVIDIA H100 80GB HBM3 at
+// 700 W (chip_smoke.py phase 3c; PERF.md has both designs side by side).
 //
 // C interface for ctypes: sdn_dyn_field_fwd returns the first error of either
 // launch, else 0. `wfwd` and feat_out as in sdn_field_fwd; xw [3, M] is
@@ -55,7 +50,7 @@ using namespace sdn;
 
 namespace {
 
-__global__ void __launch_bounds__(kTowerTile)
+__global__ void __launch_bounds__(kTowerThreads, 1)
 deform_fwd_kernel(const float* __restrict__ x3, long long m,
                   const __nv_bfloat16* __restrict__ wdef, const float* __restrict__ tcond,
                   const DeformMeta dm, float* __restrict__ xw, const int* __restrict__ list,

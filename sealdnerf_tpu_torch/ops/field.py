@@ -64,9 +64,11 @@ from .sh_encode import sh_encode
 
 _KERNEL_TOWERS = dict(num_layers=2, num_layers_color=3, hidden_dim=64,
                       hidden_dim_color=64, geo_feat_dim=15, sh_degree=4)
-# the dynamic kernel's deform tower: hidden width, rows of the padded last
-# matrix, most matrices
-_DEFORM_HID, _DEFORM_LAST_ROWS, _DEFORM_MAX_LAYERS = 128, 8, 16
+# the dynamic kernels' deform tower: hidden width, rows of the padded last
+# matrix (one k-step of the backward's transposed product), most matrices;
+# samples of one tile of its scratch (csrc/deform_tower.cuh: kTile)
+_DEFORM_HID, _DEFORM_LAST_ROWS, _DEFORM_MAX_LAYERS = 128, 16, 16
+_DEFORM_TILE = 64
 # a block's shared memory on sm_90, and the backward body's spin locks in it
 # (csrc/field_bwd_body.cuh: kMaxSmem, kMaxLocks)
 _SMEM_PER_BLOCK, _BWD_LOCK_BYTES = 232448, 4 * 46
@@ -92,14 +94,19 @@ class FieldTables:
            layout, then the offsets into wbwd.
     Of a time-conditioned field also (plain then has "deform_mlp" too):
     w0_time: f32 [time inputs, hidden], the first deform matrix's time rows.
-    wdef:  flat bf16 buffer of the deform matrices, output-major (W^T):
-           [hidden, in_pad] (spatial rows only, zero-padded to a multiple of
-           16) | hidden matrices [hidden, hidden] | last [8, hidden] (rows
-           3..7 zero). Empty when the tower is not one the kernel takes.
-    wdef_in: the hidden matrices once more, input-major [hidden, hidden],
-           for the backward kernel's input gradients.
-    dmeta: int64 n_layers, hidden, in_dim, in_pad, multires_deform, then the
-           element offset of each matrix in wdef.
+    wdef:  flat bf16 buffer of the deform matrices as the shared-memory
+           images the kernels' wgmma products read (see sw128_positions):
+           each output-major (W^T), first [hidden, in_pad rounded up to 64]
+           (spatial rows only, zero-padded), hidden [hidden, hidden], last
+           [16, hidden] (rows 3..15 zero). The forward reads them K-major,
+           the backward's chain the same bytes transposed. Empty when the
+           tower is not one the kernels take.
+    dmeta: int64 n_layers, hidden, in_dim, in_pad (in_dim padded to a
+           multiple of 16: the first matrix's k-steps), multires_deform, then
+           the element offset of each matrix image in wdef.
+    ex_cols: int64 [in_dim] on wdef's device, deform_ex_columns: the column
+           of the first image (and of the backward's ex tiles) that holds
+           each spatial input.
     """
     plain: dict
     tab: torch.Tensor
@@ -108,7 +115,7 @@ class FieldTables:
     wbwd: torch.Tensor = None
     w0_time: torch.Tensor = None
     wdef: torch.Tensor = None
-    wdef_in: torch.Tensor = None
+    ex_cols: torch.Tensor = None
     dmeta: list = field(default_factory=list)
 
 
@@ -404,6 +411,75 @@ def pack_tables(params, cfg: CPConfig) -> FieldTables:
     return tables
 
 
+def sw128_positions(rows: int, cols: int, device="cpu"):
+    """Where each entry of a row-major bf16 [rows, cols] matrix (rows a
+    multiple of 8, cols of 64) lies in its 128-byte-swizzled image, the
+    layout of csrc/deform_tower.cuh's matrices and scratch tiles: blocks of
+    64 columns one after another, each [rows][64] at 128 bytes a row, the
+    16-byte chunk c of row r stored at chunk c ^ (r % 8). Returns an int64
+    [rows * cols] of element positions: image[pos] = mat.reshape(-1)."""
+    r = torch.arange(rows, device=device)[:, None]
+    c = torch.arange(cols, device=device)[None, :]
+    chunk = (c % 64) // 8
+    return (((c // 64) * rows + r) * 64 + (chunk ^ (r % 8)) * 8
+            + c % 8).reshape(-1)
+
+
+def deform_ex_columns(n_freq: int, in_pad: int):
+    """The column of the first deform matrix's image (and of the kernels' ex
+    tile) that holds each spatial input, in freq_encode's order [x, sin(2^f
+    x), cos(2^f x)] (csrc/deform_tower.cuh ex_pair): the inputs go in pairs,
+    (sin, cos)(2^f x_a) as pair 3 f + a, then (x_0, x_1) and (x_2, 0); pair p
+    sits at columns 16 (i // 2) + 8 (i % 2) + 2 t (+ 1 for the second of the
+    pair), t = p // (2 K), i = p % (2 K), for the K = 4 or 8 k-steps of the
+    inputs padded to 64 or 128. Returns an int64 [3 + 6 n_freq]."""
+    k = 4 if in_pad <= 64 else 8
+
+    def col(p, second):
+        t, i = divmod(p, 2 * k)
+        return 16 * (i // 2) + 8 * (i % 2) + 2 * t + second
+
+    n3 = 3 * n_freq
+    cols = [col(n3, 0), col(n3, 1), col(n3 + 1, 0)]
+    for f in range(n_freq):
+        cols += [col(3 * f + a, 0) for a in range(3)]
+        cols += [col(3 * f + a, 1) for a in range(3)]
+    return torch.tensor(cols, dtype=torch.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _deform_layout(n_layers: int, n_freq: int, in_pad: int, device: str):
+    """The packing of the deform matrices, made once per tower shape and
+    device (a train step repacks the tables, and a host-to-device copy would
+    wait for the card): the image shapes (rows, cols) and element offsets,
+    the gather index that turns the row-major matrices, concatenated, into
+    their images, and deform_ex_columns, both on `device`."""
+    hid = _DEFORM_HID
+    shapes = [(hid, -(-in_pad // 64) * 64)] + [(hid, hid)] * (n_layers - 2) \
+        + [(_DEFORM_LAST_ROWS, hid)]
+    offs = np.cumsum([0] + [r * c for r, c in shapes]).tolist()
+    gather = torch.empty(offs[-1], dtype=torch.int64)
+    for (r, c), off in zip(shapes, offs):
+        gather[off + sw128_positions(r, c)] = torch.arange(off, off + r * c)
+    return (shapes, offs[:-1], gather.to(device),
+            deform_ex_columns(n_freq, in_pad).to(device))
+
+
+def unpack_deform(tables: FieldTables):
+    """The deform matrices as the kernels read them from tables.wdef,
+    unswizzled: output-major bf16 [first (hidden, in_pad up to 64) with its
+    columns in the kernels' ex order (deform_ex_columns), hidden matrices
+    (hidden, hidden)..., last (16, hidden)]."""
+    n_layers, _, _, in_pad, n_freq = tables.dmeta[:5]
+    shapes, offs, _, _ = _deform_layout(n_layers, n_freq, in_pad,
+                                        str(tables.wdef.device))
+    out = []
+    for off, (r, c) in zip(offs, shapes):
+        img = tables.wdef[off:off + r * c]
+        out.append(img[sw128_positions(r, c, img.device)].view(r, c))
+    return out
+
+
 def _pack_deform(tables: FieldTables, params, cfg: CPDNeRFConfig):
     """Add the deform tower's operands to `tables`."""
     bf = torch.bfloat16
@@ -412,23 +488,19 @@ def _pack_deform(tables: FieldTables, params, cfg: CPDNeRFConfig):
     tables.plain["deform_mlp"] = {"w": [w.to(bf).contiguous() for w in wd]}
     tables.w0_time = wd[0][nx:].detach().float().contiguous()
     in_pad = -(-nx // 16) * 16
-    tables.wdef = tables.wdef_in = tables.tab.new_zeros(0)
+    tables.wdef = tables.tab.new_zeros(0)
     if hid != _DEFORM_HID or in_pad > hid or \
             not 2 <= len(wd) <= _DEFORM_MAX_LAYERS:
         return                      # the launch raises for such a tower
     wb = tables.plain["deform_mlp"]["w"]
-    first = wb[0].new_zeros((hid, in_pad))
-    first[:, :nx] = wb[0][:nx].t()
-    last = wb[0].new_zeros((_DEFORM_LAST_ROWS, hid))
+    shapes, offs, gather, tables.ex_cols = _deform_layout(
+        len(wd), cfg.multires_deform, in_pad, str(wb[0].device))
+    first = wb[0].new_zeros(shapes[0])
+    first[:, tables.ex_cols] = wb[0][:nx].t()
+    last = wb[0].new_zeros(shapes[-1])
     last[:3] = wb[-1].t()
     mats = [first] + [w.t() for w in wb[1:-1]] + [last]
-    offs, n = [], 0
-    for mat in mats:
-        offs.append(n)
-        n += mat.numel()
-    tables.wdef = torch.cat([mat.contiguous().reshape(-1) for mat in mats])
-    tables.wdef_in = torch.cat([w.reshape(-1) for w in wb[1:-1]]) \
-        if len(wb) > 2 else tables.wdef.new_zeros(8)
+    tables.wdef = torch.cat([mat.reshape(-1) for mat in mats])[gather]
     tables.dmeta = [len(wd), hid, nx, in_pad, cfg.multires_deform] + offs
 
 
@@ -662,7 +734,7 @@ DYN_CHUNK = 1 << 20
 
 
 def _launch_dyn(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t, lod_skip,
-                density_only, feats=None, chunk: int = DYN_CHUNK):
+                density_only, feats=None, chunk: int = DYN_CHUNK, parts=None):
     from .build import load_library
     _check_kernel_cfg(cfg)
     if not tables.dmeta:
@@ -686,6 +758,8 @@ def _launch_dyn(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t, lod_skip,
         return torch.empty(rows * chunk, dtype=torch.float32, device=dev)
 
     xw = buf(3)                     # scratch: the warped positions
+    xw_all = None if parts is None else torch.empty(
+        (3, m), dtype=torch.float32, device=dev)
     if staged:
         xbuf, obuf = buf(3), buf(4)
         dbuf = None if d3 is None else buf(3)
@@ -719,6 +793,10 @@ def _launch_dyn(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t, lod_skip,
                 f"dynamic field kernel launch failed: CUDA error {rc}")
         if staged:
             out[:, i0:i0 + n].copy_(os_)
+        if xw_all is not None:
+            xw_all[:, i0:i0 + n].copy_(xw[:3 * n].view(3, n))
+    if parts is not None:
+        parts["xw"] = xw_all
     dyn_field_forward.launches += 1
     return out
 
@@ -736,7 +814,8 @@ def dyn_field_forward(params, cfg: CPDNeRFConfig, x3, d3, t, lod_skip=(),
       t: the frame's time, a float or a tensor holding one value; a tensor
         on x3's device is read there, without a host round trip.
       lod_skip, density_only, parts: as field_forward; the features are
-        those at the warped positions.
+        those at the warped positions, and parts also receives "xw" [3, M],
+        the warped positions that the kernel's warp wrote.
       chunk: samples per pass of the kernel's two device kernels (see
         DYN_CHUNK); the output does not depend on it.
 
@@ -758,7 +837,7 @@ def dyn_field_forward(params, cfg: CPDNeRFConfig, x3, d3, t, lod_skip=(),
     if x3.device.type != "cuda":
         raise ValueError(f"unsupported device {x3.device}")
     return _launch_dyn(tables, cfg, x3, d3, t, lod_skip, density_only,
-                       _feature_buffer(cfg, x3, parts), chunk)
+                       _feature_buffer(cfg, x3, parts), chunk, parts)
 
 
 dyn_field_forward.launches = 0
@@ -1255,17 +1334,25 @@ def dyn_field_backward_plain(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3,
 
 def _unpack_deform_grads(tables: FieldTables, cfg: CPDNeRFConfig, g_wdef,
                          g_wtime):
-    """The kernel's deform-gradient buffers (g_wdef laid out like
-    tables.wdef, g_wtime [time inputs, hidden]) in the params' layouts."""
-    n_layers, hid, nx, in_pad = tables.dmeta[:4]
-    offs = tables.dmeta[5:]
-    first = g_wdef[offs[0]:offs[0] + hid * in_pad].view(hid, in_pad)
-    out = [torch.cat([first[:, :nx].t(), g_wtime], dim=0)]
-    for l in range(1, n_layers - 1):
-        out.append(g_wdef[offs[l]:offs[l] + hid * hid].view(hid, hid).t())
-    last = g_wdef[offs[-1]:offs[-1] + _DEFORM_LAST_ROWS * hid]
-    out.append(last.view(_DEFORM_LAST_ROWS, hid)[:3].t())
+    """The kernel's deform-gradient buffers (g_wdef f32 [n_layers, hidden,
+    hidden], matrix l output-major; g_wtime [time inputs, hidden]) in the
+    params' layouts."""
+    n_layers, hid = tables.dmeta[:2]
+    g = g_wdef.view(n_layers, hid, hid)
+    out = [torch.cat([g[0][:, tables.ex_cols].t(), g_wtime], dim=0)]
+    out += [g[l].t() for l in range(1, n_layers - 1)]
+    out.append(g[-1][:3].t())
     return {"w": out}
+
+
+def _unswizzle_tiles(scr, n_layers, n):
+    """The backward's scratch (bf16 [n_layers][tiles][64 x 128 tile image],
+    see csrc/dyn_field_bwd.cu) as row-major [n_layers, n, 128] for its first
+    n rows."""
+    hid, tile = _DEFORM_HID, _DEFORM_TILE
+    tiles = scr.view(n_layers, -1, tile * hid)[:, :-(-n // tile)]
+    pos = sw128_positions(tile, hid, scr.device)
+    return tiles[:, :, pos].reshape(n_layers, -1, hid)[:, :n]
 
 
 def _launch_dyn_bwd(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t,
@@ -1279,25 +1366,31 @@ def _launch_dyn_bwd(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t,
             f"most {_DEFORM_HID} spatial inputs, got hidden "
             f"{cfg.hidden_dim_deform}, {cfg.num_layers_deform} layers, "
             f"{cfg.deform_space_dim} inputs")
-    for name, buf in (("deform weights", tables.wdef),
-                      ("deform weights", tables.wdef_in)):
-        if buf.device != x3.device or buf.dtype != torch.bfloat16:
-            raise ValueError(f"packed {name} must be bf16 on {x3.device}, "
-                             f"got {buf.dtype} on {buf.device}")
+    if tables.wdef.device != x3.device or tables.wdef.dtype != torch.bfloat16:
+        raise ValueError(f"packed deform weights must be bf16 on {x3.device}, "
+                         f"got {tables.wdef.dtype} on {tables.wdef.device}")
     g_tab, g_w, count, idx = _backward_buffers(tables, cfg, x3)
     m, dev = x3.shape[1], x3.device
     f32 = dict(dtype=torch.float32, device=dev)
     tdim = tables.w0_time.shape[0]
-    g_wdef = torch.zeros(tables.wdef.numel(), **f32)
-    g_tsum = torch.zeros(_DEFORM_HID, **f32)
+    n_layers = tables.dmeta[0]
+    g_wdef = torch.zeros((n_layers, _DEFORM_HID, _DEFORM_HID), **f32)
     g_wtime = torch.zeros((tdim, _DEFORM_HID), **f32)
     if m > 0:
         xw = (torch.empty if parts is None else torch.zeros)((3, m), **f32)
         gx = torch.empty((3, m), **f32)
         tcond = torch.cat(_time_cond_vec(tables, cfg, t, dev)).contiguous()
-        n_layers = tables.dmeta[0]
-        acts = None if parts is None else torch.zeros(
-            (n_layers, m, _DEFORM_HID), dtype=torch.bfloat16, device=dev)
+        # the tower's scratch: output gradients and inputs of every matrix,
+        # tile images of 64 listed samples
+        tiles = -(-m // _DEFORM_TILE)
+        gscr, ascr = ((torch.empty if parts is None else torch.zeros)(
+            n_layers * tiles * _DEFORM_TILE * _DEFORM_HID,
+            dtype=torch.bfloat16, device=dev) for _ in range(2))
+        # the tower backward's f64 time-row sums, a row of 128 a block (at
+        # most one an SM)
+        tsum = torch.empty(torch.cuda.get_device_properties(
+            dev).multi_processor_count * _DEFORM_HID, dtype=torch.float64,
+            device=dev)
         rec_out = None if parts is None else torch.zeros_like(g_out)
         lib = load_library()
         meta = (ctypes.c_longlong * len(tables.meta))(*tables.meta)
@@ -1307,12 +1400,11 @@ def _launch_dyn_bwd(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t,
             x3.data_ptr(), d3.data_ptr(), g_out.data_ptr(), m,
             tables.tab.data_ptr(), tables.wfwd.data_ptr(),
             tables.wbwd.data_ptr(), meta, float(cfg.bound),
-            tables.wdef.data_ptr(), tables.wdef_in.data_ptr(), dmeta,
-            tcond.data_ptr(), tdim, int(cfg.deform_grad_res_cutoff),
-            xw.data_ptr(), count.data_ptr(),
+            tables.wdef.data_ptr(), dmeta, tcond.data_ptr(), tdim,
+            int(cfg.deform_grad_res_cutoff), xw.data_ptr(), count.data_ptr(),
             idx.data_ptr(), gx.data_ptr(), g_tab.data_ptr(), g_w.data_ptr(),
-            g_wdef.data_ptr(), g_tsum.data_ptr(), g_wtime.data_ptr(),
-            None if acts is None else acts.data_ptr(),
+            g_wdef.data_ptr(), tsum.data_ptr(), g_wtime.data_ptr(),
+            gscr.data_ptr(), ascr.data_ptr(),
             None if parts is None else rec_out.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(
@@ -1326,10 +1418,9 @@ def _launch_dyn_bwd(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t,
             parts.update(live=live, out=rec_out)
             g_x = torch.zeros((3, m), **f32)
             g_x[:, live] = gx[:, :live.numel()]
-            nx = cfg.deform_space_dim
-            parts.update(xw=xw, g_x=g_x, acts=[
-                a[:live.numel(), :nx if l == 0 else None]
-                for l, a in enumerate(acts)])
+            acts = _unswizzle_tiles(ascr, n_layers, live.numel())
+            parts.update(xw=xw, g_x=g_x, acts=[acts[0][:, tables.ex_cols]]
+                         + list(acts[1:]))
     grads = _unpack_grads(tables, cfg, g_tab, g_w)
     grads["deform_mlp"] = _unpack_deform_grads(tables, cfg, g_wdef, g_wtime)
     return grads

@@ -398,14 +398,27 @@ def test_dyn_field_kernel_matches_plain(card, t, kw):
 
 def test_dyn_field_kernel_other_depths_and_refusals(card):
     """Two deform matrices (no hidden one) and a ragged tail shorter than a
-    warp; a tower the kernel is not built for raises instead of falling
-    back."""
-    cfg, tables = _dyn_tables(card, layers=2)
-    x3 = torch.rand((3, 19), device=card) * 2 - 1
-    out = dyn_field_forward(tables, cfg, x3, None, 0.5, density_only=True)
-    ref = dyn_field_forward_plain(tables, cfg, x3, None, 0.5,
-                                  density_only=True)
-    np.testing.assert_allclose(out[0].cpu(), ref[0].cpu(), **SIGMA_TOL)
+    warp; sixteen matrices, whose hidden ones stream through the kernels'
+    ring of shared-memory slots; K3 and K4 at both depths against their
+    plain versions (K4 stage by stage on its own input); a tower the kernel
+    is not built for raises instead of falling back."""
+    for layers in (2, 16):
+        cfg, tables = _dyn_tables(card, layers=layers, gain=1.0)
+        x3 = torch.rand((3, 19), device=card) * 2 - 1
+        out = dyn_field_forward(tables, cfg, x3, None, 0.5, density_only=True)
+        ref = dyn_field_forward_plain(tables, cfg, x3, None, 0.5,
+                                      density_only=True)
+        np.testing.assert_allclose(out[0].cpu(), ref[0].cpu(), **SIGMA_TOL)
+        x3, d3, g = _samples(card, 4096 * 4 + 37, 7)
+        out = dyn_field_forward(tables, cfg, x3, d3, 0.37)
+        ref = dyn_field_forward_plain(tables, cfg, x3, d3, 0.37)
+        np.testing.assert_allclose(out[0].cpu(), ref[0].cpu(), **SIGMA_TOL)
+        np.testing.assert_allclose(out[1:].cpu(), ref[1:].cpu(), **RGB_TOL)
+        parts = {}
+        got = dyn_field_backward(tables, cfg, x3, d3, 0.37, g, parts=parts)
+        assert all(w.abs().max().item() > 0 for w in got["deform_mlp"]["w"])
+        _hold_k4_stages(tables, cfg, x3, d3, g, got, parts,
+                        mask_share=5e-3 * max(1, layers - 1) / 7)
     small = CPDNeRFConfig(hidden_dim_deform=64)
     ts = pack_tables(init_cp_dnerf(torch.Generator().manual_seed(0), small,
                                    card), small)
@@ -446,7 +459,7 @@ def _rel(a, b):
     return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
 
 
-def _hold_k4_stages(tables, cfg, x3, d3, g, got, parts):
+def _hold_k4_stages(tables, cfg, x3, d3, g, got, parts, mask_share=5e-3):
     """K4's stages, each on the kernel's own input, against the plain
     version's stages. The limits come from profiling/torch_dyn_bwd_seeds.py
     (three seeds, 8,229 and 262,181 samples, towers of eight and two
@@ -469,7 +482,10 @@ def _hold_k4_stages(tables, cfg, x3, d3, g, got, parts):
     then lies 1.4e-4 to 4.9e-4 from the plain stage, with two matrices below
     3e-6. The time rows are rounded to bf16 after the sum over all samples:
     one rounding that differs moves them by up to 2^-7 (measured up to
-    4.1e-3)."""
+    4.1e-3). mask_share: the share of samples that may hold a differing
+    mask, 5e-3 for towers of seven hidden activations or fewer; each entry
+    flips as rarely in a deeper tower, so the share grows with its hidden
+    activations."""
     nx = cfg.deform_space_dim
     xw, acts_p = dyn_warp_plain(tables, cfg, x3, 0.37)
     live = parts["live"]
@@ -494,7 +510,7 @@ def _hold_k4_stages(tables, cfg, x3, d3, g, got, parts):
     hid_k, hid_p = torch.cat(acts_k[1:], 1), torch.cat(acts_p[1:], 1)
     assert (hid_k != hid_p).float().mean().item() <= 2e-3
     assert ((hid_k > 0) != (hid_p > 0)).any(dim=1).float().mean().item() \
-        <= 5e-3
+        <= mask_share
     ref = dyn_tower_backward_plain(tables, cfg, 0.37, acts_k,
                                    parts["g_x"][:, live])["w"]
     kern = got["deform_mlp"]["w"]
@@ -543,6 +559,22 @@ def test_dyn_field_backward_stages_with_a_warping_tower(card):
     xw, dxw = _hold_k4_stages(tables, cfg, x3, d3, g, got, parts)
     assert (xw - x3).abs().mean().item() > 1e-2
     assert dxw.mean().item() <= 1e-5
+
+
+def test_dyn_field_backward_warps_as_the_forward_kernel(card):
+    """K4's warp (the listed samples of parts["xw"]) is K3's warp of the same
+    samples bit for bit: both run one device function."""
+    cfg, tables = _dyn_tables(card)
+    x3, d3, g = _samples(card, 4096 * 16 + 37, 8)
+    parts = {}
+    dyn_field_backward(tables, cfg, x3, d3, 0.37, g, parts=parts)
+    fwd = {}
+    dyn_field_forward(tables, cfg, x3, d3, 0.37, parts=fwd)
+    live = parts["live"]
+    m = x3.shape[1]
+    assert live.numel() == m - len(range(0, m, 3))
+    assert torch.equal(parts["xw"][:, live], fwd["xw"][:, live])
+    assert (fwd["xw"] - x3).abs().mean().item() > 1e-2
 
 
 def test_dyn_field_backward_at_t0_and_zero_cotangents(card):

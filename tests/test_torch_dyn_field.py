@@ -33,7 +33,8 @@ from sealdnerf_tpu.ops.pallas_field import cp_dnerf_forward_fused_planar
 from sealdnerf_tpu_torch.models import cp as tcp
 from sealdnerf_tpu_torch.ops.field import (dyn_field_forward,
                                            dyn_field_forward_plain,
-                                           field_forward, pack_tables)
+                                           deform_ex_columns, field_forward,
+                                           pack_tables, unpack_deform)
 
 SMALL = dict(bound=1.0, scales=((8, 8), (16, 16)), num_layers_deform=3,
              hidden_dim_deform=32, multires_deform=4)
@@ -297,24 +298,38 @@ def test_kernel_tables_cover_the_deform_leaves(case):
 
 
 def test_packed_deform_weights_layout():
-    """The layout the dynamic kernel reads: output-major matrices, the first
-    without its time rows and zero-padded to 16 inputs, the last padded to
-    8 rows; the time rows stay f32."""
+    """The layout the dynamic kernels read: output-major matrices as
+    128-byte-swizzled shared-memory images, the first without its time rows
+    and zero-padded to 64 inputs, the last padded to 16 rows; the time rows
+    stay f32."""
     cfg = tcp.CPDNeRFConfig(scales=((8, 4),), planes=())
     p = tcp.init_cp_dnerf(torch.Generator().manual_seed(1), cfg)
     tb = pack_tables(p, cfg)
     n_layers, hid, nx, in_pad, nfreq, *offs = tb.dmeta
     assert (n_layers, hid, nx, in_pad, nfreq) == (8, 128, 63, 64, 10)
     assert tb.wdef.dtype == torch.bfloat16
-    assert tb.wdef.numel() == 128 * 64 + 6 * 128 * 128 + 8 * 128
+    assert tb.wdef.numel() == 128 * 64 + 6 * 128 * 128 + 16 * 128
     assert offs == [0] + [128 * 64 + k * 128 * 128 for k in range(7)]
     wd = [w.to(torch.bfloat16) for w in p["deform_mlp"]["w"]]
-    first = tb.wdef[:128 * 64].view(128, 64)
-    assert torch.equal(first[:, :63], wd[0][:63].t())
+    mats = unpack_deform(tb)
+    first = mats[0]
+    assert first.shape == (128, 64)
+    # the spatial rows in the kernels' ex order, column 63 the zero pad
+    cols = deform_ex_columns(nfreq, in_pad)
+    assert sorted(cols.tolist()) == list(range(63))
+    assert torch.equal(first[:, cols], wd[0][:63].t())
     assert not first[:, 63].any()
-    assert torch.equal(tb.wdef[offs[3]:offs[4]].view(128, 128), wd[3].t())
-    last = tb.wdef[offs[7]:].view(8, 128)
+    assert torch.equal(mats[3], wd[3].t())
+    last = mats[7]
+    assert last.shape == (16, 128)
     assert torch.equal(last[:3], wd[7].t()) and not last[3:].any()
+    # the swizzle itself: row r of a hidden image holds its 16-byte chunk c
+    # at chunk c ^ (r % 8), in blocks of 64 columns
+    img = tb.wdef[offs[3]:offs[4]].view(2, 128, 8, 8)
+    w3 = wd[3].t().reshape(128, 2, 8, 8)
+    for r in (0, 5, 13, 127):
+        for c in range(8):
+            assert torch.equal(img[1, r, c ^ (r % 8)], w3[r, 1, c])
     assert tb.w0_time.dtype == torch.float32
     assert torch.equal(tb.w0_time, p["deform_mlp"]["w"][0][63:])
     # a tower the kernel is not built for packs no kernel operands
