@@ -39,10 +39,8 @@ Phases (any failure raises and exits non-zero):
      in one pass bit for bit. The seeded deform tower is re-gained
      (see _dyn_seeded_params) so that it warps by ~0.1: the mean |dx| of the
      plain version at t = 0.37 must exceed 1e-2. K3 at t = 0 must equal K1
-     on the same canonical params bit for bit, in all three variants. The
-     entry's two device kernels are timed by themselves (torch.profiler),
-     the tower's beside its own bound. Then the main paths' shapes as in
-     phase 3.
+     on the same canonical params bit for bit, in all three variants. Then
+     the main paths' shapes as in phase 3.
   3d. dynamic backward kernel vs plain: the dynamic field backward kernel
      (K4: deform tower recomputed, canonical backward at the warped point,
      tower backward) against its plain version at the full default
@@ -66,8 +64,7 @@ Phases (any failure raises and exits non-zero):
      matrix; the time rows, rounded to bf16 after the sum, 1e-2). At t = 0
      every deform gradient must be exactly 0 and the canonical gradients
      within 1e-2 of K2's on the same inputs. Timings of K4, its plain
-     version and K2, and of each of K4's device kernels by itself beside
-     the warp's and the tower backward's own bounds.
+     version and K2.
   4. served path: cli.build_trainer on `synthetic -O --bound 1 --dt_gamma 0
      --test --synthetic_res 800` (seeded init, or --ckpt), frustum marking
      and two full 128^3 occupancy sweeps (the first is timed cold, the
@@ -258,6 +255,12 @@ Phases (any failure raises and exits non-zero):
      thread, as the reference's, and split over QUERY_THREADS), and the
      export's sweep and tetrahedra seconds. K1-K4 launch 0 times (plain
      PyTorch, as the reference's XLA).
+  14. device kernels: each device kernel of K3 (on phase 3c's samples at t =
+     0.37) and of K4 (on phase 3d's, re-gained tower) timed by itself with
+     torch.profiler, the tower's beside its own bounds. It runs last, after
+     every phase that times a step or a frame: a profiling session may leave
+     a cost on every later launch of the process
+     (profiling/torch_profiler_residue.py measures it).
 The procedural scene of given arguments is made once per run (~13 s at
 800x800) and each later caller gets a copy, so the "data" times after a
 scene's first use are those of the copy; the script prints how many scenes
@@ -655,18 +658,6 @@ def phase_dyn_kernel_vs_plain():
                          f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
                 if tag == "full":
                     rec = {"ms": ms, "plain_ms": pms, **b}
-                    # each device kernel of the entry by itself; the
-                    # tower's bound from a tower-only count
-                    split = _kernel_ms(lambda: dyn_field_forward(
-                        tables, cfg, x3, d3, t), 10,
-                        ("deform_fwd_kernel", "field_fwd_kernel"))
-                    tb_ = _bound(cfg, m, mode="tower")
-                    print(f"K3 t={t} by device kernel (profiler): "
-                          f"deform_fwd_kernel "
-                          f"{split['deform_fwd_kernel']:.4f} ms against the "
-                          f"tower's bound {tb_['bound_ms']:.4f} ms by "
-                          f"{tb_['bound_by']}; field_fwd_kernel "
-                          f"{split['field_fwd_kernel']:.4f} ms", flush=True)
                     if not mean_dx > 1e-2:
                         raise AssertionError(
                             f"mean |dx| {mean_dx} <= 1e-2: the deform tower "
@@ -1042,19 +1033,6 @@ def phase_dyn_backward_vs_plain():
     print(f"K4: M={m} kernel {ms:.3f} ms ({m / ms * 1e3:.4g} samples/s), "
           f"plain {pms:.3f} ms ({m / pms * 1e3:.4g} samples/s); K2 on the "
           f"same samples and cotangents {ms2:.3f} ms", flush=True)
-    names = ("compact_live_kernel", "warp_kernel", "field_bwd_kernel",
-             "tower_bwd_kernel", "tower_wgrad_kernel", "time_rows_kernel")
-    split = _kernel_ms(lambda: dyn_field_backward(tables, cfg, x3, d3, 0.37,
-                                                  g), 10, names)
-    tw = _bound(cfg, m_live, mode="tower")
-    tb_ = _bound(cfg, m, mode="tower_bwd", m_live=m_live)
-    print("K4 by device kernel (profiler): " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in split.items())
-        + f"; the warp's bound {tw['bound_ms']:.4f} ms by {tw['bound_by']} "
-        f"({m_live} listed samples), the tower backward's (tower_bwd_kernel "
-        f"+ tower_wgrad_kernel + time_rows_kernel: "
-        f"{split['tower_bwd_kernel'] + split['tower_wgrad_kernel'] + split['time_rows_kernel']:.4f}"
-        f" ms) {tb_['bound_ms']:.4f} ms by {tb_['bound_by']}", flush=True)
     rec = {"ms": ms, "plain_ms": pms, "max_abs_err": max_abs}
     rec.update(_bound(cfg, m, mode="dyn_bwd", m_live=m_live))
     print(f"K4 bound: {rec['bound_ms']:.4f} ms by {rec['bound_by']}",
@@ -2970,6 +2948,53 @@ def _made_once(fn):
     return made
 
 
+def phase_device_kernels():
+    """Phase 14: each device kernel of K3 and K4 by itself, on the inputs of
+    phases 3c (t = 0.37) and 3d (re-gained tower), the tower's beside its
+    own bounds."""
+    import torch
+    from sealdnerf_tpu_torch.models.cp import CPDNeRFConfig
+    from sealdnerf_tpu_torch.ops.field import (dyn_field_backward,
+                                               dyn_field_forward, pack_tables)
+    cfg = CPDNeRFConfig()
+    tables = pack_tables(_dyn_seeded_params(0, cfg, "cuda"), cfg)
+    m = (1 << 20) + 37
+    rng = np.random.default_rng(0)
+    x3 = rng.uniform(-1.0, 1.0, (3, m)).astype(np.float32)
+    d3 = rng.normal(size=(3, m)).astype(np.float32)
+    d3 /= np.linalg.norm(d3, axis=0, keepdims=True)
+    x3, d3 = torch.from_numpy(x3).cuda(), torch.from_numpy(d3).cuda()
+    split = _kernel_ms(lambda: dyn_field_forward(tables, cfg, x3, d3, 0.37),
+                       10, ("deform_fwd_kernel", "field_fwd_kernel"))
+    tb_ = _bound(cfg, m, mode="tower")
+    print(f"K3 t=0.37 by device kernel (profiler): deform_fwd_kernel "
+          f"{split['deform_fwd_kernel']:.4f} ms against the tower's bound "
+          f"{tb_['bound_ms']:.4f} ms by {tb_['bound_by']}; field_fwd_kernel "
+          f"{split['field_fwd_kernel']:.4f} ms", flush=True)
+    m = 4096 * 64 + 37
+    rng = np.random.default_rng(2)
+    x3 = rng.uniform(-1.0, 1.0, (3, m)).astype(np.float32)
+    d3 = rng.normal(size=(3, m)).astype(np.float32)
+    d3 /= np.linalg.norm(d3, axis=0, keepdims=True)
+    g = rng.normal(size=(4, m)).astype(np.float32)
+    g[:, rng.random(m) < 0.3] = 0.0
+    m_live = int((np.abs(g).max(axis=0) > 0).sum())
+    x3, d3, g = (torch.from_numpy(a).cuda() for a in (x3, d3, g))
+    names = ("compact_live_kernel", "warp_kernel", "field_bwd_kernel",
+             "tower_bwd_kernel", "tower_wgrad_kernel", "time_rows_kernel")
+    split = _kernel_ms(lambda: dyn_field_backward(tables, cfg, x3, d3, 0.37,
+                                                  g), 10, names)
+    tw = _bound(cfg, m_live, mode="tower")
+    tb_ = _bound(cfg, m, mode="tower_bwd", m_live=m_live)
+    tower = sum(split[k] for k in names[3:])
+    print("K4 by device kernel (profiler): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in split.items())
+        + f"; the warp's bound {tw['bound_ms']:.4f} ms by {tw['bound_by']} "
+        f"({m_live} listed samples), the tower backward's (tower_bwd_kernel "
+        f"+ tower_wgrad_kernel + time_rows_kernel: {tower:.4f} ms) "
+        f"{tb_['bound_ms']:.4f} ms by {tb_['bound_by']}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ckpt", default=None,
@@ -3040,6 +3065,7 @@ def main():
                    NGP_EDIT_EPOCHS_STATIC)
     k_opts = phase_cli_options()
     k_other = phase_other_workloads()
+    phase_device_kernels()
 
     print(f"procedural scenes: {scenes.counts['made']} made, "
           f"{scenes.counts['copies']} copies handed out", flush=True)

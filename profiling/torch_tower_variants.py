@@ -9,9 +9,7 @@ Variants (default: all):
   two_groups  two consumer warpgroups a block instead of three (168
               registers a thread instead of 128);
   no_ex       ex without its sines and cosines (sin v, cos v -> v, v): what
-              the encoding costs;
-  no_store    the backward's scratch tiles not written (its results are then
-              wrong): what the round trip through device memory costs.
+              the encoding costs.
 Each copy is built with the package's own build (ops/build.py) into
 _build/variants/<name>/ under the package, then timed by torch.profiler
 (chip_smoke._kernel_ms): deform_fwd_kernel on 2^20 random samples
@@ -43,11 +41,6 @@ VARIANTS = {
                     "constexpr int kConsumers = 2;")],
     "no_ex": [("deform_tower.cuh", "sincosf(v, &s, &c);",
                "s = v;\n  c = v;")],
-    "no_store": [("deform_tower.cuh",
-                  "                                           int w4, int g, "
-                  "int t, int n_q = 4) {\n",
-                  "                                           int w4, int g, "
-                  "int t, int n_q = 4) {\n  if (n_q < 99) return;\n")],
 }
 
 
@@ -60,7 +53,8 @@ def _smoke():
 
 
 def _use_variant(name):
-    """Point ops/build.py at a copy of csrc with the variant's edits."""
+    """Point ops/build.py at a copy of csrc with the variant's edits (the
+    caller restores build.SRC_DIR and build.BUILD_DIR)."""
     root = build.BUILD_DIR / "variants" / name
     src = root / "csrc"
     shutil.rmtree(src, ignore_errors=True)
@@ -101,18 +95,21 @@ def main():
     x3, d3, g = (torch.from_numpy(a).cuda() for a in (x3, d3, g))
     src, dst = build.SRC_DIR, build.BUILD_DIR
     for name in names:
-        regs = _use_variant(name)
-        fwd = smoke._kernel_ms(lambda: field.dyn_field_forward(
-            tables, cfg, xf, None, t, density_only=True), 10,
-            ("deform_fwd_kernel",))
-        bwd = smoke._kernel_ms(lambda: field.dyn_field_backward(
-            tables, cfg, x3, d3, t, g), 10,
-            ("warp_kernel", "tower_bwd_kernel", "tower_wgrad_kernel"))
+        try:
+            regs = _use_variant(name)
+            fwd = smoke._kernel_ms(lambda: field.dyn_field_forward(
+                tables, cfg, xf, None, t, density_only=True), 10,
+                ("deform_fwd_kernel",))
+            bwd = smoke._kernel_ms(lambda: field.dyn_field_backward(
+                tables, cfg, x3, d3, t, g), 10,
+                ("warp_kernel", "tower_bwd_kernel", "tower_wgrad_kernel"))
+        finally:
+            build.SRC_DIR, build.BUILD_DIR = src, dst
+            build.load_library.cache_clear()
         print(f"{name}: deform_fwd_kernel {fwd['deform_fwd_kernel']:.4f} ms "
               "(2^20 samples); " + ", ".join(
                   f"{k} {v:.4f} ms" for k, v in bwd.items())
               + " (183,223 listed); build: " + " | ".join(regs), flush=True)
-        build.SRC_DIR, build.BUILD_DIR = src, dst
 
 
 if __name__ == "__main__":

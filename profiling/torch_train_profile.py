@@ -11,6 +11,7 @@ times a window of `steps` steps unprofiled (one grid refresh per 16 steps
 falls inside it), then profiles a second window of the same length with
 torch.profiler. Per window it prints, per step: wall ms, device busy ms,
 the idle share (1 - busy / wall), the mean field samples, the occupancy,
+the peak device memory that torch allocated over the unprofiled window,
 and the device ms of each part of the step -- grid refresh (amortised over
 the window), ray and pixel sampling, the forward (march, K1, compositing),
 the backward (K2 and the autograd of the march and compositing ops), Adam,
@@ -99,10 +100,12 @@ def _is_annotation(e):
 
 def window(trainer, data, h, w, steps):
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ns = [step(trainer, data, h, w) for _ in range(steps)]
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / steps           # unprofiled
+    peak = torch.cuda.max_memory_allocated() / 2**20
     n_mean = float(torch.stack(ns).float().mean())
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -150,7 +153,8 @@ def window(trainer, data, h, w, steps):
           f"{wall:.3f} ms/step (unprofiled), device busy {busy:.3f} ms/step "
           f"(profiled), idle share {1 - busy / wall:.3f}; mean field "
           f"samples {n_mean:.0f}/step; occupancy {occ:.4f}; {n_refresh} "
-          f"grid refreshes in the profiled window", flush=True)
+          f"grid refreshes in the profiled window; peak device memory "
+          f"{peak:.1f} MiB (unprofiled window)", flush=True)
     for part in STEP_PARTS[:3] + SUB_PARTS + STEP_PARTS[3:]:
         print(f"  {part:13s} {ranges.get(part, 0.0):9.3f} ms/step")
     fwd, bwd = ("K3", "K4") if dyn else ("K1", "K2")

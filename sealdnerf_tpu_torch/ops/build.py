@@ -115,6 +115,6 @@ def load_library() -> ctypes.CDLL:
     lib.sdn_dyn_field_bwd.argtypes = (
         [vp, vp, vp, i64, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong), f32,
          vp, ctypes.POINTER(ctypes.c_longlong), vp, i32, i32]
-        + [vp] * 13)
+        + [vp] * 11 + [i64, i32, vp, vp])
     lib.sdn_dyn_field_bwd.restype = ctypes.c_int
     return lib

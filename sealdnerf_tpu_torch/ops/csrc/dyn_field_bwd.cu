@@ -34,8 +34,9 @@
 // and the canonical half the static backward's ~72k; beside them the
 // canonical half's feature arithmetic and its vector atomics.
 //
-// Design. The entry point runs six kernels on the caller's stream, all
-// written here or in the headers, and counts as one launch:
+// Design. The entry point runs six kernels on the caller's stream (4 and 5
+// once a pass), all written here or in the headers, and counts as one
+// launch:
 //   1. compact_live_kernel (field_bwd_body.cuh) lists the samples that carry
 //      a cotangent; everything after it walks that list, so the march's
 //      invalid samples cost nothing, the warp included.
@@ -66,21 +67,27 @@
 //      reduction into device memory.
 //   6. time_rows_kernel: sums those rows in a fixed order (the time rows are
 //      the same bits in every run) and forms the first matrix's time rows.
+// Passes. The operands of the weight gradients make one round trip through
+// device memory, 4 KB a listed sample at the default tower (two bf16 [128]
+// rows a sample and matrix), written by tower_bwd_kernel and read by
+// tower_wgrad_kernel. So that this scratch stays bounded whatever M, phases 4
+// and 5 walk the list in passes of `window` tiles (the caller sizes it: at
+// most 512 MB of scratch, 2,048 tiles or 131,072 samples at the default
+// tower), each pass reusing the same scratch; a pass past the list's end
+// costs two empty launches.
 // Reductions into device memory. The design before this one added every
 // tile's products (tiles of 64) with one atomic per entry: 6 * 16,384 + 128 *
 // 64 + 3 * 128 = 106,880 per 64 samples, 1,670 a live sample. Now each
 // tower_wgrad_kernel block adds its sums once: n_chunks * (H * 16,384 + 128 *
-// in_pad + 3 * 128) a call (H hidden matrices; n_chunks = min(ceil(2 SMs /
-// n_layers), ceil(M / 1024))); the time rows take none. At the default tower
-// on 132 SMs: 33 * 106,880 = 3,527,040 a call whatever the number of live
-// samples: 19.2 a live sample on the 183,223 of chip_smoke's phase 3d, 87
-// times fewer; at most 106,880 / 1,024 = 104 a sample when every sample is
-// live. The price: the operands of
-// the weight gradients make one round trip through device memory, 4 KB a
-// live sample written by tower_bwd_kernel and read by tower_wgrad_kernel
-// (two bf16 [128] rows a sample and matrix). The sums' order changes with
-// the grid, so results may differ from run to run in their last bits, as
-// the static backward's do.
+// in_pad + 3 * 128) a pass that reaches the list (H hidden matrices;
+// n_chunks = min(ceil(2 SMs / n_layers), ceil(tiles of the pass / 16))); the
+// time rows take none. At the default tower on 132 SMs: 33 * 106,880 =
+// 3,527,040 a pass. On chip_smoke's phase 3d (M = 262,181, 183,223 live
+// samples: two passes reach the list) 7,054,080 a call, 38.5 a live sample,
+// 43 times fewer; when every sample is live at most 3,527,040 / 131,072 =
+// 26.9 a sample in full passes, and 106,880 / 1,024 = 104 in a pass of fewer
+// than 528 tiles. The sums' order changes with the grid, so results may
+// differ from run to run in their last bits, as the static backward's do.
 // Why still separate kernels from the canonical half: its block holds the
 // canonical matrices twice and the partial weight gradients (220 KB at the
 // default widths), the tower's backward its 212 KB of matrices; one block
@@ -91,14 +98,16 @@
 // C interface for ctypes: sdn_dyn_field_bwd adds into g_tab, g_w and g_wdef
 // (f32 [n_layers][128][128], matrix l output-major: row o, column i), which
 // the caller zeroes along with `count`; it writes g_wtime [tdim, 128]; tsum
-// (f64 [SMs][128]) is scratch; xw [3, M] (the listed samples' columns are written),
-// idx [M] and gx [3, M] are scratch. gscr and ascr are the tower's scratch,
-// bf16 [n_layers][ceil(M / 64)][64 x 128 tile image] each: ascr receives ex
-// and the hidden activations that the tower's backward recomputed, tile by
-// tile in the list's order (for checks too), gscr the bf16 output gradients
-// of every matrix. rec_out is null or [4, M] and receives the forward's
-// output that the canonical kernel recomputed. Returns the first error of
-// any launch, else 0.
+// (f64 [passes * min(SMs, ceil(S / 3))][128], S = min(window, ceil(M / 64)),
+// passes = ceil(ceil(M / 64) / S)) is scratch; xw [3, M] (the listed
+// samples' columns are written), idx [M] and gx [3, M] are scratch. gscr and
+// ascr are the tower's scratch, bf16 [n_layers][S][64 x 128 tile image]
+// each: ascr receives ex and the hidden activations that the tower's
+// backward recomputed, gscr the bf16 output gradients of every matrix, tile
+// by tile in the list's order. With acts_all set, ascr is [n_layers][ceil(M
+// / 64)][tile image] and keeps every pass's tiles (for checks). rec_out is
+// null or [4, M] and receives the forward's output that the canonical kernel
+// recomputed. Returns the first error of any launch, else 0.
 
 #include "deform_tower.cuh"
 #include "field_bwd_body.cuh"
@@ -144,22 +153,37 @@ __device__ __forceinline__ void chain_product(float (&acc)[64], const uint32_t (
   fence_regs(acc);
 }
 
+// The listed tiles of one pass: tiles base .. base + window - 1 of the list,
+// as far as the list reaches.
+__device__ __forceinline__ long long pass_tiles(const int* __restrict__ count, long long base,
+                                                long long window) {
+  const long long n = ((long long)*count + kTile - 1) / kTile - base;
+  return n < 0 ? 0 : n < window ? n : window;
+}
+
+// One pass: the pass's tile k (list tile base + k) writes its images at tile
+// k of gscr and of ascr, layers g_stride and a_stride bytes apart.
 __global__ void __launch_bounds__(kTowerThreads, 1)
 tower_bwd_kernel(const float* __restrict__ x3, long long m, const int* __restrict__ count,
                  const int* __restrict__ idx, const float* __restrict__ gxc,
                  const __nv_bfloat16* __restrict__ wdef, const float* __restrict__ tcond,
-                 const DeformMeta dm, unsigned char* __restrict__ gscr,
-                 unsigned char* __restrict__ ascr, double* __restrict__ tsum) {
+                 const DeformMeta dm, long long base, long long window,
+                 unsigned char* __restrict__ gscr, long long g_stride,
+                 unsigned char* __restrict__ ascr, long long a_stride,
+                 double* __restrict__ tsum) {
   if (tcond[kDefHid] == 0.f) return;  // t == 0: the warp is gated off, no gradient
   const int tid = threadIdx.x;
+  const long long n_tiles = pass_tiles(count, base, window);
+  if (n_tiles == 0) {  // past the list's end: the block's time-row sums are 0
+    if (tid < kDefHid) tsum[(long long)blockIdx.x * kDefHid + tid] = 0.0;
+    return;
+  }
   const TowerSmem sm = carve_tower_smem(dm);
   if (tid == 0) init_tower_barriers(sm);
   for (int j = tid; j < kDefHid; j += blockDim.x) sm.tb[j] = tcond[j];
   for (int j = tid; j < 4 * kConsumers * kDefHid; j += blockDim.x) sm.wsum[j] = 0.0;
   __syncthreads();
   const long long n = *count;
-  const long long n_tiles = (n + kTile - 1) / kTile;
-  const long long layer_stride = (m + kTile - 1) / kTile * (long long)kTileBytes;
   const int rounds = tower_rounds(n_tiles);
   const Ring rg = make_ring(dm, true);
   const int wg = tid >> 7;
@@ -179,7 +203,7 @@ tower_bwd_kernel(const float* __restrict__ x3, long long m, const int* __restric
     long long p[2], i[2];
     bool live[2];
     float x0[3], x1[3];
-    tile_rows(x3, m, idx, n, tile, p, i, live, x0, x1);
+    tile_rows(x3, m, idx, n, base + tile, p, i, live, x0, x1);
     float gx0[3], gx1[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -188,7 +212,7 @@ tower_bwd_kernel(const float* __restrict__ x3, long long m, const int* __restric
     }
     uint32_t a[8][4];
     float acc[64];
-    const TileKeep keep = {ascr + tile * kTileBytes, layer_stride, mask};
+    const TileKeep keep = {ascr + tile * kTileBytes, a_stride, mask};
     tower_forward_tile<true>(dm, sm, rg, r, x0, x1, a, acc, keep);
 
     // the last matrix: its output gradient bf16(g_x) in columns 0..2
@@ -204,13 +228,13 @@ tower_bwd_kernel(const float* __restrict__ x3, long long m, const int* __restric
       a[0][0] = pack_bf16(gx0[2], 0.f);
       a[0][1] = pack_bf16(gx1[2], 0.f);
     }
-    store_tile(gt + (L - 1) * layer_stride, a, w4, g, t, 1);
+    store_tile(gt + (L - 1) * g_stride, a, w4, g, t, 1);
     chain_product(acc, a, smem_u32(sm.wlast), kLastRows, 1);
     apply_mask(acc, mask[L - 1]);
     // the hidden matrices, from the last to the second
     for (int l = L - 2; l >= 1; --l) {
       acc_to_frags(acc, a, false);
-      store_tile(gt + l * layer_stride, a, w4, g, t);
+      store_tile(gt + l * g_stride, a, w4, g, t);
       int slot;
       uint32_t parity;
       ring_pos(rg, r, 2 * rg.H - l, slot, parity);
@@ -248,13 +272,16 @@ tower_bwd_kernel(const float* __restrict__ x3, long long m, const int* __restric
 }
 
 // ---------------------------------------------------------------- phase 5
-// g_wdef[l] [128 o][128 i] += sum over the listed samples of G_l[s][o] A_l[s][i]
-// for matrix l = blockIdx.y, over the tiles blockIdx.x, + gridDim.x, ... of
-// the scratch. Consumer group w owns the output rows 64 w .. 64 w + 63.
+// g_wdef[l] [128 o][128 i] += sum over one pass's listed samples of G_l[s][o]
+// A_l[s][i] for matrix l = blockIdx.y, over the pass's tiles blockIdx.x,
+// + gridDim.x, ... of the scratch (laid out as tower_bwd_kernel writes it).
+// Consumer group w owns the output rows 64 w .. 64 w + 63.
 __global__ void __launch_bounds__(kWgThreads, 2)
 tower_wgrad_kernel(const int* __restrict__ count, const float* __restrict__ tcond,
-                   const DeformMeta dm, long long m, const unsigned char* __restrict__ gscr,
-                   const unsigned char* __restrict__ ascr, float* __restrict__ g_wdef) {
+                   const DeformMeta dm, long long base, long long window,
+                   const unsigned char* __restrict__ gscr, long long g_stride,
+                   const unsigned char* __restrict__ ascr, long long a_stride,
+                   float* __restrict__ g_wdef) {
   if (tcond[kDefHid] == 0.f) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t s0 = smem_u32(smem_raw);
@@ -262,7 +289,7 @@ tower_wgrad_kernel(const int* __restrict__ count, const float* __restrict__ tcon
   uint64_t* full = reinterpret_cast<uint64_t*>(stages + kWgStages * kWgStageBytes);
   uint64_t* empty = full + kWgStages;
   const int tid = threadIdx.x, l = blockIdx.y;
-  const long long n_tiles = ((long long)*count + kTile - 1) / kTile;
+  const long long n_tiles = pass_tiles(count, base, window);
   const long long c = blockIdx.x, n_chunks = gridDim.x;
   const long long mine = c < n_tiles ? (n_tiles - c + n_chunks - 1) / n_chunks : 0;
   if (mine == 0) return;
@@ -274,7 +301,8 @@ tower_wgrad_kernel(const int* __restrict__ count, const float* __restrict__ tcon
     mbar_init_fence();
   }
   __syncthreads();
-  const long long layer = (long long)l * ((m + kTile - 1) / kTile) * kTileBytes;
+  const unsigned char* gl = gscr + l * g_stride;
+  const unsigned char* al = ascr + l * a_stride;
   const int wg = tid >> 7;
   if (wg == kWgConsumers) {
     if ((tid & 31) != 0) return;
@@ -284,8 +312,8 @@ tower_wgrad_kernel(const int* __restrict__ count, const float* __restrict__ tcon
       const long long tile = c + j * n_chunks;
       unsigned char* dst = stages + st * kWgStageBytes;
       mbar_expect_tx(full + st, kWgStageBytes);
-      bulk_load(dst, gscr + layer + tile * kTileBytes, kTileBytes, full + st);
-      bulk_load(dst + kTileBytes, ascr + layer + tile * kTileBytes, kTileBytes, full + st);
+      bulk_load(dst, gl + tile * kTileBytes, kTileBytes, full + st);
+      bulk_load(dst + kTileBytes, al + tile * kTileBytes, kTileBytes, full + st);
     }
     for (long long j = mine - kWgStages; j < mine; ++j)
       if (j >= 0) mbar_wait(full + (int)(j % kWgStages), (uint32_t)((j / kWgStages) & 1));
@@ -354,8 +382,8 @@ extern "C" int sdn_dyn_field_bwd(const float* x3, const float* d3, const float* 
                                  const void* wdef, const long long* dmeta, const float* tcond,
                                  int tdim, int cutoff, float* xw, int* count, int* idx, float* gx,
                                  float* g_tab, float* g_w, float* g_wdef, double* tsum,
-                                 float* g_wtime, void* gscr, void* ascr, float* rec_out,
-                                 void* stream_) {
+                                 float* g_wtime, void* gscr, void* ascr, long long window,
+                                 int acts_all, float* rec_out, void* stream_) {
   FieldMeta fm;
   TileMeta tm;
   BwdMeta bm;
@@ -365,7 +393,7 @@ extern "C" int sdn_dyn_field_bwd(const float* x3, const float* d3, const float* 
   if (!bad) bad = fill_bwd_meta(meta, fm, tm, &bm);
   if (!bad) bad = fill_deform_meta(dmeta, &dm);
   if (bad) return bad;
-  if (m < 1 || m > 0x7fffffffLL || tdim < 0) return (int)cudaErrorInvalidValue;
+  if (m < 1 || m > 0x7fffffffLL || tdim < 0 || window < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_;
   int dev = 0, n_sm = 0;
   cudaGetDevice(&dev);
@@ -387,36 +415,45 @@ extern "C" int sdn_dyn_field_bwd(const float* x3, const float* d3, const float* 
                                bm, g_tab, g_w, gxo, rec_out, stream);
   if (bad) return bad;
 
-  // 4. the tower's recompute and chain over the list
+  // 4 and 5, a pass of at most `window` tiles of the list at a time: the
+  // tower's recompute and chain, then the weight gradients summed over
+  // chunks of the pass's tiles
   const long long tiles = (m + kTile - 1) / kTile;
+  const long long span = window < tiles ? window : tiles;  // tiles a pass
+  const long long passes = (tiles + span - 1) / span;
+  const long long g_stride = span * kTileBytes;
+  const long long a_stride = (acts_all ? tiles : span) * kTileBytes;
   const size_t smem4 = tower_smem_bytes(dm.first_bytes, dm.n_slots);
   cudaError_t err = cudaFuncSetAttribute(tower_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem4);
   if (err != cudaSuccess) return (int)err;
-  const long long pairs = (tiles + kConsumers - 1) / kConsumers;
-  const long long blocks4 = pairs < n_sm ? pairs : n_sm;
-  tower_bwd_kernel<<<(unsigned)blocks4, kTowerThreads, smem4, stream>>>(
-      x3, m, count, idx, gx, (const __nv_bfloat16*)wdef, tcond, dm, (unsigned char*)gscr,
-      (unsigned char*)ascr, tsum);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  // 5. the weight gradients, summed over chunks of tiles
   const size_t smem5 = 1024 + (size_t)kWgStages * kWgStageBytes + 2 * kWgStages * sizeof(uint64_t);
   err = cudaFuncSetAttribute(tower_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem5);
   if (err != cudaSuccess) return (int)err;
-  long long chunks = (2LL * n_sm + dm.n_layers - 1) / dm.n_layers;
-  const long long by_size = (tiles + kChunkTiles - 1) / kChunkTiles;
-  if (chunks > by_size) chunks = by_size;
-  if (chunks < 1) chunks = 1;
-  tower_wgrad_kernel<<<dim3((unsigned)chunks, (unsigned)dm.n_layers), kWgThreads, smem5,
-                       stream>>>(count, tcond, dm, m, (const unsigned char*)gscr,
-                                 (const unsigned char*)ascr, g_wdef);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const long long pairs = (span + kConsumers - 1) / kConsumers;
+  const long long blocks4 = pairs < n_sm ? pairs : n_sm;
+  for (long long p = 0; p < passes; ++p) {
+    const long long base = p * span;
+    unsigned char* a_ptr = (unsigned char*)ascr + (acts_all ? base * kTileBytes : 0);
+    tower_bwd_kernel<<<(unsigned)blocks4, kTowerThreads, smem4, stream>>>(
+        x3, m, count, idx, gx, (const __nv_bfloat16*)wdef, tcond, dm, base, span,
+        (unsigned char*)gscr, g_stride, a_ptr, a_stride, tsum + p * blocks4 * kDefHid);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const long long here = tiles - base < span ? tiles - base : span;
+    long long chunks = (2LL * n_sm + dm.n_layers - 1) / dm.n_layers;
+    const long long by_size = (here + kChunkTiles - 1) / kChunkTiles;
+    if (chunks > by_size) chunks = by_size;
+    tower_wgrad_kernel<<<dim3((unsigned)chunks, (unsigned)dm.n_layers), kWgThreads, smem5,
+                         stream>>>(count, tcond, dm, base, span, (const unsigned char*)gscr,
+                                   g_stride, a_ptr, a_stride, g_wdef);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
 
   // 6. the first matrix's time rows
-  time_rows_kernel<<<1, 8 * kDefHid, 0, stream>>>(tcond, tdim, (int)blocks4, tsum, g_wtime);
+  time_rows_kernel<<<1, 8 * kDefHid, 0, stream>>>(tcond, tdim, (int)(passes * blocks4), tsum,
+                                                  g_wtime);
   return (int)cudaGetLastError();
 }

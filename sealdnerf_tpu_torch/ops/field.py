@@ -69,6 +69,9 @@ _KERNEL_TOWERS = dict(num_layers=2, num_layers_color=3, hidden_dim=64,
 # samples of one tile of its scratch (csrc/deform_tower.cuh: kTile)
 _DEFORM_HID, _DEFORM_LAST_ROWS, _DEFORM_MAX_LAYERS = 128, 16, 16
 _DEFORM_TILE = 64
+# the most device memory that K4's tower scratch (both images) may take; the
+# kernel walks the listed samples in passes of as many tiles as fit
+_TOWER_SCRATCH_BYTES = 1 << 29
 # a block's shared memory on sm_90, and the backward body's spin locks in it
 # (csrc/field_bwd_body.cuh: kMaxSmem, kMaxLocks)
 _SMEM_PER_BLOCK, _BWD_LOCK_BYTES = 232448, 4 * 46
@@ -1381,14 +1384,19 @@ def _launch_dyn_bwd(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t,
         gx = torch.empty((3, m), **f32)
         tcond = torch.cat(_time_cond_vec(tables, cfg, t, dev)).contiguous()
         # the tower's scratch: output gradients and inputs of every matrix,
-        # tile images of 64 listed samples
+        # tile images of 64 listed samples, for one pass of `window` tiles
+        # (for checks, the inputs of every pass)
         tiles = -(-m // _DEFORM_TILE)
+        tile_elems = _DEFORM_TILE * _DEFORM_HID
+        window = min(tiles, max(1, _TOWER_SCRATCH_BYTES
+                                // (2 * n_layers * tile_elems * 2)))
+        passes = -(-tiles // window)
         gscr, ascr = ((torch.empty if parts is None else torch.zeros)(
-            n_layers * tiles * _DEFORM_TILE * _DEFORM_HID,
-            dtype=torch.bfloat16, device=dev) for _ in range(2))
+            n_layers * n * tile_elems, dtype=torch.bfloat16, device=dev)
+            for n in (window, window if parts is None else tiles))
         # the tower backward's f64 time-row sums, a row of 128 a block (at
-        # most one an SM)
-        tsum = torch.empty(torch.cuda.get_device_properties(
+        # most one an SM) and pass
+        tsum = torch.empty(passes * torch.cuda.get_device_properties(
             dev).multi_processor_count * _DEFORM_HID, dtype=torch.float64,
             device=dev)
         rec_out = None if parts is None else torch.zeros_like(g_out)
@@ -1404,7 +1412,7 @@ def _launch_dyn_bwd(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t,
             int(cfg.deform_grad_res_cutoff), xw.data_ptr(), count.data_ptr(),
             idx.data_ptr(), gx.data_ptr(), g_tab.data_ptr(), g_w.data_ptr(),
             g_wdef.data_ptr(), tsum.data_ptr(), g_wtime.data_ptr(),
-            gscr.data_ptr(), ascr.data_ptr(),
+            gscr.data_ptr(), ascr.data_ptr(), window, int(parts is not None),
             None if parts is None else rec_out.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(

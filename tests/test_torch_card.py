@@ -417,8 +417,7 @@ def test_dyn_field_kernel_other_depths_and_refusals(card):
         parts = {}
         got = dyn_field_backward(tables, cfg, x3, d3, 0.37, g, parts=parts)
         assert all(w.abs().max().item() > 0 for w in got["deform_mlp"]["w"])
-        _hold_k4_stages(tables, cfg, x3, d3, g, got, parts,
-                        mask_share=5e-3 * max(1, layers - 1) / 7)
+        _hold_k4_stages(tables, cfg, x3, d3, g, got, parts)
     small = CPDNeRFConfig(hidden_dim_deform=64)
     ts = pack_tables(init_cp_dnerf(torch.Generator().manual_seed(0), small,
                                    card), small)
@@ -459,7 +458,7 @@ def _rel(a, b):
     return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
 
 
-def _hold_k4_stages(tables, cfg, x3, d3, g, got, parts, mask_share=5e-3):
+def _hold_k4_stages(tables, cfg, x3, d3, g, got, parts):
     """K4's stages, each on the kernel's own input, against the plain
     version's stages. The limits come from profiling/torch_dyn_bwd_seeds.py
     (three seeds, 8,229 and 262,181 samples, towers of eight and two
@@ -482,11 +481,12 @@ def _hold_k4_stages(tables, cfg, x3, d3, g, got, parts, mask_share=5e-3):
     then lies 1.4e-4 to 4.9e-4 from the plain stage, with two matrices below
     3e-6. The time rows are rounded to bf16 after the sum over all samples:
     one rounding that differs moves them by up to 2^-7 (measured up to
-    4.1e-3). mask_share: the share of samples that may hold a differing
-    mask, 5e-3 for towers of seven hidden activations or fewer; each entry
-    flips as rarely in a deeper tower, so the share grows with its hidden
-    activations."""
+    4.1e-3). The share of samples that may hold a differing mask is 5e-3
+    at the default tower's seven hidden activations; each entry flips as
+    rarely at another depth, so the share scales with the count of hidden
+    activations (measured 5.8e-3 at fifteen, against 1.07e-2 there)."""
     nx = cfg.deform_space_dim
+    mask_share = 5e-3 * (cfg.num_layers_deform - 1) / 7
     xw, acts_p = dyn_warp_plain(tables, cfg, x3, 0.37)
     live = parts["live"]
     # the kernel warps the samples with a cotangent only
@@ -575,6 +575,31 @@ def test_dyn_field_backward_warps_as_the_forward_kernel(card):
     assert live.numel() == m - len(range(0, m, 3))
     assert torch.equal(parts["xw"][:, live], fwd["xw"][:, live])
     assert (fwd["xw"] - x3).abs().mean().item() > 1e-2
+
+
+@pytest.mark.parametrize("with_parts", [False, True])
+def test_dyn_field_backward_in_passes(card, monkeypatch, with_parts):
+    """K4's tower backward walks the listed samples in passes of as many
+    tiles as its scratch holds: with room for five tiles (26 passes, the
+    last eight past the list's end) every gradient equals the one-pass
+    call's up to the order of the f32 sums, and the activations it
+    recomputed are the same bits."""
+    import sealdnerf_tpu_torch.ops.field as field
+    cfg, tables = _dyn_tables(card)
+    x3, d3, g = _samples(card, 8229, 9)
+    one = {}
+    whole = dyn_field_backward(tables, cfg, x3, d3, 0.37, g, parts=one)
+    tile_bytes = 64 * cfg.hidden_dim_deform * 2
+    monkeypatch.setattr(field, "_TOWER_SCRATCH_BYTES",
+                        5 * 2 * cfg.num_layers_deform * tile_bytes)
+    parts = {} if with_parts else None
+    got = dyn_field_backward(tables, cfg, x3, d3, 0.37, g, parts=parts)
+    assert max(_leaf_errs(got, whole)) <= 1e-4, _leaf_errs(got, whole)
+    if with_parts:  # the list's order is free: compare sample by sample
+        o, o1 = parts["live"].argsort(), one["live"].argsort()
+        assert torch.equal(parts["live"][o], one["live"][o1])
+        assert all(torch.equal(a[o], b[o1])
+                   for a, b in zip(parts["acts"], one["acts"]))
 
 
 def test_dyn_field_backward_at_t0_and_zero_cotangents(card):
