@@ -255,6 +255,28 @@ Phases (any failure raises and exits non-zero):
      thread, as the reference's, and split over QUERY_THREADS), and the
      export's sweep and tetrahedra seconds. K1-K4 launch 0 times (plain
      PyTorch, as the reference's XLA).
+  15. GUI: the three viewers, headless (gui/headless_dpg.py), built as
+     `main_nerf --gui`, `main_dnerf --gui --test` and `main_seald --gui`
+     build them at the CLIs' defaults (1920x1080, radius 5, fovy 50), on
+     the fields phases 5 and 7 left in their workspaces; each view's own
+     frame loop runs, capped by configure(max_frames=N), with the user's
+     events scripted before its frames. (a) NeRFGUI, training: drag, wheel,
+     pan, "start", 12 frames: ms per frame at each downscale the controller
+     took, with the tile the pick chose at that size, and the train steps a
+     frame. Checks: global_step advanced, every frame finite; then a frame
+     forced to downscale 1 with depth equals render_image at its camera bit
+     for bit and lies >= 30 dB from the per-ray frame of render_dense (C6:
+     the tile pick), its distance under the reference's pick printed
+     beside. (b) DNeRFGUI, serving: the time slider at 0, 0.5 and 1, four
+     frames each: frame ms; each time's first frame equals render_image's
+     LOD preview at that t bit for bit. (c) SealDGUI: the time slider at
+     0.5, the brush tool, strokes on pixels with depth > 0, "start edit"
+     (cut: its dataset to 4 training views, so that the proxy is short),
+     two pretraining frames, three distillation frames, "override
+     teacher": ms per pretraining and distillation frame. Checks: a brush
+     config with >= 1 point; after the override the teacher's frame equals
+     the student's bit for bit and differs from the pre-edit teacher's.
+     K1-K4's launches in the three sessions count as main-path launches.
   14. device kernels: each device kernel of K3 (on phase 3c's samples at t =
      0.37) and of K4 (on phase 3d's, re-gained tower) timed by itself with
      torch.profiler, the tower's beside its own bounds. It runs last, after
@@ -266,9 +288,9 @@ The procedural scene of given arguments is made once per run (~13 s at
 scene's first use are those of the copy; the script prints how many scenes
 were made and how many copies handed out.
 The launch counts of the kernels record are read from the main paths'
-runs (phases 4, 5, 5c, 6, 7, 7c, 8, 8b, 9, 9b, 12 and 13; 8 and 8b include
-the proxy's launches through render_occ; 10, 10b, 11, 11b and 13 launch
-none), with the counters set to 0 just before each. Each
+runs (phases 4, 5, 5c, 6, 7, 7c, 8, 8b, 9, 9b, 12, 13 and 15; 8 and 8b
+include the proxy's launches through render_occ; 10, 10b, 11, 11b and 13
+launch none), with the counters set to 0 just before each. Each
 kernel's bound_ms is the least time the card could take for the work of its
 vs-plain phase: the larger of bytes moved over the memory rate and
 operations over the peak rate of their type (PEAK). The line before last is
@@ -1099,7 +1121,8 @@ def phase_served_path(ckpt):
     spf = val.h * val.w * trainer.render_cfg.samples_per_ray
     ms_k = float(np.mean(times))
     print(f"render: {len(val)} frames at {val.h}x{val.w}, tile "
-          f"{trainer._pick_tile(val.h, val.w)}, {spf} field samples/frame, "
+          f"{trainer._pick_tile(val.h, val.w, val.poses[0], val.intrinsics)}"
+          f", {spf} field samples/frame, "
           f"kernel path {ms_k:.2f} ms/frame (min {min(times):.2f}), "
           f"{n_render} kernel launches; PSNR vs GT {result:.3f} dB "
           f"(seeded field)", flush=True)
@@ -1117,7 +1140,8 @@ def phase_served_path(ckpt):
                 tables, occ_m, pose, intr, val.h, val.w, rcfg,
                 lambda t, x3, d3: field_forward_plain(t, cfg, x3, d3),
                 torch.ones(3, device=dev),
-                tile_px=trainer._pick_tile(val.h, val.w),
+                tile_px=trainer._pick_tile(val.h, val.w, val.poses[0],
+                                           val.intrinsics),
                 dilate=trainer.opt.render_dilate,
                 density_scale=trainer.opt.density_scale,
                 t_thresh=trainer.opt.t_thresh)
@@ -1306,7 +1330,8 @@ def phase_dynamic_served_path():
         raise AssertionError(f"evaluate PSNR {result}")
     spf = val.h * val.w * trainer.render_cfg.samples_per_ray
     print(f"dynamic render: {len(val)} frames at {val.h}x{val.w}, tile "
-          f"{trainer._pick_tile(val.h, val.w)}, {spf} field samples/frame, "
+          f"{trainer._pick_tile(val.h, val.w, val.poses[0], val.intrinsics)}"
+          f", {spf} field samples/frame, "
           f"kernel path {float(np.mean(times)):.2f} ms/frame (min "
           f"{min(times):.2f}, max {max(times):.2f}), {n_render} kernel "
           f"launches in {2 * len(val)} frames, K1 launches "
@@ -1337,7 +1362,8 @@ def phase_dynamic_served_path():
             lambda tb, x3, d3, tt: dyn_field_forward_plain(tb, cfg, x3, d3,
                                                            tt),
             torch.ones(3, device=dev),
-            tile_px=trainer._pick_tile(val.h, val.w),
+            tile_px=trainer._pick_tile(val.h, val.w, val.poses[0],
+                                       val.intrinsics),
             dilate=trainer.opt.render_dilate,
             density_scale=trainer.opt.density_scale,
             t_thresh=trainer.opt.t_thresh, extra=(t,))
@@ -1392,7 +1418,8 @@ def _frame_memory(trainer, tables, occ_m, val, t, frame):
                 tables, occ_m, torch.as_tensor(val.poses[0], device=dev),
                 torch.as_tensor(val.intrinsics, device=dev), val.h, val.w,
                 trainer.render_cfg, fwd, torch.ones(3, device=dev),
-                tile_px=trainer._pick_tile(val.h, val.w),
+                tile_px=trainer._pick_tile(val.h, val.w, val.poses[0],
+                                           val.intrinsics),
                 dilate=trainer.opt.render_dilate,
                 density_scale=trainer.opt.density_scale,
                 t_thresh=trainer.opt.t_thresh, extra=(t,))
@@ -2948,6 +2975,363 @@ def _made_once(fn):
     return made
 
 
+GUI_FRAMES = 12          # 15a's frames (the train interleave's)
+GUI_TIME_FRAMES = 4      # 15b's frames at each slider time
+GUI_EDIT_VIEWS = 4       # 15c's editor dataset: cut from 48 views
+GUI_EDIT_FRAMES = 8      # 15c: the tool, strokes and start, 2 pretraining,
+                         # 3 distillation, the override, one frame after
+C6_PSNR = 30.0           # 15a: the GUI frame against the per-ray frame
+
+
+def _per_ray_frame(trainer, pose, intrinsics, h, w, chunk=1 << 16):
+    """The frame that a FastTrainer's tiled renderers approximate:
+    render_dense on every pixel ray of a static field (one march each, on
+    the render march's occupancy, not dilated; no march noise), through the
+    field kernel, in chunks of `chunk` rays -> numpy rgb [h, w, 3]."""
+    import torch
+    from sealdnerf_tpu_torch.data.rays import get_rays
+    from sealdnerf_tpu_torch.ops.field import field_forward
+    from sealdnerf_tpu_torch.render.fast import render_dense
+    dev, cfg, opt = trainer.device, trainer.field.cfg, trainer.opt
+    tables = trainer.field.kernel_tables(trainer._infer_params())
+    occ_m = trainer.cascade_occ(trainer._occ_of(trainer.grid_state["occ"]),
+                                trainer.render_cfg)
+    rays = get_rays(torch.as_tensor(np.asarray(pose, np.float32),
+                                    device=dev)[None],
+                    torch.as_tensor(np.asarray(intrinsics, np.float32),
+                                    device=dev), h, w, -1)
+    ro, rd = rays["rays_o"][0], rays["rays_d"][0]
+
+    def forward(tabs, x, d):
+        out = field_forward(tabs, cfg, x.t().contiguous(),
+                            d.t().contiguous())
+        return out[0], out[1:4].t()
+    img = []
+    with torch.no_grad():
+        for i in range(0, h * w, chunk):
+            res = render_dense(tables, occ_m, ro[i:i + chunk],
+                               rd[i:i + chunk], trainer.render_cfg, forward,
+                               density_scale=opt.density_scale,
+                               t_thresh=opt.t_thresh)
+            img.append(res["image"].clamp(0.0, 1.0))
+    return torch.cat(img).reshape(h, w, 3).cpu().numpy()
+
+
+def _drive_view(view, n, script):
+    """Run `view`'s own frame loop on the headless backend for n frames,
+    calling script(i) before frame i (the user's events of that frame)."""
+    from sealdnerf_tpu_torch.gui import headless_dpg as hdpg
+    running = hdpg.is_dearpygui_running
+
+    def scripted():
+        ok = running()
+        if ok:
+            script(hdpg._S.frame_count)
+        return ok
+    restore = _patched(hdpg, "is_dearpygui_running", scripted)
+    try:
+        hdpg.configure(max_frames=n)
+        view.render()
+    finally:
+        restore()
+
+
+def _recorded_frames(trainer):
+    """Wrap trainer.test_gui: each frame's (downscale asked, rh, rw, tile
+    picked, ms, out, camera, time) -> (list, restore)."""
+    from sealdnerf_tpu_torch.train.trainer import GUI_DOWNSCALES
+    rec, real = [], trainer.test_gui
+
+    def test_gui(pose, intrinsics, w, h, **kw):
+        _sync()
+        t0 = time.perf_counter()
+        out = real(pose, intrinsics, w, h, **kw)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        ds = min(GUI_DOWNSCALES, key=lambda b: abs(b - kw["downscale"]))
+        rh, rw = h // ds, w // ds
+        tp = trainer._pick_tile(rh, rw, pose,
+                                np.asarray(intrinsics, np.float32) / ds)
+        if not np.isfinite(out["image"]).all():
+            raise AssertionError(f"a GUI frame at {rh}x{rw} is not finite")
+        rec.append(dict(ds=ds, rh=rh, rw=rw, tile=tp, ms=ms, out=out,
+                        pose=np.array(pose), intr=np.array(intrinsics),
+                        time=kw.get("time"), depth=kw.get("need_depth")))
+        return out
+    trainer.test_gui = test_gui
+    return rec, lambda: delattr(trainer, "test_gui")
+
+
+def _by_size(rec):
+    """'rhxrw tile T: n frames, ms min-max' per frame size."""
+    out = []
+    for key in sorted({(r["rh"], r["rw"], r["tile"]) for r in rec}):
+        ms = [r["ms"] for r in rec if (r["rh"], r["rw"], r["tile"]) == key]
+        out.append(f"{key[0]}x{key[1]} tile {key[2]}: {len(ms)} frames "
+                   f"{min(ms):.2f}-{max(ms):.2f} ms (median "
+                   f"{float(np.median(ms)):.2f})")
+    return "; ".join(out)
+
+
+def phase_gui(static_ws, dyn_ws, argv=()):
+    """Phase 15: the GUI's three viewers on the fields in the workspaces of
+    phases 5 and 7 (see the module docstring), with `argv` added to each
+    CLI's arguments -> K1-K4 launches in their sessions."""
+    import dataclasses
+
+    import torch
+    import sealdnerf_tpu_torch.train.fast as tfast
+    from sealdnerf_tpu_torch import main_dnerf, main_seald
+    from sealdnerf_tpu_torch.cli import (base_parser, build_edit_trainers,
+                                         build_trainer, load_datasets,
+                                         postprocess)
+    from sealdnerf_tpu_torch.gui import headless_dpg as hdpg
+    from sealdnerf_tpu_torch.gui.dnerf_gui import DNeRFGUI
+    from sealdnerf_tpu_torch.gui.edit_controller import EditState
+    from sealdnerf_tpu_torch.gui.nerf_gui import NeRFGUI
+    from sealdnerf_tpu_torch.gui.seald_gui import SealDGUI
+    from sealdnerf_tpu_torch.train.metrics import psnr
+
+    kernels = _kernel_launches()
+    launches = [0, 0, 0, 0]
+
+    def zero():
+        for k in kernels:
+            k.launches = 0
+
+    def count():
+        for i, k in enumerate(kernels):
+            launches[i] += k.launches
+
+    smi = _card()
+    t_phase = time.perf_counter()
+    argv = list(argv)
+
+    # 15a: main_nerf --gui (training) on phase 5's field
+    opt = postprocess(base_parser().parse_args(
+        ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--gui",
+         "--synthetic_res", "800", "--workspace", static_ws] + argv))
+    trainer, _ = build_trainer(opt, name="ngp")
+    train, _, _ = load_datasets(opt)
+    step0 = trainer.global_step
+    gui = NeRFGUI(opt, trainer, train_dataset=train, headless=True)
+    ctl = gui.ctl
+    rec, unwrap = _recorded_frames(trainer)
+    steps, real_train = [], trainer.train_gui
+
+    def train_gui(*a, **kw):
+        out = real_train(*a, **kw)
+        steps.append((kw["step"], out["time"] * 1e3))
+        return out
+    trainer.train_gui = train_gui
+
+    def script_a(i):
+        if i == 0:
+            hdpg.emit_drag(hdpg.mvMouseButton_Left, 40.0, -15.0)
+            hdpg.emit_wheel(0.5)
+            hdpg.emit_drag(hdpg.mvMouseButton_Middle, 30.0, 10.0)
+            hdpg.click_item("_button_train")
+    zero()
+    t0 = time.perf_counter()
+    _drive_view(gui, GUI_FRAMES, script_a)
+    wall_a = time.perf_counter() - t0
+    count()
+    del trainer.train_gui
+    unwrap()
+    if trainer.global_step <= step0 or len(steps) != GUI_FRAMES:
+        raise AssertionError(f"phase 15a: {len(steps)} train frames, "
+                             f"global_step {step0} -> {trainer.global_step}")
+    print(f"phase 15a NeRFGUI (main_nerf --gui, training) on {smi}, "
+          f"{opt.W}x{opt.H}, radius {opt.radius}, fovy {opt.fovy}: "
+          f"{GUI_FRAMES} frames in {wall_a:.2f} s; frames by size: "
+          f"{_by_size(rec)}; train steps a frame "
+          f"{[s for s, _ in steps]}, train ms a frame "
+          f"{[round(ms, 2) for _, ms in steps]}; global_step {step0} -> "
+          f"{trainer.global_step}; launches K1 {kernels[0].launches} K2 "
+          f"{kernels[1].launches}", flush=True)
+    # the frame at downscale 1 with depth (what a paint tool sees)
+    ctl.training, ctl.downscale, ctl.need_depth = False, 1, True
+    ctl.need_update = True
+    rec, unwrap = _recorded_frames(trainer)
+    ctl.render_frame()
+    unwrap()
+    f1 = rec[-1]
+    pose, intr = f1["pose"], f1["intr"]
+    img_r, dep_r = trainer.render_image(pose, intr, opt.H, opt.W)
+    if not (np.array_equal(f1["out"]["image"], img_r)
+            and np.array_equal(f1["out"]["depth"], dep_r)):
+        raise AssertionError("phase 15a: the GUI frame differs from "
+                             "render_image's at its camera")
+    exact = _per_ray_frame(trainer, pose, intr, opt.H, opt.W)
+    restore = _patched(trainer, "_pick_tile", lambda rh, rw, *cam:
+                       tfast.reference_tile(rh, rw,
+                                            trainer.opt.render_tile_px))
+    try:
+        old, _ = trainer.render_image(pose, intr, opt.H, opt.W)
+    finally:
+        restore()
+    p_new, p_old = psnr(f1["out"]["image"], exact), psnr(old, exact)
+    print(f"phase 15a C6: the {opt.W}x{opt.H} frame (tile {f1['tile']}, "
+          f"{f1['ms']:.2f} ms) equals render_image bit for bit; against "
+          f"render_dense's per-ray frame {p_new:.2f} dB (limit {C6_PSNR}), "
+          f"under the reference's pick (tile "
+          f"{tfast.reference_tile(opt.H, opt.W, 8)}) {p_old:.2f} dB",
+          flush=True)
+    if not p_new >= C6_PSNR:
+        raise AssertionError(f"phase 15a: GUI frame vs per-ray {p_new:.2f} "
+                             f"< {C6_PSNR} dB")
+    del trainer, gui, ctl, train
+    torch.cuda.empty_cache()
+
+    # 15b: main_dnerf --gui --test on phase 7's field
+    opt = main_dnerf.parse_args(
+        ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--gui",
+         "--test", "--synthetic_res", "800", "--workspace", dyn_ws] + argv)
+    trainer, _ = build_trainer(opt, name="ngp", dynamic=True,
+                               lr_net=opt.lr_net)
+    if not bool(trainer.grid_state["occ"].any()):
+        raise AssertionError("phase 15b: phase 7's checkpoint has no grid")
+    gui = DNeRFGUI(opt, trainer, headless=True)
+    rec, unwrap = _recorded_frames(trainer)
+    times = (0.0, 0.5, 1.0)
+
+    def script_b(i):
+        if i % GUI_TIME_FRAMES == 0:
+            hdpg.set_widget("time", times[i // GUI_TIME_FRAMES])
+    zero()
+    t0 = time.perf_counter()
+    _drive_view(gui, GUI_TIME_FRAMES * len(times), script_b)
+    wall_b = time.perf_counter() - t0
+    count()
+    unwrap()
+    firsts = [next(r for r in rec if r["time"] == t) for t in times]
+    for r in firsts:
+        img, _ = trainer.render_image(r["pose"], r["intr"], opt.H, opt.W,
+                                      downscale=r["ds"], time=r["time"],
+                                      lod=True)
+        if not np.array_equal(r["out"]["image"], img):
+            raise AssertionError(f"phase 15b: the frame at t={r['time']} "
+                                 "differs from render_image's")
+    print(f"phase 15b DNeRFGUI (main_dnerf --gui --test) on {smi}: "
+          f"{len(rec)} frames in {wall_b:.2f} s at t = {times}; frames by "
+          f"size: {_by_size(rec)}; each time's first frame equals "
+          f"render_image's LOD preview bit for bit; launches K3 "
+          f"{kernels[2].launches}", flush=True)
+    del trainer, gui
+    torch.cuda.empty_cache()
+
+    # 15c: main_seald --gui on phase 7's field
+    opt = main_seald.parse_args(
+        ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--gui",
+         "--synthetic_res", "800", "--teacher_workspace", dyn_ws,
+         "--workspace", os.path.join(os.path.dirname(dyn_ws),
+                                     "chip_smoke_gui_edit")] + argv)
+    teacher, student, _ = build_edit_trainers(
+        opt, dynamic=True, lr_net=opt.lr_net,
+        eval_interval=opt.eval_interval)
+    train = load_datasets(opt, with_time=True)[0]
+    n = GUI_EDIT_VIEWS
+    train = dataclasses.replace(train, poses=train.poses[:n],
+                                images=train.images[:n],
+                                times=train.times[:n])
+    gui = SealDGUI(opt, teacher, student, train_dataset=train,
+                   headless=True)
+    ctl = gui.ctl
+    cfgs, frame_ms = [], []
+    real_start = ctl.start_edit_training
+
+    def start(*a, **kw):
+        t0 = time.perf_counter()
+        cfgs.append(real_start(*a, **kw))
+        _sync()
+        cfgs.append(time.perf_counter() - t0)
+    ctl.start_edit_training = start
+    real_frame = ctl.train_frame
+
+    def train_frame():
+        _sync()
+        t0 = time.perf_counter()
+        out = real_frame()
+        _sync()
+        if out is not None:
+            frame_ms.append((out["phase"], (time.perf_counter() - t0) * 1e3,
+                             out["loss"]))
+        return out
+    ctl.train_frame = train_frame
+    before = {}
+
+    def script_c(i):
+        if i == 0:
+            hdpg.set_widget("time", 0.5)
+            hdpg.click_item("brush")
+            hdpg.set_widget("brush size", 24)
+            hdpg.set_widget("edit color", (255, 40, 40, 255))
+        elif i == 1:
+            # strokes around the middle of the pixels with depth
+            ctl.back_project(np.zeros((1, 2), np.float32))
+            dep = ctl.depth_buffer
+            ys, xs = np.nonzero(dep > 0)
+            if len(xs) == 0:
+                raise AssertionError("phase 15c: the preview has no depth")
+            sx, sy = opt.W / dep.shape[1], opt.H / dep.shape[0]
+            cx, cy = np.median(xs), np.median(ys)
+            for dx in (-2, -1, 0, 1, 2):
+                hdpg.set_mouse_pos((cx + dx + 0.5) * sx, (cy + 0.5) * sy)
+                hdpg.emit_drag(hdpg.mvMouseButton_Right, 0.0, 0.0)
+            before["img"] = teacher.test_gui(
+                ctl.cam.pose, ctl.cam.intrinsics, opt.W, opt.H, downscale=2,
+                time=0.5, need_depth=True)["image"]
+            hdpg.click_item("start edit")
+        elif i == 6:
+            hdpg.click_item("override teacher")
+    zero()
+    t0 = time.perf_counter()
+    _drive_view(gui, GUI_EDIT_FRAMES, script_c)
+    wall_c = time.perf_counter() - t0
+    count()
+    cfg, start_s = cfgs
+    if cfg is None or cfg["type"] != "brush" or len(cfg["raw"]) < 1:
+        raise AssertionError(f"phase 15c: no brush config ({cfg})")
+    phases = [p for p, _, _ in frame_ms]
+    if phases != ["pretrain"] * 2 + ["distill"] * 3 or \
+            ctl.state is not EditState.PREVIEW:
+        raise AssertionError(f"phase 15c: frames {phases}, state "
+                             f"{ctl.state}")
+    cam = (ctl.cam.pose, ctl.cam.intrinsics, opt.W, opt.H)
+    after_t = teacher.test_gui(*cam, downscale=2, time=0.5,
+                               need_depth=True)["image"]
+    after_s = student.test_gui(*cam, downscale=2, time=0.5,
+                               need_depth=True)["image"]
+    moved = float(np.abs(after_t - before["img"]).max())
+    pre = [ms for p, ms, _ in frame_ms if p == "pretrain"]
+    dis = [ms for p, ms, _ in frame_ms if p == "distill"]
+    n_batches = sum(z["points"].shape[0]
+                    for z in student.pretraining_data.values())
+    print(f"phase 15c SealDGUI (main_seald --gui) on {smi}: the editor's "
+          f"dataset cut to {n} of 48 views; {len(cfg['raw'])} brush points; "
+          f"start edit (mapper, pretraining zones, proxy of {n} views) "
+          f"{start_s:.2f} s; pretraining frames {[round(x, 1) for x in pre]}"
+          f" ms ({n_batches} batches of {student.pretraining_batch_size} "
+          f"points an epoch), "
+          f"distillation frames {[round(x, 1) for x in dis]} ms "
+          f"({ctl.train_steps} steps a frame at the end); losses "
+          f"{[round(float(l), 5) for _, _, l in frame_ms]}; "
+          f"{GUI_EDIT_FRAMES} frames in "
+          f"{wall_c:.2f} s; after the override the teacher's frame equals "
+          f"the student's: {np.array_equal(after_t, after_s)}, max |diff| "
+          f"to the pre-edit teacher {moved:.4f}; launches K3 "
+          f"{kernels[2].launches} K4 {kernels[3].launches}", flush=True)
+    if not np.array_equal(after_t, after_s) or not moved > 0.0:
+        raise AssertionError("phase 15c: after the override the teacher "
+                             "does not render the student's edit")
+    if not all(launches):
+        raise AssertionError(f"phase 15: K1-K4 launches {launches}")
+    print(f"phase 15: {time.perf_counter() - t_phase:.2f} s; launches "
+          f"K1 {launches[0]} K2 {launches[1]} K3 {launches[2]} K4 "
+          f"{launches[3]}", flush=True)
+    return launches
+
+
 def phase_device_kernels():
     """Phase 14: each device kernel of K3 and K4 by itself, on the inputs of
     phases 3c (t = 0.37) and 3d (re-gained tower), the tower's beside its
@@ -3065,6 +3449,8 @@ def main():
                    NGP_EDIT_EPOCHS_STATIC)
     k_opts = phase_cli_options()
     k_other = phase_other_workloads()
+    k_gui = phase_gui(os.path.join(REPO, "workspace", "chip_smoke_train"),
+                      dyn_ws)
     phase_device_kernels()
 
     print(f"procedural scenes: {scenes.counts['made']} made, "
@@ -3077,22 +3463,22 @@ def main():
         "source": "sealdnerf_tpu_torch/ops/csrc/field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:185",
         "launches": served["launches"] + k1_train + k1_frames + k1_edit
-        + k1_b2 + k_opts[0] + k_other[0], **rec}, {
+        + k1_b2 + k_opts[0] + k_other[0] + k_gui[0], **rec}, {
         "name": "field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:574",
-        "launches": k2_train + k2_edit + k2_b2 + k_opts[1] + k_other[1],
-        **rec_bwd}, {
+        "launches": k2_train + k2_edit + k2_b2 + k_opts[1] + k_other[1]
+        + k_gui[1], **rec_bwd}, {
         "name": "dyn_field_fwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:200",
         "launches": k3_served + k3_train + k3_frames + k3_edit
-        + k_opts[2] + k_other[2], **rec_dyn}, {
+        + k_opts[2] + k_other[2] + k_gui[2], **rec_dyn}, {
         "name": "dyn_field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:805",
-        "launches": k4_train + k4_edit + k_opts[3] + k_other[3],
-        **rec_dbwd}]}))
+        "launches": k4_train + k4_edit + k_opts[3] + k_other[3]
+        + k_gui[3], **rec_dbwd}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

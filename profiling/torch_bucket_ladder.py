@@ -65,7 +65,7 @@ def _counts(trainer, pose, intr, h, w, t, trim):
         occ = occ[time_slice_index(t, trainer.dyn_grid_cfg)]
         extra = (t,)
     occ_m = trainer.cascade_occ(occ, rcfg)
-    tp = trainer._pick_tile(h, w)
+    tp = trainer._pick_tile(h, w, pose, intr)
     th, tw = h // tp, w // tp
     pose_t = torch.as_tensor(pose, device=trainer.device)
     intr_t = torch.as_tensor(intr, device=trainer.device)
@@ -137,7 +137,7 @@ def probe(recipe, ws):
                     tables, occ_m, pose_t, intr_t, h, w, rcfg,
                     trainer._render_forward(lod),
                     torch.ones(3, device=trainer.device),
-                    tile_px=trainer._pick_tile(h, w),
+                    tile_px=trainer._pick_tile(h, w, pose, intr),
                     dilate=opt.render_dilate,
                     density_scale=opt.density_scale, t_thresh=opt.t_thresh,
                     splits=splits, term_probe=trim,

@@ -2,8 +2,9 @@
 sealdnerf_tpu/cli.py).
 
 `base_parser` keeps every flag of the reference parser, plus --device.
-Flags of parts that are not ported yet (--gui) parse, and the CLIs refuse
-them; `build_trainer` routes the recipes as the reference does (the CP field
+--gui opens the viewers of main_nerf, main_dnerf and main_seald (gui/);
+the other CLIs have none and run as without it, as the reference's do.
+`build_trainer` routes the recipes as the reference does (the CP field
 and FastTrainer where the recipe allows it, else the Instant-NGP or D-NeRF
 field and Trainer). --clip_text with --rand_pose >= 0 gives the trainers
 CLIP guidance when its weights are on the disk (train/clip_guidance.py).

@@ -23,7 +23,8 @@ A CP field takes the teacher checkpoint's shapes; --planes other than
 'auto' must agree with them. The meters are PSNR and LPIPS (available only
 where the lpips package and its weights are on the disk; nothing is
 downloaded). The frames go to PNG, and to an mp4 when an encoder is
-installed. Not ported: the GUI.
+installed. --gui is accepted and ignored: the reference's main_SealNeRF
+has no viewer either.
 """
 
 import numpy as np
@@ -79,7 +80,8 @@ def parse_args(argv=None):
 def main(argv=None):
     opt = parse_args(argv)
     if opt.gui:
-        raise SystemExit("the GUI is not yet ported")
+        print("[INFO] main_SealNeRF has no viewer, as in the reference: "
+              "--gui is ignored")
     print(opt)
     _, trainer, mapper = build_edit_trainers(
         opt, dynamic=False, metrics=[PSNRMeter(), LPIPSMeter()],

@@ -19,7 +19,10 @@ Serving (--test): rebuilds every time bin of the occupancy grid when the
 checkpoint has none, evaluates and writes the frames. The frames go to PNG,
 and to an mp4 when an encoder is installed.
 
-Not ported yet: the GUI.
+--gui opens the viewer with its time slider (gui/dnerf_gui.py) on the
+trainer instead: with live training on the training set, or with --test on
+the served field (after the same grid rebuild); on dearpygui where that is
+installed, else on the headless backend (gui/headless_dpg.py).
 """
 
 import math
@@ -64,12 +67,14 @@ def parse_args(argv=None):
 def main(argv=None):
     """Run the CLI on argv (None: sys.argv) -> the trainer."""
     opt = parse_args(argv)
-    if opt.gui:
-        raise SystemExit("the GUI is not yet ported")
     print(opt)
     trainer, _ = build_trainer(opt, name="ngp", dynamic=True,
                                metrics=[PSNRMeter()], lr_net=opt.lr_net)
     train, val, test = load_datasets(opt, with_time=True)
+    if opt.gui and not opt.test:
+        from .gui.dnerf_gui import DNeRFGUI
+        DNeRFGUI(opt, trainer, train_dataset=train).render()
+        return trainer
     if not opt.test:
         trainer.train(train, val, math.ceil(opt.iters / len(train)))
     elif not bool(trainer.grid_state["occ"].any()):
@@ -77,6 +82,10 @@ def main(argv=None):
         # density of every time bin into the grid
         trainer.mark_untrained_grid(train.poses, train.intrinsics)
         trainer.rebuild_grid()
+    if opt.gui:
+        from .gui.dnerf_gui import DNeRFGUI
+        DNeRFGUI(opt, trainer).render()
+        return trainer
     if test.images is not None:
         trainer.evaluate(test)
     trainer.test(test, write_video=True)

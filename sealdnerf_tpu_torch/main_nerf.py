@@ -25,7 +25,10 @@ Serving (--test): loads the checkpoint (or starts from the seeded init with
 evaluates the test views when they have images, and writes the frames and
 the mesh.
 
-Not ported yet: the GUI.
+--gui opens the viewer (gui/nerf_gui.py) on the trainer instead: with
+live training on the training set, or with --test on the served field
+(after the same grid rebuild). It runs on dearpygui where that is
+installed, else on the headless backend (gui/headless_dpg.py).
 """
 
 import numpy as np
@@ -39,12 +42,14 @@ MESH_RESOLUTION, MESH_THRESHOLD = 256, 10.0    # the reference's save_mesh
 def main(argv=None):
     """Run the CLI on argv (None: sys.argv) -> the trainer."""
     opt = postprocess(base_parser().parse_args(argv))
-    if opt.gui:
-        raise SystemExit("the GUI is not yet ported")
     print(opt)
     trainer, _ = build_trainer(opt, name="ngp",
                                metrics=[PSNRMeter(), LPIPSMeter()])
     train, val, test = load_datasets(opt)
+    if opt.gui and not opt.test:
+        from .gui.nerf_gui import NeRFGUI
+        NeRFGUI(opt, trainer, train_dataset=train).render()
+        return trainer
     if not opt.test:
         trainer.train(train, val, int(np.ceil(opt.iters / len(train))))
     elif not bool(trainer.grid_state["occ"].any()):
@@ -52,6 +57,10 @@ def main(argv=None):
         # cameras' frusta and sweep the density into the grid
         trainer.mark_untrained_grid(train.poses, train.intrinsics)
         trainer.rebuild_grid()
+    if opt.gui:
+        from .gui.nerf_gui import NeRFGUI
+        NeRFGUI(opt, trainer).render()
+        return trainer
     if test.images is not None:
         trainer.evaluate(test)
     trainer.test(test, write_video=True)

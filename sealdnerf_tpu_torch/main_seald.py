@@ -26,7 +26,13 @@ defaults follow the backbone as main_dnerf's do: 1e-2 (tables) and 1e-3
 (MLPs) for the CP field (the reference keeps its hash backbone's 5e-4 and
 5e-5 for every backbone, at which a CP student does not reach the edit in
 hundreds of steps), the reference's 5e-4 and 5e-5 for the D-NeRF field.
-Not ported yet: the GUI.
+
+--gui opens the interactive editor (gui/seald_gui.py) on the teacher and
+the student right after they and the datasets are built: the brush,
+texture and anchor tools, the edit at the time slider's frame, its
+pretraining and distillation frames, and the override that commits the
+student into the teacher; on dearpygui where that is installed, else on the
+headless backend (gui/headless_dpg.py).
 """
 
 import numpy as np
@@ -88,13 +94,15 @@ def max_epochs(opt, n_train: int) -> int:
 
 def main(argv=None):
     opt = parse_args(argv)
-    if opt.gui:
-        raise SystemExit("the GUI is not yet ported")
     print(opt)
-    _, trainer, mapper = build_edit_trainers(
+    teacher, trainer, mapper = build_edit_trainers(
         opt, dynamic=True, metrics=[PSNRMeter()], lr_net=opt.lr_net,
         eval_interval=opt.eval_interval)
     train, val, test = load_datasets(opt, with_time=True)
+    if opt.gui:
+        from .gui.seald_gui import SealDGUI
+        SealDGUI(opt, teacher, trainer, train_dataset=train).render()
+        return trainer
     if opt.test:
         trainer.test(test, write_video=True)
         return trainer

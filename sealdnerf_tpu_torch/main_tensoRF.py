@@ -91,7 +91,8 @@ def main(argv=None):
     """Run the CLI on argv (None: sys.argv) -> the trainer."""
     opt = postprocess(build_parser().parse_args(argv))
     if opt.gui:
-        raise SystemExit("the GUI is not yet ported")
+        print("[INFO] main_tensoRF has no viewer, as in the reference: "
+              "--gui is ignored")
     opt.lr = opt.lr0
     print(opt)
     device = resolve_device(opt.device)

@@ -10,10 +10,18 @@ layouts:
   global f32 cumsum less each segment's base; over ~1e6 samples the two
   large sums cancel to a few 1e-3 of optical depth. Here the global sum and
   the bases are taken in f64, so the segmented sum is exact to f32
-  rounding; it costs one f64 cumsum over the samples.
+  rounding; it costs one f64 cumsum over the samples. A sample enters the
+  running sum as at most OD_CAP (NaN and +inf as OD_CAP): behind such a
+  sample its own ray's transmittance is 0 in f32 whatever the sum, so the
+  weights do not change, while the global sum stays finite and exact
+  enough. In the reference one infinite sigma * dt makes the optical depth
+  of every later ray of the batch inf - inf = NaN.
 """
 
 import torch
+
+# a sample's share of the running optical-depth sum: exp(-OD_CAP) is 0 in f32
+OD_CAP = 1.0e3
 
 
 def composite_rays(sigmas, rgbs, deltas, ts=None, t_thresh: float = 0.0):
@@ -61,9 +69,11 @@ def composite_packed(sigmas, rgbs, dts, ts, ray_id, valid, n_rays: int,
       t_thresh: samples reached with transmittance < t_thresh contribute 0.
 
     Returns dict(weights [M], weights_sum [N], depth [N], image [N, 3]).
+    A non-finite sigma * dt reaches only the outputs of its own ray.
     """
-    sdt = sigmas * dts * valid.to(sigmas.dtype)
-    sdt64 = sdt.double()
+    sdt = torch.where(valid, sigmas * dts, torch.zeros_like(sigmas))
+    sdt64 = torch.nan_to_num(sdt.double(), nan=OD_CAP, posinf=OD_CAP,
+                             neginf=-OD_CAP).clamp(-OD_CAP, OD_CAP)
     cum_excl = torch.cumsum(sdt64, 0) - sdt64
     seg = torch.zeros(n_rays, dtype=torch.float64, device=sdt.device)
     seg = seg.index_add(0, ray_id, sdt64)

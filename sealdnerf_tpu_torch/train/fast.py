@@ -92,6 +92,43 @@ N_ZERO_REG = 1024      # points of the deform regulariser per step
 BUCKET_OCC = 0.15      # occupied share of the grid below which frames bucket
 
 
+def reference_tile(rh: int, rw: int, tile_px: int) -> int:
+    """The reference's march-tile pick for an rh x rw frame: tile_px (8),
+    10 at >= 800 px when the size divides, 1 (per-ray) when the size does
+    not divide."""
+    if (tile_px == 8 and min(rh, rw) >= 800 and rh % 10 == 0
+            and rw % 10 == 0):
+        return 10
+    if rh % tile_px or rw % tile_px:
+        return 1
+    return tile_px
+
+
+def tile_fits(tile_px: int, pose, intrinsics, cfg: DenseMarchConfig,
+              dilate: int) -> bool:
+    """Whether tile_px x tile_px tiles are conservative at this camera: the
+    tiled renderers march one ray a tile on an occupancy dilated by
+    `dilate` march voxels, which covers the tile's pixel rays while the
+    tile's footprint stays within the dilation. The footprint is the
+    angle from the tile's center to its farthest pixel center, (tile_px -
+    1) / 2 pixels in x and y over the focal lengths, times the distance
+    from the camera to the farthest corner of the box; it must stay within
+    `dilate` voxels of every cascade, each at its own box. The reference's
+    pick assumes this of 10-px tiles at >= 800 px; a wider field of view or
+    a camera farther out breaks it (C6)."""
+    fx, fy = float(intrinsics[0]), float(intrinsics[1])
+    half = 0.5 * (tile_px - 1)
+    angle = half * np.sqrt(1.0 / fx ** 2 + 1.0 / fy ** 2)
+    o = np.asarray(pose, np.float64)[:3, 3]
+    boxes = ([(cfg.cas_bound(c), cfg.vox(c)) for c in range(cfg.cascades)]
+             if cfg.multi else [(cfg.bound, cfg.voxel)])
+    for b, vox in boxes:
+        far = np.sqrt(np.sum((np.abs(o) + b) ** 2))
+        if far * angle > dilate * vox:
+            return False
+    return True
+
+
 class FastTrainer(Trainer):
     """The CP field's trainer: Trainer's host loop (train, evaluate, test,
     checkpoints, the optimizer and the EMA) around the dense march and the
@@ -528,16 +565,19 @@ class FastTrainer(Trainer):
             self._occ_m = self._march_occ()
 
     # -------------------------------------------------------- rendering
-    def _pick_tile(self, rh: int, rw: int) -> int:
-        """March-tile size: render_tile_px (8), 10 at >= 800 px when the
-        size divides, 1 (per-ray) when the size does not divide."""
-        tp = self.opt.render_tile_px
-        if (tp == 8 and min(rh, rw) >= 800 and rh % 10 == 0
-                and rw % 10 == 0):
-            return 10
-        if rh % tp or rw % tp:
-            return 1
-        return tp
+    def _pick_tile(self, rh: int, rw: int, pose, intrinsics) -> int:
+        """March-tile size of an rh x rw frame from the camera `pose`
+        (cam2world [4, 4]) with `intrinsics` (fx, fy, cx, cy at the frame's
+        resolution): the reference's pick (reference_tile) where that tile
+        is conservative at this camera (tile_fits), else the largest
+        smaller tile that divides the frame and is, else 1 (per-ray)."""
+        ref = reference_tile(rh, rw, self.opt.render_tile_px)
+        for tp in range(ref, 1, -1):
+            if rh % tp == 0 and rw % tp == 0 and tile_fits(
+                    tp, pose, intrinsics, self.render_cfg,
+                    self.opt.render_dilate):
+                return tp
+        return 1
 
     @torch.no_grad()
     def render_image(self, pose, intrinsics, h, w, bg_color=None,
@@ -571,7 +611,8 @@ class FastTrainer(Trainer):
                                device=dev) / downscale
         bg = torch.ones(3, device=dev) if bg_color is None else \
             torch.as_tensor(np.asarray(bg_color, np.float32), device=dev)
-        tp = self._pick_tile(rh, rw)
+        tp = self._pick_tile(rh, rw, pose, np.asarray(intrinsics, np.float32)
+                             / downscale)
         if buckets is None:
             buckets = self._use_buckets()
         kw = dict(tile_px=tp, dilate=opt.render_dilate,

@@ -15,6 +15,10 @@ Tolerances:
   the reference's Pallas kernels in interpret mode: max |diff| 2e-2 (as
   tests/test_torch_dyn_slice.py holds served frames) and > 40 dB between
   the two frames (PERF.md's frame-fidelity rule).
+- The tile pick (C6): the reference's 10 at 800x800 orbit views, 8 at the
+  GUI's default camera; on narrow frames of small balls the pick's frame
+  at least C6_MARGIN_DB (1 dB) closer to render_dense's per-ray frame than
+  the reference's pick's.
 """
 
 import os
@@ -44,6 +48,7 @@ from sealdnerf_tpu_torch.train.metrics import psnr
 
 IMG_ATOL, DEP_ATOL = 1e-5, 1e-4
 FIELD_ATOL = 2e-2
+C6_MARGIN_DB = 1.0
 SPLITS = ((0.55, 4), (0.30, 2), (1.0, 1))
 TRIM_NARROW = dict(grid_size=32, march_res=16, n_intervals=8,
                    steps_per_interval=3)
@@ -409,9 +414,10 @@ def test_trainer_picks_the_renderer_and_forgets_the_share(trained, port,
     assert calls[-1] == "render_image_tiled"
     port.render_image(val.poses[0], val.intrinsics, 32, 32, buckets=False)
     assert calls[-1] == "render_image_tiled"
-    # warm_renderers: one frame through each
+    # warm_renderers: one frame through each (at 64 px, where the pick
+    # tiles the frame of its default camera; at 32 px it marches per ray)
     calls.clear()
-    port.warm_renderers(32, 32)
+    port.warm_renderers(64, 64)
     assert calls == ["render_image_tiled", "render_image_bucketed"]
     for change in (lambda: port.refresh_grid(), lambda: port.rebuild_grid(),
                    lambda: port.load_checkpoint(ckpt),
@@ -437,14 +443,31 @@ def _reference_frame(tr, val, buckets, lod):
     return np.asarray(img), np.asarray(dep)
 
 
+def _reference_pick(port, monkeypatch):
+    """The port's trainer with the reference's tile pick (8 px at 32 px).
+    The port's own pick tiles these 32 px frames by 2 (C6, see
+    test_tile_pick_is_conservative). At 4 and 2 px tiles the reference's
+    eval ladder subsamples tiles over their bucket's budget (the port's
+    eval frames subsample none): there its bucketed frame lies 25.6 / 28.2
+    dB from the per-ray frame, its one-bucket frame 45.1 / 50.1 dB. So the
+    variants these tests hold are compared at the tile at which the
+    reference serves them."""
+    from sealdnerf_tpu_torch.train.fast import reference_tile
+    monkeypatch.setattr(port, "_pick_tile", lambda rh, rw, *cam:
+                        reference_tile(rh, rw, port.opt.render_tile_px))
+
+
 @pytest.mark.parametrize("need_depth", [True, False])
 def test_gui_frames_match_the_reference_inner_renderer(trained, port,
-                                                       need_depth):
+                                                       need_depth,
+                                                       monkeypatch):
     """test_gui snaps the downscale to 1, 2, 4 or 8 (3 -> 2) and, without
     depth, renders the LOD preview (the res-48 line scale skipped, the
     preview ladder). It is the reference's inner renderer of the same
-    variant, before its wire packing, on the same params and occupancy."""
+    variant, before its wire packing, on the same params and occupancy, at
+    the reference's tile (_reference_pick)."""
     tr, val, _ = trained
+    _reference_pick(port, monkeypatch)
     pose = val.poses[0]
     tr._occ_frac = None
     assert tr._use_buckets()
@@ -464,15 +487,125 @@ def test_gui_frames_match_the_reference_inner_renderer(trained, port,
     assert np.abs(other - img).max() > 1e-3
 
 
+def _orbit_800():
+    """chip_smoke.py's 800x800 view (_orbit_view): radius 2, fov 0.9."""
+    from sealdnerf_tpu_torch.data.rays import rand_poses
+    fl = 800 / (2 * np.tan(0.45))
+    return (rand_poses(np.random.default_rng(0), 1, radius=2.0)[0],
+            np.array([fl, fl, 400, 400], np.float32))
+
+
+@pytest.mark.parametrize("recipe", [["--bound", "1", "--dt_gamma", "0"], []],
+                         ids=["bound1", "bound2-cascades"])
+def test_tile_pick_is_conservative(recipe, tmp_path):
+    """C6: at the CLI's render march (64^3, dilation 1) the pick keeps the
+    reference's 10 at chip_smoke.py's 800x800 orbit views, and at the GUI's
+    default camera (1920x1080, radius 5, fovy 50) a 10-px tile's footprint
+    at the far corner of the box exceeds one march voxel, so it falls back
+    to 8, which fits; the smaller GUI frames, which no tile of the
+    reference's divides, stay per-ray."""
+    from sealdnerf_tpu_torch.gui.orbit import OrbitCamera
+    from sealdnerf_tpu_torch.train.fast import reference_tile, tile_fits
+    opt = cli.postprocess(cli.base_parser().parse_args(
+        ["synthetic", "--test", "--device", "cpu", "--ckpt", "scratch",
+         "--workspace", str(tmp_path)] + recipe))
+    tr = cli.build_trainer(opt, name="t")[0]
+    rcfg = tr.render_cfg
+    assert rcfg.march_res == 64 and tr.opt.render_dilate == 1
+    pose, intr = _orbit_800()
+    assert tr._pick_tile(800, 800, pose, intr) == 10 == \
+        reference_tile(800, 800, 8)
+    for seed in range(1, 9):             # other orbit views, also 10
+        from sealdnerf_tpu_torch.data.rays import rand_poses
+        p = rand_poses(np.random.default_rng(seed), 1, radius=2.0)[0]
+        assert tr._pick_tile(800, 800, p, intr) == 10
+    cam = OrbitCamera(1920, 1080, r=5.0, fovy=50.0)
+    assert reference_tile(1080, 1920, 8) == 10
+    assert not tile_fits(10, cam.pose, cam.intrinsics, rcfg, 1)
+    assert tile_fits(8, cam.pose, cam.intrinsics, rcfg, 1)
+    assert tr._pick_tile(1080, 1920, cam.pose, cam.intrinsics) == 8
+    for ds in (2, 4, 8):
+        assert tr._pick_tile(1080 // ds, 1920 // ds, cam.pose,
+                             cam.intrinsics / ds) == 1
+
+
+SPECKS = np.array([[0.3, 0.2, -0.4], [-0.5, 0.1, 0.2], [0.1, -0.6, 0.5],
+                   [-0.2, -0.3, -0.6], [0.6, 0.5, 0.3], [0.0, 0.45, 0.0]],
+                  np.float32)
+
+
+def _specks_t(params, x3, d3):
+    """Six balls of radius 0.05, the kind of detail a tile loses: density
+    200 inside, each its own colour."""
+    d2 = ((x3[None] - torch.from_numpy(SPECKS)[:, :, None]) ** 2).sum(1)
+    inside = d2 < 0.05 ** 2
+    k = inside.float().argmax(0).float() / len(SPECKS)
+    sigma = torch.where(inside.any(0), 200.0, 0.0)
+    return torch.stack([sigma, k, 1.0 - k, torch.full_like(k, 0.3)])
+
+
+def test_tile_pick_frame_is_closer_to_per_ray():
+    """C6 on narrow frames (64 and 128 px, fov 0.9, camera at 2.2) of small
+    balls, at the CLI's render march (64^3, dilation 1): the reference's
+    8-px tiles miss parts of the balls; the pick's tiles (1 and 2 px here)
+    keep the frame at least C6_MARGIN_DB closer to render_dense's per-ray
+    frame (measured: 95.5 against 27.0 dB at 64 px, 60.8 against 57.9 dB
+    at 128 px)."""
+    from types import SimpleNamespace
+    from sealdnerf_tpu_torch.render.fast import render_dense
+    from sealdnerf_tpu_torch.train.fast import FastTrainer, reference_tile
+    cfg = tmd.DenseMarchConfig(bound=1.0, march_res=64, n_intervals=32,
+                               steps_per_interval=4)
+    picker = SimpleNamespace(
+        opt=SimpleNamespace(render_tile_px=8, render_dilate=1),
+        render_cfg=cfg)
+    # the balls' voxels, conservatively: centres within r + a half voxel
+    # diagonal
+    g = (np.arange(64) + 0.5) / 64 * 2 - 1
+    cells = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1)
+    occ = np.zeros((64, 64, 64), bool)
+    for c in SPECKS:
+        occ |= np.linalg.norm(cells - c, axis=-1) < 0.05 + cfg.voxel * 0.87
+    occ_t = torch.from_numpy(occ)
+    bg = torch.ones(3)
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = -2.2
+
+    def sfwd(params, x, d):
+        out = _specks_t(params, x.t(), d.t())
+        return out[0], out[1:4].t()
+    for res, want in ((64, 1), (128, 2)):
+        f = res / (2 * np.tan(0.45))
+        intr = np.array([f, f, res / 2, res / 2], np.float32)
+        tp = FastTrainer._pick_tile(picker, res, res, pose, intr)
+        assert tp == want and reference_tile(res, res, 8) == 8
+        rays = tfi.get_rays(_t(pose)[None], _t(intr), res, res, -1)
+        exact = render_dense(None, occ_t, rays["rays_o"][0],
+                             rays["rays_d"][0], cfg, sfwd,
+                             bg_color=bg)["image"].clamp(0, 1)
+        exact = exact.reshape(res, res, 3).numpy()
+        p = {}
+        for t in (tp, 8):
+            img, _ = tfi.render_image_tiled(None, occ_t, _t(pose), _t(intr),
+                                            res, res, cfg, _specks_t, bg,
+                                            tile_px=t)
+            p[t] = psnr(img.numpy(), exact)
+        assert exact.min() < 0.5                  # the balls are in view
+        assert p[tp] >= p[8] + C6_MARGIN_DB, (res, p)
+
+
 @pytest.mark.parametrize("splits", [((1.0, 1),), ((0.5, 8), (1.0, 2))],
                          ids=["one-bucket", "harsh"])
-def test_render_splits_reach_the_served_frame(trained, port, splits):
+def test_render_splits_reach_the_served_frame(trained, port, splits,
+                                              monkeypatch):
     """TrainOptions.render_splits is the served frame's ladder: with one
     full-budget bucket (the trim alone) and with a harsher ladder than the
     default, render_image's bucketed frame is the reference's inner
-    renderer under the same option."""
+    renderer under the same option, at the reference's tile
+    (_reference_pick)."""
     import dataclasses
     tr, val, _ = trained
+    _reference_pick(port, monkeypatch)
     opts = tr.opt, port.opt
     tr.opt = dataclasses.replace(tr.opt, render_splits=splits)
     port.opt = dataclasses.replace(port.opt, render_splits=splits)

@@ -125,7 +125,8 @@ def test_render_matches_jax(trained, port, view):
         tr._infer_params(), occ_m, jnp.asarray(val.poses[view]),
         jnp.asarray(val.intrinsics), val.h, val.w, tr.render_cfg,
         make_fused_dyn_forward_planar(tr.field.cfg, interpret=True),
-        jnp.ones(3), tile_px=tr._pick_tile(val.h, val.w),
+        jnp.ones(3), tile_px=port._pick_tile(val.h, val.w, val.poses[view],
+                                             val.intrinsics),
         dilate=tr.opt.render_dilate, density_scale=tr.opt.density_scale,
         t_thresh=tr.opt.t_thresh, planar=True, extra=(jnp.float32(t),))
     img_j, dep_j = np.asarray(img_j), np.asarray(dep_j)
@@ -285,9 +286,10 @@ def test_what_is_not_ported_raises(trained, port, tmp_path):
         tr, _ = cli.build_trainer(_opt(ws, "--ckpt", "scratch", *flags),
                                   dynamic=True, **NARROW)
         assert getattr(tr.opt, key) == want and tr.time_conditioned
-    with pytest.raises(SystemExit, match="GUI is not yet ported"):
-        main_dnerf.main(["synthetic", "--gui", "--test", "--device", "cpu",
-                         "--workspace", ws])
+    # so is the GUI: --gui parses and opens the viewer
+    # (tests/test_torch_gui_slice.py drives main_dnerf --gui)
+    assert main_dnerf.parse_args(["synthetic", "--gui", "--test", "--device",
+                                  "cpu", "--workspace", ws]).gui
     # the reference's D-NeRF fields are ported: these recipes route to
     # them on Trainer, as in the reference
     for flags, variant in ((["--basis"], "basis"), (["--hyper"], "hyper"),

@@ -14,7 +14,10 @@ across (params_from_jax). Tolerances:
 - composite_packed: rtol 1e-5, atol 1e-6 (the port's optical depth is an
   f64 segmented sum, the reference's an f32 global cumsum less the segment
   bases; over 2^20 samples the port's stays within 1e-6 of an exact
-  per-ray sum);
+  per-ray sum); with one infinite or NaN sigma the other rays' outputs
+  stay finite and within 1e-7 of the all-finite batch's, and with +inf the
+  gradient is finite and within 1e-6 of the all-finite one off that ray
+  (C8);
 - render_occ over the narrow Instant-NGP field (with and without the
   background sphere) and over a narrow CP field: image and depth within
   2e-3 (the same bf16 rounding points, f32 sums in other orders); the
@@ -199,6 +202,85 @@ def test_composite_packed_segments_are_exact():
     od = np.cumsum(sdt, 1) - sdt
     exact = (1 - np.exp(-sdt)) * np.exp(-od)
     np.testing.assert_allclose(got, exact.reshape(-1), rtol=0, atol=1e-6)
+
+
+def _sixteen_rays(seed=7):
+    """16 rays of 3-20 samples each, with 5 padding slots at the end."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(3, 21, 16)
+    m = int(counts.sum()) + 5
+    ray_id = np.concatenate([np.repeat(np.arange(16), counts),
+                             np.full(5, 15)])
+    valid = np.arange(m) < counts.sum()
+    sig = rng.exponential(3.0, m).astype(np.float32)
+    rgb = rng.uniform(size=(m, 3)).astype(np.float32)
+    dts = rng.uniform(0.005, 0.05, m).astype(np.float32)
+    ts = np.cumsum(dts).astype(np.float32)
+    # the poisoned sample: the middle one of ray 3
+    poison = int(counts[:3].sum() + counts[3] // 2)
+    return sig, rgb, dts, ts, ray_id, valid, poison
+
+
+@pytest.mark.parametrize("bad", [np.inf, np.nan])
+def test_composite_packed_non_finite_sigma_stays_in_its_ray(bad):
+    """C8: one infinite (or NaN) sigma in ray 3 of 16 leaves every other
+    ray finite and equal to the all-finite result; the reference's global
+    cumsum loses every later ray (inf - inf = NaN). The all-finite
+    batch agrees with the reference as test_composite_packed_matches
+    holds it (rtol 1e-5, atol 1e-6: the reference's f32 global cumsum is
+    the less exact of the two)."""
+    sig, rgb, dts, ts, ray_id, valid, poison = _sixteen_rays()
+    args = (_t(rgb), _t(dts), _t(ts), _t(ray_id), _t(valid), 16)
+    clean = composite_packed(_t(sig), *args)
+    ref = jc.composite_packed(*map(jnp.asarray, (sig, rgb, dts, ts,
+                                                 ray_id.astype(np.int32),
+                                                 valid)), n_rays=16)
+    for k in ("weights", "weights_sum", "depth", "image"):
+        np.testing.assert_allclose(clean[k].numpy(), np.asarray(ref[k]),
+                                   rtol=1e-5, atol=1e-6)
+    sig_bad = sig.copy()
+    sig_bad[poison] = bad
+    got = composite_packed(_t(sig_bad), *args)
+    others = np.arange(16) != 3
+    for k in ("weights_sum", "depth", "image"):
+        g, c = got[k].numpy()[others], clean[k].numpy()[others]
+        assert np.isfinite(g).all(), k
+        np.testing.assert_allclose(g, c, rtol=0, atol=1e-7)
+    off = ray_id != 3
+    assert np.isfinite(got["weights"].numpy()[off]).all()
+    np.testing.assert_allclose(got["weights"].numpy()[off],
+                               clean["weights"].numpy()[off], rtol=0,
+                               atol=1e-7)
+    # the reference's batch loses the rays past the poisoned one (NaN
+    # transmittance: blank or NaN)
+    ref_bad = jc.composite_packed(*map(jnp.asarray, (
+        sig_bad, rgb, dts, ts, ray_id.astype(np.int32), valid)), n_rays=16)
+    lost = ~np.isclose(np.asarray(ref_bad["weights_sum"])[4:],
+                       clean["weights_sum"].numpy()[4:], atol=1e-3)
+    assert lost.all()
+
+
+def test_composite_packed_gradient_with_an_infinite_sigma():
+    """C8's backward: with +inf in ray 3, the gradient of every output's
+    sum w.r.t. sigma is finite, and off ray 3 equal to the all-finite
+    gradient (a ray's outputs depend on its own samples only)."""
+    sig, rgb, dts, ts, ray_id, valid, poison = _sixteen_rays(8)
+    args = (_t(rgb), _t(dts), _t(ts), _t(ray_id), _t(valid), 16)
+
+    def grad(s):
+        s = _t(s).requires_grad_(True)
+        out = composite_packed(s, *args)
+        (out["image"].sum() + out["depth"].sum()
+         + out["weights_sum"].sum()).backward()
+        return s.grad.numpy()
+    g_clean = grad(sig)
+    sig_bad = sig.copy()
+    sig_bad[poison] = np.inf
+    g_bad = grad(sig_bad)
+    assert np.isfinite(g_bad).all()
+    off = ray_id != 3
+    np.testing.assert_allclose(g_bad[off], g_clean[off], rtol=1e-6,
+                               atol=1e-7)
 
 
 # ------------------------------------------------------------- renderers

@@ -83,7 +83,8 @@ def test_render_matches_jax(trained, tmp_path):
         tr._infer_params(), occ_m, jnp.asarray(val.poses[0]),
         jnp.asarray(val.intrinsics), val.h, val.w, tr.render_cfg,
         make_fused_forward_planar(tr.field.cfg, interpret=True),
-        jnp.ones(3), tile_px=tr._pick_tile(val.h, val.w),
+        jnp.ones(3),
+        tile_px=pt._pick_tile(val.h, val.w, val.poses[0], val.intrinsics),
         dilate=tr.opt.render_dilate, density_scale=tr.opt.density_scale,
         t_thresh=tr.opt.t_thresh, planar=True)
     img_j, dep_j = np.asarray(img_j), np.asarray(dep_j)
@@ -153,10 +154,10 @@ def test_slim_checkpoint_rebuilds_grid(trained, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    from sealdnerf_tpu_torch.main_nerf import main
-    with pytest.raises(SystemExit, match="GUI is not yet ported"):
-        main(["synthetic", "--gui", "--device", "cpu", "--workspace",
-              str(tmp_path)])
+    # the GUI is ported: --gui parses, and main_nerf opens the viewer
+    # (tests/test_torch_gui_slice.py drives main_nerf --gui)
+    assert postprocess(base_parser().parse_args(
+        ["synthetic", "--gui", "--device", "cpu"])).gui
     base = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0",
             "--device", "cpu", "--workspace", str(tmp_path)]
     # --clip_text is ported: as in the reference, the trainer builds, and
