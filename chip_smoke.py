@@ -1868,7 +1868,8 @@ def phase_trained_frames(trainer, val, tag):
     tiled frame launches the kernel once, the others at least twice (the
     trim's probe and the buckets); the trim alone against tiled >= 40 dB;
     the bucketed frame and the preview through the kernel against plain
-    >= 40 dB each. The bucketed frame's and the preview's distance to the
+    >= 40 dB each; the tile pick at this camera is the reference's (C6's
+    conservative pick keeps it at these views). The bucketed frame's and the preview's distance to the
     tiled frame (the reference's ladders subsampling tiles over budget)
     are printed. Returns the kernel's launches in the four frames."""
     import dataclasses
@@ -1892,6 +1893,11 @@ def phase_trained_frames(trainer, val, tag):
     if not trainer._use_buckets():
         raise AssertionError(f"phase {tag}: occupancy {share:.4f} is not "
                              "below 0.15: render_image would not bucket")
+    tile = trainer._pick_tile(h, w, pose, intr)
+    ref_tile = tfast.reference_tile(h, w, trainer.opt.render_tile_px)
+    if tile != ref_tile:
+        raise AssertionError(f"phase {tag}: tile {tile}, the reference's "
+                             f"{ref_tile}")
     trainer.warm_renderers(h, w, pose, intr, time=t)
 
     def frame(**kw):
@@ -1938,7 +1944,8 @@ def phase_trained_frames(trainer, val, tag):
                                                                    tiled)
     p_bp, p_pp = psnr(buck, img_p), psnr(prev, prev_p)
     print(f"phase {tag} trained frames on {_card()}, {h}x{w}"
-          + (f" at t={t}" if dyn else "") + f": occupancy {share:.4f} "
+          + (f" at t={t}" if dyn else "") + f", tile {tile} (the "
+          f"reference's {ref_tile}): occupancy {share:.4f} "
           f"(cascades {per_cas}); tiled {ms_t:.2f} ms ({n_t} launch, peak "
           f"{mem_t:.1f} MiB), bucketed {ms_b:.2f} ms ({n_b} launches, peak "
           f"{mem_b:.1f} MiB), preview {ms_p:.2f} ms ({n_p} launches), trim "
@@ -3073,10 +3080,10 @@ def _by_size(rec):
     return "; ".join(out)
 
 
-def phase_gui(static_ws, dyn_ws, argv=()):
+def phase_gui(static_ws, dyn_ws):
     """Phase 15: the GUI's three viewers on the fields in the workspaces of
-    phases 5 and 7 (see the module docstring), with `argv` added to each
-    CLI's arguments -> K1-K4 launches in their sessions."""
+    phases 5 and 7 (see the module docstring) -> K1-K4 launches in their
+    sessions."""
     import dataclasses
 
     import torch
@@ -3100,17 +3107,19 @@ def phase_gui(static_ws, dyn_ws, argv=()):
             k.launches = 0
 
     def count():
-        for i, k in enumerate(kernels):
-            launches[i] += k.launches
+        """Adds the session's launches to the phase's and returns them."""
+        session = [k.launches for k in kernels]
+        for i, n in enumerate(session):
+            launches[i] += n
+        return session
 
     smi = _card()
     t_phase = time.perf_counter()
-    argv = list(argv)
 
     # 15a: main_nerf --gui (training) on phase 5's field
     opt = postprocess(base_parser().parse_args(
         ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--gui",
-         "--synthetic_res", "800", "--workspace", static_ws] + argv))
+         "--synthetic_res", "800", "--workspace", static_ws]))
     trainer, _ = build_trainer(opt, name="ngp")
     train, _, _ = load_datasets(opt)
     step0 = trainer.global_step
@@ -3135,7 +3144,7 @@ def phase_gui(static_ws, dyn_ws, argv=()):
     t0 = time.perf_counter()
     _drive_view(gui, GUI_FRAMES, script_a)
     wall_a = time.perf_counter() - t0
-    count()
+    n_a = count()
     del trainer.train_gui
     unwrap()
     if trainer.global_step <= step0 or len(steps) != GUI_FRAMES:
@@ -3147,8 +3156,8 @@ def phase_gui(static_ws, dyn_ws, argv=()):
           f"{_by_size(rec)}; train steps a frame "
           f"{[s for s, _ in steps]}, train ms a frame "
           f"{[round(ms, 2) for _, ms in steps]}; global_step {step0} -> "
-          f"{trainer.global_step}; launches K1 {kernels[0].launches} K2 "
-          f"{kernels[1].launches}", flush=True)
+          f"{trainer.global_step}; launches K1 {n_a[0]} K2 {n_a[1]}",
+          flush=True)
     # the frame at downscale 1 with depth (what a paint tool sees)
     ctl.training, ctl.downscale, ctl.need_depth = False, 1, True
     ctl.need_update = True
@@ -3186,7 +3195,7 @@ def phase_gui(static_ws, dyn_ws, argv=()):
     # 15b: main_dnerf --gui --test on phase 7's field
     opt = main_dnerf.parse_args(
         ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--gui",
-         "--test", "--synthetic_res", "800", "--workspace", dyn_ws] + argv)
+         "--test", "--synthetic_res", "800", "--workspace", dyn_ws])
     trainer, _ = build_trainer(opt, name="ngp", dynamic=True,
                                lr_net=opt.lr_net)
     if not bool(trainer.grid_state["occ"].any()):
@@ -3202,7 +3211,7 @@ def phase_gui(static_ws, dyn_ws, argv=()):
     t0 = time.perf_counter()
     _drive_view(gui, GUI_TIME_FRAMES * len(times), script_b)
     wall_b = time.perf_counter() - t0
-    count()
+    n_b = count()
     unwrap()
     firsts = [next(r for r in rec if r["time"] == t) for t in times]
     for r in firsts:
@@ -3215,8 +3224,8 @@ def phase_gui(static_ws, dyn_ws, argv=()):
     print(f"phase 15b DNeRFGUI (main_dnerf --gui --test) on {smi}: "
           f"{len(rec)} frames in {wall_b:.2f} s at t = {times}; frames by "
           f"size: {_by_size(rec)}; each time's first frame equals "
-          f"render_image's LOD preview bit for bit; launches K3 "
-          f"{kernels[2].launches}", flush=True)
+          f"render_image's LOD preview bit for bit; launches K3 {n_b[2]}",
+          flush=True)
     del trainer, gui
     torch.cuda.empty_cache()
 
@@ -3225,7 +3234,7 @@ def phase_gui(static_ws, dyn_ws, argv=()):
         ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--gui",
          "--synthetic_res", "800", "--teacher_workspace", dyn_ws,
          "--workspace", os.path.join(os.path.dirname(dyn_ws),
-                                     "chip_smoke_gui_edit")] + argv)
+                                     "chip_smoke_gui_edit")])
     teacher, student, _ = build_edit_trainers(
         opt, dynamic=True, lr_net=opt.lr_net,
         eval_interval=opt.eval_interval)
@@ -3288,7 +3297,7 @@ def phase_gui(static_ws, dyn_ws, argv=()):
     t0 = time.perf_counter()
     _drive_view(gui, GUI_EDIT_FRAMES, script_c)
     wall_c = time.perf_counter() - t0
-    count()
+    n_c = count()
     cfg, start_s = cfgs
     if cfg is None or cfg["type"] != "brush" or len(cfg["raw"]) < 1:
         raise AssertionError(f"phase 15c: no brush config ({cfg})")
@@ -3319,8 +3328,8 @@ def phase_gui(static_ws, dyn_ws, argv=()):
           f"{GUI_EDIT_FRAMES} frames in "
           f"{wall_c:.2f} s; after the override the teacher's frame equals "
           f"the student's: {np.array_equal(after_t, after_s)}, max |diff| "
-          f"to the pre-edit teacher {moved:.4f}; launches K3 "
-          f"{kernels[2].launches} K4 {kernels[3].launches}", flush=True)
+          f"to the pre-edit teacher {moved:.4f}; launches K3 {n_c[2]} K4 "
+          f"{n_c[3]}", flush=True)
     if not np.array_equal(after_t, after_s) or not moved > 0.0:
         raise AssertionError("phase 15c: after the override the teacher "
                              "does not render the student's edit")
@@ -3453,6 +3462,20 @@ def main():
                       dyn_ws)
     phase_device_kernels()
 
+    by_phase = {
+        "K1": {"4": served["launches"], "5": k1_train, "5c": k1_frames,
+               "8b": k1_edit, "9+9b": k1_b2, "12": k_opts[0],
+               "13": k_other[0], "15": k_gui[0]},
+        "K2": {"5": k2_train, "8b": k2_edit, "9": k2_b2, "12": k_opts[1],
+               "13": k_other[1], "15": k_gui[1]},
+        "K3": {"6": k3_served, "7": k3_train, "7c": k3_frames,
+               "8": k3_edit, "12": k_opts[2], "13": k_other[2],
+               "15": k_gui[2]},
+        "K4": {"7": k4_train, "8": k4_edit, "12": k_opts[3],
+               "13": k_other[3], "15": k_gui[3]}}
+    print("kernel launches by phase: " + "; ".join(
+        f"{k} " + ", ".join(f"{ph} {n}" for ph, n in v.items())
+        for k, v in by_phase.items()), flush=True)
     print(f"procedural scenes: {scenes.counts['made']} made, "
           f"{scenes.counts['copies']} copies handed out", flush=True)
     print(f"chip_smoke: every phase passed in "
@@ -3462,23 +3485,19 @@ def main():
         "name": "field_fwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:185",
-        "launches": served["launches"] + k1_train + k1_frames + k1_edit
-        + k1_b2 + k_opts[0] + k_other[0] + k_gui[0], **rec}, {
+        "launches": sum(by_phase["K1"].values()), **rec}, {
         "name": "field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:574",
-        "launches": k2_train + k2_edit + k2_b2 + k_opts[1] + k_other[1]
-        + k_gui[1], **rec_bwd}, {
+        "launches": sum(by_phase["K2"].values()), **rec_bwd}, {
         "name": "dyn_field_fwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_fwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:200",
-        "launches": k3_served + k3_train + k3_frames + k3_edit
-        + k_opts[2] + k_other[2] + k_gui[2], **rec_dyn}, {
+        "launches": sum(by_phase["K3"].values()), **rec_dyn}, {
         "name": "dyn_field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:805",
-        "launches": k4_train + k4_edit + k_opts[3] + k_other[3]
-        + k_gui[3], **rec_dbwd}]}))
+        "launches": sum(by_phase["K4"].values()), **rec_dbwd}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -224,7 +224,8 @@ def _sixteen_rays(seed=7):
 @pytest.mark.parametrize("bad", [np.inf, np.nan])
 def test_composite_packed_non_finite_sigma_stays_in_its_ray(bad):
     """C8: one infinite (or NaN) sigma in ray 3 of 16 leaves every other
-    ray finite and equal to the all-finite result; the reference's global
+    ray finite and within 1e-7 of the all-finite result (the later rays'
+    f64 sums round apart by the poisoned ray's share); the reference's global
     cumsum loses every later ray (inf - inf = NaN). The all-finite
     batch agrees with the reference as test_composite_packed_matches
     holds it (rtol 1e-5, atol 1e-6: the reference's f32 global cumsum is
@@ -262,8 +263,9 @@ def test_composite_packed_non_finite_sigma_stays_in_its_ray(bad):
 
 def test_composite_packed_gradient_with_an_infinite_sigma():
     """C8's backward: with +inf in ray 3, the gradient of every output's
-    sum w.r.t. sigma is finite, and off ray 3 equal to the all-finite
-    gradient (a ray's outputs depend on its own samples only)."""
+    sum w.r.t. sigma is finite, and off ray 3 within rtol 1e-6, atol 1e-7
+    of the all-finite gradient (a ray's outputs depend on its own samples
+    only)."""
     sig, rgb, dts, ts, ray_id, valid, poison = _sixteen_rays(8)
     args = (_t(rgb), _t(dts), _t(ts), _t(ray_id), _t(valid), 16)
 
