@@ -277,6 +277,32 @@ Phases (any failure raises and exits non-zero):
      config with >= 1 point; after the override the teacher's frame equals
      the student's bit for bit and differs from the pre-edit teacher's.
      K1-K4's launches in the three sessions count as main-path launches.
+  16. data mesh (parallel/, torch.distributed): processes of their own, one
+     rank each (torch.multiprocessing, spawn), meet at a FileStore: one rank
+     a card over NCCL (up to 4) on a machine with two cards or more, else
+     two ranks on the one card over gloo (NCCL refuses two ranks on one
+     device); the phase prints the backend, the world size and each rank's
+     card, and a failed collective fails it. Each rank gets the procedural
+     scenes of phases 4 and 6 (48 views at 800x800, through a file) and
+     trains through cli.build_trainer, at full width: phase 5's static CP
+     field for 128 steps of 4,096 rays a step in all (num_rays / N a rank;
+     eight sharded grid refreshes), then phase 7's dynamic field for 96
+     steps (48 sharded refreshes of 8 time bins), each in two epochs, the
+     second timed. Checks per run and rank: params, EMA, Adam moments,
+     grid state (and bin sums) the same bits on every rank; K1 and K2 (K3
+     and K4) launched, K2 (K4) at least once a step, the other two not at
+     all; one checkpoint written (by rank 0); val view 0 at 800x800 through
+     the row-band renderer >= 40 dB from the same rank's whole frame, tiled
+     and bucketed (a band's shifted principal point changes the float
+     arithmetic of its rays, so not bit for bit); one more step of the mesh
+     on each rank's own batch within GRAD_TOL (per leaf, relative to max
+     |reference|) of one Adam step on the mean of the ranks' gradients,
+     each taken alone. Prints ms/step, and on one card a rank the rays/s
+     against phases 5 and 7's one card, with the card's name and power
+     limit; ranks sharing a card say nothing of scaling. The main path's
+     launches (training and the row-band frames, summed over the ranks)
+     join the others as phase 16. profiling/torch_mesh_phase.py runs this
+     phase alone.
   14. device kernels: each device kernel of K3 (on phase 3c's samples at t =
      0.37) and of K4 (on phase 3d's, re-gained tower) timed by itself with
      torch.profiler, the tower's beside its own bounds. It runs last, after
@@ -298,6 +324,7 @@ a JSON record of the kernels; the last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -366,6 +393,11 @@ SEMANTIC_STEPS, SEMANTIC_RES = 16, 128
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores (the towers' bf16 x
 # bf16 -> f32 products), the FP32 pipe (taps, encodings, activations), HBM3
 PEAK = {"tensor_flops": 989e12, "fp32_flops": 67e12, "bytes": 3.35e12}
+# phase 16: the steps of the data mesh's static and dynamic runs (two
+# epochs each: the first is its warm-up, the second is timed; each rank
+# takes num_rays / N of a step's rays), and the most ranks it starts
+MESH_STATIC_STEPS, MESH_DYN_STEPS = 128, 96
+MESH_MAX_RANKS = 4
 # hidden deform matrices x sqrt(6): keeps the activations' variance through
 # the bias-free relu tower (its U(+-1/sqrt(n)) init shrinks it by 6 a layer)
 DEFORM_GAIN = 6.0 ** 0.5
@@ -3341,6 +3373,312 @@ def phase_gui(static_ws, dyn_ws):
     return launches
 
 
+def _mesh_layout():
+    """Phase 16's ranks: one a card, up to MESH_MAX_RANKS, where the machine
+    has two cards or more; else two ranks on the one card."""
+    import torch
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [f"cuda:{i}" for i in range(min(n, MESH_MAX_RANKS))]
+    return ["cuda:0", "cuda:0"]
+
+
+def _same_on_every_rank(mesh, tensors, chunk=1 << 26):
+    """Whether each tensor holds rank 0's bits on every rank: rank 0's
+    bytes, broadcast in chunks, are compared on each rank, and the verdict
+    is every rank's."""
+    import torch
+    from sealdnerf_tpu_torch.parallel import pmax, replicate
+    differs = False
+    for t in tensors:
+        flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        for i in range(0, flat.numel(), chunk):
+            mine = flat[i:i + chunk]
+            theirs = mine.clone()
+            replicate(mesh, [theirs])
+            differs |= not torch.equal(mine, theirs)
+    flag = torch.tensor([float(differs)], device=mesh.device)
+    return float(pmax(mesh, flag)) == 0.0
+
+
+def _mesh_state(tr):
+    """The state that must be the same bits on every rank: params, EMA,
+    Adam moments, the grid state (and a dynamic grid's bin sums)."""
+    from sealdnerf_tpu_torch.models.cp import param_leaves
+    leaves = param_leaves(tr.params)
+    out = leaves + param_leaves(tr.ema_params)
+    for p in leaves:
+        st = tr.optimizer.state[p]
+        out += [st["exp_avg"], st["exp_avg_sq"]]
+    out += list(tr.grid_state.values())
+    if tr._dyn_bin_sums is not None:
+        out.append(tr._dyn_bin_sums)
+    return out
+
+
+def _mesh_one_step(tr, data, h, w):
+    """One step of the mesh on each rank's own batch against the mean of
+    the ranks' gradients, each taken on this rank alone from the same
+    state, applied once by Adam -> max |update - reference| / max
+    |reference| per leaf group (the trainer is left at the reference's
+    params)."""
+    import copy
+
+    import torch
+    from sealdnerf_tpu_torch.models.cp import param_leaves, unflatten_like
+    from sealdnerf_tpu_torch.parallel import all_gather_rows
+    mesh, leaves = tr.mesh, param_leaves(tr.params)
+    snap = [p.detach().clone() for p in leaves]
+    opt_state = copy.deepcopy(tr.optimizer.state_dict())
+    batch = tr.sample_batch(data, h, w)
+    every = [all_gather_rows(mesh, x.reshape(1, -1)) for x in batch]
+    batches = [tuple(g[r].reshape(x.shape) for g, x in zip(every, batch))
+               for r in range(mesh.size)]
+
+    def step(grads_of):
+        with torch.no_grad():
+            for p, s in zip(leaves, snap):
+                p.copy_(s)
+        # a copy: the optimizer takes the state's tensors and steps them
+        tr.optimizer.load_state_dict(copy.deepcopy(opt_state))
+        grads_of()
+        tr.optimizer.step()
+        return [p.detach() - s for p, s in zip(leaves, snap)]
+
+    def on_the_mesh():
+        tr.optimizer.zero_grad(set_to_none=True)
+        loss, _ = tr.loss_on(*batch)
+        loss.backward()
+        tr.reduce_gradients(loss)
+
+    def alone():
+        total = None
+        for b in batches:
+            tr.optimizer.zero_grad(set_to_none=True)
+            tr.loss_on(*b)[0].backward()
+            g = [p.grad.clone() for p in leaves]
+            total = g if total is None else [a + c for a, c in zip(total, g)]
+        for p, g in zip(leaves, total):
+            p.grad = g / mesh.size
+
+    got = step(on_the_mesh)
+    want = step(alone)
+    ratios, _ = _grad_errs(unflatten_like(tr.params, got),
+                           unflatten_like(tr.params, want))
+    return ratios
+
+
+@contextlib.contextmanager
+def _one_rank(trainer):
+    """The trainer's frames rendered whole on this rank (a mesh of one)."""
+    from sealdnerf_tpu_torch.parallel import Mesh
+    mesh, ndev = trainer.mesh, trainer.ndev
+    trainer.mesh, trainer.ndev = Mesh(0, 1, trainer.device), 1
+    try:
+        yield
+    finally:
+        trainer.mesh, trainer.ndev = mesh, ndev
+
+
+def _mesh_run(mesh, dev, scene, dynamic, ws):
+    """One rank's run of phase 16: train, check, render -> its numbers."""
+    import torch
+    from sealdnerf_tpu_torch import main_dnerf
+    from sealdnerf_tpu_torch.cli import base_parser, build_trainer, postprocess
+    from sealdnerf_tpu_torch.train.metrics import psnr
+    train, val = scene
+    steps = MESH_DYN_STEPS if dynamic else MESH_STATIC_STEPS
+    argv = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--iters",
+            str(steps), "--synthetic_res", "800", "--ckpt", "scratch",
+            "--device", str(dev), "--workspace",
+            os.path.join(ws, "dynamic" if dynamic else "static")]
+    seg = max(len(train), steps // 2)
+    if dynamic:
+        opt = main_dnerf.parse_args(argv)
+        tr, _ = build_trainer(opt, name="ngp", dynamic=True,
+                              lr_net=opt.lr_net, segment_steps=seg)
+    else:
+        opt = postprocess(base_parser().parse_args(argv))
+        tr, _ = build_trainer(opt, name="ngp", segment_steps=seg)
+    if tr.ndev != mesh.size or \
+            tr.n_local_rays * mesh.size != tr.opt.num_rays:
+        raise AssertionError(f"rank {mesh.rank}: the trainer has "
+                             f"{tr.ndev} ranks, {tr.n_local_rays} rays")
+    kernels = _kernel_launches()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train(train, None, 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [k.launches for k in kernels]
+    out = {"wall": wall, "steps": tr.global_step,
+           "ms_step": tr.history["epoch_s"][1] * 1e3
+           / (tr.global_step - seg),
+           "losses": tr.history["loss"],
+           "equal": _same_on_every_rank(mesh, _mesh_state(tr)),
+           "refreshes": int(tr.grid_state["iter_density"]),
+           "ckpts": sorted(os.listdir(os.path.join(tr.workspace,
+                                                   "checkpoints")))}
+    t = float(val.times[0]) if dynamic else None
+    frames = {}
+    args = (val.poses[0], val.intrinsics, val.h, val.w)
+
+    def frame(buckets):
+        """A warm frame: the second of two -> (frame, ms)."""
+        tr.render_image(*args, time=t, buckets=buckets)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tr.render_image(*args, time=t, buckets=buckets)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for buckets in (False, True):
+        before = [k.launches for k in kernels]
+        band, ms_band = frame(buckets)
+        launches = [a + k.launches - b
+                    for a, k, b in zip(launches, kernels, before)]
+        with _one_rank(tr):
+            whole, ms_whole = frame(buckets)
+        frames["bucketed" if buckets else "tiled"] = {
+            "psnr": psnr(band[0], whole[0]), "ms_band": ms_band,
+            "ms_whole": ms_whole,
+            "finite": bool(np.isfinite(band[0]).all())}
+    out["frames"] = frames
+    out["launches"] = launches
+    out["one_step"] = _mesh_one_step(tr, train.device(dev), train.h, train.w)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def _mesh_rank(rank, layout, ws):
+    """A process of phase 16: rank `rank` of the layout, on its card."""
+    import pickle
+
+    import torch
+    from sealdnerf_tpu_torch.ops import build
+    from sealdnerf_tpu_torch.parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(layout[rank])
+    torch.cuda.set_device(dev)
+    build.load_library()
+    mesh = make_mesh(layout=layout, rank=rank,
+                     init_method="file://" + os.path.join(ws, "store"))
+    try:
+        with open(os.path.join(ws, "scenes.pkl"), "rb") as f:
+            scenes = pickle.load(f)
+        out = {"device": f"{dev} ({torch.cuda.get_device_name(dev)})",
+               "backend": mesh.backend}
+        for kind in ("static", "dynamic"):
+            out[kind] = _mesh_run(mesh, dev, scenes.pop(kind),
+                                  kind == "dynamic", ws)
+            torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    with open(os.path.join(ws, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def phase_data_parallel(layout=None, one_card=None):
+    """Phase 16: the data mesh (see the module docstring) on `layout` (the
+    device of each rank; default _mesh_layout) -> (K1-K4 launches of its
+    main path summed over the ranks, {"static", "dynamic": ms/step}).
+    one_card: the ms/step of one card that a layout of one card a rank is
+    printed against (default: those of phases 5 and 7)."""
+    import pickle
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+    from sealdnerf_tpu_torch.cli import base_parser, load_datasets, \
+        postprocess
+    from sealdnerf_tpu_torch.parallel.mesh import backend_for
+    t_phase = time.perf_counter()
+    layout = layout or _mesh_layout()
+    ws = os.path.join(REPO, "workspace", "chip_smoke_mesh")
+    shutil.rmtree(ws, ignore_errors=True)
+    os.makedirs(ws)
+    # the procedural scenes of phases 4 and 6, handed to the ranks in a file
+    opt = postprocess(base_parser().parse_args(
+        ["synthetic", "--synthetic_res", "800"]))
+    scenes = {"static": load_datasets(opt)[:2],
+              "dynamic": load_datasets(opt, with_time=True)[:2]}
+    with open(os.path.join(ws, "scenes.pkl"), "wb") as f:
+        pickle.dump(scenes, f, protocol=5)
+    del scenes
+    torch.cuda.empty_cache()
+    smi = _card()
+    print(f"phase 16: {len(layout)} ranks over "
+          f"{backend_for(layout) if len(layout) > 1 else 'no process group'}"
+          f" on {', '.join(layout)} ({smi})", flush=True)
+    t0 = time.perf_counter()
+    mp.start_processes(_mesh_rank, args=(layout, ws), nprocs=len(layout),
+                       join=True, start_method="spawn")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(len(layout)):
+        with open(os.path.join(ws, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(ws, ignore_errors=True)
+    totals = [0, 0, 0, 0]
+    bad, ms_by_kind = [], {}
+    one_card = one_card or {"static": STEP_MS.get("5"),
+                            "dynamic": STEP_MS.get("7")}
+    for kind, steps, used in (("static", MESH_STATIC_STEPS, (0, 1)),
+                              ("dynamic", MESH_DYN_STEPS, (2, 3))):
+        runs = [r[kind] for r in ranks]
+        for r, run in enumerate(runs):
+            totals = [a + b for a, b in zip(totals, run["launches"])]
+            print(f"phase 16 {kind}, rank {r} on {ranks[r]['device']} "
+                  f"({ranks[r]['backend']}): {run['steps']} steps in "
+                  f"{run['wall']:.2f} s, {run['ms_step']:.3f} ms/step over "
+                  f"the second epoch; {run['refreshes']} grid refreshes; "
+                  f"state the same bits on every rank: {run['equal']}; "
+                  f"launches K1-K4 {run['launches']}; frames band vs whole "
+                  + "; ".join(f"{k} {v['psnr']:.2f} dB, {v['ms_band']:.1f} "
+                              f"vs {v['ms_whole']:.1f} ms"
+                              for k, v in run["frames"].items())
+                  + "; one step vs the mean gradient applied once "
+                  + " ".join(f"{k} {v:.3g}"
+                             for k, v in run["one_step"].items())
+                  + f"; peak {run['peak_gb']:.2f} GB; checkpoints "
+                  f"{run['ckpts']}", flush=True)
+            if run["steps"] != steps or not run["equal"]:
+                bad.append(f"{kind} rank {r}: {run['steps']} steps, state "
+                           f"equal {run['equal']}")
+            if any(run["launches"][k] for k in range(4) if k not in used) \
+                    or not all(run["launches"][k] for k in used) \
+                    or run["launches"][used[1]] < steps:
+                bad.append(f"{kind} rank {r}: launches {run['launches']}")
+            for k, v in run["frames"].items():
+                if not (v["finite"] and v["psnr"] >= 40.0):
+                    bad.append(f"{kind} rank {r} {k} frame: {v}")
+            worst = max(run["one_step"].values())
+            if not worst <= GRAD_TOL:
+                bad.append(f"{kind} rank {r}: one step {run['one_step']}")
+        if len(runs[0]["ckpts"]) != 1:
+            bad.append(f"{kind}: checkpoints {runs[0]['ckpts']}")
+        ms = ms_by_kind[kind] = runs[0]["ms_step"]
+        line = f"phase 16 {kind}: {ms:.3f} ms/step on {len(layout)} ranks"
+        if len(set(layout)) == len(layout) > 1:
+            one = one_card[kind]
+            line += (f", {4096 * 1e3 / ms:.1f} rays/s against one card's "
+                     + (f"{4096 * 1e3 / one:.1f}" if one else "(not measured"
+                        " in this run)") + f" on {smi}")
+        elif len(layout) > 1:
+            line += (" sharing one card: this layout checks the mesh and "
+                     "says nothing of scaling")
+        print(line, flush=True)
+    if bad:
+        raise AssertionError("phase 16: " + "; ".join(bad))
+    print(f"phase 16: {time.perf_counter() - t_phase:.2f} s ({wall:.2f} s "
+          f"in the ranks' processes); launches K1 {totals[0]} K2 "
+          f"{totals[1]} K3 {totals[2]} K4 {totals[3]}", flush=True)
+    return totals, ms_by_kind
+
+
 def phase_device_kernels():
     """Phase 14: each device kernel of K3 and K4 by itself, on the inputs of
     phases 3c (t = 0.37) and 3d (re-gained tower), the tower's beside its
@@ -3460,19 +3798,20 @@ def main():
     k_other = phase_other_workloads()
     k_gui = phase_gui(os.path.join(REPO, "workspace", "chip_smoke_train"),
                       dyn_ws)
+    k_mesh, _ = phase_data_parallel()
     phase_device_kernels()
 
     by_phase = {
         "K1": {"4": served["launches"], "5": k1_train, "5c": k1_frames,
                "8b": k1_edit, "9+9b": k1_b2, "12": k_opts[0],
-               "13": k_other[0], "15": k_gui[0]},
+               "13": k_other[0], "15": k_gui[0], "16": k_mesh[0]},
         "K2": {"5": k2_train, "8b": k2_edit, "9": k2_b2, "12": k_opts[1],
-               "13": k_other[1], "15": k_gui[1]},
+               "13": k_other[1], "15": k_gui[1], "16": k_mesh[1]},
         "K3": {"6": k3_served, "7": k3_train, "7c": k3_frames,
                "8": k3_edit, "12": k_opts[2], "13": k_other[2],
-               "15": k_gui[2]},
+               "15": k_gui[2], "16": k_mesh[2]},
         "K4": {"7": k4_train, "8": k4_edit, "12": k_opts[3],
-               "13": k_other[3], "15": k_gui[3]}}
+               "13": k_other[3], "15": k_gui[3], "16": k_mesh[3]}}
     print("kernel launches by phase: " + "; ".join(
         f"{k} " + ", ".join(f"{ph} {n}" for ph, n in v.items())
         for k, v in by_phase.items()), flush=True)

@@ -8,14 +8,25 @@ the other CLIs have none and run as without it, as the reference's do.
 and FastTrainer where the recipe allows it, else the Instant-NGP or D-NeRF
 field and Trainer). --clip_text with --rand_pose >= 0 gives the trainers
 CLIP guidance when its weights are on the disk (train/clip_guidance.py).
+
+Under `torchrun --nproc_per_node N` main_nerf and main_dnerf train and serve
+on a data mesh of N ranks (parallel/mesh.py), one process and one card per
+rank: `resolve_device` gives rank r cuda:LOCAL_RANK and `build_trainer` the
+mesh of torchrun's environment. The other CLIs and --gui refuse more than
+one rank (`refuse_ranks`).
 """
 
 import argparse
+import os
 
 import numpy as np
 import torch
 
+from .parallel.mesh import make_mesh, world_size
 from .train.trainer import TrainOptions
+
+# the ROADMAP item that is to bring the single-rank CLIs onto the data mesh
+MESH_ITEM = "A14b"
 
 
 def base_parser(default_bound=2.0, default_lr=1e-2, default_iters=30000,
@@ -136,12 +147,35 @@ def edit_cp_route(opt, dynamic: bool) -> bool:
 
 def resolve_device(name: str) -> torch.device:
     """The device to run on. 'cuda' without a card raises: the CPU is used
-    only when asked for with --device cpu."""
+    only when asked for with --device cpu. Under torchrun (more than one
+    rank) 'cuda' is this rank's own card, cuda:LOCAL_RANK; a host with
+    fewer cards than ranks is refused, since NCCL takes one card a rank."""
     dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")
+    if world_size() > 1 and dev.index is None:
+        local, cards = int(os.environ.get("LOCAL_RANK", "0")), \
+            torch.cuda.device_count()
+        if local >= cards:
+            raise SystemExit(
+                f"{world_size()} ranks, but this host has {cards} CUDA "
+                f"card(s): local rank {local} has none (NCCL takes one card "
+                "a rank; start at most that many ranks a host)")
+        dev = torch.device("cuda", local)
     return dev
+
+
+def refuse_ranks(what: str):
+    """Exit when this run has more than one rank: `what` runs on one rank
+    only, until ROADMAP's MESH_ITEM ports it to the data mesh."""
+    n = world_size()
+    if n > 1:
+        raise SystemExit(f"{what} runs on one rank only, and this run has "
+                         f"{n} (its port to the data mesh is ROADMAP "
+                         f"{MESH_ITEM}); start it without torchrun")
 
 
 def to_train_options(opt, name="ngp", **overrides) -> TrainOptions:
@@ -221,7 +255,10 @@ def build_trainer(opt, name="ngp", dynamic=False, metrics=None,
     edit=True builds the teacher of an edit CLI as the reference's
     main_seald and main_SealNeRF build theirs: routed by edit_cp_route, the
     Instant-NGP field with --log2_hashmap_size and the D-NeRF field with
-    the background sphere of --bg_radius."""
+    the background sphere of --bg_radius.
+
+    The trainer runs on the data mesh of torchrun's environment (one rank
+    without it; parallel/mesh.py:make_mesh)."""
     from .train.fast import FastTrainer
     from .train.trainer import Trainer
     backbone = getattr(opt, "backbone", "auto")
@@ -236,7 +273,7 @@ def build_trainer(opt, name="ngp", dynamic=False, metrics=None,
     gen = torch.Generator().manual_seed(opt.seed)
     kw = dict(metrics=metrics, workspace=opt.workspace,
               use_checkpoint=use_checkpoint or opt.ckpt, device=device,
-              time_conditioned=dynamic)
+              time_conditioned=dynamic, mesh=make_mesh(device))
     if use_cp:
         from .models.cp import (CPConfig, CPDNeRFConfig, make_cp_dnerf_field,
                                 make_cp_field, parse_planes)

@@ -26,8 +26,8 @@ import os
 import numpy as np
 import torch
 
-from .cli import (base_parser, load_datasets, postprocess, resolve_device,
-                  to_train_options)
+from .cli import (base_parser, load_datasets, postprocess, refuse_ranks,
+                  resolve_device, to_train_options)
 from .models.api import Field, make_tensorf_field
 from .models.tensorf import TensoRFConfig, cc_compose_forward
 from .train.metrics import PSNRMeter
@@ -100,6 +100,7 @@ def main(argv=None):
     """Run the CLI on argv (None: sys.argv) -> the trainer (with --compose
     the viewer)."""
     opt = postprocess(build_parser().parse_args(argv))
+    refuse_ranks("main_CCNeRF")
     if opt.gui:
         print("[INFO] main_CCNeRF has no viewer, as in the reference: "
               "--gui is ignored")

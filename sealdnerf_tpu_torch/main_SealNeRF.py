@@ -29,7 +29,8 @@ has no viewer either.
 
 import numpy as np
 
-from .cli import base_parser, build_edit_trainers, load_datasets, postprocess
+from .cli import (base_parser, build_edit_trainers, load_datasets,
+                  postprocess, refuse_ranks)
 from .main_seald import max_epochs
 from .train.metrics import LPIPSMeter, PSNRMeter
 
@@ -79,6 +80,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     opt = parse_args(argv)
+    refuse_ranks("main_SealNeRF")
     if opt.gui:
         print("[INFO] main_SealNeRF has no viewer, as in the reference: "
               "--gui is ignored")

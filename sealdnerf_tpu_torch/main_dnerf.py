@@ -28,7 +28,7 @@ installed, else on the headless backend (gui/headless_dpg.py).
 import math
 
 from .cli import (base_parser, build_trainer, cp_route, load_datasets,
-                  postprocess)
+                  postprocess, refuse_ranks)
 from .train.metrics import PSNRMeter
 
 
@@ -67,6 +67,8 @@ def parse_args(argv=None):
 def main(argv=None):
     """Run the CLI on argv (None: sys.argv) -> the trainer."""
     opt = parse_args(argv)
+    if opt.gui:
+        refuse_ranks("--gui")
     print(opt)
     trainer, _ = build_trainer(opt, name="ngp", dynamic=True,
                                metrics=[PSNRMeter()], lr_net=opt.lr_net)

@@ -33,7 +33,8 @@ installed, else on the headless backend (gui/headless_dpg.py).
 
 import numpy as np
 
-from .cli import base_parser, postprocess, load_datasets, build_trainer
+from .cli import (base_parser, build_trainer, load_datasets, postprocess,
+                  refuse_ranks)
 from .train.metrics import LPIPSMeter, PSNRMeter
 
 MESH_RESOLUTION, MESH_THRESHOLD = 256, 10.0    # the reference's save_mesh
@@ -42,6 +43,8 @@ MESH_RESOLUTION, MESH_THRESHOLD = 256, 10.0    # the reference's save_mesh
 def main(argv=None):
     """Run the CLI on argv (None: sys.argv) -> the trainer."""
     opt = postprocess(base_parser().parse_args(argv))
+    if opt.gui:
+        refuse_ranks("--gui")
     print(opt)
     trainer, _ = build_trainer(opt, name="ngp",
                                metrics=[PSNRMeter(), LPIPSMeter()])

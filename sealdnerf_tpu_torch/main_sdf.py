@@ -26,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from .cli import resolve_device
+from .cli import refuse_ranks, resolve_device
 from .models.params import map_params, param_leaves, params_from_jax
 from .models.sdf import SDFConfig, init_sdf, sdf_forward
 from .ops.losses import mape_loss
@@ -151,6 +151,7 @@ def main(argv=None):
     the export's (verts, tris, seconds))."""
     from .data.sdf_provider import SDFDataset
     opt = build_parser().parse_args(argv)
+    refuse_ranks("main_sdf")
     print(opt)
     device = resolve_device(opt.device)
     cfg = SDFConfig()

@@ -38,7 +38,7 @@ headless backend (gui/headless_dpg.py).
 import numpy as np
 
 from .cli import (base_parser, build_edit_trainers, edit_cp_route,
-                  load_datasets, postprocess)
+                  load_datasets, postprocess, refuse_ranks)
 from .train.metrics import PSNRMeter
 
 
@@ -94,6 +94,7 @@ def max_epochs(opt, n_train: int) -> int:
 
 def main(argv=None):
     opt = parse_args(argv)
+    refuse_ranks("main_seald")
     print(opt)
     teacher, trainer, mapper = build_edit_trainers(
         opt, dynamic=True, metrics=[PSNRMeter()], lr_net=opt.lr_net,

@@ -24,8 +24,8 @@ after an upsample included) and evaluates and writes the frames.
 import numpy as np
 import torch
 
-from .cli import (base_parser, load_datasets, postprocess, resolve_device,
-                  to_train_options)
+from .cli import (base_parser, load_datasets, postprocess, refuse_ranks,
+                  resolve_device, to_train_options)
 from .models.api import make_tensorf_field
 from .models.tensorf import TensoRFConfig, upsample_tensorf
 from .models.params import map_params
@@ -90,6 +90,7 @@ class TensoRFTrainer(Trainer):
 def main(argv=None):
     """Run the CLI on argv (None: sys.argv) -> the trainer."""
     opt = postprocess(build_parser().parse_args(argv))
+    refuse_ranks("main_tensoRF")
     if opt.gui:
         print("[INFO] main_tensoRF has no viewer, as in the reference: "
               "--gui is ignored")

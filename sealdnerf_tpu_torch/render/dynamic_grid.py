@@ -42,6 +42,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import pmax
 from .grid import (GridConfig, _cas_bound, _cell_coords, _coords_of,
                    init_grid_state, mark_untrained_grid)
 
@@ -243,28 +244,34 @@ def refresh_dyn_density_grid(state, density_fn: Callable, cfg: DynGridConfig,
                              warmup_calls: int,
                              generator: Optional[torch.Generator] = None,
                              draws=None, bin_sums=None, calls=None,
-                             cursor=None):
+                             cursor=None, time_generator=None, mesh=None):
     """One refresh call of dynamic training, in place (port of the reference
     FastTrainer's dyn_grid_update; single cascade).
 
     The next `bins_per_call` bins from the cursor are refreshed. Bin b is
-    queried at t = (b + U[0, 1)) / T on H^3/2 cells, jittered inside the
-    cell: while calls < warmup_calls the deterministic slab
-    (visits % 2) * H^3/2 + arange(H^3/2) with visits = calls // (calls per
-    pass), so that two visits of a bin sweep it once; after that H^3/2
-    random cells (duplicates allowed). Then max(grid * decay, new) on the
-    queried cells, the mean-density threshold over the whole grid and the
-    occupancy of every bin. iter_density goes up by 1 (it counts calls, see
-    the module's note).
+    queried at t = (b + U[0, 1)) / T on n = (H^3/2) // size cells of each
+    rank of the mesh, jittered inside the cell: while calls < warmup_calls
+    the rank's part of the deterministic slab, (visits % 2) * H^3/2 + rank
+    * n + arange(n) with visits = calls // (calls per pass), so that two
+    visits of a bin sweep it once; after that n random cells (duplicates
+    allowed). The ranks' queries of a call are merged with one pmax; then
+    max(grid * decay, new) on the queried cells, the mean-density threshold
+    over the whole grid and the occupancy of every bin, the same on every
+    rank. iter_density goes up by 1 (it counts calls, see the module's
+    note).
 
     density_fn(x [N, 3], t 0-d tensor) -> sigma [N].
-    draws: optional dict that replaces the generator's draws: "u_xyz"
-      [nb, N, 3] and "u_t" [nb] uniform in [0, 1), and "indices" [nb, N]
+    generator: the rank's own stream, which draws the cells and the jitter;
+      time_generator (default: generator) draws the bins' times and is the
+      same on every rank, so that the ranks query a bin at one time.
+    draws: optional dict that replaces the generators' draws: "u_xyz"
+      [nb, n, 3] and "u_t" [nb] uniform in [0, 1), and "indices" [nb, n]
       (used after the warm-up only).
     bin_sums: the per-bin sums that the last call returned (None: all bins
       are summed again).
     calls, cursor: host copies of iter_density and bin_cursor; None reads
       them from the state, which waits for the device.
+    mesh: the data mesh (None: one rank).
 
     Returns (state, bin_sums).
     """
@@ -272,7 +279,8 @@ def refresh_dyn_density_grid(state, density_fn: Callable, cfg: DynGridConfig,
         raise NotImplementedError("the dynamic grid is single-cascade")
     h, tsz = cfg.grid_size, cfg.time_size
     h3 = h ** 3
-    n = h3 // 2
+    rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    n = (h3 // 2) // size
     nb = min(cfg.bins_per_call, tsz)
     per_pass = -(-tsz // nb)
     calls = int(state["iter_density"]) if calls is None else calls
@@ -281,16 +289,19 @@ def refresh_dyn_density_grid(state, density_fn: Callable, cfg: DynGridConfig,
     grid = state["density_grid"]
     dev = grid.device
     half = cfg.bound / h
+    time_generator = time_generator or generator
 
     def cell_centres(indices):
         return (2.0 * _coords_of(indices, h).float() / (h - 1) - 1.0) \
             * (cfg.bound - half)
 
     if warm:
-        slab = ((calls // per_pass) % 2) * n + torch.arange(n, device=dev)
+        slab = ((calls // per_pass) % 2) * (h3 // 2) + rank * n \
+            + torch.arange(n, device=dev)
         slab_centres = cell_centres(slab)
-    tmp = torch.empty(h3, device=dev)
     bins = [(cursor + j) % tsz for j in range(nb)]
+    # every bin's queries first, so that one pmax merges the ranks' cells
+    tmp = torch.full((nb, h3), -1.0, device=dev)
     for j, b in enumerate(bins):
         if warm:
             indices, centres = slab, slab_centres
@@ -302,14 +313,15 @@ def refresh_dyn_density_grid(state, density_fn: Callable, cfg: DynGridConfig,
             u_xyz, u_t = draws["u_xyz"][j].to(dev), draws["u_t"][j].to(dev)
         else:
             u_xyz = torch.rand((n, 3), generator=generator, device=dev)
-            u_t = torch.rand((), generator=generator, device=dev)
+            u_t = torch.rand((), generator=time_generator, device=dev)
         pts = centres + (u_xyz * 2.0 - 1.0) * half
-        sig = density_fn(pts, (b + u_t) / tsz) * cfg.density_scale
-        tmp.fill_(-1.0)
-        tmp[indices] = sig
+        tmp[j, indices] = density_fn(pts, (b + u_t) / tsz) * cfg.density_scale
+    if mesh is not None:
+        pmax(mesh, tmp)
+    for j, b in enumerate(bins):
         old = grid[b, 0]
-        valid = (old >= 0) & (tmp >= 0)
-        old.copy_(torch.where(valid, torch.maximum(old * cfg.decay, tmp),
+        valid = (old >= 0) & (tmp[j] >= 0)
+        old.copy_(torch.where(valid, torch.maximum(old * cfg.decay, tmp[j]),
                               old))
     mean_density, bin_sums = _set_occupancy(state, cfg, bin_sums, bins)
     return {

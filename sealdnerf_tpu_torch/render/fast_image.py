@@ -21,6 +21,16 @@ subsampled over its whole depth (ops/marching_dense.py:subsample_intervals).
 A bucket whose tiles hold no interval is background without a field call:
 the sorted counts come to the host once per frame to decide it.
 
+Row bands (make_sharded_image_renderer): on a mesh of N ranks each rank
+renders rh / N rows of the frame through either renderer, with the
+principal point shifted to its band, and the bands are gathered, so that
+every rank holds the whole frame. The bucketed renderer sorts and buckets
+the tiles of the whole frame (the ranks' tile counts gathered), so that a
+tile takes the budget it takes in the whole frame and the frame does not
+depend on the number of ranks; the reference sorts each band's tiles
+alone, which on an 800x800 frame of a trained field put two bands 34.6 dB
+from the whole frame on an H100 (chip_smoke.py phase 16, PERF.md).
+
 The renderers take the planar forward only: (params, x3 [3, M], d3 [3, M],
 *extra) -> out [>= 4, M] with rows (sigma, r, g, b).
 """
@@ -36,6 +46,7 @@ from ..ops.marching_dense import (DenseMarchConfig, dilate_occ,
                                   march_intervals_cascade,
                                   subsample_intervals)
 from ..ops.ray import near_far_from_aabb
+from ..parallel.mesh import all_gather_rows
 
 # the reference's default bucket ladder: (share of the tiles, divisor of the
 # interval budget), emptiest tiles first; the last split takes the rest
@@ -249,13 +260,40 @@ def bucket_bounds(n_tiles: int, sc: int, splits):
     return bounds
 
 
+def _bucket_order(counts, sc: int, splits, mesh=None):
+    """The order in which the tiles render and their buckets -> (order [T],
+    [(start, end, interval budget)] over the ordered tiles): the tiles
+    sorted by their interval count (stably: ties keep raster order) and cut
+    by bucket_bounds. On a mesh of more than one rank `counts` are this
+    rank's band's tiles; the sort and the buckets are then the whole
+    frame's (the ranks' counts gathered in rank order, which is the frame's
+    raster order of tiles), and this band's tiles take their whole-frame
+    order, each bucket cut to the run of them it holds."""
+    if mesh is None or mesh.size == 1:
+        return torch.argsort(counts, stable=True), bucket_bounds(
+            counts.numel(), sc, splits)
+    n = counts.numel()
+    every = all_gather_rows(mesh, counts)
+    pos = torch.empty_like(every, dtype=torch.int64)
+    pos[torch.argsort(every, stable=True)] = torch.arange(
+        every.numel(), device=counts.device)
+    mine = pos[mesh.rank * n:(mesh.rank + 1) * n]
+    order = torch.argsort(mine)
+    whole = bucket_bounds(every.numel(), sc, splits)
+    edges = torch.tensor([b[0] for b in whole] + [every.numel()],
+                         device=counts.device)
+    cut = torch.searchsorted(mine[order], edges).tolist()
+    return order, [(cut[i], cut[i + 1], b)
+                   for i, (_, _, b) in enumerate(whole)]
+
+
 def render_image_bucketed(params, occ_m, pose, intr, rh: int, rw: int,
                           cfg: DenseMarchConfig, forward_fn: Callable,
                           bg_color, tile_px: int = 8, dilate: int = 1,
                           density_scale: float = 1.0, t_thresh: float = 1e-4,
                           splits=DEFAULT_SPLITS, term_probe: int = 0,
                           term_tau: float = 13.8, term_stride: int = 1,
-                          extra=()):
+                          extra=(), mesh=None):
     """Tile-band render with per-tile sample budgets (same contract as
     render_image_tiled).
 
@@ -265,6 +303,8 @@ def render_image_bucketed(params, occ_m, pose, intr, rh: int, rw: int,
     tiles on. Because the counts ascend, only the tiles at a bucket's top
     can exceed its budget, and those are subsampled over their depth; the
     last bucket keeps the full budget. Pixels travel with their tile.
+    mesh: the frame is a row band of a mesh's frame (make_sharded_image_
+    renderer), whose tiles are sorted and bucketed as the whole frame's.
     """
     if rh % tile_px or rw % tile_px:
         raise ValueError(f"{rh}x{rw} is not a multiple of tile {tile_px}")
@@ -285,7 +325,7 @@ def render_image_bucketed(params, occ_m, pose, intr, rh: int, rw: int,
             iv_valid, iv_dt, cfg, forward_fn, density_scale, term_tau,
             term_probe, extra, stride=term_stride)
     counts = iv_valid.to(torch.int32).sum(dim=-1)            # [T]
-    order = torch.argsort(counts, stable=True)               # ascending
+    order, bounds = _bucket_order(counts, sc, splits, mesh)  # ascending
     inv = torch.empty_like(order)
     inv[order] = torch.arange(n_tiles, device=dev)
     # one fetch a frame: which buckets hold any interval at all
@@ -299,7 +339,7 @@ def render_image_bucketed(params, occ_m, pose, intr, rh: int, rw: int,
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
 
     img_parts, dep_parts = [], []
-    for s0, s1, sc_b in bucket_bounds(n_tiles, sc, splits):
+    for s0, s1, sc_b in bounds:
         nb = s1 - s0
         if nb == 0:
             continue
@@ -338,3 +378,41 @@ def render_image_bucketed(params, occ_m, pose, intr, rh: int, rw: int,
     image = torch.stack([_untile(image[..., c], th, tw, tile_px)
                          for c in range(3)], dim=-1)
     return image, _untile(depth, th, tw, tile_px)
+
+
+def make_sharded_image_renderer(mesh, rh: int, rw: int, cfg: DenseMarchConfig,
+                                forward_fn: Callable, tile_px: int = 8,
+                                dilate: int = 1, density_scale: float = 1.0,
+                                t_thresh: float = 1e-4, buckets: bool = False,
+                                splits=DEFAULT_SPLITS, term_probe: int = 0,
+                                term_tau: float = 13.8, term_stride: int = 1):
+    """The row-band renderer of a mesh (the reference's function of this
+    name): rank r renders rows [r * rh / N, (r + 1) * rh / N) through
+    render_image_tiled, or render_image_bucketed with buckets=True (each
+    band renders its own tiles, in the whole frame's buckets, and makes its
+    own host fetches), with cy shifted by the band's first row; the bands
+    are gathered in rank order.
+
+    Requires rh % (N * tile_px) == 0 (the caller renders whole frames
+    otherwise). Returns fn(params, occ_m, pose, intr, bg, *extra) ->
+    (image [rh, rw, 3], depth [rh, rw]), the same on every rank; extra is
+    (t,) for a time-conditioned field."""
+    rows = rh // mesh.size
+    if rows * mesh.size != rh or rows % tile_px:
+        raise ValueError(f"{rh} rows do not split into {mesh.size} bands "
+                         f"of whole {tile_px}-px tiles")
+    kw = dict(tile_px=tile_px, dilate=dilate, density_scale=density_scale,
+              t_thresh=t_thresh)
+    if buckets:
+        kw.update(splits=splits, term_probe=term_probe, term_tau=term_tau,
+                  term_stride=term_stride, mesh=mesh)
+    render = render_image_bucketed if buckets else render_image_tiled
+
+    def fn(params, occ_m, pose, intr, bg, *extra):
+        band = intr.clone()
+        band[3] -= mesh.rank * rows          # cy shifts with the row band
+        img, depth = render(params, occ_m, pose, band, rows, rw, cfg,
+                            forward_fn, bg, extra=extra, **kw)
+        both = all_gather_rows(mesh, torch.cat([img, depth[..., None]], -1))
+        return both[..., :3], both[..., 3]
+    return fn

@@ -14,13 +14,17 @@ cell order.
   same numbers.
 - refresh_indices: the cells of one in-loop refresh of training (the
   reference FastTrainer's grid_update): deterministic half-grid slabs for
-  the first WARMUP_CALLS calls, then H^3/2 random cells.
+  the first WARMUP_CALLS calls, then H^3/2 random cells; on a mesh of N
+  ranks each rank takes its 1/N of them, and update_density_grid merges
+  the ranks' queries with pmax before the decay.
 """
 
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+
+from ..parallel.mesh import pmax
 
 
 @dataclass(frozen=True)
@@ -61,16 +65,18 @@ def _cell_coords(h: int, device):
 
 def refresh_indices(iter_density: int, cfg: GridConfig,
                     generator: Optional[torch.Generator] = None,
-                    device=None):
-    """Cells of one training refresh call: while iter_density <
-    WARMUP_CALLS the slab (it % 2) * H^3/2 + arange(H^3/2), after that
-    H^3/2 cells drawn uniformly from [0, H^3), duplicates allowed."""
+                    device=None, rank: int = 0, size: int = 1):
+    """Cells of one training refresh call for rank `rank` of `size`, each
+    taking n = (H^3/2) // size of them: while iter_density < WARMUP_CALLS
+    the rank's part of the slab, (it % 2) * H^3/2 + rank * n + arange(n),
+    after that n cells drawn uniformly from [0, H^3) (duplicates allowed)
+    from `generator`, the rank's own stream."""
     h3 = cfg.grid_size ** 3
+    n = (h3 // 2) // size
     if iter_density < WARMUP_CALLS:
-        return (iter_density % 2) * (h3 // 2) + torch.arange(h3 // 2,
-                                                             device=device)
-    return torch.randint(0, h3, (h3 // 2,), generator=generator,
-                         device=device)
+        return (iter_density % 2) * (h3 // 2) + rank * n + torch.arange(
+            n, device=device)
+    return torch.randint(0, h3, (n,), generator=generator, device=device)
 
 
 def _cas_bound(cfg: GridConfig, cas: int) -> float:
@@ -108,7 +114,7 @@ def mark_untrained_grid(state, poses, intrinsics, cfg: GridConfig,
 def update_density_grid(state, density_fn: Callable, cfg: GridConfig,
                         full: bool = False,
                         generator: Optional[torch.Generator] = None,
-                        noise_u=None, indices=None):
+                        noise_u=None, indices=None, mesh=None):
     """One density-grid refresh. density_fn(x [N, 3]) -> sigma [N].
 
     full=True sweeps every cell; otherwise the cells `indices` [N] (raster
@@ -141,6 +147,8 @@ def update_density_grid(state, density_fn: Callable, cfg: GridConfig,
         noise = (u.to(dev) * 2.0 - 1.0) * half
         pts = xyz01 * (bound - half) + noise
         tmp[cas, indices] = density_fn(pts) * cfg.density_scale
+    if mesh is not None:
+        pmax(mesh, tmp)
     valid = (grid >= 0) & (tmp >= 0)
     grid = torch.where(valid, torch.maximum(grid * cfg.decay, tmp), grid)
     mean_density = grid.clamp(min=0.0).mean()

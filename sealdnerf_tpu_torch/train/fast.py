@@ -67,6 +67,18 @@ asynchronously (patches are refused there, as in the reference); the draws
 are those of a preloaded run of the same seed. train_gui runs steps for the
 GUI. Time-conditioned fields serve and train at bound <= 1 only, as in the
 reference.
+
+On a mesh of N ranks (Trainer's data parallelism) a step is Trainer's: each
+rank draws num_rays / N rays and its deform-regulariser points from its own
+stream, and the gradients and the loss are averaged before Adam. The grid
+refresh is sharded as the reference's: each rank queries its 1/N of the
+refresh's cells (its part of the warm-up slab, or cells from its own
+stream; a dynamic bin at a time from the stream that is the same on every
+rank), and the ranks' queries are merged with pmax before the decay, so
+that grid, occupancy and bin sums are the same bits on every rank. Frames
+render by row bands (render/fast_image.py:make_sharded_image_renderer)
+where the frame's rows split into N bands of whole tiles, else whole on
+every rank.
 """
 
 from typing import Optional
@@ -84,7 +96,8 @@ from ..render.fast import render_dense
 from ..render.dynamic_grid import (rebuild_dyn_density_grid,
                                    refresh_dyn_density_grid,
                                    time_slice_index)
-from ..render.fast_image import render_image_bucketed, render_image_tiled
+from ..render.fast_image import (make_sharded_image_renderer,
+                                 render_image_bucketed, render_image_tiled)
 from ..render.grid import refresh_indices, update_density_grid
 from .trainer import GUI_DOWNSCALES, Trainer, cascades_for
 
@@ -377,8 +390,9 @@ class FastTrainer(Trainer):
     @torch.no_grad()
     def refresh_grid(self, params=None):
         """One in-loop grid refresh of training, queried on the current
-        params (not the EMA), then the march-resolution occupancy. Static:
-        the warm-up slab or the random cells (render.grid.refresh_indices).
+        params (not the EMA), then the march-resolution occupancy; sharded
+        over the mesh's ranks. Static: the warm-up slab or the random cells
+        (render.grid.refresh_indices).
         Dynamic: the next bins_per_call time bins
         (render.dynamic_grid.refresh_dyn_density_grid) on `params` (None: the
         current params annealed at the current step)."""
@@ -389,18 +403,20 @@ class FastTrainer(Trainer):
             dcfg = self.dyn_grid_cfg
             self.grid_state, self._dyn_bin_sums = refresh_dyn_density_grid(
                 self.grid_state, self._density_fn(params), dcfg,
-                self._warmup_calls(), generator=self.generator,
-                bin_sums=self._dyn_bin_sums, calls=calls, cursor=cursor)
+                self._warmup_calls(), generator=self.rank_generator,
+                bin_sums=self._dyn_bin_sums, calls=calls, cursor=cursor,
+                time_generator=self.generator, mesh=self.mesh)
             self._dyn_calls = calls + 1
             self._dyn_cursor = (cursor + min(dcfg.bins_per_call,
                                              dcfg.time_size)) % dcfg.time_size
             self._occ_m = self._march_occ()
             return
         idx = refresh_indices(int(self.grid_state["iter_density"]),
-                              self.grid_cfg, self.generator, self.device)
+                              self.grid_cfg, self.rank_generator, self.device,
+                              self.mesh.rank, self.ndev)
         self.grid_state = update_density_grid(
             self.grid_state, self._density_fn(self.params), self.grid_cfg,
-            indices=idx, generator=self.generator)
+            indices=idx, generator=self.rank_generator, mesh=self.mesh)
         self._occ_m = self._march_occ()
 
     @torch.no_grad()
@@ -453,7 +469,7 @@ class FastTrainer(Trainer):
         if not self.time_conditioned:
             return batch
         b = self.opt.bound
-        x_reg = (torch.rand((N_ZERO_REG, 3), generator=self.generator,
+        x_reg = (torch.rand((N_ZERO_REG, 3), generator=self.rank_generator,
                             device=self.device) * 2.0 - 1.0) * b
         return batch + (x_reg,)
 
@@ -502,6 +518,7 @@ class FastTrainer(Trainer):
                                        params=params)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = self.reduce_gradients(loss)
         self.apply_gradients()
         self._update_error_map()
         self.global_step += 1
@@ -592,7 +609,9 @@ class FastTrainer(Trainer):
         is cut into tiles, else tiled, with the eval ladder
         (opt.render_splits). lod=True renders the LOD preview: the line
         scales with res >= opt.preview_lod_min_res skipped in the kernel,
-        and the preview ladder (opt.render_splits_preview)."""
+        and the preview ladder (opt.render_splits_preview). On a mesh of N
+        ranks the frame renders by row bands when rh splits into N bands of
+        whole tiles, else whole on every rank; every rank returns it."""
         rh, rw = int(h // downscale), int(w // downscale)
         dev = self.device
         params = params if params is not None else self._infer_params()
@@ -615,20 +634,25 @@ class FastTrainer(Trainer):
                              / downscale)
         if buckets is None:
             buckets = self._use_buckets()
+        buckets = buckets and tp > 1
         kw = dict(tile_px=tp, dilate=opt.render_dilate,
-                  density_scale=opt.density_scale, t_thresh=opt.t_thresh,
-                  extra=extra)
-        args = (self.field.kernel_tables(params), occ_m, pose_t, intr, rh, rw,
-                rcfg, self._render_forward(lod), bg)
-        if buckets and tp > 1:
-            img, depth = render_image_bucketed(
-                *args, splits=(opt.render_splits_preview if lod
-                               else opt.render_splits),
-                term_probe=opt.render_term_intervals,
-                term_tau=opt.render_term_tau,
-                term_stride=opt.render_term_stride, **kw)
+                  density_scale=opt.density_scale, t_thresh=opt.t_thresh)
+        if buckets:
+            kw.update(splits=(opt.render_splits_preview if lod
+                              else opt.render_splits),
+                      term_probe=opt.render_term_intervals,
+                      term_tau=opt.render_term_tau,
+                      term_stride=opt.render_term_stride)
+        tables, fwd = self.field.kernel_tables(params), \
+            self._render_forward(lod)
+        if self.ndev > 1 and tp > 1 and rh % (self.ndev * tp) == 0:
+            img, depth = make_sharded_image_renderer(
+                self.mesh, rh, rw, rcfg, fwd, buckets=buckets, **kw)(
+                    tables, occ_m, pose_t, intr, bg, *extra)
         else:
-            img, depth = render_image_tiled(*args, **kw)
+            render = render_image_bucketed if buckets else render_image_tiled
+            img, depth = render(tables, occ_m, pose_t, intr, rh, rw, rcfg,
+                                fwd, bg, extra=extra, **kw)
         return img.cpu().numpy(), depth.cpu().numpy()
 
     def warm_renderers(self, h, w, pose=None, intrinsics=None, time=None):

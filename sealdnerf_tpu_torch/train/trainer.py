@@ -47,6 +47,19 @@ Export: test() writes PNG frames and, when an encoder can be imported, an
 mp4; save_mesh() writes the density's iso-surface as PLY. The GUI's calls:
 train_gui() and test_gui().
 
+Data parallelism (mesh=, parallel/mesh.py; the reference's shard_map over
+its "data" mesh): every rank holds the whole state and draws its own image,
+num_rays / N pixels of it, background, march offsets and TV points from its
+own stream (rank_generator); the gradients and the loss are averaged over
+the ranks in one collective before Adam, and the error map takes the sum of
+the ranks' row updates, so that params, EMA, Adam state and error map stay
+the same bits on every rank. The packed budget follows rank 0's sample
+count. The grid refresh and rebuild are not sharded here: they draw from
+`generator`, which is the same on every rank, as the reference draws them
+from its one controller key. Rank 0 alone logs and writes checkpoints,
+frames and meshes, and the ranks wait for its writes. On a mesh of one rank
+both streams are `generator` and no collective is called.
+
 CCNeRF's rank-residual K-loss (k_rank_fracs, on a field with
 forward_trunc): each truncation level renders the step's rays with the same
 march offsets, and the MSE is (L_full + sum of L_k) / (1 + K).
@@ -80,6 +93,8 @@ from ..models.tensorf import TensoRFConfig
 from ..models.params import (map_params, param_leaves, params_from_jax,
                              unflatten_like)
 from ..ops.marching import MarchConfig
+from ..parallel.mesh import (barrier, from_rank0, make_mesh, pmean, psum,
+                             replicate)
 from ..render.dynamic_grid import (DynGridConfig, init_dyn_grid_state,
                                    mark_untrained_dyn_grid,
                                    rebuild_dyn_density_grid,
@@ -209,7 +224,7 @@ class Trainer:
                  metrics: Optional[Sequence] = None,
                  workspace: Optional[str] = None,
                  use_checkpoint: str = "latest", device=None,
-                 time_conditioned: bool = False):
+                 time_conditioned: bool = False, mesh=None):
         self._check_field(field, opt, time_conditioned)
         self.time_conditioned = time_conditioned
         self.name = name
@@ -219,6 +234,10 @@ class Trainer:
         self.workspace = workspace or opt.workspace
         self.device = torch.device(device) if device is not None \
             else param_leaves(field.params)[0].device
+        # the data mesh: default, one rank on the device (or the ranks of
+        # torchrun's environment, parallel/mesh.py:make_mesh)
+        self.mesh = mesh if mesh is not None else make_mesh(self.device)
+        self.ndev = self.mesh.size
         cascades = cascades_for(opt.bound)
         self.march = MarchConfig(
             bound=opt.bound, cascades=cascades, grid_size=opt.grid_size,
@@ -243,7 +262,13 @@ class Trainer:
         self.ema_params = map_params(lambda t: t.detach().clone(),
                                      self.params)
         self.grid_state = self._init_grid_state()
+        # `generator` is the same on every rank, `rank_generator` this
+        # rank's own (the same object on a mesh of one rank)
         self.generator = torch.Generator(self.device).manual_seed(opt.seed)
+        self.rank_generator = self.generator if self.ndev == 1 else \
+            torch.Generator(self.device).manual_seed(int(
+                np.random.SeedSequence([opt.seed, self.mesh.rank])
+                .generate_state(1)[0]))
         self.error_map = None      # [n, 128 * 128] on the device
         self._draw = None          # the last step's (image, inds_coarse)
         self._loss_per_ray = None  # and its rays' MSE
@@ -270,14 +295,16 @@ class Trainer:
                 self.log("[WARN] --clip_text set but CLIP weights are "
                          "unavailable offline; GT-free semantic steps "
                          f"disabled ({guide.reason})")
-        if use_checkpoint != "scratch":
-            path = resolve_checkpoint(self.workspace, name, use_checkpoint)
-            if path is not None:
-                self.load_checkpoint(path,
-                                     model_only=use_checkpoint == "latest_model")
-            else:
+        path = None if use_checkpoint == "scratch" else \
+            resolve_checkpoint(self.workspace, name, use_checkpoint)
+        if path is not None:
+            self.load_checkpoint(path,
+                                 model_only=use_checkpoint == "latest_model")
+        else:
+            if use_checkpoint != "scratch":
                 self.log(f"[INFO] no checkpoint found for '{use_checkpoint}',"
                          " starting from the seeded init")
+            self._replicate()
 
     # ---------------------------------------------- field-specific set-up
     def _check_field(self, field, opt, time_conditioned: bool):
@@ -303,6 +330,9 @@ class Trainer:
 
     # ------------------------------------------------------------- util
     def log(self, *msg):
+        """Print and append to the workspace's log (rank 0 only)."""
+        if not self._writes():
+            return
         text = " ".join(str(m) for m in msg)
         print(text, flush=True)
         with open(self.log_path, "a") as f:
@@ -311,6 +341,27 @@ class Trainer:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _replicate(self):
+        """Rank 0's params, EMA, Adam moments and grid state on every rank
+        (after the seeded init and after a checkpoint load)."""
+        if self.ndev == 1:
+            return
+        leaves = param_leaves(self.params)
+        ts = list(leaves)
+        if self.ema_params is not None:
+            ts += param_leaves(self.ema_params)
+        for p in leaves:
+            st = self.optimizer.state.get(p)
+            if st:
+                ts += [st["exp_avg"], st["exp_avg_sq"]]
+        ts += [v for v in self.grid_state.values() if torch.is_tensor(v)]
+        replicate(self.mesh, ts)
+        self._forget_dyn_host_state()
+
+    def _writes(self) -> bool:
+        """Whether this rank writes the run's files: rank 0."""
+        return self.mesh.rank == 0
 
     def _init_grid_state(self):
         if self.time_conditioned:
@@ -460,6 +511,23 @@ class Trainer:
         torch._foreach_mul_(ema, d)
         torch._foreach_add_(ema, leaves, alpha=1.0 - d)
 
+    def reduce_gradients(self, loss):
+        """On a mesh of more than one rank: every stepped leaf's .grad and
+        the loss averaged over the ranks, in one collective -> the loss (the
+        ranks' mean; `loss` itself on one rank)."""
+        if self.ndev == 1:
+            return loss
+        grads = [p.grad for g in self.optimizer.param_groups
+                 for p in g["params"] if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [loss.detach().reshape(1).float()])
+        pmean(self.mesh, flat)
+        off = 0
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        return flat[-1]
+
     def apply_gradients(self):
         """Adam step on the leaves' .grad, then the schedule and the EMA."""
         self.optimizer.step()
@@ -579,13 +647,14 @@ class Trainer:
         the device). The image and the error map's cells are kept in
         self._draw for the error map's update.
 
-        Everything is drawn on the device from the trainer's generator.
+        Everything is drawn on the device from the rank's own stream
+        (rank_generator), num_rays / N rays on a mesh of N ranks.
         With host-resident images (data["host_images"], preload=False) the
         image's index and the pixel indices then come back to the host in
         one fetch, which waits for the device, and only those pixels are
         gathered there and copied: the draws are the preloaded run's, so a
         seed trains the same field either way."""
-        g, dev, n = self.generator, self.device, self.opt.num_rays
+        g, dev, n = self.rank_generator, self.device, self.n_local_rays
         n_img = self.n_allowed_images(self.global_step,
                                       data["poses"].shape[0])
         img = torch.randint(0, n_img, (1,), generator=g, device=dev)
@@ -614,6 +683,11 @@ class Trainer:
         if self.time_conditioned:
             batch += (data["times"][img].reshape(()),)
         return batch
+
+    @property
+    def n_local_rays(self) -> int:
+        """This rank's rays of a step: num_rays // N."""
+        return max(self.opt.num_rays // self.ndev, 1)
 
     def n_allowed_images(self, step: int, n_images: int) -> int:
         """How many of the frames step `step` may draw from: all of them
@@ -661,10 +735,17 @@ class Trainer:
 
     def _update_error_map(self):
         """After a step with the error map on: its update at the step's
-        image and cells."""
-        if self.error_map is not None and self._draw[1] is not None:
+        image and cells; on a mesh, the map plus the sum of the ranks'
+        changes (the reference's psum of deltas)."""
+        if self.error_map is None or self._draw[1] is None:
+            return
+        if self.ndev == 1:
             update_error_map(self.error_map, self._draw[0], self._draw[1],
                              self._loss_per_ray)
+            return
+        new = update_error_map(self.error_map.clone(), self._draw[0],
+                               self._draw[1], self._loss_per_ray)
+        self.error_map += psum(self.mesh, new - self.error_map)
 
     def semantic_due(self, step: int) -> bool:
         """Whether step `step` of the loop is a GT-free semantic step: with
@@ -692,19 +773,23 @@ class Trainer:
         batch = self.sample_batch(data, h, w)
         x_tv = None
         if self.opt.tv_weight > 0 and self.field.tv_loss is not None:
-            x_tv = torch.rand((self.opt.num_rays, 3),
-                              generator=self.generator, device=self.device)
+            x_tv = torch.rand((self.n_local_rays, 3),
+                              generator=self.rank_generator,
+                              device=self.device)
         ro, rd, gt, bg, noise = batch[:5]
         loss, n_samples = self.loss_on(ro, rd, gt, bg, noise, *batch[5:],
                                        x_tv=x_tv)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = self.reduce_gradients(loss)
         self.apply_gradients()
         self._update_error_map()
         self.global_step += 1
         self.local_step += 1
         if self.local_step % 16 == 0:
-            per_ray = float(n_samples) / self.opt.num_rays
+            # rank 0's count, so that every rank takes the same budget
+            per_ray = from_rank0(self.mesh, float(n_samples)) \
+                / self.n_local_rays
             self.mean_count = per_ray if self.mean_count == 0 else \
                 0.8 * self.mean_count + 0.2 * per_ray
         return loss.detach(), n_samples
@@ -808,7 +893,9 @@ class Trainer:
                     self.epoch % self.opt.eval_interval == 0:
                 self.evaluate_one_epoch(valid_dataset)
                 self.save_checkpoint(best=True)
-            if time.perf_counter() - last_ckpt > 60.0:
+            # rank 0's clock decides, so that the ranks write together
+            if from_rank0(self.mesh,
+                          time.perf_counter() - last_ckpt) > 60.0:
                 self.save_checkpoint(full=True)
                 last_ckpt = time.perf_counter()
         self.save_checkpoint(full=True)
@@ -877,12 +964,15 @@ class Trainer:
             losses.append(float(np.mean((img - gt) ** 2)))
             for m in self.metrics:
                 m.update(img, gt)
+            if not self._writes():
+                continue
             write_png(os.path.join(val_dir, f"{name}_{i:04d}_rgb.png"),
                       (np.clip(img, 0, 1) * 255).astype(np.uint8))
             dmax = float(depth.max())
             write_png(os.path.join(val_dir, f"{name}_{i:04d}_depth.png"),
                       (np.clip(depth / dmax if dmax > 0 else depth, 0, 1)
                        * 255).astype(np.uint8))
+        barrier(self.mesh)
         result = self.metrics[0].measure()
         self.stats["results"].append(result)
         self.stats["valid_loss"].append(float(np.mean(losses)))
@@ -907,12 +997,15 @@ class Trainer:
                                        dataset.h, dataset.w,
                                        time=self._time_of(dataset, i))
             u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-            write_png(os.path.join(save_path, f"{name}_{i:04d}_rgb.png"), u8)
+            if self._writes():
+                write_png(os.path.join(save_path, f"{name}_{i:04d}_rgb.png"),
+                          u8)
             frames.append(u8)
         video = None
-        if write_video and frames:
+        if write_video and frames and self._writes():
             video = self._write_video(
                 os.path.join(save_path, f"{name}_rgb.mp4"), frames)
+        barrier(self.mesh)
         self.log(f"==> Saved test results to {save_path}")
         return video
 
@@ -978,7 +1071,9 @@ class Trainer:
         t1 = time.perf_counter()
         verts, tris = marching_tetrahedra(field, threshold, bmin, bmax)
         t2 = time.perf_counter()
-        save_ply(save_path, verts, tris)
+        if self._writes():
+            save_ply(save_path, verts, tris)
+        barrier(self.mesh)
         self.mesh_seconds = {"sweep": t1 - t0, "tetrahedra": t2 - t1}
         self.log(f"==> Saved mesh to {save_path} ({len(verts)} verts, "
                  f"{len(tris)} tris; sweep {t1 - t0:.2f} s, tetrahedra "
@@ -1011,17 +1106,25 @@ class Trainer:
             state["grid"] = {k: v for k, v in self.grid_state.items()
                              if k not in ("density_grid", "occ")}
             path = path or os.path.join(ckpt_dir, f"{self.name}.npz")
-            save_checkpoint(path, state, meta)
+            self._write_checkpoint(path, state, meta)
             return path
         if path is None:
             path = os.path.join(ckpt_dir,
                                 f"{self.name}_ep{self.epoch:04d}.npz")
-            save_checkpoint(path, state, meta)
-            prune_checkpoints(self.workspace, self.name,
-                              self.opt.max_keep_ckpt)
+            self._write_checkpoint(path, state, meta, prune=True)
             return path
-        save_checkpoint(path, state, meta)
+        self._write_checkpoint(path, state, meta)
         return path
+
+    def _write_checkpoint(self, path, state, meta, prune: bool = False):
+        """Rank 0 writes (and with prune keeps the rolling window); the
+        ranks wait for it."""
+        if self._writes():
+            save_checkpoint(path, state, meta)
+            if prune:
+                prune_checkpoints(self.workspace, self.name,
+                                  self.opt.max_keep_ckpt)
+        barrier(self.mesh)
 
     def load_checkpoint(self, path: str, model_only: bool = False):
         state, meta = load_checkpoint(path)
@@ -1069,5 +1172,6 @@ class Trainer:
                 self.stats.setdefault("best_result", None)
             if "optimizer" in state:
                 self._load_optimizer_state(state["optimizer"])
+        self._replicate()
         self.log(f"[INFO] loaded checkpoint {path} "
                  f"(epoch {self.epoch}, step {self.global_step})")
