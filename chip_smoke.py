@@ -139,7 +139,10 @@ Phases (any failure raises and exits non-zero):
      --synthetic_res 800` and a bbox `seal.json` the script writes (the
      content of a shell of radius 0.36 around (0, 0.1, 0) moved by +0.3 in
      y, its hue turned); cut: 2 pretraining epochs (100), local point step
-     0.01 (0.001), 4 epochs of 128 distillation steps (625). Checks: K3 and
+     0.01 (0.001), 4 epochs of 128 distillation steps (625), 8 of the 48
+     training views proxied and distilled on (16 in phase 8b, 24 in 11, 8
+     in 11b; the 6 val views stay; the proxy of 54 views was 49-72 % of the
+     edit's wall). Checks: K3 and
      K4 launched, K1 and K2 not; (a) the proxied views' times all 0.5; (b)
      the student's deform leaves bit for bit the teacher's, its tables
      moved; (c) on the val views at t = 0.5 the student's MSE to the edited
@@ -197,7 +200,8 @@ Phases (any failure raises and exits non-zero):
      dt_gamma 1/128, backbone auto: the D-NeRF field and the non-fast
      StudentTrainer, in plain PyTorch) on phase 10b's trained field, phase
      8's edit at `--time_frame 0.5`; cut: 2 pretraining epochs (100), local
-     point step 0.01 (0.001), 3 epochs of 128 distillation steps (625), at
+     point step 0.01 (0.001), 2 epochs of 128 distillation steps (625), 24
+     of the 48 training views (8 in 11b), at
      phase 10b's rates (1e-2 / 1e-3; the script prints why). Checks: the
      trainer and the full-width DNeRFConfig(bound=2); K1-K4 not launched
      under main; the student starts at the teacher's iter_density; the
@@ -232,7 +236,7 @@ Phases (any failure raises and exits non-zero):
      at the CLI's defaults (VM, bound 2, resolution 128 -> 300, ranks 16 /
      48, 27 appearance features, the 3 x 64 colour tower, lr0 2e-2 / lr1
      1e-3) on phase 9's procedural scene at 800x800, 4096 rays a step; cut:
-     30,000 iterations to 640, its five upsamples at steps 64-320 (the CLI's
+     30,000 iterations to 384, its five upsamples at steps 32-160 (the CLI's
      2000-7000 lie past the cut and the flag appends, so the phase sets the
      parsed list). Checks: each upsample at its step with the reference's
      resolutions (152, 180, 213, 253, 300), 640 finite losses, the last 64
@@ -246,7 +250,8 @@ Phases (any failure raises and exits non-zero):
      differs from full rank; then `--compose --compose_models WS WS`: 6
      finite composed 800x800 frames. (c) `main_sdf.main([...])` on the
      procedural sphere at the CLI's 2^18 points a step and 512^3 export; cut:
-     20 epochs to 2 (200 steps). Checks: epoch 2's mean loss below epoch 1's,
+     20 epochs of 100 steps to 2 of 40. Checks: epoch 2's mean loss below
+     epoch 1's,
      a mesh with triangles whose vertices' mean radius lies within 0.05 of
      the normalised training mesh's. Prints ms/step (the step alone,
      synchronised, as medians) before the first and after the last upsample,
@@ -285,10 +290,11 @@ Phases (any failure raises and exits non-zero):
      card, and a failed collective fails it. Each rank gets the procedural
      scenes of phases 4 and 6 (48 views at 800x800, through a file) and
      trains through cli.build_trainer, at full width: phase 5's static CP
-     field for 128 steps of 4,096 rays a step in all (num_rays / N a rank;
-     eight sharded grid refreshes), then phase 7's dynamic field for 96
-     steps (48 sharded refreshes of 8 time bins), each in two epochs, the
-     second timed. Checks per run and rank: params, EMA, Adam moments,
+     field for 512 steps of 4,096 rays a step in all (num_rays / N a rank;
+     32 sharded grid refreshes), then phase 7's dynamic field for 512
+     steps (192 sharded refreshes of 8 time bins), each in two epochs, the
+     second timed (as long as phases 5 and 7: the fields are 16e and 16f's
+     teachers). Checks per run and rank: params, EMA, Adam moments,
      grid state (and bin sums) the same bits on every rank; K1 and K2 (K3
      and K4) launched, K2 (K4) at least once a step, the other two not at
      all; one checkpoint written (by rank 0); val view 0 at 800x800 through
@@ -301,22 +307,45 @@ Phases (any failure raises and exits non-zero):
      against phases 5 and 7's one card, with the card's name and power
      limit; ranks sharing a card say nothing of scaling. The main path's
      launches (training and the row-band frames, summed over the ranks)
-     join the others as phase 16. profiling/torch_mesh_phase.py runs this
-     phase alone.
+     join the others as phase 16. Then, in the ranks' own processes, the
+     fields that they just trained are edited and served on the mesh:
+     16e / 16f: `main_SealNeRF.main` / `main_seald.main` (FastStudentTrainer,
+     phase 8b's / 8's edit at t = 0.5) at full width, the depth cut to 8 of
+     the 48 training views and 2 of the 6 val views proxied (each rank
+     renders its share), one pretraining epoch at phase 8's zone steps (each
+     rank its share of a batch's points), 64 distillation steps; checks per
+     rank: the proxied images, and the state after pretraining and after
+     distillation (params, EMA, both Adams' moments, grid), the same bits on
+     every rank; K1 + K2 (16e) or K3 + K4 (16f) launched and the other two
+     not; the student's val MSE to the edited teacher below 0.8 x the
+     unedited teacher's; rank 0 wrote one checkpoint. 16g: main_seald's
+     editor (headless SealDGUI, 800x800) on the dynamic field: rank 0's
+     window drives every rank (gui/follow.py) for 4 frames, the time slider
+     at 0.5 and a drag; rank 0's last frame, by row bands, >= 40 dB from the
+     same rank's whole frame. 16h: `main_tensoRF.main` at its defaults (800
+     x 800, 4,096 rays a step) for 32 steps across one upsample (128 ->
+     300 at step 16), and `main_CCNeRF.main` for 16 K-loss steps: each
+     run's state the same bits on every rank. The launches of 16e-g join
+     phase 16's. profiling/torch_mesh_phase.py runs this phase alone.
   14. device kernels: each device kernel of K3 (on phase 3c's samples at t =
      0.37) and of K4 (on phase 3d's, re-gained tower) timed by itself with
      torch.profiler, the tower's beside its own bounds. It runs last, after
      every phase that times a step or a frame: a profiling session may leave
      a cost on every later launch of the process
      (profiling/torch_profiler_residue.py measures it).
+  17. --profile: `main_nerf.main([... "--profile"])` trains 8 steps of the
+     static CP field at 800x800 (its training views cut to 8), serves its
+     val view and a 64^3 mesh; its trace, workspace/trace/
+     rank0.pt.trace.json, must name K1's and K2's device kernels
+     (field_fwd_kernel, field_bwd_kernel). It runs after phase 14, last.
 The procedural scene of given arguments is made once per run (~13 s at
 800x800) and each later caller gets a copy, so the "data" times after a
 scene's first use are those of the copy; the script prints how many scenes
 were made and how many copies handed out.
 The launch counts of the kernels record are read from the main paths'
-runs (phases 4, 5, 5c, 6, 7, 7c, 8, 8b, 9, 9b, 12, 13 and 15; 8 and 8b
-include the proxy's launches through render_occ; 10, 10b, 11, 11b and 13
-launch none), with the counters set to 0 just before each. Each
+runs (phases 4, 5, 5c, 6, 7, 7c, 8, 8b, 9, 9b, 12, 13, 15, 16 and 17; 8
+and 8b include the proxy's launches through render_occ; 10, 10b, 11, 11b
+and 13 launch none), with the counters set to 0 just before each. Each
 kernel's bound_ms is the least time the card could take for the work of its
 vs-plain phase: the larger of bytes moved over the memory rate and
 operations over the peak rate of their type (PEAK). The line before last is
@@ -375,29 +404,55 @@ EDIT_PRE_EPOCHS_STATIC, EDIT_EPOCHS_STATIC = 2, 2
 # phases 11 and 11b: the same for the NGP-family edits, and their local
 # zone's point step (the CLI's 0.001 puts ~7.5e8 points in the edit)
 NGP_EDIT_PRE_EPOCHS = 2
-NGP_EDIT_EPOCHS, NGP_EDIT_EPOCHS_STATIC = 3, 2
+NGP_EDIT_EPOCHS, NGP_EDIT_EPOCHS_STATIC = 2, 2
 NGP_EDIT_LOCAL_STEP = 0.01
+# phases 8, 8b, 11 and 11b: the training views that the edit proxies and
+# distils on, evenly spaced of the scene's 48 (the 6 val views all stay):
+# the proxy of 54 views at 800x800 took 49-72 % of an edit's wall. At 8
+# views 8b's student lay 0.031-0.037 from the edited teacher in two runs
+# against its limit of 0.038 (0.031 at 12 views, 0.027 at 48); 11's
+# student lay 0.0147-0.0158 at 12 views against limits of 0.0167-0.0199
+# (its teacher's edit varies run to run), 0.0129 at 24
+EDIT_TRAIN_VIEWS = {"8": 8, "8b": 16, "11": 24, "11b": 8}
 # phase 12: steps of the static runs and of the NGP and dynamic ones
 OPTION_STEPS, OPTION_STEPS_SHORT = 256, 128
 # ms/step of phases 5, 7 and 10, printed beside phase 12's runs
 STEP_MS = {}
 # phase 13: main_tensoRF's iterations (cut from 30,000) and the steps of its
 # five upsamples (the CLI's 2000-7000 lie past the cut), main_CCNeRF's steps
-# (cut from 30,000), main_sdf's epochs (cut from 20), and the semantic steps
-# at their render size
-TENSORF_STEPS = 640
-TENSORF_UPSAMPLES = (64, 128, 192, 256, 320)
+# (cut from 30,000), main_sdf's epochs (cut from 20) and their steps (cut
+# from 100), and the semantic steps at their render size. TensoRF's were
+# cut (640 -> 384) and the SDF epochs' steps cut to make room in the
+# script's time for phase 11's views
+TENSORF_STEPS = 384                # three epochs of 128 steps
+TENSORF_UPSAMPLES = (32, 64, 96, 128, 160)
 CCNERF_STEPS = 256
-SDF_EPOCHS = 2
+SDF_EPOCHS, SDF_STEPS_PER_EPOCH = 2, 40
 SEMANTIC_STEPS, SEMANTIC_RES = 16, 128
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores (the towers' bf16 x
 # bf16 -> f32 products), the FP32 pipe (taps, encodings, activations), HBM3
 PEAK = {"tensor_flops": 989e12, "fp32_flops": 67e12, "bytes": 3.35e12}
 # phase 16: the steps of the data mesh's static and dynamic runs (two
 # epochs each: the first is its warm-up, the second is timed; each rank
-# takes num_rays / N of a step's rays), and the most ranks it starts
-MESH_STATIC_STEPS, MESH_DYN_STEPS = 128, 96
+# takes num_rays / N of a step's rays), and the most ranks it starts. The
+# runs' fields are the teachers of 16e / 16f, trained as long as phases 5
+# and 7's: the student, which renders through the dense march, lies
+# 0.015-0.036 (MSE) from the teacher's render_occ proxy whatever it learns,
+# and at 128 / 96 steps the edit moved the teacher's views by less than
+# that (0.004 / 0.007), so phase 8's criterion could not hold
+MESH_STATIC_STEPS, MESH_DYN_STEPS = 512, 512
 MESH_MAX_RANKS = 4
+# 16e / 16f, the edits of the fields that the mesh just trained: training
+# views proxied (of 48), val and test views (of 6), distillation steps (of
+# 30,000); one pretraining epoch (of 100) at phase 8's zone steps
+MESH_EDIT_VIEWS, MESH_EDIT_VAL, MESH_EDIT_STEPS = 8, 2, 64
+# 16g: the editor's frames; 16h: main_tensoRF's steps (its training views)
+# and the step of its one upsample, main_CCNeRF's steps (of 30,000 each)
+MESH_GUI_FRAMES = 4
+MESH_TENSORF_VIEWS, MESH_TENSORF_UPSAMPLE = 32, 16
+MESH_CCNERF_STEPS = 16
+# the last phase: main_nerf --profile's training steps (its training views)
+PROFILE_STEPS = 8
 # hidden deform matrices x sqrt(6): keeps the activations' variance through
 # the bias-free relu tower (its U(+-1/sqrt(n)) init shrinks it by 6 a layer)
 DEFORM_GAIN = 6.0 ** 0.5
@@ -1696,6 +1751,32 @@ def _edit_config():
             "boundType": "both", "hsv": [0.35, 0.1, 0.0]}
 
 
+@contextlib.contextmanager
+def _fewer_views(mod, n_train, n_val=None):
+    """mod.load_datasets (a CLI's) cut to n_train of the training views,
+    evenly spaced, and n_val of the val and test views (None: all)."""
+    import dataclasses
+    load = mod.load_datasets
+
+    def pick(ds, n):
+        if n is None or n >= len(ds):
+            return ds
+        idx = np.linspace(0, len(ds) - 1, n).round().astype(int)
+        return dataclasses.replace(
+            ds, poses=ds.poses[idx], images=ds.images[idx],
+            times=None if ds.times is None else ds.times[idx],
+            error_map=None if ds.error_map is None else ds.error_map[idx])
+
+    def cut(opt, **kw):
+        train, val, test = load(opt, **kw)
+        return pick(train, n_train), pick(val, n_val), pick(test, n_val)
+    mod.load_datasets = cut
+    try:
+        yield
+    finally:
+        mod.load_datasets = load
+
+
 def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
     """Phase 8 (dynamic, main_seald) or 8b (static, main_SealNeRF): a Seal
     edit of a trained teacher through the CLI's main, then its checks.
@@ -1734,7 +1815,8 @@ def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
         argv += ["--time_frame", "0.5"]
     print(f"phase {tag} cuts: pretraining epochs 100 -> {pre_epochs}; local "
           f"point step 0.001 -> 0.01; distillation ceil(30,000 / 48) = 625 "
-          f"epochs -> --extra_epochs {extra_epochs} of 128 steps",
+          f"epochs -> --extra_epochs {extra_epochs} of 128 steps; training "
+          f"views proxied and distilled on 48 -> {EDIT_TRAIN_VIEWS[tag]}",
           flush=True)
     fns = (field_forward, field_backward, dyn_field_forward,
            dyn_field_backward)
@@ -1753,11 +1835,12 @@ def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
         fn.launches = 0
     FastStudentTrainer.proxy_dataset = counted_proxy
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = mod.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with _fewer_views(mod, EDIT_TRAIN_VIEWS[tag]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     finally:
         FastStudentTrainer.proxy_dataset = proxy
     launches = [fn.launches for fn in fns]
@@ -2321,7 +2404,9 @@ def phase_ngp_edit(dynamic, teacher_ws, extra_epochs,
           f"point step 0.001 -> {NGP_EDIT_LOCAL_STEP} (the edit's two "
           "0.72-wide boxes hold ~7.5e8 points at 0.001, ~90,000 batches of "
           f"8,192 an epoch); distillation ceil(30,000 / 48) = 625 epochs -> "
-          f"--extra_epochs {extra_epochs} of 128 steps", flush=True)
+          f"--extra_epochs {extra_epochs} of 128 steps; training views "
+          f"proxied and distilled on 48 -> {EDIT_TRAIN_VIEWS[tag]}",
+          flush=True)
     if dynamic:
         # The reference's D-NeRF student misses the criterion at these
         # rates too: tests/test_torch_dnerf_band_student.py holds the port in
@@ -2348,11 +2433,12 @@ def phase_ngp_edit(dynamic, teacher_ws, extra_epochs,
         fn.launches = 0
     StudentTrainer.pretrain_one_epoch = checked
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = mod.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with _fewer_views(mod, EDIT_TRAIN_VIEWS[tag]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     finally:
         StudentTrainer.pretrain_one_epoch = pre
     launches = [fn.launches for fn in fns]
@@ -2911,13 +2997,20 @@ def phase_sdf():
     opt = main_sdf.build_parser().parse_args(argv)
     if (opt.num_samples, opt.mesh_resolution) != (2 ** 18, 512):
         raise AssertionError(f"phase 13c: not the CLI's values: {opt}")
-    print(f"phase 13c cut: {SDF_EPOCHS} of 20 epochs", flush=True)
-    t0 = time.perf_counter()
-    fitter, (verts, tris, secs) = main_sdf.main(argv)
-    _sync()
-    wall = time.perf_counter() - t0
+    print(f"phase 13c cut: {SDF_EPOCHS} of 20 epochs, "
+          f"{SDF_STEPS_PER_EPOCH} of {main_sdf.STEPS_PER_EPOCH} steps each",
+          flush=True)
+    per_epoch = main_sdf.STEPS_PER_EPOCH
+    main_sdf.STEPS_PER_EPOCH = SDF_STEPS_PER_EPOCH
+    try:
+        t0 = time.perf_counter()
+        fitter, (verts, tris, secs) = main_sdf.main(argv)
+        _sync()
+        wall = time.perf_counter() - t0
+    finally:
+        main_sdf.STEPS_PER_EPOCH = per_epoch
     hist = fitter.history
-    n = main_sdf.STEPS_PER_EPOCH
+    n = SDF_STEPS_PER_EPOCH
     loss = np.asarray(hist["loss"])
     epochs = [float(loss[i * n:(i + 1) * n].mean())
               for i in range(SDF_EPOCHS)]
@@ -3552,6 +3645,207 @@ def _mesh_run(mesh, dev, scene, dynamic, ws):
     return out
 
 
+def _edit_state(tr):
+    """The state of an edit's trainer that must be the same bits on every
+    rank: params, EMA, the moments of every leaf that the distillation's
+    Adam or the pretraining's has stepped, the grid state (and a dynamic
+    grid's bin sums)."""
+    from sealdnerf_tpu_torch.models.cp import param_leaves
+    out = param_leaves(tr.params) + param_leaves(tr.ema_params)
+    for opt in (tr.optimizer, tr._pretrain_optimizer):
+        for st in (opt.state.values() if opt is not None else ()):
+            out += [st["exp_avg"], st["exp_avg_sq"]]
+    out += list(tr.grid_state.values())
+    if getattr(tr, "_dyn_bin_sums", None) is not None:
+        out.append(tr._dyn_bin_sums)
+    return out
+
+
+def _mesh_edit(mesh, dev, scene, dynamic, ws):
+    """Phase 16e (static: main_SealNeRF) or 16f (dynamic: main_seald) on
+    this rank: the field that the rank's run of phase 16 just trained (its
+    checkpoint) is the teacher of the CLI's FastStudentTrainer with phase
+    8b's (8's) edit, at full width, the depth cut (MESH_EDIT_*) -> its
+    numbers."""
+    import torch
+    from sealdnerf_tpu_torch import cli, main_seald, main_SealNeRF
+    from sealdnerf_tpu_torch.editing.student import FastStudentTrainer
+    from sealdnerf_tpu_torch.train.metrics import psnr
+    mod = main_seald if dynamic else main_SealNeRF
+    kind = "dynamic" if dynamic else "static"
+    argv = ["synthetic", "-O", "--bound", "1.0", "--scale", "0.8",
+            "--dt_gamma", "0", "--synthetic_res", "800", "--device",
+            str(dev), "--teacher_workspace", os.path.join(ws, kind),
+            "--workspace", os.path.join(ws, f"edit_{kind}"),
+            "--seal_config", os.path.join(ws, "seal.json"),
+            "--pretraining_epochs", "1",
+            "--pretraining_local_point_step", "0.01", "--extra_epochs", "1"]
+    if dynamic:
+        argv += ["--time_frame", "0.5"]
+    after_pre = []
+    pre = FastStudentTrainer.pretrain_one_epoch
+
+    def checked(self):
+        loss = pre(self)
+        after_pre.append(_same_on_every_rank(mesh, _edit_state(self)))
+        return loss
+
+    build, load = mod.build_edit_trainers, mod.load_datasets
+    mod.build_edit_trainers = lambda opt, **kw: cli.build_edit_trainers(
+        opt, **kw, segment_steps=MESH_EDIT_STEPS)
+    mod.load_datasets = lambda opt, **kw: scene + (scene[1],)
+    FastStudentTrainer.pretrain_one_epoch = checked
+    kernels = _kernel_launches()
+    try:
+        with _fewer_views(mod, MESH_EDIT_VIEWS, MESH_EDIT_VAL):
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        FastStudentTrainer.pretrain_one_epoch = pre
+        mod.build_edit_trainers, mod.load_datasets = build, load
+    launches = [k.launches for k in kernels]
+    proxied = [torch.as_tensor(st.proxied[k].images, device=dev)
+               for k in ("train", "valid")]
+    out = {"wall": wall, "launches": launches,
+           "proxy_s": st.proxy_seconds, "query_s": st.query_seconds,
+           "views": [len(st.proxied[k]) for k in ("train", "valid")],
+           "steps": len(st.history["loss"]), "after_pre": after_pre,
+           "proxy_equal": _same_on_every_rank(mesh, proxied),
+           "equal": _same_on_every_rank(mesh, _edit_state(st)),
+           "ckpts": sorted(os.listdir(os.path.join(st.workspace,
+                                                   "checkpoints")))}
+    # the student against the edited teacher's proxy on the val views, and
+    # the unedited teacher against it (phase 8's criterion)
+    tv, t = st.proxied["valid"], (0.5 if dynamic else None)
+    mse_s, mse_u = [], []
+    for i in range(len(tv)):
+        img, _ = st.render_image(tv.poses[i], tv.intrinsics, tv.h, tv.w,
+                                 time=t)
+        ref, _ = st.render_teacher_image(tv.poses[i], tv.intrinsics, tv.h,
+                                         tv.w, time=t, edited=False)
+        mse_s.append(float(np.mean((img - tv.images[i]) ** 2)))
+        mse_u.append(float(np.mean((ref - tv.images[i]) ** 2)))
+    out.update(mse_student=float(np.mean(mse_s)),
+               mse_unedited=float(np.mean(mse_u)),
+               psnr=float(psnr(img, tv.images[-1])))
+    return out
+
+
+def _mesh_gui(mesh, dev, scene, ws):
+    """Phase 16g on this rank: main_seald's editor (headless SealDGUI at
+    800x800) on the dynamic run's field; rank 0 drives it, the other ranks
+    follow (gui/follow.py) -> rank 0's last frame against the same rank's
+    whole frame, and the launches."""
+    import dataclasses
+
+    import torch
+    from sealdnerf_tpu_torch import main_seald
+    from sealdnerf_tpu_torch.cli import build_edit_trainers
+    from sealdnerf_tpu_torch.gui import headless_dpg as hdpg
+    from sealdnerf_tpu_torch.gui.edit_controller import EditController
+    from sealdnerf_tpu_torch.gui.follow import run_view
+    from sealdnerf_tpu_torch.gui.seald_gui import SealDGUI
+    from sealdnerf_tpu_torch.train.metrics import psnr
+    from sealdnerf_tpu_torch.train.trainer import GUI_DOWNSCALES
+    opt = main_seald.parse_args(
+        ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--gui",
+         "--synthetic_res", "800", "--W", "800", "--H", "800", "--device",
+         str(dev), "--teacher_workspace", os.path.join(ws, "dynamic"),
+         "--workspace", os.path.join(ws, "gui")])
+    teacher, student, _ = build_edit_trainers(opt, dynamic=True,
+                                              lr_net=opt.lr_net)
+    train = scene[0]
+    train = dataclasses.replace(train, poses=train.poses[:GUI_EDIT_VIEWS],
+                                images=train.images[:GUI_EDIT_VIEWS],
+                                times=train.times[:GUI_EDIT_VIEWS])
+    ctl = EditController(opt, teacher, student, train)
+    ctl.downscale = 1
+    last = {}
+    real = teacher.test_gui
+
+    def test_gui(*a, **kw):
+        out = real(*a, **kw)
+        last.update(args=a, kw=kw, out=out)
+        return out
+    teacher.test_gui = test_gui
+    def script(i):
+        """The user's events before frame i (rank 0's view)."""
+        if i == 0:
+            hdpg.set_widget("time", 0.5)
+        elif i == 2:
+            hdpg.emit_drag(0, 40.0, 10.0)
+    kernels = _kernel_launches()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    run_view(lambda c: SealDGUI(opt, teacher, student, controller=c,
+                                headless=True), ctl,
+             lambda view: _drive_view(view, MESH_GUI_FRAMES, script))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [k.launches for k in kernels]
+    pose, intr = last["args"][:2]
+    ds = min(GUI_DOWNSCALES, key=lambda b: abs(b - last["kw"]["downscale"]))
+    tile = teacher._pick_tile(opt.H // ds, opt.W // ds, pose,
+                              np.asarray(intr, np.float32) / ds)
+    with _one_rank(teacher):
+        whole = real(*last["args"], **last["kw"])
+    return {"wall": wall, "launches": launches, "time": ctl.time,
+            "banded": tile > 1 and (opt.H // ds) % (mesh.size * tile) == 0,
+            "size": opt.H // ds, "tile": tile,
+            "finite": bool(np.isfinite(last["out"]["image"]).all()),
+            "psnr": float(psnr(last["out"]["image"], whole["image"]))}
+
+
+def _mesh_workloads(mesh, dev, scene, ws):
+    """Phase 16h on this rank: main_tensoRF at its defaults across one
+    upsample, and main_CCNeRF's K-loss steps, on the mesh, the depth cut
+    (MESH_TENSORF_*, MESH_CCNERF_*) -> whether each run's state is the same
+    bits on every rank, and their numbers."""
+    import torch
+    from sealdnerf_tpu_torch import cli, main_CCNeRF, main_tensoRF
+    out = {}
+    saved = [(m, m.to_train_options, m.load_datasets)
+             for m in (main_tensoRF, main_CCNeRF)]
+    ups = main_tensoRF.UPSAMPLE_STEPS
+    main_tensoRF.UPSAMPLE_STEPS = ()
+    try:
+        for mod, name, views, argv in (
+                (main_tensoRF, "tensorf", MESH_TENSORF_VIEWS,
+                 ["--iters", str(MESH_TENSORF_VIEWS),
+                  "--upsample_model_steps", str(MESH_TENSORF_UPSAMPLE)]),
+                (main_CCNeRF, "ccnerf", MESH_CCNERF_STEPS,
+                 ["--iters", str(MESH_CCNERF_STEPS)])):
+            mod.to_train_options = lambda opt, **kw: cli.to_train_options(
+                opt, **dict(kw, segment_steps=1))
+            mod.load_datasets = lambda opt, **kw: scene + (scene[1],)
+            with _fewer_views(mod, views, MESH_EDIT_VAL):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr = mod.main(["synthetic", "--synthetic_res", "800",
+                               "--device", str(dev), "--ckpt", "scratch",
+                               "--workspace", os.path.join(ws, name)]
+                              + argv)
+                torch.cuda.synchronize()
+            out[name] = {
+                "wall": time.perf_counter() - t0, "steps": tr.global_step,
+                "res": getattr(tr.field.cfg, "resolution", None),
+                "finite": bool(np.isfinite(tr.history["loss"]).all()),
+                "equal": _same_on_every_rank(mesh, _mesh_state(tr))}
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        main_tensoRF.UPSAMPLE_STEPS = ups
+        for m, opts, load in saved:
+            m.to_train_options, m.load_datasets = opts, load
+    return out
+
+
 def _mesh_rank(rank, layout, ws):
     """A process of phase 16: rank `rank` of the layout, on its card."""
     import pickle
@@ -3572,9 +3866,16 @@ def _mesh_rank(rank, layout, ws):
         out = {"device": f"{dev} ({torch.cuda.get_device_name(dev)})",
                "backend": mesh.backend}
         for kind in ("static", "dynamic"):
-            out[kind] = _mesh_run(mesh, dev, scenes.pop(kind),
+            out[kind] = _mesh_run(mesh, dev, scenes[kind],
                                   kind == "dynamic", ws)
             torch.cuda.empty_cache()
+        for kind, tag in (("static", "16e"), ("dynamic", "16f")):
+            out[tag] = _mesh_edit(mesh, dev, scenes[kind],
+                                  kind == "dynamic", ws)
+            torch.cuda.empty_cache()
+        out["16g"] = _mesh_gui(mesh, dev, scenes["dynamic"], ws)
+        torch.cuda.empty_cache()
+        out["16h"] = _mesh_workloads(mesh, dev, scenes["static"], ws)
     finally:
         mesh.close()
     with open(os.path.join(ws, f"rank{rank}.pkl"), "wb") as f:
@@ -3608,6 +3909,9 @@ def phase_data_parallel(layout=None, one_card=None):
     with open(os.path.join(ws, "scenes.pkl"), "wb") as f:
         pickle.dump(scenes, f, protocol=5)
     del scenes
+    # the edit of phases 8 and 8b, for 16e and 16f
+    with open(os.path.join(ws, "seal.json"), "w") as f:
+        json.dump(_edit_config(), f)
     torch.cuda.empty_cache()
     smi = _card()
     print(f"phase 16: {len(layout)} ranks over "
@@ -3671,12 +3975,124 @@ def phase_data_parallel(layout=None, one_card=None):
             line += (" sharing one card: this layout checks the mesh and "
                      "says nothing of scaling")
         print(line, flush=True)
+    for tag, used in (("16e", (0, 1)), ("16f", (2, 3))):
+        for r, rank in enumerate(ranks):
+            e = rank[tag]
+            totals = [a + b for a, b in zip(totals, e["launches"])]
+            print(f"phase {tag} {'dynamic' if tag == '16f' else 'static'} "
+                  f"edit of the mesh's field "
+                  f"({'main_seald' if tag == '16f' else 'main_SealNeRF'}), "
+                  f"rank {r}: {e['wall']:.2f} s wall; proxy "
+                  f"{e['views'][0]} + {e['views'][1]} views at 800x800 in "
+                  f"{e['proxy_s']:.2f} s (this rank's share), teacher "
+                  f"queries {e['query_s']:.2f} s; {e['steps']} distillation "
+                  f"steps; proxy the same bits on every rank: "
+                  f"{e['proxy_equal']}; state after pretraining "
+                  f"{e['after_pre']}, after distillation {e['equal']}; val "
+                  f"MSE student {e['mse_student']:.6f} vs unedited teacher "
+                  f"{e['mse_unedited']:.6f}; launches K1-K4 "
+                  f"{e['launches']}; checkpoints {e['ckpts']}", flush=True)
+            if not (e["proxy_equal"] and e["equal"] and e["after_pre"]
+                    and all(e["after_pre"])):
+                bad.append(f"{tag} rank {r}: not the same bits")
+            if any(e["launches"][k] for k in range(4) if k not in used) \
+                    or not all(e["launches"][k] for k in used):
+                bad.append(f"{tag} rank {r}: launches {e['launches']}")
+            if not e["mse_student"] < 0.8 * e["mse_unedited"]:
+                bad.append(f"{tag} rank {r}: the student is not nearer the "
+                           f"edit: {e['mse_student']} vs "
+                           f"{e['mse_unedited']}")
+            if e["steps"] != MESH_EDIT_STEPS:
+                bad.append(f"{tag} rank {r}: {e['steps']} distillation "
+                           "steps")
+        if len(ranks[0][tag]["ckpts"]) != 1:
+            bad.append(f"{tag}: checkpoints {ranks[0][tag]['ckpts']}")
+    for r, rank in enumerate(ranks):
+        g = rank["16g"]
+        totals = [a + b for a, b in zip(totals, g["launches"])]
+        print(f"phase 16g SealDGUI (main_seald --gui) at {g['size']}px, "
+              f"tile {g['tile']}, rank {r}{' (the window)' if r == 0 else ''}"
+              f": {MESH_GUI_FRAMES} frames in {g['wall']:.2f} s at t = "
+              f"{g['time']}; row bands {g['banded']}; the last frame vs the "
+              f"same rank's whole frame {g['psnr']:.2f} dB; launches K1-K4 "
+              f"{g['launches']}", flush=True)
+        if not (g["finite"] and g["banded"] and g["psnr"] >= 40.0
+                and g["time"] == 0.5 and g["launches"][2] > 0):
+            bad.append(f"16g rank {r}: {g}")
+        for name, w in rank["16h"].items():
+            print(f"phase 16h {name}, rank {r}: {w['steps']} steps in "
+                  f"{w['wall']:.2f} s (with its test frames); resolution "
+                  f"{w['res']}; state the same bits on every rank: "
+                  f"{w['equal']}", flush=True)
+            want = MESH_TENSORF_VIEWS if name == "tensorf" \
+                else MESH_CCNERF_STEPS
+            if not (w["equal"] and w["finite"] and w["steps"] == want):
+                bad.append(f"16h {name} rank {r}: {w}")
+        if rank["16h"]["tensorf"]["res"] != 300:
+            bad.append(f"16h rank {r}: TensoRF not upsampled to 300")
     if bad:
         raise AssertionError("phase 16: " + "; ".join(bad))
+    print(f"phase 16 cuts: 16e / 16f {MESH_EDIT_VIEWS} of the 48 training "
+          f"views proxied and {MESH_EDIT_VAL} of the 6 val views, 1 of 100 "
+          f"pretraining epochs, {MESH_EDIT_STEPS} of 30,000 distillation "
+          f"steps; 16g {MESH_GUI_FRAMES} frames; 16h main_tensoRF "
+          f"{MESH_TENSORF_VIEWS} of 30,000 steps with one upsample at "
+          f"{MESH_TENSORF_UPSAMPLE} (128 -> 300), main_CCNeRF "
+          f"{MESH_CCNERF_STEPS} of 30,000", flush=True)
     print(f"phase 16: {time.perf_counter() - t_phase:.2f} s ({wall:.2f} s "
           f"in the ranks' processes); launches K1 {totals[0]} K2 "
           f"{totals[1]} K3 {totals[2]} K4 {totals[3]}", flush=True)
     return totals, ms_by_kind
+
+
+def phase_profile():
+    """The last phase: `main_nerf --profile` trains PROFILE_STEPS steps of
+    the static CP field at 800x800 (its training views cut to as many),
+    serves its val view and a 64^3 mesh; its trace,
+    workspace/trace/rank0.pt.trace.json, must name K1's and K2's device
+    kernels -> K1-K4 launches of the run."""
+    import shutil
+
+    import torch
+    from sealdnerf_tpu_torch import cli, main_nerf
+    ws = os.path.join(REPO, "workspace", "chip_smoke_profile")
+    shutil.rmtree(ws, ignore_errors=True)
+    build, mesh_res = main_nerf.build_trainer, main_nerf.MESH_RESOLUTION
+    main_nerf.build_trainer = lambda opt, **kw: cli.build_trainer(
+        opt, **kw, segment_steps=PROFILE_STEPS)
+    main_nerf.MESH_RESOLUTION = 64
+    kernels = _kernel_launches()
+    try:
+        with _fewer_views(main_nerf, PROFILE_STEPS, 1):
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            tr = main_nerf.main(["synthetic", "-O", "--bound", "1",
+                                 "--dt_gamma", "0", "--synthetic_res", "800",
+                                 "--iters", str(PROFILE_STEPS), "--ckpt",
+                                 "scratch", "--profile", "--workspace", ws])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        main_nerf.build_trainer, main_nerf.MESH_RESOLUTION = build, mesh_res
+    launches = [k.launches for k in kernels]
+    path = os.path.join(ws, "trace", "rank0.pt.trace.json")
+    with open(path) as f:
+        trace = json.load(f)
+    names = [e.get("name", "") for e in trace["traceEvents"]
+             if str(e.get("cat", "")).lower() == "kernel"]
+    found = {k: sum(k in n for n in names)
+             for k in ("field_fwd_kernel", "field_bwd_kernel")}
+    print(f"phase 17 (profile): main_nerf --profile, {tr.global_step} steps "
+          f"in {wall:.2f} s; trace {os.path.getsize(path) / 1e6:.1f} MB, "
+          f"{len(names)} device kernel events, of them "
+          + ", ".join(f"{k} {v}" for k, v in found.items())
+          + f"; launches K1-K4 {launches}", flush=True)
+    if tr.global_step != PROFILE_STEPS or not all(found.values()):
+        raise AssertionError(f"phase 17: {tr.global_step} steps, the trace's "
+                             f"K1 / K2 kernels {found}")
+    shutil.rmtree(ws, ignore_errors=True)
+    return launches
 
 
 def phase_device_kernels():
@@ -3800,18 +4216,22 @@ def main():
                       dyn_ws)
     k_mesh, _ = phase_data_parallel()
     phase_device_kernels()
+    k_prof = phase_profile()
 
     by_phase = {
         "K1": {"4": served["launches"], "5": k1_train, "5c": k1_frames,
                "8b": k1_edit, "9+9b": k1_b2, "12": k_opts[0],
-               "13": k_other[0], "15": k_gui[0], "16": k_mesh[0]},
+               "13": k_other[0], "15": k_gui[0], "16": k_mesh[0],
+               "17": k_prof[0]},
         "K2": {"5": k2_train, "8b": k2_edit, "9": k2_b2, "12": k_opts[1],
-               "13": k_other[1], "15": k_gui[1], "16": k_mesh[1]},
+               "13": k_other[1], "15": k_gui[1], "16": k_mesh[1],
+               "17": k_prof[1]},
         "K3": {"6": k3_served, "7": k3_train, "7c": k3_frames,
                "8": k3_edit, "12": k_opts[2], "13": k_other[2],
-               "15": k_gui[2], "16": k_mesh[2]},
+               "15": k_gui[2], "16": k_mesh[2], "17": k_prof[2]},
         "K4": {"7": k4_train, "8": k4_edit, "12": k_opts[3],
-               "13": k_other[3], "15": k_gui[3], "16": k_mesh[3]}}
+               "13": k_other[3], "15": k_gui[3], "16": k_mesh[3],
+               "17": k_prof[3]}}
     print("kernel launches by phase: " + "; ".join(
         f"{k} " + ", ".join(f"{ph} {n}" for ph, n in v.items())
         for k, v in by_phase.items()), flush=True)

@@ -5,7 +5,8 @@
 
 Builds the kernels and runs chip_smoke.phase_data_parallel on its layout:
 one rank a card (up to 4) on a machine with two cards or more, else two
-ranks sharing the one card. With --one-card the same phase first runs on
+ranks sharing the one card; 16e-h included (the edits of the fields that
+the mesh trains, the editor, main_tensoRF and main_CCNeRF on the mesh). With --one-card the same phase first runs on
 one rank alone (no process group), and the mesh's rays/s are printed
 against that run's. The procedural scenes are made here (~13 s each at
 800x800), as chip_smoke.py's earlier phases make them.

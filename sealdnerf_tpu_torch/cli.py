@@ -9,14 +9,21 @@ and FastTrainer where the recipe allows it, else the Instant-NGP or D-NeRF
 field and Trainer). --clip_text with --rand_pose >= 0 gives the trainers
 CLIP guidance when its weights are on the disk (train/clip_guidance.py).
 
-Under `torchrun --nproc_per_node N` main_nerf and main_dnerf train and serve
-on a data mesh of N ranks (parallel/mesh.py), one process and one card per
-rank: `resolve_device` gives rank r cuda:LOCAL_RANK and `build_trainer` the
-mesh of torchrun's environment. The other CLIs and --gui refuse more than
-one rank (`refuse_ranks`).
+Under `torchrun --nproc_per_node N` every CLI but main_sdf trains and
+serves on a data mesh of N ranks (parallel/mesh.py), one process and one
+card per rank: `resolve_device` gives rank r cuda:LOCAL_RANK and the
+trainers take the mesh of torchrun's environment; an edit's teacher and
+student share it. --gui opens the window on rank 0 and drives the other
+ranks' controllers from it (gui/follow.py). main_sdf refuses more than one
+rank (`refuse_ranks`): the reference's builds no mesh.
+
+--profile wraps the train and test calls in a torch.profiler trace that
+each rank writes to <workspace>/trace/rank{r}.pt.trace.json (`profiled`,
+utils/profiling.py).
 """
 
 import argparse
+import contextlib
 import os
 
 import numpy as np
@@ -24,9 +31,6 @@ import torch
 
 from .parallel.mesh import make_mesh, world_size
 from .train.trainer import TrainOptions
-
-# the ROADMAP item that is to bring the single-rank CLIs onto the data mesh
-MESH_ITEM = "A14b"
 
 
 def base_parser(default_bound=2.0, default_lr=1e-2, default_iters=30000,
@@ -169,13 +173,23 @@ def resolve_device(name: str) -> torch.device:
 
 
 def refuse_ranks(what: str):
-    """Exit when this run has more than one rank: `what` runs on one rank
-    only, until ROADMAP's MESH_ITEM ports it to the data mesh."""
+    """Exit when this run has more than one rank: `what` runs on one device,
+    as the reference's does (it builds no mesh)."""
     n = world_size()
     if n > 1:
-        raise SystemExit(f"{what} runs on one rank only, and this run has "
-                         f"{n} (its port to the data mesh is ROADMAP "
-                         f"{MESH_ITEM}); start it without torchrun")
+        raise SystemExit(f"{what} runs on one device, and this run has {n} "
+                         "ranks: the reference's builds no mesh and runs on "
+                         "one device; start it without torchrun")
+
+
+def profiled(opt, device, rank: int = 0):
+    """The context that a CLI's train and test calls run in: with
+    --profile, a torch.profiler trace of rank `rank` on `device` written to
+    <workspace>/trace on exit (utils/profiling.py); else nothing."""
+    if not getattr(opt, "profile", False):
+        return contextlib.nullcontext()
+    from .utils.profiling import profile_trace
+    return profile_trace(os.path.join(opt.workspace, "trace"), device, rank)
 
 
 def to_train_options(opt, name="ngp", **overrides) -> TrainOptions:
@@ -324,7 +338,10 @@ def build_edit_trainers(opt, dynamic=False, metrics=None, **topt_overrides):
     --workspace, or absolute), or for a static edit from
     --workspace/seal.json; a dynamic edit without --seal_config has none.
     --secondary_teacher_workspace loads the secondary teacher in the same
-    way. topt_overrides go to the options of every trainer."""
+    way. topt_overrides go to the options of every trainer.
+
+    On a data mesh every rank loads the teacher's checkpoint, and the
+    student runs on the teacher's mesh (one process group)."""
     import copy
 
     from .editing.seal_utils import get_seal_mapper
@@ -381,7 +398,7 @@ def build_edit_trainers(opt, dynamic=False, metrics=None, **topt_overrides):
         "ngp", to_train_options(opt, name="ngp", **topt_overrides), field,
         teacher, mapper=mapper, secondary_teacher=secondary,
         metrics=metrics, workspace=opt.workspace, use_checkpoint="scratch",
-        device=teacher.device, time_conditioned=dynamic)
+        device=teacher.device, time_conditioned=dynamic, mesh=teacher.mesh)
     student.adopt_grid_state(teacher.grid_state)
     student.log(f"[INFO] the student took over the teacher's grid state: "
                 f"iter_density {int(student.grid_state['iter_density'])}")

@@ -39,6 +39,30 @@ The deform tower (and the other time-conditioning networks) of a dynamic
 student is frozen throughout: its leaves are in no optimizer the student
 builds (optax's set_to_zero in the reference), so they stay the teacher's
 bit for bit, and freezing never rebuilds an optimizer that has taken steps.
+
+On a data mesh of N ranks (the teacher's, parallel/mesh.py) every rank
+holds the teacher and the whole student state, and the work is split so
+that the state stays the same bits on every rank:
+- proxy_dataset: rank r renders views r, r + N, ...; the views are
+  gathered, so that every rank holds every proxied image with the bits
+  that its renderer gave (the reference renders every view on its one
+  controller);
+- init_pretraining: the zones and their directions are drawn whole on
+  every rank (from np.random.default_rng(opt.seed), so they do not depend
+  on N); the teacher's queries are split by chunk (chunk i on rank i % N)
+  and gathered;
+- pretrain_step: each rank takes its 1 / N of the batch's points; the
+  weighted L1's denominator is the whole batch's weight sum (every rank
+  holds the batch), so the ranks' losses and gradients add up to the
+  unsharded step's, and are summed in one collective before Adam. A step
+  repeated whole on every rank would not do: the kernels' table gradients
+  are summed with atomics, in an order that differs from rank to rank;
+- distillation: Trainer's / FastTrainer's sharded step; the edit region is
+  forced into the occupancy where it is read (_occ_at, _segment_occ_fill),
+  after each refresh's merge of the ranks' queries; the frozen leaves take
+  no gradient and stay as they are;
+- rank 0 alone writes the provenance, timer.json, pretrain_vis/*.ply and
+  the checkpoints; proxy_seconds and query_seconds are each rank's own.
 """
 
 import dataclasses
@@ -56,6 +80,7 @@ from ..models.params import param_leaves
 from ..ops.field import (dyn_field_forward, dyn_field_forward_plain,
                          dyn_field_train_forward, field_forward,
                          field_forward_plain, field_train_forward)
+from ..parallel.mesh import gather_shares, psum, shard_batch, share
 from ..render.dynamic_grid import time_slice_index
 from ..render.renderer import render_occ
 from ..train.fast import FastTrainer
@@ -92,12 +117,14 @@ def sample_zone_points(bounds, point_step: float, angle_step: int = 45):
     return points, dirs
 
 
-def pretrain_l1(out, batch):
+def pretrain_l1(out, batch, wsum=None):
     """The pretraining loss of field outputs out [4, M] (rows sigma, r, g,
     b) on a zone batch: the weighted L1 of sigma plus that of the colour,
-    each over the live points."""
+    each over the live points. wsum: the weight sum to divide by (default
+    the batch's; a rank's share of a batch divides by the whole batch's)."""
     w = batch["weight"]
-    wsum = w.sum()
+    if wsum is None:
+        wsum = w.sum()
     l_sig = (torch.abs(out[0] - batch["sigma"]) * w).sum() \
         / torch.clamp(wsum, min=1.0)
     l_col = (torch.abs(out[1:4].t() - batch["color"]) * w[:, None]).sum() \
@@ -285,19 +312,25 @@ class StudentTrainer(Trainer):
         return (torch.nan_to_num(torch.cat(imgs)),
                 torch.nan_to_num(torch.cat(deps)))
 
-    def render_teacher_image(self, pose, intrinsics, h: int, w: int,
-                             time=None, edited: bool = True,
-                             plain: bool = False):
-        """One whole view through render_teacher_rays -> (rgb [h, w, 3],
-        depth [h, w]) numpy."""
+    def _teacher_view(self, pose, intrinsics, h: int, w: int, time=None,
+                      **kw):
+        """One whole view through render_teacher_rays -> (rgb [h * w, 3],
+        depth [h * w]) on the device."""
         dev = self.teacher_trainer.device
         rays = get_rays(
             torch.as_tensor(np.asarray(pose, np.float32), device=dev)[None],
             torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev),
             h, w)
-        img, dep = self.render_teacher_rays(rays["rays_o"][0],
-                                            rays["rays_d"][0], time=time,
-                                            edited=edited, plain=plain)
+        return self.render_teacher_rays(rays["rays_o"][0], rays["rays_d"][0],
+                                        time=time, **kw)
+
+    def render_teacher_image(self, pose, intrinsics, h: int, w: int,
+                             time=None, edited: bool = True,
+                             plain: bool = False):
+        """One whole view through render_teacher_rays -> (rgb [h, w, 3],
+        depth [h, w]) numpy."""
+        img, dep = self._teacher_view(pose, intrinsics, h, w, time=time,
+                                      edited=edited, plain=plain)
         return (img.reshape(h, w, 3).cpu().numpy(),
                 dep.reshape(h, w).cpu().numpy())
 
@@ -305,14 +338,17 @@ class StudentTrainer(Trainer):
         """The dataset with every view rendered through the edit-aware
         teacher as its images (RGB on white, or on the teacher's
         background); for a dynamic edit rendered at `time` (None:
-        time_frame), which replaces the views' times."""
+        time_frame), which replaces the views' times. On a mesh each rank
+        renders its share of the views and every rank gets them all."""
         if self.time_conditioned and time is None:
             time = self.time_frame
-        imgs = [self.render_teacher_image(dataset.poses[i],
-                                          dataset.intrinsics, dataset.h,
-                                          dataset.w, time=time)[0]
-                for i in range(len(dataset))]
-        rep = {"images": np.stack(imgs).astype(np.float32)}
+        n, h, w = len(dataset), dataset.h, dataset.w
+        mine = [self._teacher_view(dataset.poses[i], dataset.intrinsics, h,
+                                   w, time=time)[0]
+                for i in share(self.mesh, n)]
+        imgs = gather_shares(self.mesh, mine, n)
+        rep = {"images": torch.stack(imgs).reshape(n, h, w, 3).cpu()
+               .numpy().astype(np.float32)}
         if time is not None and dataset.times is not None:
             rep["times"] = np.full(len(dataset), float(time), np.float32)
         return dataclasses.replace(dataset, **rep)
@@ -322,17 +358,27 @@ class StudentTrainer(Trainer):
     def _teacher_query(self, points, dirs, extra, mapped: bool):
         """Teacher sigma [N] and colour [N, 3] at points and dirs (device
         tensors [N, 3]) in chunks of TEACHER_QUERY_CHUNK: through the mapper
-        (the local zone's ground truth) or the bare field."""
+        (the local zone's ground truth) or the bare field. On a mesh each
+        rank queries its share of the chunks and every rank gets them all."""
+        query = self._query_chunk(extra, mapped)
+        c = TEACHER_QUERY_CHUNK
+        n = -(-points.shape[0] // c)
+        mine = [query(points[i * c:(i + 1) * c], dirs[i * c:(i + 1) * c])
+                for i in share(self.mesh, n)]
+        out = torch.cat(gather_shares(self.mesh, mine, n))
+        return out[:, 0], out[:, 1:4]
+
+    def _query_chunk(self, extra, mapped: bool):
+        """(points [k, 3], dirs [k, 3]) -> teacher sigma and colour [k, 4]
+        through the mapper or the bare field."""
         tt = self.teacher_trainer
         fwd = self.teacher_field.forward if mapped else tt.field.forward
         params = self._teacher_params()
-        sig, col = [], []
-        for i in range(0, points.shape[0], TEACHER_QUERY_CHUNK):
-            out = fwd(params, points[i:i + TEACHER_QUERY_CHUNK],
-                      dirs[i:i + TEACHER_QUERY_CHUNK], *extra)
-            sig.append(out[0])
-            col.append(out[1])
-        return torch.cat(sig), torch.cat(col)
+
+        def query(pts, dirs):
+            out = fwd(params, pts, dirs, *extra)
+            return torch.cat([out[0][:, None], out[1]], dim=1)
+        return query
 
     def _edit_mask(self, pts):
         """The mapper's mask of the points [N, 3] (device bool [N])."""
@@ -435,6 +481,8 @@ class StudentTrainer(Trainer):
                 "color": put(col, torch.zeros((pad, 3), device=dev), 3),
                 "weight": put(w, w[:0])}
         self._build_pretrain_optimizer()
+        if not self._writes():
+            return
         vis = os.path.join(self.workspace, "pretrain_vis")
         os.makedirs(vis, exist_ok=True)
         for k, v in zones.items():
@@ -449,24 +497,38 @@ class StudentTrainer(Trainer):
             self._enc_leaves(), lr=self.pretraining_lr, betas=(0.9, 0.99),
             eps=1e-15)
 
-    def pretrain_loss(self, batch):
+    def pretrain_loss(self, batch, wsum=None):
         """pretrain_l1 of the student's forward at the batch's points, at
-        time_frame for a time-conditioned field."""
+        time_frame for a time-conditioned field (wsum: see pretrain_l1)."""
         extra = (float(self.time_frame or 0.0),) if self.time_conditioned \
             else ()
         out = self.field.forward(self.params, batch["points"], batch["dirs"],
                                  *extra)
-        return pretrain_l1(torch.cat([out[0][None], out[1].t()]), batch)
+        return pretrain_l1(torch.cat([out[0][None], out[1].t()]), batch,
+                           wsum)
 
     def pretrain_step(self, batch):
         """One Adam step of the encoder leaves on one batch -> loss (a
         device tensor). A table that the forward does not read (the
-        background's) takes a zero gradient, as in the reference."""
+        background's) takes a zero gradient, as in the reference. On a mesh
+        each rank takes its share of the points, divided by the whole
+        batch's weight sum, and the ranks' losses and gradients are summed
+        in one collective: the unsharded step's."""
         leaves = self._enc_leaves()
-        loss = self.pretrain_loss(batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        wsum = None
+        if self.ndev > 1:
+            wsum = batch["weight"].sum()
+            batch = {k: shard_batch(self.mesh, v) for k, v in batch.items()}
+        loss = self.pretrain_loss(batch, wsum)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+        if self.ndev > 1:
+            flat = psum(self.mesh, torch.cat(
+                [g.reshape(-1) for g in grads] + [loss.detach().reshape(1)]))
+            grads = list(torch.split(flat[:-1], [g.numel() for g in grads]))
+            loss = flat[-1]
         for p, g in zip(leaves, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
+            p.grad = g.view_as(p)
         self._pretrain_optimizer.step()
         for p in leaves:
             p.grad = None
@@ -522,7 +584,9 @@ class StudentTrainer(Trainer):
 
     # -------------------------------------------------------- provenance
     def _write_provenance(self):
-        """seal.json, options.json and run.sh in the workspace."""
+        """seal.json, options.json and run.sh in the workspace (rank 0)."""
+        if not self._writes():
+            return
         os.makedirs(self.workspace, exist_ok=True)
         try:
             if self.mapper is not None:
@@ -537,6 +601,9 @@ class StudentTrainer(Trainer):
             pass
 
     def _write_timer(self):
+        """timer.json in the workspace (rank 0)."""
+        if not self._writes():
+            return
         ti = self.time_inspector
         out = {}
         for k in ("pretraining", "training"):
@@ -588,9 +655,8 @@ class FastStudentTrainer(StudentTrainer, FastTrainer):
             return out[0], out[1:4].t()
         return bare
 
-    @torch.no_grad()
-    def _teacher_query(self, points, dirs, extra, mapped: bool):
-        """StudentTrainer's query through the planar forward of the
+    def _query_chunk(self, extra, mapped: bool):
+        """StudentTrainer's query chunk through the planar forward of the
         kernels: K1, or K3 for a dynamic teacher."""
         tt = self.teacher_trainer
         params = self._teacher_params()
@@ -598,15 +664,14 @@ class FastStudentTrainer(StudentTrainer, FastTrainer):
             else tt._render_forward()
         if not mapped:
             params = tt.field.kernel_tables(params)
-        sig, col = [], []
-        for i in range(0, points.shape[0], TEACHER_QUERY_CHUNK):
-            out = fwd(params, points[i:i + TEACHER_QUERY_CHUNK].t().contiguous(),
-                      dirs[i:i + TEACHER_QUERY_CHUNK].t().contiguous(), *extra)
-            sig.append(out[0])
-            col.append(out[1:4].t())
-        return torch.cat(sig), torch.cat(col)
 
-    def pretrain_loss(self, batch):
+        def query(pts, dirs):
+            out = fwd(params, pts.t().contiguous(), dirs.t().contiguous(),
+                      *extra)
+            return out[:4].t()
+        return query
+
+    def pretrain_loss(self, batch, wsum=None):
         """pretrain_l1 of the student at the batch's points, at time_frame
         for a time-conditioned field, through the field's kernels: K1 and
         K2, or K3 and K4."""
@@ -621,7 +686,7 @@ class FastStudentTrainer(StudentTrainer, FastTrainer):
         else:
             out = field_train_forward(self.params, cfg, x3, d3,
                                       tables=tables)
-        return pretrain_l1(out, batch)
+        return pretrain_l1(out, batch, wsum)
 
 
 def _export_ply_points(path, pts, colors):

@@ -13,6 +13,9 @@ seal_gui.py, seald_gui.py) are thin widget shells. dearpygui is imported
 lazily: where it is not installed the views run on headless_dpg, the same
 API without a display.
 
+On a data mesh rank 0 alone opens the view, and its controller calls are
+made by every rank (follow.py: run_view, Leader, follow).
+
 Frames come from Trainer.test_gui (on a CP field the kernels K1 / K3, the
 LOD preview when the frame needs no depth) with the downscale snapped to 1,
 2, 4 or 8; the training interleave is Trainer.train_gui (K1 + K2 or K3 +

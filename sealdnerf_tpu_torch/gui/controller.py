@@ -9,6 +9,11 @@ separated from dearpygui, on the port's trainers.
   bucketed to powers of two) and SPP accumulation at a fixed view, through
   Trainer.test_gui, one synchronous frame at a time (the reference's
   pipelined preview is tunnel machinery and is not ported).
+
+A view changes the controller only through its methods and attribute sets,
+so that on a data mesh rank 0's view can drive every rank's controller
+(gui/follow.py). The pacing reads rank 0's clock (from_rank0), so that
+every rank takes the same number of steps and the same downscale.
 """
 
 import time
@@ -16,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..parallel.mesh import from_rank0
 from .orbit import OrbitCamera
 
 
@@ -46,6 +52,12 @@ class GUIController:
         if train_dataset is not None:
             self._data_dev = train_dataset.device(trainer.device)
 
+    def _rank0(self, value: float) -> float:
+        """Rank 0's value of a clock reading on the trainer's mesh (the
+        value itself without one)."""
+        mesh = getattr(self.trainer, "mesh", None)
+        return value if mesh is None else from_rank0(mesh, value)
+
     # ---------------------------------------------------------------- training
     def train_frame(self):
         """Run one UI frame worth of training; auto-tunes steps to 500 ms."""
@@ -54,7 +66,7 @@ class GUIController:
         ds = self.train_dataset
         out = self.trainer.train_gui(self._data_dev, ds.h, ds.w,
                                      step=self.train_steps)
-        t = out["time"]
+        t = out["time"] = self._rank0(out["time"])
         # nerf/gui.py:107-111 pacing
         full_t = t / self.train_steps * 16
         train_steps = min(16, max(4, int(16 * 500 / (full_t * 1000 + 1e-9))))
@@ -79,7 +91,7 @@ class GUIController:
                 bg_color=self.bg_color, spp=self.spp,
                 downscale=self.downscale, need_depth=self.need_depth,
                 **self._time_kw(self.render_trainer))
-            dt = time.time() - t0
+            dt = self._rank0(time.time() - t0)
             # dynamic resolution targeting 200 ms (nerf/gui.py:136-140),
             # power-of-two buckets
             if self.need_update:
@@ -130,6 +142,23 @@ class GUIController:
     def set_time(self, t: float):
         self.time = float(np.clip(t, 0.0, 1.0))
         self.need_update = True
+
+    def set_fovy(self, fovy: float):
+        self.cam.fovy = fovy
+        self.need_update = True
+
+    def toggle_training(self) -> bool:
+        """Start or stop the training interleave -> whether it runs."""
+        self.training = not self.training
+        return self.training
+
+    def save_checkpoint(self):
+        """A full checkpoint of the trainer (rank 0 writes it)."""
+        return self.trainer.save_checkpoint(full=True)
+
+    def save_mesh(self):
+        """The trainer's density iso-surface as PLY (rank 0 writes it)."""
+        return self.trainer.save_mesh()
 
     def back_project(self, px: np.ndarray):
         """Pixel coords [N, 2] (x, y) -> (world positions [N, 3], mask [N]

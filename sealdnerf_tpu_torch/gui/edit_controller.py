@@ -171,12 +171,71 @@ class EditController(GUIController):
         if self.trainer.mapper is not None:
             self.trainer.init_mapper(self.trainer.mapper)  # rewrap teacher
 
+    def load_secondary_teacher(self, workspace: str):
+        """Load the latest checkpoint of `workspace` as the secondary
+        teacher (main_SealNeRF.py:141-149 merge flow, bound to the editor):
+        a field of the active teacher's family, seeded from torch.Generator
+        0, then the checkpoint's params. A workspace without one is
+        ignored."""
+        import copy
+
+        import torch
+
+        from ..train.checkpoint import resolve_checkpoint
+        path = resolve_checkpoint(workspace, "ngp", "latest")
+        if path is None:
+            return
+        # build a field of the SAME family as the active teacher (the
+        # editor may run on the CP kernels or on the Instant-NGP / D-NeRF
+        # fields)
+        tt = self.teacher_trainer
+        tcfg = tt.field.cfg
+        gen = torch.Generator().manual_seed(0)
+        from ..models.cp import (CPConfig, CPDNeRFConfig,
+                                 make_cp_dnerf_field, make_cp_field)
+        if isinstance(tcfg, CPDNeRFConfig):
+            field = make_cp_dnerf_field(gen, tcfg, tt.device)
+        elif isinstance(tcfg, CPConfig):
+            field = make_cp_field(gen, tcfg, tt.device)
+        else:
+            from ..models.api import make_dnerf_field, make_ngp_field
+            from ..models.dnerf import DNeRFConfig
+            make = make_dnerf_field if isinstance(tcfg, DNeRFConfig) \
+                else make_ngp_field
+            field = make(gen, tcfg, tt.device)
+        probe = copy.copy(tt)
+        probe.field = field
+        probe.params = field.params
+        probe.load_checkpoint(path, model_only=True)
+        field.params = probe.params
+        self.set_secondary_teacher(field)
+
     def set_texture(self, rect, path):
         self.texture_rect = rect
         self.texture_path = path
 
     def add_anchor(self, start, end):
         self.anchors.append((start, end))
+
+    def on_click(self, x: float, y: float):
+        """A right click at (x, y): a corner of the texture rect (the first
+        click opens it, the next ones move its far corner), or an anchor's
+        start, then its end."""
+        if self.state is EditState.TEXTURE:
+            if self.texture_rect is None:
+                self.texture_rect = (x, y, x, y)
+            else:
+                self.texture_rect = self.texture_rect[:2] + (x, y)
+        if self.state is EditState.ANCHOR:
+            if not self.anchors or self.anchors[-1][1] is not None:
+                self.anchors.append(((x, y), None))
+            else:
+                self.anchors[-1] = (self.anchors[-1][0], (x, y))
+
+    def toggle_view(self):
+        """Render the teacher or the student, whichever is not shown."""
+        self.render_trainer = self.teacher_trainer \
+            if self.render_trainer is self.trainer else self.trainer
 
     # -------------------------------------------------------- config conversion
     def build_seal_config(self) -> dict:

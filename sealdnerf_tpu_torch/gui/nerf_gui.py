@@ -1,10 +1,12 @@
 """dearpygui viewer for static NeRF (port of sealdnerf_tpu/gui/nerf_gui.py,
 the reference viewer's nerf/gui.py:55-435).
 
-Thin widget shell over gui.controller.GUIController. Uses real dearpygui
-when installed; otherwise falls back to gui.headless_dpg (the same API
-without a display), so the view layer runs -- and is scriptable -- on
-display-less hosts (remote GPU machines, CI).
+Thin widget shell over gui.controller.GUIController, which it changes only
+through the controller's methods and attribute sets (on a data mesh they
+reach every rank: gui/follow.py). Uses real dearpygui when installed;
+otherwise falls back to gui.headless_dpg (the same API without a display),
+so the view layer runs -- and is scriptable -- on display-less hosts
+(remote GPU machines, CI).
 """
 
 import sys
@@ -55,21 +57,18 @@ class NeRFGUI:
             dpg.add_text("", tag="_log_train")
             if self.ctl.train_dataset is not None:
                 def toggle(sender, app_data):
-                    self.ctl.training = not self.ctl.training
                     dpg.set_item_label("_button_train",
-                                       "stop" if self.ctl.training else
-                                       "start")
+                                       "stop" if self.ctl.toggle_training()
+                                       else "start")
                 dpg.add_button(label="start", tag="_button_train",
                                callback=toggle)
-                dpg.add_button(label="save ckpt", callback=lambda: self.ctl
-                               .trainer.save_checkpoint(full=True))
-                dpg.add_button(label="save mesh", callback=lambda: self.ctl
-                               .trainer.save_mesh())
+                dpg.add_button(label="save ckpt",
+                               callback=lambda: self.ctl.save_checkpoint())
+                dpg.add_button(label="save mesh",
+                               callback=lambda: self.ctl.save_mesh())
             dpg.add_slider_float(
                 label="fovy", default_value=self.ctl.cam.fovy, min_value=1,
-                max_value=120,
-                callback=lambda s, a: (setattr(self.ctl.cam, "fovy", a),
-                                       setattr(self.ctl, "need_update", True)))
+                max_value=120, callback=lambda s, a: self.ctl.set_fovy(a))
             self._extra_widgets(dpg)
 
         with dpg.handler_registry():

@@ -1,11 +1,8 @@
 """Interactive Seal editor for static scenes (port of
 sealdnerf_tpu/gui/seal_gui.py, the reference editor's SealNeRF/gui.py:
 97-1241): teacher + student trainers, brush painting, texture box select,
-anchor drag, train/override buttons, all over the headless EditController."""
-
-import copy
-
-import torch
+anchor drag, train/override buttons, all over the headless EditController,
+which the view changes only through its methods and attribute sets."""
 
 from .edit_controller import EditController, EditState
 from .nerf_gui import NeRFGUI
@@ -13,9 +10,9 @@ from .nerf_gui import NeRFGUI
 
 class SealGUI(NeRFGUI):
     def __init__(self, opt, teacher_trainer, student_trainer,
-                 train_dataset=None, headless=False):
-        ctl = EditController(opt, teacher_trainer, student_trainer,
-                             train_dataset)
+                 train_dataset=None, headless=False, controller=None):
+        ctl = controller or EditController(opt, teacher_trainer,
+                                           student_trainer, train_dataset)
         super().__init__(opt, student_trainer, train_dataset,
                          controller=ctl, headless=headless)
 
@@ -49,7 +46,7 @@ class SealGUI(NeRFGUI):
             dpg.add_button(label="clear", callback=lambda: ctl.clear_tool())
         dpg.add_input_text(
             label="secondary teacher ws", tag="_sec_ws",
-            callback=lambda s, a: self._load_secondary_teacher(a))
+            callback=lambda s, a: ctl.load_secondary_teacher(a))
         dpg.add_slider_float(label="anchor radius", default_value=0.1,
                              min_value=0.01, max_value=0.5,
                              callback=lambda s, a: setattr(
@@ -65,12 +62,8 @@ class SealGUI(NeRFGUI):
                            callback=lambda: ctl.start_edit_training())
             dpg.add_button(label="override teacher",
                            callback=lambda: ctl.override_teacher())
-            dpg.add_button(
-                label="view teacher/student",
-                callback=lambda: setattr(
-                    ctl, "render_trainer",
-                    ctl.teacher_trainer
-                    if ctl.render_trainer is ctl.trainer else ctl.trainer))
+            dpg.add_button(label="view teacher/student",
+                           callback=lambda: ctl.toggle_view())
 
         # brush painting: right-drag while in BRUSH state stamps the mask
         with dpg.handler_registry():
@@ -80,55 +73,10 @@ class SealGUI(NeRFGUI):
                     ctl.paint(x, y, erase=bool(dpg.get_value("_eraser")))
 
             def on_rect(sender, app_data):
-                if ctl.state is EditState.TEXTURE:
-                    x, y = dpg.get_mouse_pos(local=False)
-                    if ctl.texture_rect is None:
-                        ctl.texture_rect = (x, y, x, y)
-                    else:
-                        ctl.texture_rect = ctl.texture_rect[:2] + (x, y)
-                if ctl.state is EditState.ANCHOR:
-                    x, y = dpg.get_mouse_pos(local=False)
-                    if not ctl.anchors or ctl.anchors[-1][1] is not None:
-                        ctl.anchors.append(((x, y), None))
-                    else:
-                        ctl.anchors[-1] = (ctl.anchors[-1][0], (x, y))
+                if ctl.state in (EditState.TEXTURE, EditState.ANCHOR):
+                    ctl.on_click(*dpg.get_mouse_pos(local=False))
 
             dpg.add_mouse_drag_handler(button=dpg.mvMouseButton_Right,
                                        callback=on_paint)
             dpg.add_mouse_click_handler(button=dpg.mvMouseButton_Right,
                                         callback=on_rect)
-
-    def _load_secondary_teacher(self, workspace: str):
-        """Load a trained model from `workspace` as the secondary teacher
-        (main_SealNeRF.py:141-149 merge flow, bound to the editor): a field
-        of the active teacher's family, seeded from torch.Generator 0, then
-        the checkpoint's params."""
-        from ..train.checkpoint import resolve_checkpoint
-        ctl: EditController = self.ctl
-        path = resolve_checkpoint(workspace, "ngp", "latest")
-        if path is None:
-            return
-        # build a field of the SAME family as the active teacher (the
-        # editor may run on the CP kernels or on the Instant-NGP / D-NeRF
-        # fields)
-        tt = ctl.teacher_trainer
-        tcfg = tt.field.cfg
-        gen = torch.Generator().manual_seed(0)
-        from ..models.cp import (CPConfig, CPDNeRFConfig,
-                                 make_cp_dnerf_field, make_cp_field)
-        if isinstance(tcfg, CPDNeRFConfig):
-            field = make_cp_dnerf_field(gen, tcfg, tt.device)
-        elif isinstance(tcfg, CPConfig):
-            field = make_cp_field(gen, tcfg, tt.device)
-        else:
-            from ..models.api import make_dnerf_field, make_ngp_field
-            from ..models.dnerf import DNeRFConfig
-            make = make_dnerf_field if isinstance(tcfg, DNeRFConfig) \
-                else make_ngp_field
-            field = make(gen, tcfg, tt.device)
-        probe = copy.copy(tt)
-        probe.field = field
-        probe.params = field.params
-        probe.load_checkpoint(path, model_only=True)
-        field.params = probe.params
-        ctl.set_secondary_teacher(field)

@@ -19,6 +19,13 @@ Trainer: a full density sweep of the composition into its grid, then the
 test frames under <workspace>/compose. The reference's viewer renders its
 EMA, the seeded params of the first field, and fails (KeyError 0); here the
 viewer renders the loaded params.
+
+Under torchrun the K-loss step is Trainer's sharded step on the data mesh.
+Under --compose every rank loads the models, each rank sweeps its block of
+the union grid's cells and the blocks are merged (Trainer.rebuild_grid),
+and rank 0 writes the frames. --profile writes a torch.profiler trace of
+the training (or the composition) and the test frames to
+<workspace>/trace.
 """
 
 import os
@@ -26,7 +33,7 @@ import os
 import numpy as np
 import torch
 
-from .cli import (base_parser, load_datasets, postprocess, refuse_ranks,
+from .cli import (base_parser, load_datasets, postprocess, profiled,
                   resolve_device, to_train_options)
 from .models.api import Field, make_tensorf_field
 from .models.tensorf import TensoRFConfig, cc_compose_forward
@@ -89,10 +96,11 @@ def compose(opt, cfg, device):
     viewer.field = Field(params_list, cfg, composed, density, None)
     viewer.params = viewer.ema_params = params_list
     viewer.update_extra_state = lambda: None
-    viewer.rebuild_grid()        # a full sweep over the composition
-    _, _, test = load_datasets(opt)
-    viewer.test(test, save_path=os.path.join(opt.workspace, "compose"),
-                write_video=True)
+    with profiled(opt, device, viewer.mesh.rank):
+        viewer.rebuild_grid()        # a full sweep over the composition
+        _, _, test = load_datasets(opt)
+        viewer.test(test, save_path=os.path.join(opt.workspace, "compose"),
+                    write_video=True)
     return viewer
 
 
@@ -100,7 +108,6 @@ def main(argv=None):
     """Run the CLI on argv (None: sys.argv) -> the trainer (with --compose
     the viewer)."""
     opt = postprocess(build_parser().parse_args(argv))
-    refuse_ranks("main_CCNeRF")
     if opt.gui:
         print("[INFO] main_CCNeRF has no viewer, as in the reference: "
               "--gui is ignored")
@@ -119,9 +126,10 @@ def main(argv=None):
                       workspace=opt.workspace, use_checkpoint=opt.ckpt,
                       device=device)
     train, val, test = load_datasets(opt)
-    if not opt.test:
-        trainer.train(train, val, int(np.ceil(opt.iters / len(train))))
-    trainer.test(test, write_video=True)
+    with profiled(opt, trainer.device, trainer.mesh.rank):
+        if not opt.test:
+            trainer.train(train, val, int(np.ceil(opt.iters / len(train))))
+        trainer.test(test, write_video=True)
     return trainer
 
 

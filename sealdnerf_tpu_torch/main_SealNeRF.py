@@ -25,12 +25,17 @@ where the lpips package and its weights are on the disk; nothing is
 downloaded). The frames go to PNG, and to an mp4 when an encoder is
 installed. --gui is accepted and ignored: the reference's main_SealNeRF
 has no viewer either.
+
+Under torchrun the teacher and the student share the data mesh, as in
+main_seald (editing/student.py); rank 0 writes the files. --profile writes
+a torch.profiler trace of the edit and the test frames to
+<workspace>/trace.
 """
 
 import numpy as np
 
 from .cli import (base_parser, build_edit_trainers, load_datasets,
-                  postprocess, refuse_ranks)
+                  postprocess, profiled)
 from .main_seald import max_epochs
 from .train.metrics import LPIPSMeter, PSNRMeter
 
@@ -80,7 +85,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     opt = parse_args(argv)
-    refuse_ranks("main_SealNeRF")
     if opt.gui:
         print("[INFO] main_SealNeRF has no viewer, as in the reference: "
               "--gui is ignored")
@@ -101,21 +105,23 @@ def main(argv=None):
             n=max(len(train), 50), h=train.h, w=train.w,
             intrinsics=train.intrinsics, center=center,
             radius=min(max(radius, 0.5), 2.0 * opt.bound), seed=opt.seed)
-    if opt.test:
+    with profiled(opt, trainer.device, trainer.mesh.rank):
+        if opt.test:
+            trainer.test(test, write_video=True)
+            return trainer
+        trainer.init_pretraining(
+            epochs=opt.pretraining_epochs,
+            batch_size=opt.pretraining_batch_size, lr=opt.pretraining_lr,
+            local_point_step=opt.pretraining_local_point_step,
+            local_angle_step=opt.pretraining_local_angle_step,
+            surrounding_point_step=opt.pretraining_surrounding_point_step,
+            surrounding_angle_step=opt.pretraining_surrounding_angle_step,
+            surrounding_bounds_extend=(
+                opt.pretraining_surrounding_bounds_extend),
+            global_point_step=opt.pretraining_global_point_step,
+            global_angle_step=opt.pretraining_global_angle_step)
+        trainer.train(train, val, max_epochs(opt, len(train)))
         trainer.test(test, write_video=True)
-        return trainer
-    trainer.init_pretraining(
-        epochs=opt.pretraining_epochs,
-        batch_size=opt.pretraining_batch_size, lr=opt.pretraining_lr,
-        local_point_step=opt.pretraining_local_point_step,
-        local_angle_step=opt.pretraining_local_angle_step,
-        surrounding_point_step=opt.pretraining_surrounding_point_step,
-        surrounding_angle_step=opt.pretraining_surrounding_angle_step,
-        surrounding_bounds_extend=opt.pretraining_surrounding_bounds_extend,
-        global_point_step=opt.pretraining_global_point_step,
-        global_angle_step=opt.pretraining_global_angle_step)
-    trainer.train(train, val, max_epochs(opt, len(train)))
-    trainer.test(test, write_video=True)
     return trainer
 
 

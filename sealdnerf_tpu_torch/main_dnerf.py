@@ -23,12 +23,17 @@ and to an mp4 when an encoder is installed.
 trainer instead: with live training on the training set, or with --test on
 the served field (after the same grid rebuild); on dearpygui where that is
 installed, else on the headless backend (gui/headless_dpg.py).
+
+Under torchrun every rank trains and serves on the data mesh, and rank 0's
+viewer drives the others (gui/follow.py). --profile writes a torch.profiler
+trace of the training and serving calls to <workspace>/trace.
 """
 
 import math
 
 from .cli import (base_parser, build_trainer, cp_route, load_datasets,
-                  postprocess, refuse_ranks)
+                  postprocess, profiled)
+from .main_nerf import open_viewer
 from .train.metrics import PSNRMeter
 
 
@@ -67,30 +72,29 @@ def parse_args(argv=None):
 def main(argv=None):
     """Run the CLI on argv (None: sys.argv) -> the trainer."""
     opt = parse_args(argv)
-    if opt.gui:
-        refuse_ranks("--gui")
     print(opt)
     trainer, _ = build_trainer(opt, name="ngp", dynamic=True,
                                metrics=[PSNRMeter()], lr_net=opt.lr_net)
     train, val, test = load_datasets(opt, with_time=True)
     if opt.gui and not opt.test:
         from .gui.dnerf_gui import DNeRFGUI
-        DNeRFGUI(opt, trainer, train_dataset=train).render()
+        open_viewer(opt, trainer, train, view=DNeRFGUI)
         return trainer
-    if not opt.test:
-        trainer.train(train, val, math.ceil(opt.iters / len(train)))
-    elif not bool(trainer.grid_state["occ"].any()):
-        # a seeded field: mark the training cameras' frusta and sweep the
-        # density of every time bin into the grid
-        trainer.mark_untrained_grid(train.poses, train.intrinsics)
-        trainer.rebuild_grid()
+    with profiled(opt, trainer.device, trainer.mesh.rank):
+        if not opt.test:
+            trainer.train(train, val, math.ceil(opt.iters / len(train)))
+        elif not bool(trainer.grid_state["occ"].any()):
+            # a seeded field: mark the training cameras' frusta and sweep
+            # the density of every time bin into the grid
+            trainer.mark_untrained_grid(train.poses, train.intrinsics)
+            trainer.rebuild_grid()
+        if not opt.gui:
+            if test.images is not None:
+                trainer.evaluate(test)
+            trainer.test(test, write_video=True)
     if opt.gui:
         from .gui.dnerf_gui import DNeRFGUI
-        DNeRFGUI(opt, trainer).render()
-        return trainer
-    if test.images is not None:
-        trainer.evaluate(test)
-    trainer.test(test, write_video=True)
+        open_viewer(opt, trainer, view=DNeRFGUI)
     return trainer
 
 

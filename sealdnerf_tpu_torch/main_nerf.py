@@ -29,12 +29,17 @@ the mesh.
 live training on the training set, or with --test on the served field
 (after the same grid rebuild). It runs on dearpygui where that is
 installed, else on the headless backend (gui/headless_dpg.py).
+
+Under torchrun every rank trains and serves on the data mesh; rank 0 writes
+the files and opens the viewer, whose calls every rank makes
+(gui/follow.py). --profile writes a torch.profiler trace of the training
+and serving calls to <workspace>/trace/rank{r}.pt.trace.json.
 """
 
 import numpy as np
 
 from .cli import (base_parser, build_trainer, load_datasets, postprocess,
-                  refuse_ranks)
+                  profiled)
 from .train.metrics import LPIPSMeter, PSNRMeter
 
 MESH_RESOLUTION, MESH_THRESHOLD = 256, 10.0    # the reference's save_mesh
@@ -43,32 +48,43 @@ MESH_RESOLUTION, MESH_THRESHOLD = 256, 10.0    # the reference's save_mesh
 def main(argv=None):
     """Run the CLI on argv (None: sys.argv) -> the trainer."""
     opt = postprocess(base_parser().parse_args(argv))
-    if opt.gui:
-        refuse_ranks("--gui")
     print(opt)
     trainer, _ = build_trainer(opt, name="ngp",
                                metrics=[PSNRMeter(), LPIPSMeter()])
     train, val, test = load_datasets(opt)
     if opt.gui and not opt.test:
-        from .gui.nerf_gui import NeRFGUI
-        NeRFGUI(opt, trainer, train_dataset=train).render()
+        open_viewer(opt, trainer, train)
         return trainer
-    if not opt.test:
-        trainer.train(train, val, int(np.ceil(opt.iters / len(train))))
-    elif not bool(trainer.grid_state["occ"].any()):
-        # a seeded field or a checkpoint without a grid: mark the training
-        # cameras' frusta and sweep the density into the grid
-        trainer.mark_untrained_grid(train.poses, train.intrinsics)
-        trainer.rebuild_grid()
+    with profiled(opt, trainer.device, trainer.mesh.rank):
+        if not opt.test:
+            trainer.train(train, val, int(np.ceil(opt.iters / len(train))))
+        elif not bool(trainer.grid_state["occ"].any()):
+            # a seeded field or a checkpoint without a grid: mark the
+            # training cameras' frusta and sweep the density into the grid
+            trainer.mark_untrained_grid(train.poses, train.intrinsics)
+            trainer.rebuild_grid()
+        if not opt.gui:
+            if test.images is not None:
+                trainer.evaluate(test)
+            trainer.test(test, write_video=True)
+            trainer.save_mesh(resolution=MESH_RESOLUTION,
+                              threshold=MESH_THRESHOLD)
     if opt.gui:
-        from .gui.nerf_gui import NeRFGUI
-        NeRFGUI(opt, trainer).render()
-        return trainer
-    if test.images is not None:
-        trainer.evaluate(test)
-    trainer.test(test, write_video=True)
-    trainer.save_mesh(resolution=MESH_RESOLUTION, threshold=MESH_THRESHOLD)
+        open_viewer(opt, trainer)
     return trainer
+
+
+def open_viewer(opt, trainer, train=None, view=None):
+    """The viewer (`view`, default NeRFGUI) on the trainer, with live
+    training on `train` when given; on a mesh rank 0's window drives the
+    other ranks (gui/follow.py)."""
+    from .gui.controller import GUIController
+    from .gui.follow import run_view
+    from .gui.nerf_gui import NeRFGUI
+    view = view or NeRFGUI
+    run_view(lambda ctl: view(opt, trainer, train_dataset=train,
+                              controller=ctl),
+             GUIController(opt, trainer, train))
 
 
 if __name__ == "__main__":

@@ -16,7 +16,12 @@ logs its mean loss and writes workspace/checkpoints/sdf_ep{N}.npz ({"params",
 exported: marching tetrahedra of -sdf at 0 on a --mesh_resolution^3 grid of
 [-1, 1]^3 -> workspace/results/output.ply. --test exports the `best`
 checkpoint (or the latest) instead, or the seeded network when there is
-none.
+none. --profile (the flag of the other CLIs; the reference's main_sdf has
+none) writes a torch.profiler trace of the fit and the export to
+<workspace>/trace/rank0.pt.trace.json.
+
+It runs on one device: the reference's main_sdf builds no mesh, so under
+torchrun with more than one rank it exits (cli.refuse_ranks).
 """
 
 import argparse
@@ -26,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from .cli import refuse_ranks, resolve_device
+from .cli import profiled, refuse_ranks, resolve_device
 from .models.params import map_params, param_leaves, params_from_jax
 from .models.sdf import SDFConfig, init_sdf, sdf_forward
 from .ops.losses import mape_loss
@@ -54,6 +59,8 @@ def build_parser():
     parser.add_argument("--mesh_resolution", type=int, default=512)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs on the CPU")
+    parser.add_argument("--profile", action="store_true",
+                        help="write a profiler trace to workspace/trace")
     return parser
 
 
@@ -149,13 +156,18 @@ def make_sphere_mesh(path, res: int = 24):
 def main(argv=None):
     """Run the CLI on argv (None: sys.argv) -> (fitter or None with --test,
     the export's (verts, tris, seconds))."""
-    from .data.sdf_provider import SDFDataset
     opt = build_parser().parse_args(argv)
     refuse_ranks("main_sdf")
     print(opt)
     device = resolve_device(opt.device)
     cfg = SDFConfig()
     params = init_sdf(torch.Generator().manual_seed(opt.seed), cfg, device)
+    with profiled(opt, device):
+        return _run(opt, cfg, params, device)
+
+
+def _run(opt, cfg, params, device):
+    from .data.sdf_provider import SDFDataset
     out = os.path.join(opt.workspace, "results", "output.ply")
     if opt.test:
         path = resolve_checkpoint(opt.workspace, "sdf", "best")

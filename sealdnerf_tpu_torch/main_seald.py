@@ -33,12 +33,20 @@ texture and anchor tools, the edit at the time slider's frame, its
 pretraining and distillation frames, and the override that commits the
 student into the teacher; on dearpygui where that is installed, else on the
 headless backend (gui/headless_dpg.py).
+
+Under torchrun the teacher and the student share the data mesh: every rank
+loads the teacher, the proxy's views, the teacher's point queries and each
+pretraining batch are split over the ranks, the distillation takes the
+trainers' sharded steps, and every rank renders its band of the test
+frames, which rank 0 writes (editing/student.py). --gui opens the editor on
+rank 0, whose calls every rank makes (gui/follow.py). --profile writes a
+torch.profiler trace of the edit and the test frames to <workspace>/trace.
 """
 
 import numpy as np
 
 from .cli import (base_parser, build_edit_trainers, edit_cp_route,
-                  load_datasets, postprocess, refuse_ranks)
+                  load_datasets, postprocess, profiled)
 from .train.metrics import PSNRMeter
 
 
@@ -94,29 +102,34 @@ def max_epochs(opt, n_train: int) -> int:
 
 def main(argv=None):
     opt = parse_args(argv)
-    refuse_ranks("main_seald")
     print(opt)
     teacher, trainer, mapper = build_edit_trainers(
         opt, dynamic=True, metrics=[PSNRMeter()], lr_net=opt.lr_net,
         eval_interval=opt.eval_interval)
     train, val, test = load_datasets(opt, with_time=True)
     if opt.gui:
+        from .gui.edit_controller import EditController
+        from .gui.follow import run_view
         from .gui.seald_gui import SealDGUI
-        SealDGUI(opt, teacher, trainer, train_dataset=train).render()
+        run_view(lambda ctl: SealDGUI(opt, teacher, trainer,
+                                      train_dataset=train, controller=ctl),
+                 EditController(opt, teacher, trainer, train))
         return trainer
-    if opt.test:
+    with profiled(opt, trainer.device, trainer.mesh.rank):
+        if opt.test:
+            trainer.test(test, write_video=True)
+            return trainer
+        if mapper is not None:
+            trainer.init_pretraining(
+                time_frame=opt.time_frame, epochs=opt.pretraining_epochs,
+                batch_size=opt.pretraining_batch_size,
+                lr=opt.pretraining_lr,
+                local_point_step=opt.pretraining_local_point_step,
+                surrounding_point_step=opt.pretraining_surrounding_point_step,
+                global_point_step=opt.pretraining_global_point_step)
+        trainer.train(train, val, max_epochs(opt, len(train)),
+                      time_frame=opt.time_frame)
         trainer.test(test, write_video=True)
-        return trainer
-    if mapper is not None:
-        trainer.init_pretraining(
-            time_frame=opt.time_frame, epochs=opt.pretraining_epochs,
-            batch_size=opt.pretraining_batch_size, lr=opt.pretraining_lr,
-            local_point_step=opt.pretraining_local_point_step,
-            surrounding_point_step=opt.pretraining_surrounding_point_step,
-            global_point_step=opt.pretraining_global_point_step)
-    trainer.train(train, val, max_epochs(opt, len(train)),
-                  time_frame=opt.time_frame)
-    trainer.test(test, write_video=True)
     return trainer
 
 

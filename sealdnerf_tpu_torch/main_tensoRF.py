@@ -19,12 +19,18 @@ Training (no --test) trains ceil(iters / n_train) epochs, evaluates PSNR on
 the val views as it goes and on the test views at the end, and writes the
 test frames. --test loads the checkpoint that --ckpt selects (one saved
 after an upsample included) and evaluates and writes the frames.
+
+Under torchrun the trainer takes Trainer's sharded step on the data mesh;
+an upsample fires at the same global step on every rank and rebuilds the
+field, the EMA, Adam and its schedule there in the same bits. Rank 0
+writes the files. --profile writes a torch.profiler trace of the training
+and the test frames to <workspace>/trace.
 """
 
 import numpy as np
 import torch
 
-from .cli import (base_parser, load_datasets, postprocess, refuse_ranks,
+from .cli import (base_parser, load_datasets, postprocess, profiled,
                   resolve_device, to_train_options)
 from .models.api import make_tensorf_field
 from .models.tensorf import TensoRFConfig, upsample_tensorf
@@ -90,7 +96,6 @@ class TensoRFTrainer(Trainer):
 def main(argv=None):
     """Run the CLI on argv (None: sys.argv) -> the trainer."""
     opt = postprocess(build_parser().parse_args(argv))
-    refuse_ranks("main_tensoRF")
     if opt.gui:
         print("[INFO] main_tensoRF has no viewer, as in the reference: "
               "--gui is ignored")
@@ -112,11 +117,12 @@ def main(argv=None):
         upsample_steps=opt.upsample_model_steps,
         resolution1=opt.resolution1)
     train, val, test = load_datasets(opt)
-    if not opt.test:
-        trainer.train(train, val, int(np.ceil(opt.iters / len(train))))
-    if test.images is not None:
-        trainer.evaluate(test)
-    trainer.test(test, write_video=True)
+    with profiled(opt, trainer.device, trainer.mesh.rank):
+        if not opt.test:
+            trainer.train(train, val, int(np.ceil(opt.iters / len(train))))
+        if test.images is not None:
+            trainer.evaluate(test)
+        trainer.test(test, write_video=True)
     return trainer
 
 

@@ -16,9 +16,16 @@ rendezvous or collective raises; nothing is retried under another backend.
 Every collective gives the same bits on every rank: all_reduce and
 all_gather hand each rank the same reduced or gathered values, and the
 division of pmean is the same elementwise operation everywhere.
+
+Work that is a list of n items (the views of an edit's proxy, the chunks of
+a teacher query) is split by `share`: rank r takes items r, r + N, ...;
+`gather_shares` puts every rank's results back into the whole list, in
+index order, on every rank. `broadcast_object` hands rank 0's picklable
+object to every rank (the GUI's command stream).
 """
 
 import os
+import pickle
 from dataclasses import dataclass
 from typing import Iterable, Optional, Sequence
 
@@ -194,3 +201,73 @@ def shard_batch(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"a leading axis of {t.shape[0]} does not split "
                          f"into {mesh.size} ranks")
     return t[mesh.rank * n:(mesh.rank + 1) * n]
+
+
+def share(mesh: Mesh, n: int) -> range:
+    """This rank's items of a list of n: r, r + N, r + 2N, ... below n."""
+    return range(mesh.rank, n, mesh.size)
+
+
+def gather_shares(mesh: Mesh, mine: Sequence[torch.Tensor], n: int):
+    """The whole list of n tensors, in index order, on every rank, from each
+    rank's results `mine` for its items (`share(mesh, n)`, in that order).
+    The tensors share dtype and trailing shape; their leading lengths may
+    differ. Each rank's results are sent once: the lengths in one
+    collective, then the rows padded to the longest rank's in another
+    (where n < N, rank 0 first tells the ranks without an item the dtype
+    and trailing shape)."""
+    mine = list(mine)
+    if mesh.size == 1:
+        return mine
+    if len(mine) != len(share(mesh, n)):
+        raise ValueError(f"rank {mesh.rank} holds {len(mine)} of the "
+                         f"{len(share(mesh, n))} items it shares")
+    if n == 0:
+        return []
+    proto = (mine[0].dtype, tuple(mine[0].shape[1:])) if mine else None
+    if n < mesh.size:
+        proto = broadcast_object(mesh, proto)
+    dtype, tail = proto
+    dev = mesh.device
+    width = 1
+    for d in tail:
+        width *= d
+    lens = torch.zeros(mesh.size, (n + mesh.size - 1) // mesh.size,
+                       dtype=torch.int64)
+    for j, t in enumerate(mine):
+        lens[mesh.rank, j] = t.shape[0]
+    lens = psum(mesh, lens.to(dev)).cpu()
+    longest = int(lens.sum(dim=1).max())
+    rows = torch.zeros((longest, width), dtype=dtype, device=dev)
+    if mine:
+        flat = torch.cat([t.reshape(t.shape[0], width) for t in mine])
+        rows[:flat.shape[0]] = flat
+    every = all_gather_rows(mesh, rows).reshape(mesh.size, longest, width)
+    out = [None] * n
+    for r in range(mesh.size):
+        off = 0
+        for j, i in enumerate(range(r, n, mesh.size)):
+            k = int(lens[r, j])
+            out[i] = every[r, off:off + k].reshape((k,) + tail)
+            off += k
+    return out
+
+
+def broadcast_object(mesh: Mesh, obj):
+    """Rank 0's picklable `obj` on every rank (the others' is ignored)."""
+    if mesh.size == 1:
+        return obj
+    dev = torch.device("cpu") if mesh.backend == "gloo" else mesh.device
+    if mesh.rank == 0:
+        data = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                                dtype=torch.uint8).to(dev)
+        size = torch.tensor([data.numel()], dtype=torch.int64, device=dev)
+    else:
+        size = torch.zeros(1, dtype=torch.int64, device=dev)
+    dist.broadcast(size, 0, group=mesh.group)
+    if mesh.rank != 0:
+        data = torch.empty(int(size.item()), dtype=torch.uint8, device=dev)
+    dist.broadcast(data, 0, group=mesh.group)
+    if mesh.rank == 0:
+        return obj
+    return pickle.loads(data.cpu().numpy().tobytes())

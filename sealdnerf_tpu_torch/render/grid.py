@@ -16,7 +16,11 @@ cell order.
   reference FastTrainer's grid_update): deterministic half-grid slabs for
   the first WARMUP_CALLS calls, then H^3/2 random cells; on a mesh of N
   ranks each rank takes its 1/N of them, and update_density_grid merges
-  the ranks' queries with pmax before the decay.
+  the ranks' queries with pmax before the decay. A full sweep on a mesh
+  (full=True with mesh=) is split the same way: each rank queries its
+  block of the cells, with the jitter of every cell drawn from the
+  generator that is the same on every rank, so that the merged grid is
+  the one-rank sweep's.
 """
 
 from dataclasses import dataclass
@@ -124,6 +128,10 @@ def update_density_grid(state, density_fn: Callable, cfg: GridConfig,
     grid's device, so that the draws are made there.
     noise_u: optional [CAS, N, 3] uniform draws in [0, 1) that replace the
     jitter draws.
+    mesh: the ranks' queries are merged with pmax before the decay; with
+    full=True each rank queries only its block of the cells (the jitter of
+    every cell is still drawn, from `generator`, which must be the same on
+    every rank).
     """
     h = cfg.grid_size
     h3 = h ** 3
@@ -139,14 +147,19 @@ def update_density_grid(state, density_fn: Callable, cfg: GridConfig,
     coords = _coords_of(indices, h)
     n_pts = coords.shape[0]
     xyz01 = 2.0 * coords.float() / (h - 1) - 1.0
+    lo, hi = 0, n_pts
+    if full and mesh is not None and mesh.size > 1:
+        per = -(-n_pts // mesh.size)
+        lo, hi = min(mesh.rank * per, n_pts), min((mesh.rank + 1) * per,
+                                                  n_pts)
     for cas in range(cfg.cascades):
         bound = _cas_bound(cfg, cas)
         half = bound / h
         u = noise_u[cas] if noise_u is not None else \
             torch.rand((n_pts, 3), generator=generator, device=dev)
         noise = (u.to(dev) * 2.0 - 1.0) * half
-        pts = xyz01 * (bound - half) + noise
-        tmp[cas, indices] = density_fn(pts) * cfg.density_scale
+        pts = xyz01[lo:hi] * (bound - half) + noise[lo:hi]
+        tmp[cas, indices[lo:hi]] = density_fn(pts) * cfg.density_scale
     if mesh is not None:
         pmax(mesh, tmp)
     valid = (grid >= 0) & (tmp >= 0)

@@ -54,9 +54,11 @@ own stream (rank_generator); the gradients and the loss are averaged over
 the ranks in one collective before Adam, and the error map takes the sum of
 the ranks' row updates, so that params, EMA, Adam state and error map stay
 the same bits on every rank. The packed budget follows rank 0's sample
-count. The grid refresh and rebuild are not sharded here: they draw from
-`generator`, which is the same on every rank, as the reference draws them
-from its one controller key. Rank 0 alone logs and writes checkpoints,
+count. The grid refresh is not sharded here: it draws from `generator`,
+which is the same on every rank, as the reference draws it from its one
+controller key; a static grid's rebuild (a full sweep) is, each rank
+querying its block of the cells with the jitter drawn whole from
+`generator` (render/grid.py). Rank 0 alone logs and writes checkpoints,
 frames and meshes, and the ranks wait for its writes. On a mesh of one rank
 both streams are `generator` and no collective is called.
 
@@ -606,7 +608,7 @@ class Trainer:
             return
         self.grid_state = update_density_grid(
             self.grid_state, fn, self.grid_cfg, full=True,
-            generator=self.generator)
+            generator=self.generator, mesh=self.mesh)
 
     @torch.no_grad()
     def mark_untrained_grid(self, poses, intrinsics):

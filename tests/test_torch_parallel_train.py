@@ -20,7 +20,8 @@ Tolerances:
   one set of frames; a one-rank trainer that loads the checkpoint renders
   the frame the 2 ranks render (by row bands) within image atol 1e-5 and
   depth atol 1e-4, the row-band tolerances of test_torch_parallel.py.
-- The CLIs that run on one rank only, and --gui, refuse more ranks.
+- main_sdf, which runs on one device as the reference's does, refuses
+  more ranks.
 """
 
 import os
@@ -38,9 +39,7 @@ from sealdnerf_tpu.render.grid import init_grid_state as jax_init_grid
 from sealdnerf_tpu.train import checkpoint as jax_ckpt
 from sealdnerf_tpu.train.fast import FastTrainer as JaxFastTrainer
 from sealdnerf_tpu.train.trainer import TrainOptions as JaxOptions
-from sealdnerf_tpu_torch import (cli, main_CCNeRF, main_dnerf, main_nerf,
-                                 main_SealNeRF, main_sdf, main_seald,
-                                 main_tensoRF)
+from sealdnerf_tpu_torch import cli, main_sdf
 from sealdnerf_tpu_torch.cli import base_parser, build_trainer, postprocess
 from sealdnerf_tpu_torch.data.synthetic import make_synthetic_scene
 from sealdnerf_tpu_torch.models.params import param_leaves
@@ -263,16 +262,16 @@ def test_main_nerf_on_two_ranks_writes_one_checkpoint(tmp_path):
     assert img.min() < 0.9 * img.max()
 
 
-@pytest.mark.parametrize("main, argv", [
-    (main_seald, ["synthetic"]), (main_SealNeRF, ["synthetic"]),
-    (main_tensoRF, ["synthetic"]), (main_CCNeRF, ["synthetic"]),
-    (main_sdf, ["synthetic"]), (main_nerf, ["synthetic", "--gui"]),
-    (main_dnerf, ["synthetic", "--gui"])],
-    ids=["seald", "SealNeRF", "tensoRF", "CCNeRF", "sdf", "nerf_gui",
-         "dnerf_gui"])
+@pytest.mark.parametrize("main, argv", [(main_sdf, ["synthetic"])],
+                         ids=["sdf"])
 def test_single_rank_clis_refuse_more_ranks(monkeypatch, main, argv):
+    """main_sdf runs on one device, as the reference's, which builds no
+    mesh (the other CLIs run on the mesh:
+    test_torch_parallel_edit*.py, test_torch_parallel_workloads.py,
+    test_torch_parallel_gui.py)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match=f"ROADMAP {cli.MESH_ITEM}"):
+    with pytest.raises(SystemExit, match="the reference's builds no mesh "
+                       "and runs on one device"):
         main.main(argv + ["--device", "cpu"])
 
 
