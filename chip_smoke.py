@@ -458,6 +458,28 @@ PROFILE_STEPS = 8
 DEFORM_GAIN = 6.0 ** 0.5
 
 
+class _KernelCalls:
+    """The calls that reached kernel K<k> since the last zero(): the
+    counter "k<k>.calls" of the port's tracing (utils/profiling.py)."""
+
+    def __init__(self, k: int):
+        self.key, self.base = f"k{k}.calls", 0
+
+    def _total(self) -> int:
+        from sealdnerf_tpu_torch.utils import profiling
+        return profiling.tally(traced=False)["counters"].get(self.key, 0)
+
+    @property
+    def calls(self) -> int:
+        return self._total() - self.base
+
+    def zero(self):
+        self.base = self._total()
+
+
+K1, K2, K3, K4 = (_KernelCalls(k) for k in (1, 2, 3, 4))
+
+
 def _field_work(cfg, m, mode="fwd", density_only=False, m_live=None,
                 lod_skip=()):
     """Bytes moved (each input read once, each output written once) and
@@ -922,12 +944,12 @@ def phase_backward_vs_plain():
     d3 /= np.linalg.norm(d3, axis=0, keepdims=True)
     g = rng.normal(size=(4, m)).astype(np.float32)
     x3, d3, g = (torch.from_numpy(a).cuda() for a in (x3, d3, g))
-    before = field_backward.launches
+    before = K2.calls
     parts = {}
     got = field_backward(tables, cfg, x3, d3, g, parts=parts)
     ref = field_backward_plain(tables, cfg, x3, d3, g)
     torch.cuda.synchronize()
-    if field_backward.launches != before + 1:
+    if K2.calls != before + 1:
         raise AssertionError("K2 did not launch exactly once")
     whole, _ = _grad_errs(got, ref)
     # what K2 recomputed is what K1 computes, bit for bit
@@ -955,7 +977,7 @@ def phase_backward_vs_plain():
           f"({m / ms * 1e3:.4g} samples/s) on random samples, {ms_c:.3f} ms "
           f"on ray-coherent ones, plain {pms:.3f} ms "
           f"({m / pms * 1e3:.4g} samples/s); launches "
-          f"{field_backward.launches}", flush=True)
+          f"{K2.calls}", flush=True)
     _held("K2 vs plain on the stable samples", ratios, GRAD_TOL)
     _held("K2 vs plain on all samples", whole, WHOLE_CALL_TOL)
     rec = {"ms": ms, "plain_ms": pms, "max_abs_err": max_abs}
@@ -1003,13 +1025,13 @@ def phase_dyn_backward_vs_plain():
         tables = pack_tables(_dyn_seeded_params(0, cfg, "cuda", gain=gain),
                              cfg)
         for t in (0.37, 0.0):
-            before = dyn_field_backward.launches
+            before = K4.calls
             parts = {}
             whole = dyn_field_backward(tables, cfg, x3, d3, t, g_all,
                                        parts=parts)
             xw_p, acts_p = dyn_warp_plain(tables, cfg, x3, t)
             torch.cuda.synchronize()
-            if dyn_field_backward.launches != before + 1:
+            if K4.calls != before + 1:
                 raise AssertionError("K4 did not launch exactly once")
             # all samples, then those that are stable at the kernel's warped
             # positions (see 3b)
@@ -1153,8 +1175,7 @@ def phase_served_path(ckpt):
     import torch
     from sealdnerf_tpu_torch.cli import (base_parser, build_trainer,
                                          load_datasets, postprocess)
-    from sealdnerf_tpu_torch.ops.field import field_forward, \
-        field_forward_plain
+    from sealdnerf_tpu_torch.ops.field import field_forward_plain
     from sealdnerf_tpu_torch.ops.marching_dense import downsample_occ
     from sealdnerf_tpu_torch.render.fast_image import render_image_tiled
     from sealdnerf_tpu_torch.train.metrics import psnr
@@ -1168,7 +1189,7 @@ def phase_served_path(ckpt):
     print(f"data: {len(train)} train / {len(val)} val views at "
           f"{val.h}x{val.w} in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    field_forward.launches = 0
+    K1.zero()
     trainer, field = build_trainer(opt, name="ngp")
     trainer.mark_untrained_grid(train.poses, train.intrinsics)
     sweep_ms = []
@@ -1178,7 +1199,7 @@ def phase_served_path(ckpt):
         trainer.rebuild_grid()
         torch.cuda.synchronize()
         sweep_ms.append((time.perf_counter() - t0) * 1e3)
-    n_sweep = field_forward.launches
+    n_sweep = K1.calls
     occ = trainer.grid_state["occ"]
     print(f"grid sweep: {trainer.grid_cfg.grid_size}^3 cells in "
           f"{sweep_ms[0]:.2f} ms (first), {sweep_ms[1]:.2f} ms (second), "
@@ -1195,7 +1216,7 @@ def phase_served_path(ckpt):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         frames.append(img)
-    launches = field_forward.launches
+    launches = K1.calls
     n_render = launches - n_sweep
     if n_sweep < 1 or n_render < 1:
         raise AssertionError(f"kernel launches: sweep {n_sweep}, render "
@@ -1238,7 +1259,7 @@ def phase_served_path(ckpt):
     t0 = time.perf_counter()
     img_p = plain_frame().cpu().numpy()
     ms_p = (time.perf_counter() - t0) * 1e3
-    if field_forward.launches != launches:
+    if K1.calls != launches:
         raise AssertionError("the plain render launched the kernel")
     p = psnr(frames[0], img_p)
     print(f"kernel frame vs plain frame: PSNR {p:.2f} dB, max|diff| "
@@ -1252,7 +1273,6 @@ def phase_served_path(ckpt):
 def phase_training(served):
     import torch
     from sealdnerf_tpu_torch.cli import base_parser, build_trainer, postprocess
-    from sealdnerf_tpu_torch.ops.field import field_backward, field_forward
 
     train, val = served["train"], served["val"]
     argv = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--iters",
@@ -1261,14 +1281,14 @@ def phase_training(served):
     opt = postprocess(base_parser().parse_args(argv))
     trainer, _ = build_trainer(opt, name="ngp")
     steps_per_epoch = max(len(train), trainer.opt.segment_steps)
-    field_forward.launches = 0
-    field_backward.launches = 0
+    K1.zero()
+    K2.zero()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.train(train, None, int(np.ceil(opt.iters / len(train))))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = field_forward.launches, field_backward.launches
+    k1, k2 = K1.calls, K2.calls
     hist = trainer.history
     losses = np.asarray(hist["loss"])
     steps = len(losses)
@@ -1306,18 +1326,17 @@ def phase_training(served):
 def phase_one_step(trainer, train):
     import torch
     from sealdnerf_tpu_torch.models.cp import param_leaves, unflatten_like
-    from sealdnerf_tpu_torch.ops.field import field_backward, field_forward
 
     batch = trainer.sample_batch(train.device("cuda"), train.h, train.w)
     out = []
     for plain in (False, True):
         for p in param_leaves(trainer.params):
             p.grad = None
-        k1, k2 = field_forward.launches, field_backward.launches
+        k1, k2 = K1.calls, K2.calls
         loss, n = trainer.loss_on(*batch, plain=plain)
         loss.backward()
         torch.cuda.synchronize()
-        launched = (field_forward.launches - k1, field_backward.launches - k2)
+        launched = (K1.calls - k1, K2.calls - k2)
         if launched != ((0, 0) if plain else (1, 1)):
             raise AssertionError(f"plain={plain}: kernel launches {launched}")
         out.append((loss.item(), unflatten_like(
@@ -1340,9 +1359,7 @@ def phase_dynamic_served_path():
     from sealdnerf_tpu_torch import main_dnerf
     from sealdnerf_tpu_torch.cli import build_trainer, load_datasets
     from sealdnerf_tpu_torch.models.cp import CPDNeRFConfig
-    from sealdnerf_tpu_torch.ops.field import (dyn_field_forward,
-                                               dyn_field_forward_plain,
-                                               field_forward)
+    from sealdnerf_tpu_torch.ops.field import dyn_field_forward_plain
     from sealdnerf_tpu_torch.ops.marching_dense import downsample_occ
     from sealdnerf_tpu_torch.render.dynamic_grid import time_slice_index
     from sealdnerf_tpu_torch.render.fast_image import render_image_tiled
@@ -1365,8 +1382,8 @@ def phase_dynamic_served_path():
               f"{val.h}x{val.w}, val times "
               f"{[round(float(t), 4) for t in val.times]} in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
-        dyn_field_forward.launches = 0
-        field_forward.launches = 0
+        K3.zero()
+        K1.zero()
         trainer, field = build_trainer(opt, name="ngp", dynamic=True,
                                        lr_net=opt.lr_net)
     if not trainer.time_conditioned or bool(trainer.grid_state["occ"].any()):
@@ -1377,7 +1394,7 @@ def phase_dynamic_served_path():
     trainer.rebuild_grid()
     torch.cuda.synchronize()
     rebuild_s = time.perf_counter() - t0
-    n_rebuild = dyn_field_forward.launches
+    n_rebuild = K3.calls
     occ = trainer.grid_state["occ"]
     per_bin = occ.reshape(occ.shape[0], -1).float().mean(dim=1)
     gcfg = trainer.dyn_grid_cfg
@@ -1402,14 +1419,14 @@ def phase_dynamic_served_path():
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         frames.append(img)
-    launches = dyn_field_forward.launches
+    launches = K3.calls
     n_render = launches - n_rebuild
     if n_render < 2 * len(val):
         raise AssertionError(f"K3 launched {n_render} times in "
                              f"{2 * len(val)} frames")
-    if field_forward.launches != 0:
+    if K1.calls != 0:
         raise AssertionError(f"the dynamic path launched K1 "
-                             f"{field_forward.launches} times")
+                             f"{K1.calls} times")
     for img in frames:
         if img.shape != (val.h, val.w, 3) or not np.isfinite(img).all():
             raise AssertionError(f"bad frame {img.shape}")
@@ -1422,7 +1439,7 @@ def phase_dynamic_served_path():
           f"kernel path {float(np.mean(times)):.2f} ms/frame (min "
           f"{min(times):.2f}, max {max(times):.2f}), {n_render} kernel "
           f"launches in {2 * len(val)} frames, K1 launches "
-          f"{field_forward.launches}; PSNR vs GT {result:.3f} dB (seeded "
+          f"{K1.calls}; PSNR vs GT {result:.3f} dB (seeded "
           f"field)", flush=True)
 
     # the same pose at another time (not counted as the main path)
@@ -1439,7 +1456,7 @@ def phase_dynamic_served_path():
     occ_m = downsample_occ(occ[time_slice_index(t, gcfg), 0], rcfg.march_res)
     tables = field.kernel_tables(trainer._infer_params())
     _frame_memory(trainer, tables, occ_m, val, t, frames[0])
-    before = dyn_field_forward.launches
+    before = K3.calls
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -1456,7 +1473,7 @@ def phase_dynamic_served_path():
             t_thresh=trainer.opt.t_thresh, extra=(t,))
     img_p = img_p.cpu().numpy()
     ms_p = (time.perf_counter() - t0) * 1e3
-    if dyn_field_forward.launches != before:
+    if K3.calls != before:
         raise AssertionError("the plain render launched the kernel")
     p = psnr(frames[0], img_p)
     print(f"dynamic kernel frame vs plain frame: PSNR {p:.2f} dB, max|diff| "
@@ -1560,9 +1577,6 @@ def phase_dynamic_training(train, val):
     import torch
     from sealdnerf_tpu_torch import main_dnerf
     from sealdnerf_tpu_torch.cli import build_trainer
-    from sealdnerf_tpu_torch.ops.field import (dyn_field_backward,
-                                               dyn_field_forward,
-                                               field_backward, field_forward)
 
     def make(tag):
         argv = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0",
@@ -1607,16 +1621,15 @@ def phase_dynamic_training(train, val):
 
     trainer.refresh_grid = timed_refresh
     steps_per_epoch = max(len(train), topt.segment_steps)
-    for fn in (dyn_field_forward, dyn_field_backward, field_forward,
-               field_backward):
-        fn.launches = 0
+    for fn in (K3, K4, K1, K2):
+        fn.zero()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.train(train, None, int(np.ceil(opt.iters / len(train))))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k3, k4 = dyn_field_forward.launches, dyn_field_backward.launches
-    k1, k2 = field_forward.launches, field_backward.launches
+    k3, k4 = K3.calls, K4.calls
+    k1, k2 = K1.calls, K2.calls
     del trainer.refresh_grid
     hist = trainer.history
     losses = np.asarray(hist["loss"])
@@ -1694,8 +1707,6 @@ def phase_dynamic_training(train, val):
 def phase_one_dyn_step(trainer, train, tag, tol):
     import torch
     from sealdnerf_tpu_torch.models.cp import param_leaves, unflatten_like
-    from sealdnerf_tpu_torch.ops.field import (dyn_field_backward,
-                                               dyn_field_forward)
     from sealdnerf_tpu_torch.ops.marching_dense import downsample_occ
 
     data = train.device("cuda")
@@ -1712,12 +1723,12 @@ def phase_one_dyn_step(trainer, train, tag, tol):
     for plain in (False, True):
         for p in param_leaves(trainer.params):
             p.grad = None
-        k3, k4 = dyn_field_forward.launches, dyn_field_backward.launches
+        k3, k4 = K3.calls, K4.calls
         loss, n = trainer.loss_on(*batch, plain=plain)
         loss.backward()
         torch.cuda.synchronize()
-        launched = (dyn_field_forward.launches - k3,
-                    dyn_field_backward.launches - k4)
+        launched = (K3.calls - k3,
+                    K4.calls - k4)
         if launched != ((0, 0) if plain else (1, 1)):
             raise AssertionError(f"plain={plain}: kernel launches {launched}")
         out.append((loss.item(), unflatten_like(
@@ -1818,21 +1829,20 @@ def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
           f"epochs -> --extra_epochs {extra_epochs} of 128 steps; training "
           f"views proxied and distilled on 48 -> {EDIT_TRAIN_VIEWS[tag]}",
           flush=True)
-    fns = (field_forward, field_backward, dyn_field_forward,
-           dyn_field_backward)
+    fns = (K1, K2, K3, K4)
     # the launches under the proxy, which renders through render_occ
     proxy_launches = [0, 0, 0, 0]
     proxy = FastStudentTrainer.proxy_dataset
 
     def counted_proxy(self, *a, **kw):
-        before = [fn.launches for fn in fns]
+        before = [fn.calls for fn in fns]
         out = proxy(self, *a, **kw)
         for i, fn in enumerate(fns):
-            proxy_launches[i] += fn.launches - before[i]
+            proxy_launches[i] += fn.calls - before[i]
         return out
 
     for fn in fns:
-        fn.launches = 0
+        fn.zero()
     FastStudentTrainer.proxy_dataset = counted_proxy
     try:
         with _fewer_views(mod, EDIT_TRAIN_VIEWS[tag]):
@@ -1843,7 +1853,7 @@ def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
             wall = time.perf_counter() - t0
     finally:
         FastStudentTrainer.proxy_dataset = proxy
-    launches = [fn.launches for fn in fns]
+    launches = [fn.calls for fn in fns]
     tt = st.teacher_trainer
     k1, k2, k3, k4 = launches
     if dynamic and not (k3 > 0 and k4 > 0 and k1 == 0 and k2 == 0):
@@ -1940,7 +1950,7 @@ def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
          dyn_field_backward_plain) if dynamic else
         (field_forward, field_forward_plain, field_backward,
          field_backward_plain))
-    before = [fn.launches for fn in fns]
+    before = [fn.calls for fn in fns]
     with torch.no_grad():
         out_p = fwd_p(tables, cfg, x3, d3, *tt_)
     out_p.requires_grad_(True)
@@ -1948,13 +1958,13 @@ def phase_edit(dynamic, teacher_ws, pre_epochs, extra_epochs):
     g = torch.autograd.grad(loss_p, out_p)[0].contiguous()
     grads_p = bwd_p(tables, cfg, x3, d3, *tt_, g)
     torch.cuda.synchronize()
-    if [fn.launches for fn in fns] != before:
+    if [fn.calls for fn in fns] != before:
         raise AssertionError("the plain pretraining step launched a kernel")
     with torch.no_grad():
         loss_k = pretrain_l1(fwd(tables, cfg, x3, d3, *tt_), batch)
     grads_k = bwd(tables, cfg, x3, d3, *tt_, g)
     torch.cuda.synchronize()
-    n = sum(a - b for a, b in zip([fn.launches for fn in fns], before))
+    n = sum(a - b for a, b in zip([fn.calls for fn in fns], before))
     if n != 2:
         raise AssertionError(f"the kernel pretraining step: {n} launches")
     lk, lp = loss_k.item(), loss_p.item()
@@ -1991,14 +2001,12 @@ def phase_trained_frames(trainer, val, tag):
 
     import torch
     import sealdnerf_tpu_torch.train.fast as tfast
-    from sealdnerf_tpu_torch.ops.field import (dyn_field_forward,
-                                               dyn_field_forward_plain,
-                                               field_forward,
+    from sealdnerf_tpu_torch.ops.field import (dyn_field_forward_plain,
                                                field_forward_plain)
     from sealdnerf_tpu_torch.train.metrics import psnr
 
     dyn = trainer.time_conditioned
-    kernel = dyn_field_forward if dyn else field_forward
+    kernel = K3 if dyn else K1
     t = 0.5 if dyn else None
     pose, intr, h, w = val.poses[0], val.intrinsics, val.h, val.w
     occ = trainer.grid_state["occ"]
@@ -2018,17 +2026,17 @@ def phase_trained_frames(trainer, val, tag):
     def frame(**kw):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        before = kernel.launches
+        before = kernel.calls
         t0 = time.perf_counter()
         img, _ = trainer.render_image(pose, intr, h, w, time=t, **kw)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         if img.shape != (h, w, 3) or not np.isfinite(img).all():
             raise AssertionError(f"phase {tag}: bad frame {img.shape}")
-        return img, ms, kernel.launches - before, \
+        return img, ms, kernel.calls - before, \
             torch.cuda.max_memory_allocated() / 2 ** 20
 
-    kernel.launches = 0
+    kernel.zero()
     tiled, ms_t, n_t, mem_t = frame(buckets=False)
     buck, ms_b, n_b, mem_b = frame()
     prev, ms_p, n_p, mem_p = frame(lod=True)
@@ -2038,7 +2046,7 @@ def phase_trained_frames(trainer, val, tag):
         trim, ms_tr, n_tr, _ = frame()
     finally:
         trainer.opt = opt
-    launches = kernel.launches
+    launches = kernel.calls
     if n_t != 1 or min(n_b, n_p, n_tr) < 2:
         raise AssertionError(f"phase {tag}: launches tiled {n_t}, bucketed "
                              f"{n_b}, preview {n_p}, trim alone {n_tr}")
@@ -2085,7 +2093,6 @@ def phase_bound2_training():
     from sealdnerf_tpu_torch import main_nerf
     from sealdnerf_tpu_torch.cli import (base_parser, build_trainer,
                                          load_datasets, postprocess)
-    from sealdnerf_tpu_torch.ops.field import field_backward, field_forward
 
     ws = os.path.join(REPO, "workspace", "chip_smoke_bound2")
     argv = ["synthetic", "-O", "--iters", str(TRAIN_STEPS), "--ckpt",
@@ -2109,14 +2116,14 @@ def phase_bound2_training():
     del seeded
     torch.cuda.empty_cache()
 
-    field_forward.launches = 0
-    field_backward.launches = 0
+    K1.zero()
+    K2.zero()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer = main_nerf.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = field_forward.launches, field_backward.launches
+    k1, k2 = K1.calls, K2.calls
     hist = trainer.history
     losses = np.asarray(hist["loss"])
     steps = len(losses)
@@ -2181,11 +2188,7 @@ def _orbit_view(radius=2.0, res=800, fov=0.9):
 
 
 def _kernel_launches():
-    from sealdnerf_tpu_torch.ops.field import (dyn_field_backward,
-                                               dyn_field_forward,
-                                               field_backward, field_forward)
-    return (field_forward, field_backward, dyn_field_forward,
-            dyn_field_backward)
+    return (K1, K2, K3, K4)
 
 
 def _train_stats(trainer, steps, tag):
@@ -2246,13 +2249,13 @@ def phase_ngp_training():
 
     fns = _kernel_launches()
     for fn in fns:
-        fn.launches = 0
+        fn.zero()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer = main_nerf.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = [fn.launches for fn in fns]
+    launches = [fn.calls for fn in fns]
     ms_step, first, last = _train_stats(trainer, TRAIN_STEPS, "10")
     STEP_MS["10"] = ms_step
     dg = trainer.grid_state["density_grid"]
@@ -2316,13 +2319,13 @@ def phase_dnerf_ngp_training():
     argv += ["--lr", "1e-2", "--lr_net", "1e-3"]
     fns = _kernel_launches()
     for fn in fns:
-        fn.launches = 0
+        fn.zero()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer = main_dnerf.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = [fn.launches for fn in fns]
+    launches = [fn.calls for fn in fns]
     if type(trainer) is not Trainer or not trainer.time_conditioned or \
             trainer.field.cfg != DNeRFConfig(bound=2.0):
         raise AssertionError(f"phase 10b trainer {type(trainer)}, field "
@@ -2430,7 +2433,7 @@ def phase_ngp_edit(dynamic, teacher_ws, extra_epochs,
 
     fns = _kernel_launches()
     for fn in fns:
-        fn.launches = 0
+        fn.zero()
     StudentTrainer.pretrain_one_epoch = checked
     try:
         with _fewer_views(mod, EDIT_TRAIN_VIEWS[tag]):
@@ -2441,7 +2444,7 @@ def phase_ngp_edit(dynamic, teacher_ws, extra_epochs,
             wall = time.perf_counter() - t0
     finally:
         StudentTrainer.pretrain_one_epoch = pre
-    launches = [fn.launches for fn in fns]
+    launches = [fn.calls for fn in fns]
     tt = st.teacher_trainer
     full = DNeRFConfig(bound=2.0) if dynamic else NGPConfig(bound=2.0)
     if type(st) is not StudentTrainer or st.field.cfg != full or \
@@ -2584,10 +2587,10 @@ def _option_run(tag, argv, train, dynamic=False, **kw):
     trainer._device_data = lambda ds: seen.setdefault("data",
                                                       device_data(ds))
     fns = _kernel_launches()
-    before = [fn.launches for fn in fns]
+    before = [fn.calls for fn in fns]
     trainer.train(train, None, int(np.ceil(opt.iters / len(train))))
     torch.cuda.synchronize()
-    launched = [fn.launches - b for fn, b in zip(fns, before)]
+    launched = [fn.calls - b for fn, b in zip(fns, before)]
     losses = np.asarray(trainer.history["loss"])
     if len(losses) != opt.iters or not np.isfinite(losses).all():
         raise AssertionError(f"phase 12 {tag}: {len(losses)} losses, "
@@ -2606,7 +2609,7 @@ def phase_cli_options():
 
     fns = _kernel_launches()
     for fn in fns:
-        fn.launches = 0
+        fn.zero()
     t_phase = time.perf_counter()
     ws = os.path.join(REPO, "workspace", "chip_smoke_options")
     base = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--iters",
@@ -2705,7 +2708,7 @@ def phase_cli_options():
     if trainer.global_step != TRAIN_STEPS:
         raise AssertionError(f"phase 12: phase 5's checkpoint is at step "
                              f"{trainer.global_step}")
-    before = [fn.launches for fn in fns]
+    before = [fn.calls for fn in fns]
     t0 = time.perf_counter()
     video = trainer.test(val, save_path=os.path.join(ws, "results"),
                          write_video=True)
@@ -2716,7 +2719,7 @@ def phase_cli_options():
     if len(frames) != len(val):
         raise AssertionError(f"phase 12: test frames written: {frames}")
     path, verts, tris = trainer.save_mesh(resolution=256, threshold=10)
-    launched = [fn.launches - b for fn, b in zip(fns, before)]
+    launched = [fn.calls - b for fn, b in zip(fns, before)]
     if not len(tris) > 0 or launched[0] < 1:
         raise AssertionError(f"phase 12: mesh of {len(tris)} triangles, "
                              f"launches K1-K4 {launched}")
@@ -2729,7 +2732,7 @@ def phase_cli_options():
                 f"{sec['tetrahedra']:.3f} s; launches K1-K4 {launched}")
     del trainer
     torch.cuda.empty_cache()
-    launches = [fn.launches for fn in fns]
+    launches = [fn.calls for fn in fns]
     print(f"phase 12 main-CLI options on {_card()} ("
           f"{time.perf_counter() - t_phase:.2f} s, data {data_s:.2f} s): "
           + "; ".join(rows) + f"; launches over the phase K1-K4 {launches}",
@@ -3071,7 +3074,7 @@ def phase_other_workloads():
     import torch
     fns = _kernel_launches()
     for fn in fns:
-        fn.launches = 0
+        fn.zero()
     t_phase = time.perf_counter()
     trainer, val = phase_tensorf()
     phase_semantic(trainer, val)
@@ -3080,7 +3083,7 @@ def phase_other_workloads():
     phase_ccnerf()
     torch.cuda.empty_cache()
     phase_sdf()
-    launches = [fn.launches for fn in fns]
+    launches = [fn.calls for fn in fns]
     print(f"phase 13 other workloads: {time.perf_counter() - t_phase:.2f} s; "
           f"launches K1-K4 {launches} (plain PyTorch, as the reference's "
           f"XLA)", flush=True)
@@ -3229,11 +3232,11 @@ def phase_gui(static_ws, dyn_ws):
 
     def zero():
         for k in kernels:
-            k.launches = 0
+            k.zero()
 
     def count():
         """Adds the session's launches to the phase's and returns them."""
-        session = [k.launches for k in kernels]
+        session = [k.calls for k in kernels]
         for i, n in enumerate(session):
             launches[i] += n
         return session
@@ -3599,13 +3602,13 @@ def _mesh_run(mesh, dev, scene, dynamic, ws):
                              f"{tr.ndev} ranks, {tr.n_local_rays} rays")
     kernels = _kernel_launches()
     for k in kernels:
-        k.launches = 0
+        k.zero()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tr.train(train, None, 2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = [k.launches for k in kernels]
+    launches = [k.calls for k in kernels]
     out = {"wall": wall, "steps": tr.global_step,
            "ms_step": tr.history["epoch_s"][1] * 1e3
            / (tr.global_step - seg),
@@ -3628,9 +3631,9 @@ def _mesh_run(mesh, dev, scene, dynamic, ws):
         return out, (time.perf_counter() - t0) * 1e3
 
     for buckets in (False, True):
-        before = [k.launches for k in kernels]
+        before = [k.calls for k in kernels]
         band, ms_band = frame(buckets)
-        launches = [a + k.launches - b
+        launches = [a + k.calls - b
                     for a, k, b in zip(launches, kernels, before)]
         with _one_rank(tr):
             whole, ms_whole = frame(buckets)
@@ -3699,7 +3702,7 @@ def _mesh_edit(mesh, dev, scene, dynamic, ws):
     try:
         with _fewer_views(mod, MESH_EDIT_VIEWS, MESH_EDIT_VAL):
             for k in kernels:
-                k.launches = 0
+                k.zero()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             st = mod.main(argv)
@@ -3708,7 +3711,7 @@ def _mesh_edit(mesh, dev, scene, dynamic, ws):
     finally:
         FastStudentTrainer.pretrain_one_epoch = pre
         mod.build_edit_trainers, mod.load_datasets = build, load
-    launches = [k.launches for k in kernels]
+    launches = [k.calls for k in kernels]
     proxied = [torch.as_tensor(st.proxied[k].images, device=dev)
                for k in ("train", "valid")]
     out = {"wall": wall, "launches": launches,
@@ -3781,14 +3784,14 @@ def _mesh_gui(mesh, dev, scene, ws):
             hdpg.emit_drag(0, 40.0, 10.0)
     kernels = _kernel_launches()
     for k in kernels:
-        k.launches = 0
+        k.zero()
     t0 = time.perf_counter()
     run_view(lambda c: SealDGUI(opt, teacher, student, controller=c,
                                 headless=True), ctl,
              lambda view: _drive_view(view, MESH_GUI_FRAMES, script))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = [k.launches for k in kernels]
+    launches = [k.calls for k in kernels]
     pose, intr = last["args"][:2]
     ds = min(GUI_DOWNSCALES, key=lambda b: abs(b - last["kw"]["downscale"]))
     tile = teacher._pick_tile(opt.H // ds, opt.W // ds, pose,
@@ -4065,7 +4068,7 @@ def phase_profile():
     try:
         with _fewer_views(main_nerf, PROFILE_STEPS, 1):
             for k in kernels:
-                k.launches = 0
+                k.zero()
             t0 = time.perf_counter()
             tr = main_nerf.main(["synthetic", "-O", "--bound", "1",
                                  "--dt_gamma", "0", "--synthetic_res", "800",
@@ -4075,7 +4078,7 @@ def phase_profile():
             wall = time.perf_counter() - t0
     finally:
         main_nerf.build_trainer, main_nerf.MESH_RESOLUTION = build, mesh_res
-    launches = [k.launches for k in kernels]
+    launches = [k.calls for k in kernels]
     path = os.path.join(ws, "trace", "rank0.pt.trace.json")
     with open(path) as f:
         trace = json.load(f)

@@ -120,7 +120,7 @@ def check(out_dir, dynamic=False):
     import torch
     from sealdnerf_tpu_torch import main_dnerf
     from sealdnerf_tpu_torch.cli import base_parser, build_trainer, postprocess
-    from sealdnerf_tpu_torch.ops.field import dyn_field_forward, field_forward
+    from sealdnerf_tpu_torch.utils import profiling
 
     if not torch.cuda.is_available():
         raise SystemExit("check needs a CUDA device")
@@ -136,8 +136,11 @@ def check(out_dir, dynamic=False):
     trainer, field = build_trainer(opt, name="t", dynamic=dynamic, **NARROW)
     if field.cfg.scales != SCALES or field.cfg.planes != PLANES:
         raise AssertionError(f"loaded {field.cfg.scales} {field.cfg.planes}")
-    kernel = dyn_field_forward if dynamic else field_forward
-    before = kernel.launches
+    calls = "k3.calls" if dynamic else "k1.calls"
+
+    def launched():
+        return profiling.tally(traced=False)["counters"].get(calls, 0)
+    before = launched()
     h, w = ref["frames"].shape[1:3]
     worst, lines = 0.0, []
     for i, (img_j, gt) in enumerate(zip(ref["frames"], ref["gt"])):
@@ -151,7 +154,7 @@ def check(out_dir, dynamic=False):
         if diff > 2e-2 or abs(p_t - p_j) > 0.1:
             raise AssertionError(lines[-1])
     shutil.rmtree(ws)
-    launches = kernel.launches - before
+    launches = launched() - before
     print("\n".join(lines))
     print(f"{len(lines)} views at {h}x{w} after {int(ref['steps'])} JAX "
           f"steps: worst max|diff| {worst:.3g}, {launches} kernel launches")

@@ -18,8 +18,11 @@ ranks' controllers from it (gui/follow.py). main_sdf refuses more than one
 rank (`refuse_ranks`): the reference's builds no mesh.
 
 --profile wraps the train and test calls in a torch.profiler trace that
-each rank writes to <workspace>/trace/rank{r}.pt.trace.json (`profiled`,
-utils/profiling.py).
+each rank writes to <workspace>/trace/rank{r}.pt.trace.json, with the
+program's "sdn." spans of frames, steps, compositing and field calls in
+it, and beside it the session's tally of those spans and of the counters
+(kernel calls and samples, host syncs, fetched bytes),
+rank{r}.counters.json (`profiled`, utils/profiling.py).
 """
 
 import argparse
@@ -104,7 +107,9 @@ def base_parser(default_bound=2.0, default_lr=1e-2, default_iters=30000,
                         help="grid-table total-variation regularizer")
     # observability
     parser.add_argument("--profile", action="store_true",
-                        help="write a profiler trace to workspace/trace")
+                        help="write a profiler trace with the program's "
+                        "spans, and their and the counters' tally, to "
+                        "workspace/trace")
     parser.add_argument("--debug_nan", action="store_true",
                         help="torch.autograd anomaly detection")
     # path == "synthetic" builds the procedural scene
@@ -184,8 +189,9 @@ def refuse_ranks(what: str):
 
 def profiled(opt, device, rank: int = 0):
     """The context that a CLI's train and test calls run in: with
-    --profile, a torch.profiler trace of rank `rank` on `device` written to
-    <workspace>/trace on exit (utils/profiling.py); else nothing."""
+    --profile, a torch.profiler trace of rank `rank` on `device` and its
+    tally of spans and counters written to <workspace>/trace on exit
+    (utils/profiling.py); else nothing."""
     if not getattr(opt, "profile", False):
         return contextlib.nullcontext()
     from .utils.profiling import profile_trace

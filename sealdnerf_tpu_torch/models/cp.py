@@ -36,6 +36,7 @@ from ..ops.activation import trunc_exp
 from ..ops.freq_encode import freq_encode, freq_output_dim
 from ..ops.hat import bf16_round, hat_taps, line_interp
 from ..ops.sh_encode import sh_encode, sh_output_dim
+from ..utils import profiling
 from .mlp import apply_mlp, init_mlp
 from .params import (map_params, param_leaves, params_from_jax,  # noqa: F401
                      params_to_numpy, unflatten_like)
@@ -335,6 +336,8 @@ def init_cp_dnerf(generator: torch.Generator, cfg: CPDNeRFConfig,
 def _as_time(t, like):
     """Scalar time (float or 0-d/1-element tensor) as a 0-d f32 tensor on
     `like`'s device, without a host round trip for a tensor."""
+    if not (isinstance(t, torch.Tensor) and t.device == like.device):
+        profiling.host_sync(like)       # the copy from pageable memory
     return torch.as_tensor(t, dtype=torch.float32,
                            device=like.device).reshape(())
 

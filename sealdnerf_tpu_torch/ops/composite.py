@@ -20,6 +20,8 @@ layouts:
 
 import torch
 
+from ..utils import profiling
+
 # a sample's share of the running optical-depth sum: exp(-OD_CAP) is 0 in f32
 OD_CAP = 1.0e3
 
@@ -38,23 +40,27 @@ def composite_rays(sigmas, rgbs, deltas, ts=None, t_thresh: float = 0.0):
 
     Returns:
       dict(weights [N,T], weights_sum [N], depth [N], image [N,3])
+
+    While a profiler session records, the forward is the span
+    sdn.composite (utils/profiling.py).
     """
-    alphas = 1.0 - torch.exp(-(sigmas * deltas))
-    trans = torch.cumprod(1.0 - alphas + 1e-15, dim=-1)
-    trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]],
-                      dim=-1)
-    weights = alphas * trans
-    if t_thresh > 0.0:
-        weights = weights * (trans >= t_thresh)
-    if ts is None:
-        ts = torch.cumsum(deltas, dim=-1)
-    return {
-        "weights": weights,
-        "weights_sum": weights.sum(dim=-1),
-        "depth": (weights * ts).sum(dim=-1),
-        "image": torch.stack([(weights * rgbs[..., c]).sum(dim=-1)
-                              for c in range(rgbs.shape[-1])], dim=-1),
-    }
+    with profiling.span("composite"):
+        alphas = 1.0 - torch.exp(-(sigmas * deltas))
+        trans = torch.cumprod(1.0 - alphas + 1e-15, dim=-1)
+        trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]],
+                          dim=-1)
+        weights = alphas * trans
+        if t_thresh > 0.0:
+            weights = weights * (trans >= t_thresh)
+        if ts is None:
+            ts = torch.cumsum(deltas, dim=-1)
+        return {
+            "weights": weights,
+            "weights_sum": weights.sum(dim=-1),
+            "depth": (weights * ts).sum(dim=-1),
+            "image": torch.stack([(weights * rgbs[..., c]).sum(dim=-1)
+                                  for c in range(rgbs.shape[-1])], dim=-1),
+        }
 
 
 def composite_packed(sigmas, rgbs, dts, ts, ray_id, valid, n_rays: int,

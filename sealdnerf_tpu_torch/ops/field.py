@@ -29,9 +29,12 @@ Packing costs a pass over ~1.5 MB of parameters, so callers that evaluate
 the field repeatedly pack once per parameter version (CPField.kernel_tables).
 
 Device dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes
-to the kernel, and a failed build or launch raises. `field_forward.launches`,
-`field_backward.launches`, `dyn_field_forward.launches` and
-`dyn_field_backward.launches` count kernel launches.
+to the kernel, and a failed build or launch raises. Each call opens the span
+"sdn.k1" (field_forward), "sdn.k2" (field_backward), "sdn.k3"
+(dyn_field_forward) or "sdn.k4" (dyn_field_backward) while a profiler
+session records, and adds its samples to the counter "k<n>.samples"; a call
+that reached the kernel adds one to "k<n>.calls" (utils/profiling.py: read
+them with `profiling.tally(traced=False)["counters"]`).
 
 The plain versions reproduce the kernels' rounding points: table taps and
 hat weights in bf16, line/plane features rounded to bf16, frequency
@@ -58,6 +61,7 @@ import torch
 
 from ..models.cp import (VM_PAIRS, CPConfig, CPDNeRFConfig, cp_color,
                          cp_density, cp_features, param_leaves)
+from ..utils import profiling
 from .freq_encode import freq_encode
 from .hat import bf16_round, hat_slopes, hat_taps
 from .sh_encode import sh_encode
@@ -610,7 +614,7 @@ def _launch(tables: FieldTables, cfg: CPConfig, x3, d3, lod_skip,
         None if feats is None else feats.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"field kernel launch failed: CUDA error {rc}")
-    field_forward.launches += 1
+    profiling.count("k1.calls")
     return out
 
 
@@ -664,19 +668,18 @@ def field_forward(params, cfg: CPConfig, x3, d3, lod_skip=(),
     tables = params if isinstance(params, FieldTables) \
         else pack_tables(params, cfg)
     _check_samples(x3, d3, density_only)
-    if x3.device.type == "cpu":
-        if parts is not None:
-            raise ValueError("parts holds the kernel's features: on the CPU "
-                             "call tile_features_plain instead")
-        return field_forward_plain(tables, cfg, x3, d3, lod_skip,
-                                   density_only)
-    if x3.device.type != "cuda":
-        raise ValueError(f"unsupported device {x3.device}")
-    return _launch(tables, cfg, x3, d3, lod_skip, density_only,
-                   _feature_buffer(cfg, x3, parts))
-
-
-field_forward.launches = 0
+    with profiling.span("k1"):
+        profiling.count("k1.samples", x3.shape[1])
+        if x3.device.type == "cpu":
+            if parts is not None:
+                raise ValueError("parts holds the kernel's features: on the "
+                                 "CPU call tile_features_plain instead")
+            return field_forward_plain(tables, cfg, x3, d3, lod_skip,
+                                       density_only)
+        if x3.device.type != "cuda":
+            raise ValueError(f"unsupported device {x3.device}")
+        return _launch(tables, cfg, x3, d3, lod_skip, density_only,
+                       _feature_buffer(cfg, x3, parts))
 
 
 # ------------------------------------------------------------------ dynamic
@@ -691,6 +694,8 @@ def _time_cond(tables: FieldTables, cfg: CPDNeRFConfig, t, device):
 def _time_cond_vec(tables: FieldTables, cfg: CPDNeRFConfig, t, device):
     """_time_cond plus freq(t) itself [time inputs], which the backward's
     time rows need."""
+    if not (isinstance(t, torch.Tensor) and t.device == device):
+        profiling.host_sync(device)     # the copy from pageable memory
     t = torch.as_tensor(t, dtype=torch.float32, device=device).reshape(1, 1)
     tvec = freq_encode(t, degree=cfg.multires_time)[0]
     return tvec @ tables.w0_time, (t != 0.0).float().reshape(1), tvec
@@ -800,7 +805,7 @@ def _launch_dyn(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t, lod_skip,
             xw_all[:, i0:i0 + n].copy_(xw[:3 * n].view(3, n))
     if parts is not None:
         parts["xw"] = xw_all
-    dyn_field_forward.launches += 1
+    profiling.count("k3.calls")
     return out
 
 
@@ -831,19 +836,18 @@ def dyn_field_forward(params, cfg: CPDNeRFConfig, x3, d3, t, lod_skip=(),
     if tables.w0_time is None:
         raise ValueError("the tables hold no deform tower")
     _check_samples(x3, d3, density_only)
-    if x3.device.type == "cpu":
-        if parts is not None:
-            raise ValueError("parts holds the kernel's features: on the CPU "
-                             "call tile_features_plain instead")
-        return dyn_field_forward_plain(tables, cfg, x3, d3, t, lod_skip,
-                                       density_only)
-    if x3.device.type != "cuda":
-        raise ValueError(f"unsupported device {x3.device}")
-    return _launch_dyn(tables, cfg, x3, d3, t, lod_skip, density_only,
-                       _feature_buffer(cfg, x3, parts), chunk, parts)
-
-
-dyn_field_forward.launches = 0
+    with profiling.span("k3"):
+        profiling.count("k3.samples", x3.shape[1])
+        if x3.device.type == "cpu":
+            if parts is not None:
+                raise ValueError("parts holds the kernel's features: on the "
+                                 "CPU call tile_features_plain instead")
+            return dyn_field_forward_plain(tables, cfg, x3, d3, t, lod_skip,
+                                           density_only)
+        if x3.device.type != "cuda":
+            raise ValueError(f"unsupported device {x3.device}")
+        return _launch_dyn(tables, cfg, x3, d3, t, lod_skip, density_only,
+                           _feature_buffer(cfg, x3, parts), chunk, parts)
 
 
 # ------------------------------------------------------------------ backward
@@ -1184,7 +1188,7 @@ def _launch_bwd(tables: FieldTables, cfg: CPConfig, x3, d3, g_out,
         if rc != 0:
             raise RuntimeError(
                 f"field backward kernel launch failed: CUDA error {rc}")
-        field_backward.launches += 1
+        profiling.count("k2.calls")
         if parts is not None:
             # reading the list's length waits for the kernel
             parts.update(live=idx[:int(count)].long(), out=rec_out)
@@ -1212,17 +1216,16 @@ def field_backward(tables, cfg: CPConfig, x3, d3, g_out, parts=None):
     tables = tables if isinstance(tables, FieldTables) \
         else pack_tables(tables, cfg)
     _check_backward_inputs(x3, d3, g_out)
-    if x3.device.type == "cpu":
-        if parts is not None:
-            raise ValueError("parts holds what the kernel recomputed: there "
-                             "is none on the CPU")
-        return field_backward_plain(tables, cfg, x3, d3, g_out)
-    if x3.device.type != "cuda":
-        raise ValueError(f"unsupported device {x3.device}")
-    return _launch_bwd(tables, cfg, x3, d3, g_out, parts)
-
-
-field_backward.launches = 0
+    with profiling.span("k2"):
+        profiling.count("k2.samples", x3.shape[1])
+        if x3.device.type == "cpu":
+            if parts is not None:
+                raise ValueError("parts holds what the kernel recomputed: "
+                                 "there is none on the CPU")
+            return field_backward_plain(tables, cfg, x3, d3, g_out)
+        if x3.device.type != "cuda":
+            raise ValueError(f"unsupported device {x3.device}")
+        return _launch_bwd(tables, cfg, x3, d3, g_out, parts)
 
 
 class FieldTrainFn(torch.autograd.Function):
@@ -1418,7 +1421,7 @@ def _launch_dyn_bwd(tables: FieldTables, cfg: CPDNeRFConfig, x3, d3, t,
             raise RuntimeError(
                 f"dynamic field backward kernel launch failed: CUDA error "
                 f"{rc}")
-        dyn_field_backward.launches += 1
+        profiling.count("k4.calls")
         if parts is not None:
             # the compact list back in sample order; reading its length
             # waits for the kernel
@@ -1472,17 +1475,17 @@ def dyn_field_backward(tables, cfg: CPDNeRFConfig, x3, d3, t, g_out,
     if tables.w0_time is None:
         raise ValueError("the tables hold no deform tower")
     _check_backward_inputs(x3, d3, g_out)
-    if x3.device.type == "cpu":
-        if parts is not None:
-            raise ValueError("parts holds the kernel's stages: on the CPU "
-                             "call the plain version's stages instead")
-        return dyn_field_backward_plain(tables, cfg, x3, d3, t, g_out)
-    if x3.device.type != "cuda":
-        raise ValueError(f"unsupported device {x3.device}")
-    return _launch_dyn_bwd(tables, cfg, x3, d3, t, g_out, parts)
-
-
-dyn_field_backward.launches = 0
+    with profiling.span("k4"):
+        profiling.count("k4.samples", x3.shape[1])
+        if x3.device.type == "cpu":
+            if parts is not None:
+                raise ValueError("parts holds the kernel's stages: on the "
+                                 "CPU call the plain version's stages "
+                                 "instead")
+            return dyn_field_backward_plain(tables, cfg, x3, d3, t, g_out)
+        if x3.device.type != "cuda":
+            raise ValueError(f"unsupported device {x3.device}")
+        return _launch_dyn_bwd(tables, cfg, x3, d3, t, g_out, parts)
 
 
 class DynFieldTrainFn(torch.autograd.Function):

@@ -25,6 +25,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
+
 SQRT3 = 1.7320508075688772
 
 
@@ -135,6 +137,8 @@ def march_intervals(rays_o, rays_d, nears, fars, occ_m,
     t_entry[rows, cols] = (t_mid - 0.5 * vox)[keep]
     iv_valid = torch.zeros((n, sc), dtype=torch.bool, device=dev)
     iv_valid[rows, cols] = True
+    # the host waits for the three mask indexes and the copy of True
+    profiling.host_sync(dev, 4)
     return t_entry, iv_valid
 
 
@@ -293,6 +297,8 @@ def march_intervals_cascade(rays_o, rays_d, nears, fars, occ_cas,
     iv_dt[rows, cols] = dt_c[keep]
     iv_valid = torch.zeros((n, sc), dtype=torch.bool, device=dev)
     iv_valid[rows, cols] = True
+    # the host waits for the four mask indexes and the copy of True
+    profiling.host_sync(dev, 5)
     return t_entry, iv_dt, iv_valid
 
 

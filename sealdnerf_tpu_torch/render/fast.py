@@ -8,6 +8,7 @@ import torch
 from ..ops.composite import composite_rays
 from ..ops.marching_dense import DenseMarchConfig, march_dense
 from ..ops.ray import near_far_from_aabb
+from ..utils import profiling
 
 
 def render_dense(params, occ_m, rays_o, rays_d, cfg: DenseMarchConfig,
@@ -34,6 +35,7 @@ def render_dense(params, occ_m, rays_o, rays_d, cfg: DenseMarchConfig,
     b = cfg.bound
     aabb = torch.tensor([-b] * 3 + [b] * 3, dtype=torch.float32,
                         device=rays_o.device)
+    profiling.host_sync(rays_o)         # the copy from pageable host memory
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
     mr = march_dense(rays_o, rays_d, nears, fars, occ_m, cfg, noise=noise)
     ts, dts, valid = mr["ts"], mr["dts"], mr["valid"]

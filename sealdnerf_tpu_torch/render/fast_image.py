@@ -33,6 +33,11 @@ from the whole frame on an H100 (chip_smoke.py phase 16, PERF.md).
 
 The renderers take the planar forward only: (params, x3 [3, M], d3 [3, M],
 *extra) -> out [>= 4, M] with rows (sigma, r, g, b).
+
+While a profiler session records, the phases of a frame are the spans
+sdn.frame.march, sdn.frame.trim, sdn.frame.order, sdn.frame.bucket (one a
+bucket rendered) and sdn.frame.stitch (utils/profiling.py), and each wait
+of the host for the card is counted in "host_syncs" where it is made.
 """
 
 from typing import Callable
@@ -47,6 +52,7 @@ from ..ops.marching_dense import (DenseMarchConfig, dilate_occ,
                                   subsample_intervals)
 from ..ops.ray import near_far_from_aabb
 from ..parallel.mesh import all_gather_rows
+from ..utils import profiling
 
 # the reference's default bucket ladder: (share of the tiles, divisor of the
 # interval budget), emptiest tiles first; the last split takes the rest
@@ -82,6 +88,7 @@ def _tile_rays(pose, intr, th: int, tw: int, tile_px: int,
     b = cfg.bound
     aabb = torch.tensor([-b] * 3 + [b] * 3, dtype=torch.float32,
                         device=pose.device)
+    profiling.host_sync(pose)           # the copy from pageable host memory
     tr = get_rays(pose[None], intr / tile_px, th, tw, -1)
     to, td = tr["rays_o"][0], tr["rays_d"][0]
     tnear, tfar = near_far_from_aabb(to, td, aabb, cfg.min_near)
@@ -139,26 +146,29 @@ def render_image_tiled(params, occ_m, pose, intr, rh: int, rw: int,
         raise ValueError(f"{rh}x{rw} is not a multiple of tile {tile_px}")
     th, tw = rh // tile_px, rw // tile_px
     dev = pose.device
-    to, td, tnear, tfar = _tile_rays(pose, intr, th, tw, tile_px, cfg)
-    t_entry, iv_dt, iv_valid, tfar = _march_tiles(to, td, tnear, tfar, occ_m,
-                                                  cfg, dilate)
+    with profiling.span("frame.march"):
+        to, td, tnear, tfar = _tile_rays(pose, intr, th, tw, tile_px, cfg)
+        t_entry, iv_dt, iv_valid, tfar = _march_tiles(
+            to, td, tnear, tfar, occ_m, cfg, dilate)
 
     # broadcast the tile intervals to pixels
     def to_pixels(a):
         return a.reshape(th, 1, tw, 1, -1).expand(
             th, tile_px, tw, tile_px, a.shape[-1]).reshape(rh * rw, -1)
 
-    pe, pv = to_pixels(t_entry), to_pixels(iv_valid)
-    pdt = to_pixels(iv_dt) if iv_dt is not None else None
-    pfar = to_pixels(tfar[:, None])[:, 0]
+    # the whole frame is one bucket
+    with profiling.span("frame.bucket"):
+        pe, pv = to_pixels(t_entry), to_pixels(iv_valid)
+        pdt = to_pixels(iv_dt) if iv_dt is not None else None
+        pfar = to_pixels(tfar[:, None])[:, 0]
 
-    # per-pixel rays and fine samples
-    pr = get_rays(pose[None], intr, rh, rw, -1)
-    mr = expand_intervals(pe, pv, pfar, cfg, iv_dt=pdt)
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
-    image, depth = _shade(params, pr["rays_o"][0], pr["rays_d"][0], mr["ts"],
-                          mr["dts"], mr["valid"], cfg.bound, forward_fn, bg,
-                          density_scale, t_thresh, extra)
+        # per-pixel rays and fine samples
+        pr = get_rays(pose[None], intr, rh, rw, -1)
+        mr = expand_intervals(pe, pv, pfar, cfg, iv_dt=pdt)
+        bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+        image, depth = _shade(params, pr["rays_o"][0], pr["rays_d"][0],
+                              mr["ts"], mr["dts"], mr["valid"], cfg.bound,
+                              forward_fn, bg, density_scale, t_thresh, extra)
     return image.reshape(rh, rw, 3), depth.reshape(rh, rw)
 
 
@@ -173,6 +183,7 @@ def _corner_dirs(pose, intr_t, th: int, tw: int, tile_px: int):
         for sy in (-d, d):
             shift = torch.tensor([0.0, 0.0, sx, sy], dtype=torch.float32,
                                  device=intr_t.device)
+            profiling.host_sync(intr_t)     # the copy from pageable memory
             dirs.append(get_rays(pose[None], intr_t + shift, th, tw,
                                  -1)["rays_d"][0])
     return torch.stack(dirs)
@@ -283,8 +294,33 @@ def _bucket_order(counts, sc: int, splits, mesh=None):
     edges = torch.tensor([b[0] for b in whole] + [every.numel()],
                          device=counts.device)
     cut = torch.searchsorted(mine[order], edges).tolist()
+    profiling.host_sync(counts, 2)      # edges' copy, then the cuts' fetch
     return order, [(cut[i], cut[i + 1], b)
                    for i, (_, _, b) in enumerate(whole)]
+
+
+def _render_bucket(params, o, te, iv, far, dt, rd_tiles, sc_b: int,
+                   tp2: int, cfg: DenseMarchConfig, forward_fn, bg,
+                   density_scale: float, t_thresh: float, extra):
+    """One bucket of nb ordered tiles with their intervals (te, iv, dt
+    [nb, Sc], far [nb]) and pixel directions (rd_tiles [3, nb, tp2]) at an
+    interval budget of sc_b -> (image [nb * tp2, 3], depth [nb * tp2])."""
+    nb = te.shape[0]
+    if sc_b < cfg.n_intervals:
+        te, iv, dt = subsample_intervals(te, iv, sc_b, iv_dt=dt,
+                                         voxel=cfg.voxel)
+    npix = nb * tp2
+
+    def to_pixels(a):
+        return a[:, None, :].expand(nb, tp2, a.shape[-1]).reshape(
+            npix, a.shape[-1])
+
+    mr = expand_intervals(to_pixels(te), to_pixels(iv),
+                          far[:, None].expand(nb, tp2).reshape(npix), cfg,
+                          iv_dt=None if dt is None else to_pixels(dt))
+    return _shade(params, o, rd_tiles.reshape(3, npix).t(), mr["ts"],
+                  mr["dts"], mr["valid"], cfg.bound, forward_fn, bg,
+                  density_scale, t_thresh, extra)
 
 
 def render_image_bucketed(params, occ_m, pose, intr, rh: int, rw: int,
@@ -314,29 +350,33 @@ def render_image_bucketed(params, occ_m, pose, intr, rh: int, rw: int,
     sc = cfg.n_intervals
     f = cfg.steps_per_interval
     dev = pose.device
-    to, td, tnear, tfar = _tile_rays(pose, intr, th, tw, tile_px, cfg)
-    t_entry, iv_dt, iv_valid, tfar = _march_tiles(to, td, tnear, tfar, occ_m,
-                                                  cfg, dilate)
+    with profiling.span("frame.march"):
+        to, td, tnear, tfar = _tile_rays(pose, intr, th, tw, tile_px, cfg)
+        t_entry, iv_dt, iv_valid, tfar = _march_tiles(
+            to, td, tnear, tfar, occ_m, cfg, dilate)
     o = pose[:3, 3]                                          # pinhole
     if term_probe > 0:
         # trim before counting, so that the sort sees the trimmed workload
-        iv_valid = _termination_trim(
-            params, pose, intr / tile_px, th, tw, tile_px, t_entry,
-            iv_valid, iv_dt, cfg, forward_fn, density_scale, term_tau,
-            term_probe, extra, stride=term_stride)
-    counts = iv_valid.to(torch.int32).sum(dim=-1)            # [T]
-    order, bounds = _bucket_order(counts, sc, splits, mesh)  # ascending
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(n_tiles, device=dev)
-    # one fetch a frame: which buckets hold any interval at all
-    counts_sorted = counts[order].cpu()
+        with profiling.span("frame.trim"):
+            iv_valid = _termination_trim(
+                params, pose, intr / tile_px, th, tw, tile_px, t_entry,
+                iv_valid, iv_dt, cfg, forward_fn, density_scale, term_tau,
+                term_probe, extra, stride=term_stride)
+    with profiling.span("frame.order"):
+        counts = iv_valid.to(torch.int32).sum(dim=-1)        # [T]
+        order, bounds = _bucket_order(counts, sc, splits, mesh)
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(n_tiles, device=dev)
+        # one fetch a frame: which buckets hold any interval at all
+        counts_sorted = profiling.fetch(counts[order])
 
-    rd = get_rays(pose[None], intr, rh, rw, -1)["rays_d"][0]
-    rd_tiles = torch.stack([_tile_major(rd[:, a].reshape(rh, rw), th, tw,
-                                        tile_px)[order] for a in range(3)])
-    te_s, iv_s, far_s = t_entry[order], iv_valid[order], tfar[order]
-    dt_s = iv_dt[order] if iv_dt is not None else None
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+        rd = get_rays(pose[None], intr, rh, rw, -1)["rays_d"][0]
+        rd_tiles = torch.stack([_tile_major(rd[:, a].reshape(rh, rw), th,
+                                            tw, tile_px)[order]
+                                for a in range(3)])
+        te_s, iv_s, far_s = t_entry[order], iv_valid[order], tfar[order]
+        dt_s = iv_dt[order] if iv_dt is not None else None
+        bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
 
     img_parts, dep_parts = [], []
     for s0, s1, sc_b in bounds:
@@ -349,35 +389,22 @@ def render_image_bucketed(params, occ_m, pose, intr, rh: int, rw: int,
             img_parts.append(bg.clamp(0.0, 1.0).expand(nb * tp2, 3))
             dep_parts.append(torch.zeros(nb * tp2, device=dev))
             continue
-        dt_b = None if dt_s is None else dt_s[s0:s1]
-        if sc_b < sc:
-            te_b, iv_b, dt_b = subsample_intervals(
-                te_s[s0:s1], iv_s[s0:s1], sc_b, iv_dt=dt_b, voxel=cfg.voxel)
-        else:
-            te_b, iv_b = te_s[s0:s1], iv_s[s0:s1]
-        npix = nb * tp2
-
-        def to_pixels(a):
-            return a[:, None, :].expand(nb, tp2, a.shape[-1]).reshape(
-                npix, a.shape[-1])
-
-        mr = expand_intervals(
-            to_pixels(te_b), to_pixels(iv_b),
-            far_s[s0:s1][:, None].expand(nb, tp2).reshape(npix), cfg,
-            iv_dt=None if dt_b is None else to_pixels(dt_b))
-        rd_b = rd_tiles[:, s0:s1].reshape(3, npix).t()
-        image, depth = _shade(params, o, rd_b, mr["ts"], mr["dts"],
-                              mr["valid"], cfg.bound, forward_fn, bg,
-                              density_scale, t_thresh, extra)
+        with profiling.span("frame.bucket"):
+            image, depth = _render_bucket(
+                params, o, te_s[s0:s1], iv_s[s0:s1], far_s[s0:s1],
+                None if dt_s is None else dt_s[s0:s1],
+                rd_tiles[:, s0:s1], sc_b, tp2, cfg, forward_fn, bg,
+                density_scale, t_thresh, extra)
         img_parts.append(image)
         dep_parts.append(depth)
-        del mr
     # stitch: sorted order -> inverse permutation -> untile
-    image = torch.cat(img_parts).reshape(n_tiles, tp2, 3)[inv]
-    depth = torch.cat(dep_parts).reshape(n_tiles, tp2)[inv]
-    image = torch.stack([_untile(image[..., c], th, tw, tile_px)
-                         for c in range(3)], dim=-1)
-    return image, _untile(depth, th, tw, tile_px)
+    with profiling.span("frame.stitch"):
+        image = torch.cat(img_parts).reshape(n_tiles, tp2, 3)[inv]
+        depth = torch.cat(dep_parts).reshape(n_tiles, tp2)[inv]
+        image = torch.stack([_untile(image[..., c], th, tw, tile_px)
+                             for c in range(3)], dim=-1)
+        depth = _untile(depth, th, tw, tile_px)
+    return image, depth
 
 
 def make_sharded_image_renderer(mesh, rh: int, rw: int, cfg: DenseMarchConfig,

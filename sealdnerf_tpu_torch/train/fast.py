@@ -99,6 +99,7 @@ from ..render.dynamic_grid import (rebuild_dyn_density_grid,
 from ..render.fast_image import (make_sharded_image_renderer,
                                  render_image_bucketed, render_image_tiled)
 from ..render.grid import refresh_indices, update_density_grid
+from ..utils import profiling
 from .trainer import GUI_DOWNSCALES, Trainer, cascades_for
 
 N_ZERO_REG = 1024      # points of the deform regulariser per step
@@ -336,7 +337,8 @@ class FastTrainer(Trainer):
         mean is read from the device once per grid version (replacing
         grid_state forgets it), so that training steps never wait for it."""
         if self._occ_frac is None:
-            self._occ_frac = float(self.grid_state["occ"].float().mean())
+            self._occ_frac = float(profiling.fetch(
+                self.grid_state["occ"].float().mean()))
         return self._occ_frac < BUCKET_OCC
 
     def _dyn_host_counts(self):
@@ -344,8 +346,10 @@ class FastTrainer(Trainer):
         iter_density and bin_cursor, read from the device once and then kept
         in step, so that a training step does not wait for the device."""
         if self._dyn_calls is None:
-            self._dyn_calls = int(self.grid_state["iter_density"])
-            self._dyn_cursor = int(self.grid_state["bin_cursor"])
+            self._dyn_calls = int(profiling.fetch(
+                self.grid_state["iter_density"]))
+            self._dyn_cursor = int(profiling.fetch(
+                self.grid_state["bin_cursor"]))
         return self._dyn_calls, self._dyn_cursor
 
     def _segment_update_interval(self) -> int:
@@ -396,46 +400,52 @@ class FastTrainer(Trainer):
         Dynamic: the next bins_per_call time bins
         (render.dynamic_grid.refresh_dyn_density_grid) on `params` (None: the
         current params annealed at the current step)."""
-        if self.time_conditioned:
-            if params is None:
-                params = self._anneal_params(self.params, self.global_step)
-            calls, cursor = self._dyn_host_counts()
-            dcfg = self.dyn_grid_cfg
-            self.grid_state, self._dyn_bin_sums = refresh_dyn_density_grid(
-                self.grid_state, self._density_fn(params), dcfg,
-                self._warmup_calls(), generator=self.rank_generator,
-                bin_sums=self._dyn_bin_sums, calls=calls, cursor=cursor,
-                time_generator=self.generator, mesh=self.mesh)
-            self._dyn_calls = calls + 1
-            self._dyn_cursor = (cursor + min(dcfg.bins_per_call,
-                                             dcfg.time_size)) % dcfg.time_size
+        with profiling.span("grid.refresh"):
+            if self.time_conditioned:
+                if params is None:
+                    params = self._anneal_params(self.params,
+                                                 self.global_step)
+                calls, cursor = self._dyn_host_counts()
+                dcfg = self.dyn_grid_cfg
+                self.grid_state, self._dyn_bin_sums = \
+                    refresh_dyn_density_grid(
+                        self.grid_state, self._density_fn(params), dcfg,
+                        self._warmup_calls(), generator=self.rank_generator,
+                        bin_sums=self._dyn_bin_sums, calls=calls,
+                        cursor=cursor, time_generator=self.generator,
+                        mesh=self.mesh)
+                self._dyn_calls = calls + 1
+                self._dyn_cursor = (cursor + min(
+                    dcfg.bins_per_call, dcfg.time_size)) % dcfg.time_size
+                self._occ_m = self._march_occ()
+                return
+            calls = int(profiling.fetch(self.grid_state["iter_density"]))
+            idx = refresh_indices(calls, self.grid_cfg, self.rank_generator,
+                                  self.device, self.mesh.rank, self.ndev)
+            self.grid_state = update_density_grid(
+                self.grid_state, self._density_fn(self.params),
+                self.grid_cfg, indices=idx, generator=self.rank_generator,
+                mesh=self.mesh)
             self._occ_m = self._march_occ()
-            return
-        idx = refresh_indices(int(self.grid_state["iter_density"]),
-                              self.grid_cfg, self.rank_generator, self.device,
-                              self.mesh.rank, self.ndev)
-        self.grid_state = update_density_grid(
-            self.grid_state, self._density_fn(self.params), self.grid_cfg,
-            indices=idx, generator=self.rank_generator, mesh=self.mesh)
-        self._occ_m = self._march_occ()
 
     @torch.no_grad()
     def rebuild_grid(self):
         """Full-sweep occupancy rebuild from the inference params; of a
         time-conditioned grid, of every time bin."""
-        if self.time_conditioned:
-            # iter_density counts training's refresh calls (see
-            # render/dynamic_grid.py): a rebuild does not move it
-            calls = self.grid_state["iter_density"].clone()
-            self.grid_state = rebuild_dyn_density_grid(
+        with profiling.span("grid.rebuild"):
+            if self.time_conditioned:
+                # iter_density counts training's refresh calls (see
+                # render/dynamic_grid.py): a rebuild does not move it
+                calls = self.grid_state["iter_density"].clone()
+                self.grid_state = rebuild_dyn_density_grid(
+                    self.grid_state, self._density_fn(self._infer_params()),
+                    self.dyn_grid_cfg, generator=self.generator)
+                self.grid_state["iter_density"] = calls
+                self._forget_dyn_host_state()
+                return
+            self.grid_state = update_density_grid(
                 self.grid_state, self._density_fn(self._infer_params()),
-                self.dyn_grid_cfg, generator=self.generator)
-            self.grid_state["iter_density"] = calls
-            self._forget_dyn_host_state()
-            return
-        self.grid_state = update_density_grid(
-            self.grid_state, self._density_fn(self._infer_params()),
-            self.grid_cfg, full=True, generator=self.generator)
+                self.grid_cfg, full=True, generator=self.generator)
 
     # --------------------------------------------------------- training
     def _train_forward(self, params, x, d, *t, plain=False):
@@ -506,23 +516,31 @@ class FastTrainer(Trainer):
 
     def train_step(self, data, h: int, w: int):
         """One training step -> (loss, n_samples) as device tensors."""
-        params = None
-        if self.time_conditioned:
-            params = self._anneal_params(self.params, self.global_step)
-            if self.dyn_refresh_due(self.global_step,
-                                    self._dyn_host_counts()[0]):
-                self.refresh_grid(params)
-        elif self.global_step % self.opt.update_extra_interval == 0:
-            self.refresh_grid()
-        loss, n_samples = self.loss_on(*self.sample_batch(data, h, w),
-                                       params=params)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        loss = self.reduce_gradients(loss)
-        self.apply_gradients()
-        self._update_error_map()
-        self.global_step += 1
-        return loss.detach(), n_samples
+        with profiling.span("step"):
+            params = None
+            if self.time_conditioned:
+                params = self._anneal_params(self.params, self.global_step)
+                if self.dyn_refresh_due(self.global_step,
+                                        self._dyn_host_counts()[0]):
+                    self.refresh_grid(params)
+            elif self.global_step % self.opt.update_extra_interval == 0:
+                self.refresh_grid()
+            with profiling.span("step.sample"):
+                batch = self.sample_batch(data, h, w)
+            with profiling.span("step.forward"):
+                loss, n_samples = self.loss_on(*batch, params=params)
+            with profiling.span("step.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                # compositing's cumprod backward reads whether its input
+                # holds a zero
+                profiling.host_sync(loss)
+            with profiling.span("step.update"):
+                loss = self.reduce_gradients(loss)
+                self.apply_gradients()
+                self._update_error_map()
+            self.global_step += 1
+            return loss.detach(), n_samples
 
     @staticmethod
     def resolve_time_curriculum(steps: int, times) -> int:
@@ -612,48 +630,65 @@ class FastTrainer(Trainer):
         and the preview ladder (opt.render_splits_preview). On a mesh of N
         ranks the frame renders by row bands when rh splits into N bands of
         whole tiles, else whole on every rank; every rank returns it."""
-        rh, rw = int(h // downscale), int(w // downscale)
-        dev = self.device
-        params = params if params is not None else self._infer_params()
-        occ, extra = self.grid_state["occ"], ()
-        if self.time_conditioned:
-            t = 0.0 if time is None else float(time)
-            t_idx = time_slice_index(t, self.dyn_grid_cfg)
-            occ = self._occ_of(occ[t_idx], t_idx)
-            extra = (t,)
-        else:
-            occ = self._occ_of(occ)
-        rcfg, opt = self.render_cfg, self.opt
-        occ_m = self.cascade_occ(occ, rcfg)
-        pose_t = torch.as_tensor(np.asarray(pose, np.float32), device=dev)
-        intr = torch.as_tensor(np.asarray(intrinsics, np.float32),
-                               device=dev) / downscale
-        bg = torch.ones(3, device=dev) if bg_color is None else \
-            torch.as_tensor(np.asarray(bg_color, np.float32), device=dev)
-        tp = self._pick_tile(rh, rw, pose, np.asarray(intrinsics, np.float32)
-                             / downscale)
-        if buckets is None:
-            buckets = self._use_buckets()
-        buckets = buckets and tp > 1
-        kw = dict(tile_px=tp, dilate=opt.render_dilate,
-                  density_scale=opt.density_scale, t_thresh=opt.t_thresh)
-        if buckets:
-            kw.update(splits=(opt.render_splits_preview if lod
-                              else opt.render_splits),
-                      term_probe=opt.render_term_intervals,
-                      term_tau=opt.render_term_tau,
-                      term_stride=opt.render_term_stride)
-        tables, fwd = self.field.kernel_tables(params), \
-            self._render_forward(lod)
-        if self.ndev > 1 and tp > 1 and rh % (self.ndev * tp) == 0:
-            img, depth = make_sharded_image_renderer(
-                self.mesh, rh, rw, rcfg, fwd, buckets=buckets, **kw)(
-                    tables, occ_m, pose_t, intr, bg, *extra)
-        else:
-            render = render_image_bucketed if buckets else render_image_tiled
-            img, depth = render(tables, occ_m, pose_t, intr, rh, rw, rcfg,
-                                fwd, bg, extra=extra, **kw)
-        return img.cpu().numpy(), depth.cpu().numpy()
+        with profiling.span("frame"):
+            with profiling.span("frame.setup"):
+                rh, rw = int(h // downscale), int(w // downscale)
+                dev = self.device
+                params = params if params is not None \
+                    else self._infer_params()
+                occ, extra = self.grid_state["occ"], ()
+                if self.time_conditioned:
+                    if isinstance(time, torch.Tensor):
+                        profiling.host_sync(time)   # float() reads the card
+                    t = 0.0 if time is None else float(time)
+                    t_idx = time_slice_index(t, self.dyn_grid_cfg)
+                    occ = self._occ_of(occ[t_idx], t_idx)
+                    extra = (t,)
+                else:
+                    occ = self._occ_of(occ)
+                rcfg, opt = self.render_cfg, self.opt
+                occ_m = self.cascade_occ(occ, rcfg)
+                # copies from pageable host memory: each waits for the card
+                pose_t = torch.as_tensor(np.asarray(pose, np.float32),
+                                         device=dev)
+                intr = torch.as_tensor(np.asarray(intrinsics, np.float32),
+                                       device=dev) / downscale
+                profiling.host_sync(dev, 2)
+                if bg_color is None:
+                    bg = torch.ones(3, device=dev)
+                else:
+                    bg = torch.as_tensor(np.asarray(bg_color, np.float32),
+                                         device=dev)
+                    profiling.host_sync(dev)
+                tp = self._pick_tile(rh, rw, pose,
+                                     np.asarray(intrinsics, np.float32)
+                                     / downscale)
+                if buckets is None:
+                    buckets = self._use_buckets()
+                buckets = buckets and tp > 1
+                kw = dict(tile_px=tp, dilate=opt.render_dilate,
+                          density_scale=opt.density_scale,
+                          t_thresh=opt.t_thresh)
+                if buckets:
+                    kw.update(splits=(opt.render_splits_preview if lod
+                                      else opt.render_splits),
+                              term_probe=opt.render_term_intervals,
+                              term_tau=opt.render_term_tau,
+                              term_stride=opt.render_term_stride)
+                tables, fwd = self.field.kernel_tables(params), \
+                    self._render_forward(lod)
+            if self.ndev > 1 and tp > 1 and rh % (self.ndev * tp) == 0:
+                img, depth = make_sharded_image_renderer(
+                    self.mesh, rh, rw, rcfg, fwd, buckets=buckets, **kw)(
+                        tables, occ_m, pose_t, intr, bg, *extra)
+            else:
+                render = render_image_bucketed if buckets \
+                    else render_image_tiled
+                img, depth = render(tables, occ_m, pose_t, intr, rh, rw,
+                                    rcfg, fwd, bg, extra=extra, **kw)
+            with profiling.span("frame.fetch"):
+                return (profiling.fetch(img).numpy(),
+                        profiling.fetch(depth).numpy())
 
     def warm_renderers(self, h, w, pose=None, intrinsics=None, time=None):
         """One throwaway frame through each renderer (tiled and bucketed),

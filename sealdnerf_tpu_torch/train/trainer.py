@@ -104,6 +104,7 @@ from ..render.dynamic_grid import (DynGridConfig, init_dyn_grid_state,
 from ..render.grid import (GridConfig, init_grid_state, mark_untrained_grid,
                            update_density_grid)
 from ..render.renderer import RenderSettings, render_occ
+from ..utils import profiling
 from ..utils.png import write_png
 from .checkpoint import (load_checkpoint, prune_checkpoints,
                          resolve_checkpoint, save_checkpoint)
@@ -669,7 +670,7 @@ class Trainer:
             c = data["images"].shape[-1]
             pix = data["images"].reshape(-1, c)[img * (h * w) + inds]
         else:
-            host = torch.cat([img, inds]).cpu()
+            host = profiling.fetch(torch.cat([img, inds]))
             pix = host_pixels(data["host_images"], int(host[0]), host[1:],
                               dev)
             c = pix.shape[-1]
@@ -913,33 +914,49 @@ class Trainer:
         chunk keeps the budget of a whole one, as the reference's padded
         chunk does). A time-conditioned field renders at `time` (None: 0)
         on the occupancy of that time's bin."""
-        rh, rw = int(h // downscale), int(w // downscale)
-        dev = self.device
-        params = params if params is not None else self._infer_params()
-        pose_t = torch.as_tensor(np.asarray(pose, np.float32), device=dev)
-        intr = torch.as_tensor(np.asarray(intrinsics, np.float32),
-                               device=dev) / downscale
-        rays = get_rays(pose_t[None], intr, rh, rw)
-        ro, rd = rays["rays_o"][0], rays["rays_d"][0]
-        occ, extra = self.grid_state["occ"], ()
-        if self.time_conditioned:
-            t = 0.0 if time is None else float(time)
-            occ = occ[time_slice_index(t, self.dyn_grid_cfg)]
-            extra = (t,)
-        bg = None if bg_color is None else \
-            torch.as_tensor(np.asarray(bg_color, np.float32), device=dev)
-        chunk = 4 * self.opt.max_ray_batch
-        imgs, deps = [], []
-        for i in range(0, ro.shape[0], chunk):
-            res = render_occ(params, occ, ro[i:i + chunk], rd[i:i + chunk],
-                             self.settings, self.field.forward,
-                             self.field.background, bg_color=bg,
-                             m_budget=chunk * self.opt.eval_samples_per_ray,
-                             extra=extra)
-            imgs.append(res["image"])
-            deps.append(res["depth"])
-        img = torch.cat(imgs).clamp(0.0, 1.0).reshape(rh, rw, 3)
-        return img.cpu().numpy(), torch.cat(deps).reshape(rh, rw).cpu().numpy()
+        with profiling.span("frame"):
+            with profiling.span("frame.setup"):
+                rh, rw = int(h // downscale), int(w // downscale)
+                dev = self.device
+                params = params if params is not None \
+                    else self._infer_params()
+                # copies from pageable host memory: each waits for the card
+                pose_t = torch.as_tensor(np.asarray(pose, np.float32),
+                                         device=dev)
+                intr = torch.as_tensor(np.asarray(intrinsics, np.float32),
+                                       device=dev) / downscale
+                profiling.host_sync(dev, 2)
+                rays = get_rays(pose_t[None], intr, rh, rw)
+                ro, rd = rays["rays_o"][0], rays["rays_d"][0]
+                occ, extra = self.grid_state["occ"], ()
+                if self.time_conditioned:
+                    if isinstance(time, torch.Tensor):
+                        profiling.host_sync(time)   # float() reads the card
+                    t = 0.0 if time is None else float(time)
+                    occ = occ[time_slice_index(t, self.dyn_grid_cfg)]
+                    extra = (t,)
+                bg = None
+                if bg_color is not None:
+                    bg = torch.as_tensor(np.asarray(bg_color, np.float32),
+                                         device=dev)
+                    profiling.host_sync(dev)
+            chunk = 4 * self.opt.max_ray_batch
+            imgs, deps = [], []
+            for i in range(0, ro.shape[0], chunk):
+                res = render_occ(
+                    params, occ, ro[i:i + chunk], rd[i:i + chunk],
+                    self.settings, self.field.forward, self.field.background,
+                    bg_color=bg,
+                    m_budget=chunk * self.opt.eval_samples_per_ray,
+                    extra=extra)
+                imgs.append(res["image"])
+                deps.append(res["depth"])
+            with profiling.span("frame.stitch"):
+                img = torch.cat(imgs).clamp(0.0, 1.0).reshape(rh, rw, 3)
+                depth = torch.cat(deps).reshape(rh, rw)
+            with profiling.span("frame.fetch"):
+                return (profiling.fetch(img).numpy(),
+                        profiling.fetch(depth).numpy())
 
     def _time_of(self, dataset, i):
         """The i-th view's time for a time-conditioned field, else None."""

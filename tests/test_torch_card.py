@@ -33,6 +33,7 @@ from sealdnerf_tpu_torch.render.dynamic_grid import (DynGridConfig,
                                                      rebuild_dyn_density_grid)
 from sealdnerf_tpu_torch.render.grid import (GridConfig, init_grid_state,
                                              update_density_grid)
+from sealdnerf_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -48,6 +49,12 @@ GRAD_TOL = 1e-2
 # of a fine table by its whole share (measured 2.1e-2 to 3.2e-2 on 262,181
 # random samples and cotangents)
 WHOLE_CALL_TOL = 5e-2
+
+
+def _calls(k: int) -> int:
+    """The calls that reached kernel K<k> in this process (the counter
+    "k<k>.calls" of utils/profiling.py)."""
+    return profiling.tally(traced=False)["counters"].get(f"k{k}.calls", 0)
 
 
 @pytest.fixture
@@ -72,9 +79,9 @@ def test_field_kernel_matches_plain(card, kw):
     d3 = rng.normal(size=(3, m)).astype(np.float32)
     d3 /= np.linalg.norm(d3, axis=0, keepdims=True)
     x3, d3 = torch.from_numpy(x3).to(card), torch.from_numpy(d3).to(card)
-    before = field_forward.launches
+    before = _calls(1)
     out = field_forward(tables, cfg, x3, d3, **kw).cpu()
-    assert field_forward.launches == before + 1
+    assert _calls(1) == before + 1
     ref = field_forward_plain(tables, cfg, x3, d3, **kw).cpu()
     np.testing.assert_allclose(out[0], ref[0], **SIGMA_TOL)
     np.testing.assert_allclose(out[1:], ref[1:], **RGB_TOL)
@@ -102,11 +109,11 @@ def test_grid_sweep_on_card(card):
         return lambda pts: fn(tables, cfg, pts.t().contiguous(), None,
                               density_only=True)[0]
 
-    before = field_forward.launches
+    before = _calls(1)
     got = update_density_grid(init_grid_state(gcfg, card),
                               density(field_forward), gcfg, full=True,
                               generator=torch.Generator(card).manual_seed(0))
-    assert field_forward.launches == before + 1
+    assert _calls(1) == before + 1
     u = torch.rand((1, gcfg.grid_size ** 3, 3), device=card,
                    generator=torch.Generator(card).manual_seed(0))
     ref = update_density_grid(init_grid_state(gcfg, card),
@@ -273,10 +280,10 @@ def test_field_backward_kernel_matches_plain(card, case):
         g[:, ::3] = 1.0
     if case == "none live":
         g.zero_()
-    before = field_backward.launches
+    before = _calls(2)
     parts = {}
     whole = field_backward(tables, cfg, x3, d3, g, parts=parts)
-    assert field_backward.launches == before + 1
+    assert _calls(2) == before + 1
     live = parts["live"]
     assert torch.equal(live.sort().values,
                        torch.nonzero(g.abs().amax(dim=0) > 0)[:, 0])
@@ -312,10 +319,10 @@ def test_one_train_step_kernel_matches_plain(card, tmp_path):
     for plain in (False, True):
         for p in param_leaves(trainer.params):
             p.grad = None
-        k1, k2 = field_forward.launches, field_backward.launches
+        k1, k2 = _calls(1), _calls(2)
         loss, _ = trainer.loss_on(*batch, plain=plain)
         loss.backward()
-        launched = (field_forward.launches - k1, field_backward.launches - k2)
+        launched = (_calls(1) - k1, _calls(2) - k2)
         assert launched == ((0, 0) if plain else (1, 1)), launched
         out.append((loss.item(), [p.grad.clone()
                                   for p in param_leaves(trainer.params)]))
@@ -380,10 +387,10 @@ def test_dyn_field_kernel_matches_plain(card, t, kw):
     d3 = rng.normal(size=(3, m)).astype(np.float32)
     d3 /= np.linalg.norm(d3, axis=0, keepdims=True)
     x3, d3 = torch.from_numpy(x3).to(card), torch.from_numpy(d3).to(card)
-    before, k1_before = dyn_field_forward.launches, field_forward.launches
+    before, k1_before = _calls(3), _calls(1)
     out = dyn_field_forward(tables, cfg, x3, d3, t, **kw)
-    assert dyn_field_forward.launches == before + 1
-    assert field_forward.launches == k1_before
+    assert _calls(3) == before + 1
+    assert _calls(1) == k1_before
     ref, dx = dyn_field_forward_plain(tables, cfg, x3, d3, t,
                                       return_deform=True, **kw)
     assert (dx.abs().mean().item() > 1e-2) == (t != 0.0)
@@ -435,12 +442,12 @@ def test_dyn_grid_rebuild_through_the_kernel(card):
         return dyn_field_forward(tables, cfg, pts.t().contiguous(), None, t,
                                  density_only=True)[0]
 
-    before, k1_before = dyn_field_forward.launches, field_forward.launches
+    before, k1_before = _calls(3), _calls(1)
     st = rebuild_dyn_density_grid(
         init_dyn_grid_state(gcfg, card), density, gcfg,
         generator=torch.Generator(card).manual_seed(0))
-    assert dyn_field_forward.launches == before + 16
-    assert field_forward.launches == k1_before
+    assert _calls(3) == before + 16
+    assert _calls(1) == k1_before
     occ = st["occ"].reshape(16, -1)
     assert bool(occ.any(dim=1).all()) and int(st["iter_density"]) == 1
 
@@ -533,10 +540,10 @@ def test_dyn_field_backward_kernel_matches_plain(card, layers):
     1.4e-2 and, with the two-matrix tower's warp of 0.11, 2.4e-2 away."""
     cfg, tables = _dyn_tables(card, layers=layers, gain=1.0)
     x3, d3, g = _samples(card, 4096 * 64 + 37, 4)
-    before = dyn_field_backward.launches
+    before = _calls(4)
     parts = {}
     got = dyn_field_backward(tables, cfg, x3, d3, 0.37, g, parts=parts)
-    assert dyn_field_backward.launches == before + 1
+    assert _calls(4) == before + 1
     assert all(w.abs().max().item() > 0 for w in got["deform_mlp"]["w"])
     assert parts["g_x"][:, ::3].abs().max().item() == 0.0
     ref = dyn_field_backward_plain(tables, cfg, x3, d3, 0.37, g)
@@ -615,10 +622,10 @@ def test_dyn_field_backward_at_t0_and_zero_cotangents(card):
     zero = dyn_field_backward(tables, cfg, x3, d3, 0.37, torch.zeros_like(g))
     assert all(w.abs().max().item() == 0.0 for w in param_leaves(zero))
     e = torch.zeros((3, 0), device=card)
-    before = dyn_field_backward.launches
+    before = _calls(4)
     empty = dyn_field_backward(tables, cfg, e, e, 0.37,
                                torch.zeros((4, 0), device=card))
-    assert dyn_field_backward.launches == before
+    assert _calls(4) == before
     assert [tuple(w.shape) for w in empty["deform_mlp"]["w"]] == \
         [(76, 128)] + [(128, 128)] * 6 + [(128, 3)]
 
@@ -661,20 +668,20 @@ def test_one_dynamic_train_step_kernel_matches_plain(card, tmp_path):
     trainer.mark_untrained_grid(train.poses, train.intrinsics)
     trainer.global_step = 300
     trainer.refresh_grid()
-    k3 = dyn_field_forward.launches
+    k3 = _calls(3)
     trainer.refresh_grid()
-    assert dyn_field_forward.launches == k3 + 8
+    assert _calls(3) == k3 + 8
     assert trainer._dyn_host_counts() == (2, 16)
     batch = trainer.sample_batch(train.device(card), train.h, train.w)
     out = []
     for plain in (False, True):
         for p in param_leaves(trainer.params):
             p.grad = None
-        k3, k4 = dyn_field_forward.launches, dyn_field_backward.launches
+        k3, k4 = _calls(3), _calls(4)
         loss, _ = trainer.loss_on(*batch, plain=plain)
         loss.backward()
-        launched = (dyn_field_forward.launches - k3,
-                    dyn_field_backward.launches - k4)
+        launched = (_calls(3) - k3,
+                    _calls(4) - k4)
         assert launched == ((0, 0) if plain else (1, 1)), launched
         out.append((loss.item(), [p.grad.clone()
                                   for p in param_leaves(trainer.params)]))
@@ -703,10 +710,10 @@ def test_dyn_field_kernel_chunked_equals_unchunked(card, kw):
     whole_parts, chunk_parts = {}, {}
     whole = dyn_field_forward(tables, cfg, x3, d3, 0.37, chunk=m,
                               parts=whole_parts, **kw)
-    before = dyn_field_forward.launches
+    before = _calls(3)
     chunked = dyn_field_forward(tables, cfg, x3, d3, 0.37, chunk=4096,
                                 parts=chunk_parts, **kw)
-    assert dyn_field_forward.launches == before + 1
+    assert _calls(3) == before + 1
     assert torch.equal(chunked, whole)
     assert torch.equal(chunk_parts["features"], whole_parts["features"])
     assert torch.equal(dyn_field_forward(tables, cfg, x3, d3, 0.37, **kw),
@@ -776,12 +783,12 @@ def test_edit_teacher_through_the_kernel_matches_plain(card, tmp_path):
     kern = student.teacher_field
     plain = TeacherField(tt.field, student.mapper, time_conditioned=True,
                          plain=True)
-    before = dyn_field_forward.launches
+    before = _calls(3)
     with torch.no_grad():
         got = kern.forward_planar(tt.params, x3, d3, 0.5)
-        assert dyn_field_forward.launches == before + 1
+        assert _calls(3) == before + 1
         ref = plain.forward_planar(tt.params, x3, d3, 0.5)
-    assert dyn_field_forward.launches == before + 1
+    assert _calls(3) == before + 1
     np.testing.assert_allclose(got[0].cpu(), ref[0].cpu(), **SIGMA_TOL)
     np.testing.assert_allclose(got[1:4].cpu(), ref[1:4].cpu(), **RGB_TOL)
     mask = student.mapper.map_to_origin_compact(x3.t())[2]
@@ -812,20 +819,20 @@ def test_one_dynamic_pretraining_step_kernel_matches_plain(card, tmp_path):
         student.params)
     x3 = batch["points"].t().contiguous()
     d3 = batch["dirs"].t().contiguous()
-    k3, k4 = dyn_field_forward.launches, dyn_field_backward.launches
+    k3, k4 = _calls(3), _calls(4)
     with torch.no_grad():
         out_p = dyn_field_forward_plain(tables, cfg, x3, d3, 0.5)
     out_p.requires_grad_(True)
     loss_p = pretrain_l1(out_p, batch)
     g = torch.autograd.grad(loss_p, out_p)[0].contiguous()
     ref = dyn_field_backward_plain(tables, cfg, x3, d3, 0.5, g)
-    assert (dyn_field_forward.launches, dyn_field_backward.launches) == \
+    assert (_calls(3), _calls(4)) == \
         (k3, k4)
     with torch.no_grad():
         loss_k = pretrain_l1(dyn_field_forward(tables, cfg, x3, d3, 0.5),
                              batch)
     got = dyn_field_backward(tables, cfg, x3, d3, 0.5, g)
-    assert (dyn_field_forward.launches, dyn_field_backward.launches) == \
+    assert (_calls(3), _calls(4)) == \
         (k3 + 1, k4 + 1)
     assert abs(loss_k.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
     assert max(_leaf_errs(got, ref)) <= WHOLE_CALL_TOL, _leaf_errs(got, ref)
@@ -910,14 +917,14 @@ def test_bucketed_frame_through_the_kernel_matches_plain(card, dynamic):
         kern = lambda tb, x3, d3, t: dyn_field_forward(tb, cfg, x3, d3, t)
         plain = lambda tb, x3, d3, t: dyn_field_forward_plain(tb, cfg, x3,
                                                               d3, t)
-        counter, extra = dyn_field_forward, (0.5,)
+        counter, extra = 3, (0.5,)
     else:
         cfg = CPConfig()
         tables = pack_tables(
             init_cp(torch.Generator().manual_seed(0), cfg, card), cfg)
         kern = lambda tb, x3, d3: field_forward(tb, cfg, x3, d3)
         plain = lambda tb, x3, d3: field_forward_plain(tb, cfg, x3, d3)
-        counter, extra = field_forward, ()
+        counter, extra = 1, ()
     g = torch.linspace(-1, 1, 64, device=card)
     x, y, z = torch.meshgrid(g, g, g, indexing="ij")
     occ = (x * x + y * y + z * z) < 0.35 ** 2
@@ -930,13 +937,13 @@ def test_bucketed_frame_through_the_kernel_matches_plain(card, dynamic):
                       (1.0, 2)), extra=extra)
     frames = []
     for fwd in (kern, plain):
-        before = counter.launches
+        before = _calls(counter)
         with torch.no_grad():
             img, _ = render_image_bucketed(tables, occ, pose, intr, 256, 256,
                                            rcfg, fwd, torch.ones(3,
                                                                  device=card),
                                            **kw)
-        frames.append((img.cpu().numpy(), counter.launches - before))
+        frames.append((img.cpu().numpy(), _calls(counter) - before))
     (img_k, n_k), (img_p, n_p) = frames
     assert n_p == 0 and n_k >= 2
     assert np.isfinite(img_k).all() and img_k.min() < 0.9
@@ -1006,11 +1013,11 @@ def test_render_occ_over_a_cp_field_through_the_kernel(card, bound):
         return f
 
     args = (None, occ, rays["rays_o"][0], rays["rays_d"][0], settings)
-    before = field_forward.launches
+    before = _calls(1)
     got = render_occ(*args, fwd(field_forward), m_budget=4096 * 64)
-    assert field_forward.launches == before + 1
+    assert _calls(1) == before + 1
     ref = render_occ(*args, fwd(field_forward_plain), m_budget=4096 * 64)
-    assert field_forward.launches == before + 1
+    assert _calls(1) == before + 1
     assert int(got["n_samples"]) > 10000
     assert float((got["image"] - ref["image"]).abs().max()) <= 2e-2
     assert float((got["depth"] - ref["depth"]).abs().max()) <= 2e-2 * bound

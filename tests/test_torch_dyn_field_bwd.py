@@ -40,12 +40,19 @@ from sealdnerf_tpu_torch.ops.field import (DynFieldTrainFn,
                                            dyn_tower_backward_plain,
                                            dyn_warp_plain, field_backward,
                                            pack_tables)
+from sealdnerf_tpu_torch.utils import profiling
 
 SMALL = dict(bound=1.0, scales=((8, 8), (16, 16)), planes=((8, 2),),
              num_layers_deform=3, hidden_dim_deform=16, multires_deform=2)
 BWD_TOL = 1e-2       # plain K4 vs the Pallas backward, relative to max |ref|
 ENVELOPE = 0.35      # kernel semantics vs XLA semantics (bf16 noise)
 TIMES = (0.37, 0.0)
+
+
+def _calls(k: int) -> int:
+    """The calls that reached kernel K<k> in this process (the counter
+    "k<k>.calls" of utils/profiling.py)."""
+    return profiling.tally(traced=False)["counters"].get(f"k{k}.calls", 0)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -172,13 +179,13 @@ def test_train_fn_matches_cp_dnerf_train_fused(setup, t):
     x3 = _planar(s["x"]).requires_grad_(True)
     d3 = _planar(s["d"]).requires_grad_(True)
     tt = torch.tensor(t, requires_grad=True)
-    before = dyn_field_backward.launches
+    before = _calls(4)
     out = DynFieldTrainFn.apply(pack_tables(p_t, s["tc"]), s["tc"], True, x3,
                                 d3, tt, *leaves)
     loss = (out[0] * torch.from_numpy(s["w"])).sum() + \
         (out[1:4].t() * torch.from_numpy(s["cw"])).sum()
     loss.backward()
-    assert dyn_field_backward.launches == before
+    assert _calls(4) == before
     np.testing.assert_allclose(float(loss.detach()), float(l_ref), rtol=1e-4)
     grads = tcp.unflatten_like(s["tp"], [
         q.grad if q.grad is not None else torch.zeros_like(q)

@@ -22,12 +22,19 @@ from sealdnerf_tpu_torch.models.cp import (CPConfig, cp_forward, init_cp,
 from sealdnerf_tpu_torch.ops import build
 from sealdnerf_tpu_torch.ops.field import (field_forward, field_forward_plain,
                                            pack_tables)
+from sealdnerf_tpu_torch.utils import profiling
 
 SCALES = ((8, 8), (16, 16))
 PLANES = ((8, 4), (16, 2))
 SIGMA_TOL = dict(rtol=2e-2, atol=1e-4)
 RGB_TOL = dict(rtol=2e-2, atol=1e-3)
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _calls(k: int) -> int:
+    """The calls that reached kernel K<k> in this process (the counter
+    "k<k>.calls" of utils/profiling.py)."""
+    return profiling.tally(traced=False)["counters"].get(f"k{k}.calls", 0)
 
 
 @pytest.fixture(scope="module")
@@ -126,9 +133,9 @@ def test_field_forward_rejects_bad_inputs(setup):
 
 def test_cpu_tensor_never_launches(setup):
     _, tcfg, _, params, x, d = setup
-    before = field_forward.launches
+    before = _calls(1)
     field_forward(params, tcfg, _planar(x), _planar(d))
-    assert field_forward.launches == before
+    assert _calls(1) == before
 
 
 def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):

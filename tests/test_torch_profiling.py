@@ -1,8 +1,9 @@
 """--profile (utils/profiling.py): every CLI of the port with --device cpu
 --profile writes a torch.profiler trace of its train and test calls to
 <workspace>/trace/rank0.pt.trace.json, a Chrome / Perfetto trace that
-parses as JSON and names the run's operators; without --profile no trace/
-is written. The reference parses --profile and never reads it (ROADMAP,
+parses as JSON and names the run's operators and the program's "sdn."
+spans, and the session's tally of spans and counters to
+rank0.counters.json; without --profile no trace/ is written. The reference parses --profile and never reads it (ROADMAP,
 faults of the reference); here the trace is what its help promises.
 
 Narrow runs: main_nerf and main_dnerf train a few steps of a narrow CP
@@ -25,7 +26,9 @@ from sealdnerf_tpu_torch.models.cp import (CPConfig, CPDNeRFConfig,
                                            make_cp_dnerf_field,
                                            make_cp_field)
 from sealdnerf_tpu_torch.train.fast import FastTrainer
-from sealdnerf_tpu_torch.utils.profiling import profile_trace, trace_path
+from sealdnerf_tpu_torch.utils import profiling
+from sealdnerf_tpu_torch.utils.profiling import (counters_path,
+                                                 profile_trace, trace_path)
 
 import torch_edit_setup as setup
 
@@ -118,15 +121,25 @@ def test_profile_writes_a_trace(name, tmp_path, monkeypatch):
     ws = str(tmp_path / "ws")
     _run(name, ws, monkeypatch)
     path = os.path.join(ws, "trace", "rank0.pt.trace.json")
-    assert os.listdir(os.path.join(ws, "trace")) == ["rank0.pt.trace.json"]
+    assert sorted(os.listdir(os.path.join(ws, "trace"))) == [
+        "rank0.counters.json", "rank0.pt.trace.json"]
     with open(path) as f:
         trace = json.load(f)
     names = {e.get("name") for e in trace["traceEvents"]}
     assert CLIS[name] in names, sorted(n for n in names if n)[:50]
+    with open(counters_path(os.path.join(ws, "trace"), 0)) as f:
+        tally = json.load(f)
+    assert set(tally) == {"counters", "spans"}
     if name in ("main_nerf", "main_dnerf"):
         # the step's backward ran under the trace
         assert any(n and n.startswith("autograd::engine::evaluate_function")
                    for n in names)
+        # and so did the program's spans, which the tally counts
+        assert {"sdn.step", "sdn.step.backward", "sdn.composite"} <= names
+        assert tally["spans"]["step"]["n"] == 8
+        k = "k3" if name == "main_dnerf" else "k1"
+        assert tally["counters"][k + ".samples"] > 0
+    assert profiling.tally() == {"counters": {}, "spans": {}}
 
 
 def test_no_trace_without_profile(tmp_path, monkeypatch):
@@ -141,10 +154,41 @@ def test_profile_trace_names_its_rank_and_raises(tmp_path):
     trace, then propagates."""
     with profile_trace(str(tmp_path), "cpu", rank=3):
         torch.ones(4).sum()
-    assert os.listdir(tmp_path) == ["rank3.pt.trace.json"]
+    assert sorted(os.listdir(tmp_path)) == ["rank3.counters.json",
+                                            "rank3.pt.trace.json"]
     assert trace_path(str(tmp_path), 3) == str(tmp_path /
                                                "rank3.pt.trace.json")
+    assert counters_path(str(tmp_path), 3) == str(tmp_path /
+                                                  "rank3.counters.json")
     with pytest.raises(ValueError, match="in the body"):
         with profile_trace(str(tmp_path / "x"), "cpu", rank=0):
             raise ValueError("in the body")
-    assert os.listdir(tmp_path / "x") == ["rank0.pt.trace.json"]
+    assert sorted(os.listdir(tmp_path / "x")) == ["rank0.counters.json",
+                                                  "rank0.pt.trace.json"]
+
+
+def test_profile_trace_writes_the_tally_and_resets_it(tmp_path):
+    """rank{r}.counters.json holds the session's traced tally (its spans
+    and the counters added while it recorded, not before) and the tally is
+    empty after it, while the process's counters keep their totals."""
+    profiling.count("tracing_test", 5)
+    with profile_trace(str(tmp_path), "cpu", rank=1):
+        profiling.count("tracing_test", 2)
+        with profiling.span("outer"):
+            with profiling.span("inner"):
+                torch.ones(4).sum()
+        with profiling.span("inner"):
+            pass
+    with open(counters_path(str(tmp_path), 1)) as f:
+        tally = json.load(f)
+    assert tally["counters"] == {"tracing_test": 2}
+    assert set(tally["spans"]) == {"outer", "inner"}
+    assert tally["spans"]["inner"]["n"] == 2
+    assert tally["spans"]["outer"]["n"] == 1
+    assert tally["spans"]["outer"]["host_s"] > 0.0
+    assert tally["spans"]["outer"]["stream_s"] is None
+    assert profiling.tally() == {"counters": {}, "spans": {}}
+    assert profiling.tally(traced=False)["counters"]["tracing_test"] >= 7
+    with open(trace_path(str(tmp_path), 1)) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"sdn.outer", "sdn.inner"} <= names
