@@ -629,7 +629,11 @@ class FastTrainer(Trainer):
         scales with res >= opt.preview_lod_min_res skipped in the kernel,
         and the preview ladder (opt.render_splits_preview). On a mesh of N
         ranks the frame renders by row bands when rh splits into N bands of
-        whole tiles, else whole on every rank; every rank returns it."""
+        whole tiles, else whole on every rank; every rank returns it.
+
+        On a CUDA device the arrays live in page-locked host memory
+        (profiling.fetch_frame), each in a block of its own: a caller who
+        keeps many frames keeps that memory pinned."""
         with profiling.span("frame"):
             with profiling.span("frame.setup"):
                 rh, rw = int(h // downscale), int(w // downscale)
@@ -687,8 +691,7 @@ class FastTrainer(Trainer):
                 img, depth = render(tables, occ_m, pose_t, intr, rh, rw,
                                     rcfg, fwd, bg, extra=extra, **kw)
             with profiling.span("frame.fetch"):
-                return (profiling.fetch(img).numpy(),
-                        profiling.fetch(depth).numpy())
+                return profiling.fetch_frame(img, depth)
 
     def warm_renderers(self, h, w, pose=None, intrinsics=None, time=None):
         """One throwaway frame through each renderer (tiled and bucketed),
@@ -710,7 +713,8 @@ class FastTrainer(Trainer):
         or None}. downscale snaps to the nearest of 1, 2, 4 and 8;
         need_depth=False renders the LOD preview and returns no depth (the
         reference's preview wire; its u8 and yuv420 packing is not
-        ported)."""
+        ported). On a CUDA device the arrays are pinned, as render_image's
+        are."""
         downscale = min(GUI_DOWNSCALES, key=lambda b: abs(b - downscale))
         img, depth = self.render_image(pose, intrinsics, h, w,
                                        bg_color=bg_color,

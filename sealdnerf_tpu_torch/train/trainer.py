@@ -913,7 +913,11 @@ class Trainer:
         eval_samples_per_ray per ray of a whole chunk (a last, shorter
         chunk keeps the budget of a whole one, as the reference's padded
         chunk does). A time-conditioned field renders at `time` (None: 0)
-        on the occupancy of that time's bin."""
+        on the occupancy of that time's bin.
+
+        On a CUDA device the arrays live in page-locked host memory
+        (profiling.fetch_frame), each in a block of its own: a caller who
+        keeps many frames keeps that memory pinned."""
         with profiling.span("frame"):
             with profiling.span("frame.setup"):
                 rh, rw = int(h // downscale), int(w // downscale)
@@ -955,8 +959,7 @@ class Trainer:
                 img = torch.cat(imgs).clamp(0.0, 1.0).reshape(rh, rw, 3)
                 depth = torch.cat(deps).reshape(rh, rw)
             with profiling.span("frame.fetch"):
-                return (profiling.fetch(img).numpy(),
-                        profiling.fetch(depth).numpy())
+                return profiling.fetch_frame(img, depth)
 
     def _time_of(self, dataset, i):
         """The i-th view's time for a time-conditioned field, else None."""
@@ -1059,7 +1062,8 @@ class Trainer:
                  downscale=1, time=None, need_depth=True):
         """A GUI frame -> {"image": f32 [rh, rw, 3], "depth": f32 [rh,
         rw]}. downscale snaps to the nearest of 1, 2, 4 and 8; the depth is
-        always returned (need_depth is advisory here)."""
+        always returned (need_depth is advisory here). On a CUDA device the
+        arrays are pinned, as render_image's are."""
         downscale = min(GUI_DOWNSCALES, key=lambda b: abs(b - downscale))
         img, depth = self.render_image(pose, intrinsics, h, w,
                                        bg_color=bg_color,

@@ -19,7 +19,11 @@ or device) is a CUDA device: the call sites on the frame and step paths
 where the host waits for the card, explicit (.cpu(), int() of a device
 value) or implicit (a copy from pageable host memory, a boolean-mask
 index, whose size the host reads). `fetch(t)` is t.cpu() counted so, with
-its bytes in "fetch_bytes".
+its bytes in "fetch_bytes": the fetches other than a frame's images.
+`fetch_frame(*tensors)` fetches a frame's images: each CUDA tensor copied
+without blocking into its own block of page-locked host memory from
+PyTorch's caching host allocator, then one wait for all of them (one
+"host_syncs"), the bytes in "fetch_bytes" and "fetch_pinned_bytes".
 
 `tally(traced=True)` -> {"counters": {name: int}, "spans": {name: {"n",
 "host_s", "stream_s"}}}: the traced tally (stream_s None where the span
@@ -42,7 +46,8 @@ The spans (in the trace as "sdn.<name>"), their phases and the counters:
   step.backward and step.update inside it; grid.refresh and grid.rebuild.
 - counters: k1.calls .. k4.calls (the calls that reached the kernel),
   k1.samples .. k4.samples (their samples), host_syncs, fetch_bytes (what
-  a frame copies from the card to the host).
+  a frame copies from the card to the host), fetch_pinned_bytes (the part
+  of it that fetch_frame copied into page-locked memory).
 
 The --profile trace. `profile_trace(logdir)` is a context manager around
 torch.profiler.profile: the host's operators and the program's spans
@@ -179,6 +184,32 @@ def fetch(t):
         count("host_syncs")
         count("fetch_bytes", t.numel() * t.element_size())
     return t.cpu()
+
+
+def fetch_frame(*tensors):
+    """The tensors as numpy arrays on the host, with one wait. A CUDA
+    tensor is copied without blocking into a block of page-locked host
+    memory that PyTorch's caching host allocator serves (from its cache
+    once a frame of the same sizes has been fetched), its bytes counted in
+    "fetch_bytes" and "fetch_pinned_bytes"; then one synchronize of the
+    current stream waits for all of the copies (one "host_syncs"). Each
+    array owns its block, which goes back to the cache when the array is
+    dropped: a caller that keeps arrays keeps their memory pinned. A CPU
+    tensor is returned as its .numpy()."""
+    out, device = [], None
+    for t in tensors:
+        if t.device.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            n = t.numel() * t.element_size()
+            count("fetch_bytes", n)
+            count("fetch_pinned_bytes", n)
+            t, device = host, t.device
+        out.append(t.numpy())
+    if device is not None:
+        count("host_syncs")
+        torch.cuda.current_stream(device).synchronize()
+    return tuple(out)
 
 
 def tally(traced: bool = True) -> dict:

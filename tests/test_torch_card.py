@@ -1040,3 +1040,110 @@ def test_tower_on_tensor_cores_matches_apply_mlp(card):
     np.testing.assert_allclose(got.cpu(), ref.cpu(), rtol=2e-2, atol=1e-3)
     with torch.enable_grad():
         assert torch.equal(apply_tower(params, x), apply_mlp(params, x))
+
+
+def _cli_frames(tmp_path):
+    """The seeded CLI field (main_nerf synthetic -O --bound 1 --dt_gamma
+    0) on a ball of occupancy of radius 0.5, so that its frames take the
+    bucketed renderer, and frame(turn): its 800x800 render_image from 2.5
+    before the origin, looking at it, turned by `turn` degrees about y."""
+    argv = ["synthetic", "-O", "--bound", "1", "--dt_gamma", "0", "--ckpt",
+            "scratch", "--workspace", str(tmp_path)]
+    tr, _ = build_trainer(postprocess(base_parser().parse_args(argv)),
+                          name="card")
+    occ = tr.grid_state["occ"]
+    g = torch.linspace(-1.0, 1.0, occ.shape[-1], device=occ.device)
+    x, y, z = torch.meshgrid(g, g, g, indexing="ij")
+    occ.copy_((x * x + y * y + z * z < 0.25).expand_as(occ))
+    tr._occ_frac = None
+    intr = np.array([800.0, 800.0, 400.0, 400.0], np.float32)
+
+    def frame(turn=0.0):
+        a = np.radians(turn)
+        rot = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                        [-np.sin(a), 0.0, np.cos(a)]], np.float32)
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = rot
+        pose[:3, 3] = rot @ np.array([0.0, 0.0, -2.5], np.float32)
+        return tr.render_image(pose, intr, 800, 800)
+    return tr, frame
+
+
+def test_frame_fetch_is_pinned_and_bitwise(card, tmp_path, monkeypatch):
+    """FastTrainer.render_image's arrays on the card: in page-locked
+    memory, bitwise the .cpu() of the tensors that the frame fetched; the
+    frame fetch's bytes all went through pinned blocks
+    (fetch_pinned_bytes / fetch_bytes over it is 1.0), and over the whole
+    frame fetch_bytes holds besides them only the small fetches (the
+    bucket counts')."""
+    _, frame = _cli_frames(tmp_path)
+    frame()                                         # builds the kernels
+    real_frame, real_fetch = profiling.fetch_frame, profiling.fetch
+    seen, small = [], []
+
+    def counters():
+        return dict(profiling.tally(traced=False)["counters"])
+
+    def spy_frame(*tensors):
+        seen.append([t.clone() for t in tensors])
+        before = counters()
+        out = real_frame(*tensors)
+        seen.append((before, counters()))
+        return out
+
+    def spy_fetch(t):
+        small.append(t.numel() * t.element_size())
+        return real_fetch(t)
+    monkeypatch.setattr(profiling, "fetch_frame", spy_frame)
+    monkeypatch.setattr(profiling, "fetch", spy_fetch)
+    before = counters()
+    got = frame(25.0)
+    after = counters()
+    (img, depth), (in0, in1) = seen
+    assert img.is_cuda and depth.is_cuda
+    for a, t in zip(got, (img, depth)):
+        assert torch.from_numpy(a).is_pinned()
+        assert torch.equal(torch.from_numpy(a), t.cpu())
+
+    def moved(k, b, a):
+        return a.get(k, 0) - b.get(k, 0)
+    pinned = moved("fetch_pinned_bytes", in0, in1)
+    assert pinned == 800 * 800 * 4 * 4
+    assert pinned / moved("fetch_bytes", in0, in1) == 1.0
+    assert moved("host_syncs", in0, in1) == 1
+    assert moved("fetch_pinned_bytes", before, after) == pinned
+    assert small and moved("fetch_bytes", before, after) == \
+        pinned + sum(small)
+
+
+def test_kept_frame_unchanged_after_later_frames_on_card(card, tmp_path):
+    """A frame kept on the host reads the same after three later frames
+    from other cameras, which differ from it: each frame owns its pinned
+    blocks."""
+    _, frame = _cli_frames(tmp_path)
+    kept = frame()
+    snap = [a.copy() for a in kept]
+    later = [frame(40.0 * i) for i in (1, 2, 3)]
+    assert all(not np.array_equal(f[0], snap[0]) for f in later)
+    for f in later:
+        for a in kept:
+            assert not any(np.shares_memory(a, b) for b in f)
+    for a, s in zip(kept, snap):
+        assert np.array_equal(a, s)
+
+
+def test_steady_frames_fetch_from_the_host_cache(card, tmp_path):
+    """Over 10 steady frames, each dropped as the next is asked for, the
+    caching host allocator makes no new pinned block: every fetch is
+    served from its cache."""
+    _, frame = _cli_frames(tmp_path)
+    out = frame()
+    out = frame(10.0)
+
+    def blocks():
+        return torch.cuda.host_memory_stats()["num_host_alloc"]
+    before = blocks()
+    for i in range(10):
+        out = frame(20.0 + 10.0 * i)
+    assert np.isfinite(out[0]).all()
+    assert blocks() == before

@@ -1,9 +1,9 @@
 """The port's own tracing (utils/profiling.py) on the frame and step paths:
 spans off without a profiler session, the phases of a frame and of a step
 nested in order inside one, the field calls' sample counters, the four
-per-layer metrics of the benchmark that read them, and on the card the
-host_syncs counter against the waits that PyTorch's sync debug mode
-reports. No JAX, so that the card tests run with --noconftest:
+per-layer metrics of the benchmark that read them, the frame's fetch
+(profiling.fetch_frame) on CPU tensors, and on the card the host_syncs
+counter against the waits that PyTorch's sync debug mode reports. No JAX, so that the card tests run with --noconftest:
 
     python3 -m pytest --noconftest -q tests/test_torch_tracing.py
 """
@@ -81,9 +81,15 @@ def _ball(tr, radius):
     tr._occ_frac = None
 
 
-def _frame(tr, dynamic, h=64, w=64):
+def _frame(tr, dynamic, h=64, w=64, turn=0.0):
+    """A frame from 2 before the origin, looking at it, the camera turned
+    by `turn` degrees about the y axis."""
+    a = np.radians(turn)
+    rot = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                    [-np.sin(a), 0.0, np.cos(a)]], np.float32)
     pose = np.eye(4, dtype=np.float32)
-    pose[2, 3] = -2.0
+    pose[:3, :3] = rot
+    pose[:3, 3] = rot @ np.array([0.0, 0.0, -2.0], np.float32)
     intr = np.array([0.6 * w, 0.6 * w, w / 2, h / 2], np.float32)
     return tr.render_image(pose, intr, h, w, time=0.3 if dynamic else None)
 
@@ -211,6 +217,58 @@ def test_step_phases_nest_in_order(dynamic, tmp_path):
                if s[2] == "sdn.composite")
     assert any(s[2] == bwd for s in spans)
     assert profiling.tally()["counters"][bwd[4:] + ".samples"] > 0
+
+
+# ------------------------------------------------------------------ fetch
+FETCHED = [((7, 5, 3), torch.float32), ((7, 5), torch.float32),
+           ((4, 6), torch.int32), ((9,), torch.bool)]
+
+
+@pytest.mark.parametrize("shape,dtype", FETCHED)
+def test_fetch_frame_of_cpu_tensors_is_their_numpy(shape, dtype):
+    """On CPU tensors fetch_frame returns what .cpu().numpy() returns, in
+    value, dtype and shape, and counts no transfer: no fetch_bytes, no
+    fetch_pinned_bytes, no host_syncs, in a session or outside one."""
+    gen = torch.Generator().manual_seed(0)
+    ts = [(torch.rand(shape, generator=gen) * 10).to(dtype)
+          for _ in range(2)]
+    before = profiling.tally(traced=False)["counters"]
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = profiling.fetch_frame(*ts)
+    assert len(got) == len(ts)
+    for a, t in zip(got, ts):
+        want = t.cpu().numpy()
+        assert a.dtype == want.dtype and a.shape == want.shape
+        np.testing.assert_array_equal(a, want)
+    assert profiling.tally()["counters"] == {}
+    assert profiling.tally(traced=False)["counters"] == before
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_successive_frames_share_no_memory(dynamic, tmp_path):
+    """Two frames in a row, from one camera and from two: no array of one
+    shares memory with an array of the other, nor rgb with depth."""
+    tr = _trainer(dynamic, str(tmp_path))
+    first = _frame(tr, dynamic)
+    for turn in (0.0, 40.0):
+        second = _frame(tr, dynamic, turn=turn)
+        for a in first:
+            for b in second:
+                assert not np.shares_memory(a, b)
+    assert not np.shares_memory(*first)
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_kept_frame_is_unchanged_by_later_frames(dynamic, tmp_path):
+    """A frame's arrays, kept, read the same after three later frames from
+    other cameras, which differ from it."""
+    tr = _trainer(dynamic, str(tmp_path))
+    kept = _frame(tr, dynamic)
+    snap = [a.copy() for a in kept]
+    later = [_frame(tr, dynamic, turn=40.0 * i) for i in (1, 2, 3)]
+    assert all(not np.array_equal(f[0], snap[0]) for f in later)
+    for a, s in zip(kept, snap):
+        np.testing.assert_array_equal(a, s)
 
 
 # ---------------------------------------------------------------- readers
