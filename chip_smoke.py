@@ -65,6 +65,13 @@ Phases (any failure raises and exits non-zero):
      every deform gradient must be exactly 0 and the canonical gradients
      within 1e-2 of K2's on the same inputs. Timings of K4, its plain
      version and K2.
+  3e. hash-grid kernel vs plain: K5 (the Instant-NGP field's forward)
+     against its plain version at the published widths (16 levels x 2,
+     2^19 rows a level, bound 1) on a table of N(0, 0.5) entries, on 2^20 +
+     37 random samples full and density-only, the features of the first
+     product against grid_encode's on the bf16 table (at most one in a
+     thousand a bf16 value apart), then a grid slab's and a frame's
+     samples; each timed against nerfbench/work_hash.py's bound.
   4. served path: cli.build_trainer on `synthetic -O --bound 1 --dt_gamma 0
      --test --synthetic_res 800` (seeded init, or --ckpt), frustum marking
      and two full 128^3 occupancy sweeps (the first is timed cold, the
@@ -178,16 +185,17 @@ Phases (any failure raises and exits non-zero):
   9b. bound-2 serving: phase 5c's checks on phase 9's field.
   10. NGP training: the seeded Instant-NGP field of `main_nerf
      --backbone ngp` at the CLI's defaults (bound 2, dt_gamma 1/128: the
-     packed march's closed-form ladder, two cascades; 16 levels x 2, 2^19
-     entries a level, desired resolution 4096) is served (a full sweep of
-     both cascades, one timed 800x800 frame through Trainer.render_image,
-     val PSNR); then `main_nerf.main([... "--backbone", "ngp", "--iters",
-     "512", ...])` on the 48 views at 800x800, 4096 rays a step. Checks:
-     512 finite losses, the last 64 below half the first 64, val PSNR at
-     least 5 dB above the seeded field's, the refreshes wrote cells of both
-     cascades, main wrote the 6 test frames. Prints ms/step and rays/s
-     without the first epoch, ms per 800x800 frame, and K1-K4's launches
-     (none: the NGP path is plain PyTorch, as the reference's is XLA).
+     cascade march over two cascades; 16 levels x 2, 2^19 entries a level,
+     desired resolution 4096) on FastTrainer is served (a full sweep of
+     both cascades, one timed 800x800 frame, val PSNR, all through K5);
+     then `main_nerf.main([... "--backbone", "ngp", "--iters", "512",
+     ...])` on the 48 views at 800x800, 4096 rays a step (the steps
+     differentiate the plain field; the grid refreshes and frames run K5).
+     Checks: 512 finite losses, the last 64 below half the first 64, val
+     PSNR at least 5 dB above the seeded field's, the refreshes wrote cells
+     of both cascades, main wrote the 6 test frames, K5 launched and K1-K4
+     not. Prints ms/step and rays/s without the first epoch, ms per 800x800
+     frame, and K1-K5's launches.
   10b. D-NeRF NGP training: `main_dnerf.main([... "--bound", "2", "--iters",
      "256", ...])` routes to the D-NeRF deform field (8 x 128 deform tower,
      tiled canonical grid, NGP towers) and Trainer; cut from 300,000 steps,
@@ -477,7 +485,7 @@ class _KernelCalls:
         self.base = self._total()
 
 
-K1, K2, K3, K4 = (_KernelCalls(k) for k in (1, 2, 3, 4))
+K1, K2, K3, K4, K5 = (_KernelCalls(k) for k in (1, 2, 3, 4, 5))
 
 
 def _field_work(cfg, m, mode="fwd", density_only=False, m_live=None,
@@ -666,7 +674,8 @@ def _main_path_shapes(name, kernel, plain, cfg, mode):
         worst = max(worst, e_s, e_c)
         del out, ref
         ms = _cuda_ms(lambda: kernel(x3, d3, **kw), 5)
-        b = _bound(cfg, m, mode=mode, **kw)
+        b = _hash_bound(cfg, 1, m, **kw) if mode == "hash" else \
+            _bound(cfg, m, mode=mode, **kw)
         print(f"{name} on {m} {label}: max|err| sigma {e_s:.3g} rgb "
               f"{e_c:.3g}; kernel {ms:.3f} ms ({m / ms * 1e3:.4g} samples/s); "
               f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}", flush=True)
@@ -727,6 +736,103 @@ def phase_kernel_vs_plain():
         "K1", lambda a, b, **kw: field_forward(tables, cfg, a, b, **kw),
         lambda a, b, **kw: field_forward_plain(tables, cfg, a, b, **kw),
         cfg, "fwd"))
+    rec["max_abs_err"] = max_err
+    return rec
+
+
+def _hash_bound(cfg, calls, m, density_only=False):
+    """K5's least time (nerfbench/work_hash.py) for `calls` calls on m
+    samples -> {"bound_ms", "bound_by"}."""
+    from nerfbench import work_hash
+    fc = _ngp_field_dict(cfg)
+    md = m if density_only else 0
+    nbytes, _, _ = work_hash.hash_work(fc, calls, m, md)
+    t_bytes = nbytes / PEAK["bytes"] * 1e3
+    t_ops = work_hash.op_seconds(fc, calls, m, md) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def _ngp_field_dict(cfg):
+    """An NGPConfig as the benchmark's configuration files state it."""
+    keys = ("bound", "num_levels", "level_dim", "base_resolution",
+            "log2_hashmap_size", "gridtype", "num_layers", "hidden_dim",
+            "geo_feat_dim", "num_layers_color", "hidden_dim_color",
+            "sh_degree", "bg_radius")
+    out = {k: getattr(cfg, k) for k in keys}
+    out["desired_resolution"] = cfg.grid_cfg.desired_resolution
+    return out
+
+
+def phase_hash_kernel_vs_plain():
+    """Phase 3e: K5 (the Instant-NGP hash-grid field's forward) against its
+    plain version at the published widths, on a table of N(0, 0.5) entries
+    (the seeded U(+-1e-4) table leaves the features ~1e-4, which would hide
+    a misread corner): 2^20 + 37 random samples full and density-only, the
+    features that enter the first product against grid_encode's on the bf16
+    table, the grid slab's coherent queries and a frame's samples; each
+    timed against work_hash.py's bound."""
+    import torch
+    from sealdnerf_tpu_torch.models.ngp import NGPConfig, init_ngp
+    from sealdnerf_tpu_torch.ops.field import (hash_field_forward,
+                                               hash_field_forward_plain,
+                                               pack_hash_tables)
+    from sealdnerf_tpu_torch.ops.grid_encode import grid_encode
+    cfg = NGPConfig(bound=1.0)
+    params = init_ngp(torch.Generator().manual_seed(0), cfg, "cuda")
+    params["grid"] = torch.randn(
+        params["grid"].shape, device="cuda",
+        generator=torch.Generator("cuda").manual_seed(1)) * 0.5
+    tables = pack_hash_tables(params, cfg)
+    m = (1 << 20) + 37
+    rng = np.random.default_rng(0)
+    x3 = rng.uniform(-1.0, 1.0, (3, m)).astype(np.float32)
+    d3 = rng.normal(size=(3, m)).astype(np.float32)
+    d3 /= np.linalg.norm(d3, axis=0, keepdims=True)
+    x3, d3 = torch.from_numpy(x3).cuda(), torch.from_numpy(d3).cuda()
+    max_err, rec = 0.0, {}
+    for tag, kw in (("full", {}), ("density_only", {"density_only": True})):
+        out = hash_field_forward(tables, cfg, x3, d3, **kw)
+        ref = hash_field_forward_plain(tables, cfg, x3, d3, **kw)
+        torch.cuda.synchronize()
+        e_s = _check_close("sigma", out[0], ref[0])
+        e_c = 0.0 if kw else _check_close("rgb", out[1:4], ref[1:4])
+        ms = _cuda_ms(lambda: hash_field_forward(tables, cfg, x3, d3, **kw),
+                      10)
+        pms = _cuda_ms(
+            lambda: hash_field_forward_plain(tables, cfg, x3, d3, **kw), 2)
+        max_err = max(max_err, e_s, e_c)
+        b = _hash_bound(cfg, 1, m, **kw)
+        print(f"K5 {tag}: M={m} max|err| sigma {e_s:.3g} rgb {e_c:.3g}; "
+              f"kernel {ms:.3f} ms ({m / ms * 1e3:.4g} samples/s), plain "
+              f"{pms:.3f} ms ({m / pms * 1e3:.4g} samples/s); bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"({100 * b['bound_ms'] / ms:.1f} % of its roofline)",
+              flush=True)
+        if tag == "full":
+            rec = {"ms": ms, "plain_ms": pms, **b}
+    # what enters the first sigma product, on the first 2^16 samples: the
+    # f32 sums of 8 corners, rounded to bf16, may round apart where the
+    # plain sum's order differs by an ulp of f32
+    parts = {}
+    xs = x3[:, :1 << 16].contiguous()
+    hash_field_forward(tables, cfg, xs, None, density_only=True, parts=parts)
+    want = grid_encode((xs.t() + 1.0) / 2.0, tables.plain["grid"].float(),
+                       cfg.grid_cfg)
+    got = parts["features"].float()
+    wb = want.to(torch.bfloat16).float()
+    differ = int((got != wb).sum())
+    e_f = ((got - want).abs() / want.abs().clamp(min=1e-3)).max().item()
+    print(f"K5 features: {differ} of {got.numel()} differ from the plain "
+          f"encoding rounded to bf16; max relative |K5 - f32| {e_f:.3g}",
+          flush=True)
+    if differ > got.numel() // 1000 or not e_f <= 2.0 ** -7:
+        raise AssertionError("K5's features are off the plain encoding")
+    max_err = max(max_err, _main_path_shapes(
+        "K5", lambda a, b, **kw: hash_field_forward(tables, cfg, a, b, **kw),
+        lambda a, b, **kw: hash_field_forward_plain(tables, cfg, a, b, **kw),
+        cfg, "hash"))
     rec["max_abs_err"] = max_err
     return rec
 
@@ -2216,7 +2322,7 @@ def phase_ngp_training():
     from sealdnerf_tpu_torch.cli import (base_parser, build_trainer,
                                          load_datasets, postprocess)
     from sealdnerf_tpu_torch.models.ngp import NGPConfig
-    from sealdnerf_tpu_torch.train.trainer import Trainer
+    from sealdnerf_tpu_torch.train.fast import FastTrainer
 
     ws = os.path.join(REPO, "workspace", "chip_smoke_ngp")
     argv = ["synthetic", "-O", "--backbone", "ngp", "--iters",
@@ -2228,8 +2334,8 @@ def phase_ngp_training():
     train, val, _ = load_datasets(opt)
     seeded, field = build_trainer(opt, name="ngp")
     full = NGPConfig(bound=2.0)
-    if type(seeded) is not Trainer or field.cfg != full or \
-            seeded.march.cascades != 2 or \
+    if type(seeded) is not FastTrainer or field.cfg != full or \
+            seeded.march_cfg.cascades != 2 or \
             tuple(field.params["grid"].shape) != (full.grid_cfg.table_size,
                                                   2):
         raise AssertionError(f"phase 10 trainer {type(seeded)}, field "
@@ -2247,7 +2353,7 @@ def phase_ngp_training():
     del seeded
     torch.cuda.empty_cache()
 
-    fns = _kernel_launches()
+    fns = _kernel_launches() + (K5,)
     for fn in fns:
         fn.zero()
     torch.cuda.synchronize()
@@ -2272,9 +2378,10 @@ def phase_ngp_training():
           f"{trainer.opt.num_rays} rays, {ms_step:.3f} ms/step, "
           f"{trainer.opt.num_rays * 1e3 / ms_step:.1f} rays/s over epochs "
           f"2-{len(trainer.history['epoch_s'])}; mean n_samples/step "
-          f"{np.mean(trainer.history['n_samples']):.1f}, packed budget "
-          f"{trainer._cur_budget}/ray; launches K1-K4 {launches} (the NGP "
-          f"path is plain PyTorch); grid cells written per cascade {written},"
+          f"{np.mean(trainer.history['n_samples']):.1f}; launches K1-K5 "
+          f"{launches} (K5: the grid refreshes and frames; the steps "
+          f"differentiate the plain field); grid cells written per cascade "
+          f"{written},"
           f" occupancy {occ}; loss first 64 {first:.6f} last 64 {last:.6f}; "
           f"val PSNR {psnr:.3f} dB; trained 800x800 frame {trained_ms:.1f} "
           f"ms; {len(frames)} test frames written", flush=True)
@@ -2289,8 +2396,11 @@ def phase_ngp_training():
                              f"{written}")
     if len(frames) != len(val) or not np.isfinite(img).all():
         raise AssertionError(f"phase 10: test frames written: {frames}")
+    if launches[:4] != [0, 0, 0, 0] or launches[4] < 1:
+        raise AssertionError(f"phase 10: launches K1-K5 {launches}")
     del trainer
     torch.cuda.empty_cache()
+    return launches[4]
 
 
 def phase_dnerf_ngp_training():
@@ -4182,6 +4292,7 @@ def main():
     rec_bwd = phase_backward_vs_plain()
     rec_dyn = phase_dyn_kernel_vs_plain()
     rec_dbwd = phase_dyn_backward_vs_plain()
+    rec_hash = phase_hash_kernel_vs_plain()
     served = phase_served_path(args.ckpt)
     trainer, k1_train, k2_train = phase_training(served)
     phase_one_step(trainer, served["train"])
@@ -4206,7 +4317,7 @@ def main():
     k1_b2 += phase_trained_frames(b2trainer, b2val, "9b")
     del b2trainer, b2val
     torch.cuda.empty_cache()
-    phase_ngp_training()
+    k5_ngp = phase_ngp_training()
     phase_dnerf_ngp_training()
     phase_ngp_edit(True, os.path.join(REPO, "workspace",
                                       "chip_smoke_dnerf_ngp"),
@@ -4234,7 +4345,8 @@ def main():
                "15": k_gui[2], "16": k_mesh[2], "17": k_prof[2]},
         "K4": {"7": k4_train, "8": k4_edit, "12": k_opts[3],
                "13": k_other[3], "15": k_gui[3], "16": k_mesh[3],
-               "17": k_prof[3]}}
+               "17": k_prof[3]},
+        "K5": {"10": k5_ngp}}
     print("kernel launches by phase: " + "; ".join(
         f"{k} " + ", ".join(f"{ph} {n}" for ph, n in v.items())
         for k, v in by_phase.items()), flush=True)
@@ -4259,7 +4371,11 @@ def main():
         "name": "dyn_field_bwd", "route": "cuda",
         "source": "sealdnerf_tpu_torch/ops/csrc/dyn_field_bwd.cu",
         "replaces": "sealdnerf_tpu/ops/pallas_field.py:805",
-        "launches": sum(by_phase["K4"].values()), **rec_dbwd}]}))
+        "launches": sum(by_phase["K4"].values()), **rec_dbwd}, {
+        "name": "hash_field_fwd", "route": "cuda",
+        "source": "sealdnerf_tpu_torch/ops/csrc/hash_field_fwd.cu",
+        "replaces": None,
+        "launches": sum(by_phase["K5"].values()), **rec_hash}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,8 +6,11 @@ sealdnerf_tpu/cli.py).
 the other CLIs have none and run as without it, as the reference's do.
 `build_trainer` routes the recipes as the reference does (the CP field
 and FastTrainer where the recipe allows it, else the Instant-NGP or D-NeRF
-field and Trainer). --clip_text with --rand_pose >= 0 gives the trainers
-CLIP guidance when its weights are on the disk (train/clip_guidance.py).
+field), with one departure: the Instant-NGP field without its background
+sphere trains and serves on FastTrainer and the hash-grid kernel, the other
+Instant-NGP and D-NeRF recipes on Trainer. --clip_text with --rand_pose >=
+0 gives the trainers CLIP guidance when its weights are on the disk
+(train/clip_guidance.py).
 
 Under `torchrun --nproc_per_node N` every CLI but main_sdf trains and
 serves on a data mesh of N ranks (parallel/mesh.py), one process and one
@@ -269,13 +272,17 @@ def build_trainer(opt, name="ngp", dynamic=False, metrics=None,
     nor --hyper (the static field at any --bound and --dt_gamma, its VM
     planes from --planes). Every other recipe takes the Instant-NGP field
     (static; with the background sphere at --bg_radius > 0) or the D-NeRF
-    field (dynamic: --basis, --hyper, else deform) and Trainer's packed
-    march. --backbone cp on a recipe it does not allow exits.
+    field (dynamic: --basis, --hyper, else deform). The Instant-NGP field
+    without the background sphere trains and serves on FastTrainer (the
+    dense march, the bucketed frames, its hash-grid kernel K5) at any
+    --bound and --dt_gamma; with it, and the D-NeRF field, on Trainer's
+    packed march. --backbone cp on a recipe it does not allow exits.
 
     edit=True builds the teacher of an edit CLI as the reference's
     main_seald and main_SealNeRF build theirs: routed by edit_cp_route, the
     Instant-NGP field with --log2_hashmap_size and the D-NeRF field with
-    the background sphere of --bg_radius.
+    the background sphere of --bg_radius, both on Trainer, as the
+    StudentTrainer that edits them is.
 
     The trainer runs on the data mesh of torchrun's environment (one rank
     without it; parallel/mesh.py:make_mesh)."""
@@ -322,6 +329,8 @@ def build_trainer(opt, name="ngp", dynamic=False, metrics=None,
         field = make_ngp_field(gen, NGPConfig(bound=opt.bound,
                                               bg_radius=opt.bg_radius,
                                               **hashmap), device)
+        if not edit and opt.bg_radius <= 0:
+            return FastTrainer(name, topt, field, **kw), field
     return Trainer(name, topt, field, **kw), field
 
 

@@ -16,6 +16,7 @@ from typing import Callable, Optional
 import torch
 
 from . import dnerf, ngp, tensorf
+from .params import PackedTables
 
 
 class Field:
@@ -33,15 +34,25 @@ class Field:
         self.forward_trunc = forward_trunc
 
 
+class NGPField(PackedTables, Field):
+    """The Instant-NGP field, with the hash-grid kernel's packed operands
+    (ops/field.py:pack_hash_tables) cached per parameter version, which
+    FastTrainer's frames and grid refresh read."""
+
+    def _pack(self, params):
+        from ..ops.field import pack_hash_tables
+        return pack_hash_tables(params, self.cfg)
+
+
 def make_ngp_field(generator: torch.Generator, cfg: ngp.NGPConfig,
-                   device=None) -> Field:
+                   device=None) -> NGPField:
     """The Instant-NGP field, seeded from `generator`."""
     from ..ops.grid_encode import grid_tv_loss
     bg = None
     if cfg.bg_radius > 0:
         def bg(params, sph, d):
             return ngp.background(params, cfg, sph, d)
-    return Field(
+    return NGPField(
         ngp.init_ngp(generator, cfg, device), cfg,
         lambda params, x, d: ngp.ngp_forward(params, cfg, x, d),
         lambda params, x: ngp.ngp_density(params, cfg, x),

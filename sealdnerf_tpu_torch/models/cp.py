@@ -38,8 +38,8 @@ from ..ops.hat import bf16_round, hat_taps, line_interp
 from ..ops.sh_encode import sh_encode, sh_output_dim
 from ..utils import profiling
 from .mlp import apply_mlp, init_mlp
-from .params import (map_params, param_leaves, params_from_jax,  # noqa: F401
-                     params_to_numpy, unflatten_like)
+from .params import (PackedTables, map_params, param_leaves,  # noqa: F401
+                     params_from_jax, params_to_numpy, unflatten_like)
 
 
 @dataclass(frozen=True)
@@ -237,35 +237,18 @@ def cp_forward(params, cfg: CPConfig, x, d, chunk: int = 1 << 18):
     return torch.cat(sig), torch.cat(rgb)
 
 
-def _params_version(params):
-    """Identity of a params tree and of the values of its leaves: every
-    in-place update of a tensor (an optimizer or EMA step) bumps its
-    version counter."""
-    return (id(params),) + tuple(t._version for t in param_leaves(params))
-
-
-class CPField:
+class CPField(PackedTables):
     """Params + config of a CP field, with the kernel's packed bf16 tables
-    cached per parameter version. The cache key holds the params dict's
-    identity and the version counter of every leaf, so both a new dict and
-    an in-place update of its tensors repack."""
+    cached per parameter version (PackedTables.kernel_tables)."""
 
     def __init__(self, params, cfg: CPConfig):
         self.params = params
         self.cfg = cfg
         self._tables = {}
 
-    def kernel_tables(self, params):
-        """Packed kernel operands of `params`, built once per version. Up to
-        two versions are kept: the training params and the EMA params."""
-        key = _params_version(params)
-        if key not in self._tables:
-            from ..ops.field import pack_tables
-            if len(self._tables) >= 2:
-                self._tables.pop(next(iter(self._tables)))
-            # the entry holds `params`, so its id is not reused while cached
-            self._tables[key] = (params, pack_tables(params, self.cfg))
-        return self._tables[key][1]
+    def _pack(self, params):
+        from ..ops.field import pack_tables
+        return pack_tables(params, self.cfg)
 
 
 def make_cp_field(generator: torch.Generator, cfg: CPConfig, device=None):

@@ -52,3 +52,30 @@ def params_from_jax(tree, device=None):
 def params_to_numpy(params):
     """Inverse of params_from_jax: tensors -> numpy arrays."""
     return map_params(lambda t: t.detach().cpu().numpy(), params)
+
+
+def params_version(params):
+    """Identity of a params tree and of the values of its leaves: every
+    in-place update of a tensor (an optimizer or EMA step) bumps its
+    version counter."""
+    return (id(params),) + tuple(t._version for t in param_leaves(params))
+
+
+class PackedTables:
+    """A field's kernel operands cached per parameter version: the mixin of
+    the fields whose kernels take packed tables (CPField, NGPField), which
+    give `_pack(params)`. The cache key holds the params dict's identity and
+    the version counter of every leaf, so both a new dict and an in-place
+    update of its tensors repack."""
+
+    def kernel_tables(self, params):
+        """Packed kernel operands of `params`, built once per version. Up to
+        two versions are kept: the training params and the EMA params."""
+        cache = self.__dict__.setdefault("_tables", {})
+        key = params_version(params)
+        if key not in cache:
+            if len(cache) >= 2:
+                cache.pop(next(iter(cache)))
+            # the entry holds `params`, so its id is not reused while cached
+            cache[key] = (params, self._pack(params))
+        return cache[key][1]

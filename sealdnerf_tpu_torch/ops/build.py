@@ -117,4 +117,8 @@ def load_library() -> ctypes.CDLL:
          vp, ctypes.POINTER(ctypes.c_longlong), vp, i32, i32]
         + [vp] * 11 + [i64, i32, vp, vp])
     lib.sdn_dyn_field_bwd.restype = ctypes.c_int
+    lib.sdn_hash_field_fwd.argtypes = [vp, vp, i64, vp, vp,
+                                       ctypes.POINTER(ctypes.c_longlong), f32,
+                                       i32, vp, vp, vp]
+    lib.sdn_hash_field_fwd.restype = ctypes.c_int
     return lib

@@ -45,14 +45,41 @@ namespace sdn {
 //          weight row: hi + lo carries 16 bits of v's mantissa, the products
 //          are exact and the sums f32, so the row's error is 2^-17 |v w|,
 //          below the f32 sum's own reordering noise over 259 rows;
-//   zero:  padding.
+//   zero:  padding;
+//   hash:  levels l0..l0+3 (l0 = sub) of a multiresolution hash grid of two
+//          features a level (K5, hash_field_fwd.cu): per level the eight
+//          corners of the sample's cell, each one 4-byte read of a bf16 pair
+//          at the level's tiled index or prime-XOR hash, summed with
+//          trilinear weights in f32 and rounded to bf16.
+// Which kinds an instantiation computes is its segment set, a template
+// parameter: kCpSegs (line, plane, freq: K1-K4) or kHashSegs (hash: K5), so
+// that neither carries the other's branches.
 // The colour tower's input is [SH(d) (16) | the sigma tower's 16 outputs]: the
 // outputs stay where the sigma product left them, and column 0 (the density
 // logit) meets a zero row and is zeroed in the fragment.
 
-constexpr int kSegZero = 0, kSegLine = 1, kSegPlane = 2, kSegFreq = 3;
+constexpr int kSegZero = 0, kSegLine = 1, kSegPlane = 2, kSegFreq = 3, kSegHash = 4;
+constexpr int kCpSegs = 0, kHashSegs = 1;  // segment sets
 constexpr int kMaxBlocks = 16;  // k-blocks of 32 columns of the first product
 constexpr int kTileRows = 16;   // samples per warp tile
+constexpr int kHashLevels = 16;  // levels of a hash grid: one k-block of 16 x 2 features
+
+// One level of a hash grid: position scale, the cell clamp (the level's
+// resolution), the index strides of y and z, the table's rows, its first row
+// in the packed table, and whether it hashes (else the tiled index). A
+// hashed level's rows are a power of two and a tiled index stays below twice
+// the rows (hash_field_fwd.cu checks both), so the modulo is a mask or one
+// subtraction.
+struct HashLevel {
+  float scale;
+  int res;
+  uint32_t s1, s2, size, off;
+  int hashed;
+};
+
+struct HashMeta {
+  HashLevel lv[kHashLevels];
+};
 
 struct Seg {
   int kind, sub, res, stride;  // stride: the table's row length (rank or channels)
@@ -267,6 +294,57 @@ __device__ __forceinline__ void freq_segment(const Seg& sg, int freq_degree, con
   }
 }
 
+// Four levels (l0..l0+3) of the hash grid at one sample, u its position in
+// the unit cube (unclipped): q[c] holds level l0 + c's two features. Per
+// level: pos = u * scale + 0.5, the cell floor(pos) and the fractions, the
+// eight corners (corner i takes bit a of i on axis a) at the tiled index
+// (x + y s1 + z s2) or the hash x ^ 2654435761 y ^ 805459861 z, both in 32
+// bits, modulo the level's rows; the corner's weight is ((wx wy) wz) and the
+// sum runs over the corners in order, with the plain version's roundings.
+// A sample outside [0, 1]^3 encodes to zeros. The eight reads of each level
+// are issued before any is used.
+__device__ __forceinline__ void hash_segment(const HashMeta& hm, int l0,
+                                             const __nv_bfloat16* __restrict__ tab,
+                                             const float* u, uint32_t* q) {
+  const uint32_t* __restrict__ tab2 = reinterpret_cast<const uint32_t*>(tab);
+  const bool oob = u[0] < 0.f || u[0] > 1.f || u[1] < 0.f || u[1] > 1.f || u[2] < 0.f ||
+                   u[2] > 1.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const HashLevel& L = hm.lv[l0 + c];
+    float fr[3];
+    uint32_t cell[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float pos = __fadd_rn(__fmul_rn(u[a], L.scale), 0.5f);
+      const float pf = floorf(pos);
+      fr[a] = __fsub_rn(pos, pf);
+      cell[a] = (uint32_t)fminf(fmaxf(pf, 0.f), (float)L.res);
+    }
+    uint32_t v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t x = cell[0] + (i & 1), y = cell[1] + ((i >> 1) & 1),
+                     z = cell[2] + ((i >> 2) & 1);
+      const uint32_t hx = (x ^ (y * 2654435761u) ^ (z * 805459861u)) & (L.size - 1u);
+      const uint32_t lin = x + y * L.s1 + z * L.s2;
+      const uint32_t h = L.hashed ? hx : (lin >= L.size ? lin - L.size : lin);
+      v[i] = __ldg(tab2 + L.off + h);
+    }
+    float f0 = 0.f, f1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float wx = (i & 1) ? fr[0] : __fsub_rn(1.f, fr[0]);
+      const float wy = (i & 2) ? fr[1] : __fsub_rn(1.f, fr[1]);
+      const float wz = (i & 4) ? fr[2] : __fsub_rn(1.f, fr[2]);
+      const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
+      f0 = __fadd_rn(f0, __fmul_rn(w, bf_lo(v[i])));
+      f1 = __fadd_rn(f1, __fmul_rn(w, bf_hi(v[i])));
+    }
+    q[c] = oob ? 0u : pack_bf16(f0, f1);
+  }
+}
+
 // The pieces of the canonical field at a tile of 16 samples, which the
 // forward (field_tile) and the backward's recompute (field_bwd_body.cuh) both
 // run, so that the backward sees the forward's pre-activations bit for bit.
@@ -288,20 +366,27 @@ __device__ __forceinline__ bool segment_on(const Seg& sg, int lod_mask) {
 }
 
 // The eight features of this thread's segment of k-block b for its two rows,
-// as the A fragments of the block's two k-steps.
+// as the A fragments of the block's two k-steps. kSet: the segment set; hm:
+// the hash grid's levels (kHashSegs only, whose x01 is unclipped).
+template <int kSet = kCpSegs>
 __device__ __forceinline__ void block_features(const FieldMeta& meta, int kind, const Seg& sg,
                                                bool on, const __nv_bfloat16* __restrict__ tab,
                                                const float (&xyz)[2][3],
                                                const float (&x01)[2][3], uint32_t (&q)[2][4],
-                                               uint32_t (&a)[2][4]) {
+                                               uint32_t (&a)[2][4],
+                                               const HashMeta* hm = nullptr) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) q[j][c] = 0u;
     if (on) {
-      if (kind == kSegLine) line_segment(sg, tab, x01[j], q[j]);
-      else if (kind == kSegPlane) plane_segment(sg, tab, x01[j], q[j]);
-      else freq_segment(sg, meta.freq_degree, xyz[j], q[j]);
+      if constexpr (kSet == kHashSegs) {
+        hash_segment(*hm, sg.sub, tab, x01[j], q[j]);
+      } else {
+        if (kind == kSegLine) line_segment(sg, tab, x01[j], q[j]);
+        else if (kind == kSegPlane) plane_segment(sg, tab, x01[j], q[j]);
+        else freq_segment(sg, meta.freq_degree, xyz[j], q[j]);
+      }
     }
     a[0][j] = q[j][0]; a[0][2 + j] = q[j][1];
     a[1][j] = q[j][2]; a[1][2 + j] = q[j][3];
@@ -312,13 +397,14 @@ __device__ __forceinline__ void block_features(const FieldMeta& meta, int kind, 
 // feat_out, if not null, receives the A operand, bf16 [m, 32 n_blocks] in
 // segment order (column 8 (4 b + t) + e; the caller zeroes it: a block that
 // lod_mask skips whole is not written).
+template <int kSet = kCpSegs>
 __device__ __forceinline__ void first_product(const FieldMeta& meta, const TileMeta& tm,
                                               const __nv_bfloat16* __restrict__ tab,
                                               const TileWeights& w, const float (&xyz)[2][3],
                                               const float (&x01)[2][3],
                                               const long long (&idx)[2], int lod_mask,
                                               __nv_bfloat16* __restrict__ feat_out,
-                                              float (*acc)[4]) {
+                                              float (*acc)[4], const HashMeta* hm = nullptr) {
   const int lane = threadIdx.x & 31, t = lane & 3;
   zero_acc(acc);
   for (int b = 0; b < tm.n_blocks; ++b) {
@@ -326,7 +412,7 @@ __device__ __forceinline__ void first_product(const FieldMeta& meta, const TileM
     const bool on = segment_on(sg, lod_mask);
     if (!__any_sync(0xffffffffu, on)) continue;  // the whole block is skipped
     uint32_t q[2][4], a[2][4];
-    block_features(meta, tm.blk_kind[b], sg, on, tab, xyz, x01, q, a);
+    block_features<kSet>(meta, tm.blk_kind[b], sg, on, tab, xyz, x01, q, a, hm);
     if (feat_out != nullptr) {
 #pragma unroll
       for (int j = 0; j < 2; ++j)
@@ -412,7 +498,9 @@ __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v
 
 // The canonical field at a tile of 16 samples. xyz[j] is the (already warped)
 // position of row j. Writes rows (sigma, r, g, b) of out [4, m]; feat_out as
-// in first_product.
+// in first_product. kSet and hm as in block_features: a hash grid reads its
+// positions in the unit cube unclipped (a sample outside encodes to zeros).
+template <int kSet = kCpSegs>
 __device__ __forceinline__ void field_tile(const FieldMeta& meta, const TileMeta& tm,
                                            const __nv_bfloat16* __restrict__ tab,
                                            const TileWeights& w, const float (&xyz)[2][3],
@@ -420,16 +508,20 @@ __device__ __forceinline__ void field_tile(const FieldMeta& meta, const TileMeta
                                            const float* __restrict__ d3, long long m,
                                            int lod_mask, int density_only,
                                            float* __restrict__ out,
-                                           __nv_bfloat16* __restrict__ feat_out) {
+                                           __nv_bfloat16* __restrict__ feat_out,
+                                           const HashMeta* hm = nullptr) {
   const int t = threadIdx.x & 3;
   float x01[2][3];
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int a = 0; a < 3; ++a) x01[j][a] = unit01(xyz[j][a], meta.bound);
+    for (int a = 0; a < 3; ++a)
+      x01[j][a] = kSet == kHashSegs
+                      ? __fdiv_rn(__fadd_rn(xyz[j][a], meta.bound), 2.f * meta.bound)
+                      : unit01(xyz[j][a], meta.bound);
 
   float acc[8][4];
-  first_product(meta, tm, tab, w, xyz, x01, idx, lod_mask, feat_out, acc);
+  first_product<kSet>(meta, tm, tab, w, xyz, x01, idx, lod_mask, feat_out, acc, hm);
   uint32_t ah[4][4];
   relu_fragments(acc, ah);
   float o[2][4];
@@ -497,6 +589,28 @@ field_fwd_kernel(const float* __restrict__ x3, const float* __restrict__ d3, lon
   }
 }
 
+// The persistent grid of a forward kernel (blocks of kFwdBlock threads, `smem`
+// bytes of shared memory) over m samples: a block for every kFwdWarps tiles,
+// at most as many as the SMs hold at once. Returns 0 or a CUDA error.
+template <typename Kernel>
+inline int fwd_blocks(Kernel kernel, long long m, size_t smem, long long* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFwdBlock, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  const long long tiles = (m + kTileRows - 1) / kTileRows;
+  long long b = (tiles + kFwdWarps - 1) / kFwdWarps;
+  const long long cap = (long long)n_sm * per_sm;
+  if (b > cap) b = cap;
+  *blocks = b < 1 ? 1 : b;
+  return 0;
+}
+
 // Launch the forward over m samples on `stream`; returns cudaGetLastError().
 inline int launch_field_fwd(const float* x3, const float* d3, long long m,
                             const __nv_bfloat16* tab, const __nv_bfloat16* wfwd,
@@ -504,20 +618,9 @@ inline int launch_field_fwd(const float* x3, const float* d3, long long m,
                             int density_only, float* out, __nv_bfloat16* feat_out,
                             cudaStream_t stream) {
   const size_t smem = (size_t)tm.w_elems * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(field_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, field_fwd_kernel, kFwdBlock, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-  const long long tiles = (m + kTileRows - 1) / kTileRows;
-  long long blocks = (tiles + kFwdWarps - 1) / kFwdWarps;
-  const long long cap = (long long)n_sm * per_sm;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
+  long long blocks = 0;
+  const int bad = fwd_blocks(field_fwd_kernel, m, smem, &blocks);
+  if (bad) return bad;
   field_fwd_kernel<<<(unsigned)blocks, kFwdBlock, smem, stream>>>(
       x3, d3, m, tab, wfwd, fm, tm, lod_mask, density_only, out, feat_out);
   return (int)cudaGetLastError();

@@ -3,7 +3,9 @@ ops/csrc/field_fwd.cu (K1, port of the Pallas `_field_kernel`),
 ops/csrc/field_bwd.cu (K2, port of `_field_bwd_kernel`),
 ops/csrc/dyn_field_fwd.cu (K3, port of `_dyn_field_kernel`) and
 ops/csrc/dyn_field_bwd.cu (K4, port of `_dyn_field_bwd_kernel`), their plain
-PyTorch versions, and the autograd ops that join K1 with K2 and K3 with K4.
+PyTorch versions, and the autograd ops that join K1 with K2 and K3 with K4;
+and of ops/csrc/hash_field_fwd.cu (K5, the Instant-NGP hash-grid field's
+forward on K1's tiles, which no TPU kernel had), with its plain version.
 
     field_forward(params, cfg, x3 [3, M], d3 [3, M]) -> out [4, M]
     rows: sigma, r, g, b (f32)
@@ -19,6 +21,8 @@ PyTorch versions, and the autograd ops that join K1 with K2 and K3 with K4.
     dyn_field_train_forward(params, cfg, x3, d3, t) -> out [4, M],
     differentiable in the params (K3 forward, K4 backward; x3, d3 and t get
     no gradient)
+    hash_field_forward(params, cfg: NGPConfig, x3, d3) -> out [4, M]
+    (no gradient: the render path and the grid's refresh)
 
 `params` is either a params dict or the `FieldTables` that `pack_tables`
 builds from one: the bf16 tables and tower weights in the kernels' layouts
@@ -31,10 +35,12 @@ the field repeatedly pack once per parameter version (CPField.kernel_tables).
 Device dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes
 to the kernel, and a failed build or launch raises. Each call opens the span
 "sdn.k1" (field_forward), "sdn.k2" (field_backward), "sdn.k3"
-(dyn_field_forward) or "sdn.k4" (dyn_field_backward) while a profiler
-session records, and adds its samples to the counter "k<n>.samples"; a call
-that reached the kernel adds one to "k<n>.calls" (utils/profiling.py: read
-them with `profiling.tally(traced=False)["counters"]`).
+(dyn_field_forward), "sdn.k4" (dyn_field_backward) or "sdn.k5"
+(hash_field_forward) while a profiler session records, and adds its samples
+to the counter "k<n>.samples" (and a density-only K5 call to
+"k5.density_samples" too); a call that reached the kernel adds one to
+"k<n>.calls" (utils/profiling.py: read them with
+`profiling.tally(traced=False)["counters"]`).
 
 The plain versions reproduce the kernels' rounding points: table taps and
 hat weights in bf16, line/plane features rounded to bf16, frequency
@@ -61,8 +67,10 @@ import torch
 
 from ..models.cp import (VM_PAIRS, CPConfig, CPDNeRFConfig, cp_color,
                          cp_density, cp_features, param_leaves)
+from ..models.ngp import NGPConfig, color_tower as ngp_color, ngp_density
 from ..utils import profiling
 from .freq_encode import freq_encode
+from .grid_encode import HASH, GridEncodeConfig
 from .hat import bf16_round, hat_slopes, hat_taps
 from .sh_encode import sh_encode
 
@@ -99,6 +107,9 @@ class FieldTables:
     meta:  int64 layout description read by the kernels' C entry points:
            the tables and the weight-gradient buffer, the kernels' tile
            layout, then the offsets into wbwd.
+    Of an Instant-NGP field (pack_hash_tables, K5): plain {"grid",
+    "sigma_mlp", "color_mlp"} in bf16, tab the bf16 table [rows, 2] itself,
+    wfwd as above, meta K5's (hash_tile_layout); wbwd None.
     Of a time-conditioned field also (plain then has "deform_mlp" too):
     w0_time: f32 [time inputs, hidden], the first deform matrix's time rows.
     wdef:  flat bf16 buffer of the deform matrices as the shared-memory
@@ -127,7 +138,7 @@ class FieldTables:
 
 
 # segment kinds of the forward kernels' tile layout (csrc/field_fwd_body.cuh)
-SEG_ZERO, SEG_LINE, SEG_PLANE, SEG_FREQ = 0, 1, 2, 3
+SEG_ZERO, SEG_LINE, SEG_PLANE, SEG_FREQ, SEG_HASH = 0, 1, 2, 3, 4
 _MAX_BLOCKS = 16
 
 
@@ -234,6 +245,44 @@ class TileLayout:
         return out + [int(self.bwd_index.size)] + list(self.bwd_off)
 
 
+def _tower_indices(rows, feat_dim: int):
+    """The forward kernels' five tower matrices as element indices into
+    `flat` (see pack_tables): w0 [32 n_blocks, 64] whose column c of the
+    layout multiplies row rows[c] of the first sigma matrix (-1: padding),
+    w1 [64, 16], wc0 [32, 64], wc1 [64, 64], wc2 [64, 16], input-major and
+    zero-padded (`zero`: the index of the pad behind the five matrices) ->
+    ((i0, i1, ic0, ic1, ic2), w0's rows in segment order, the A fragment's
+    row of each layout column, zero)."""
+    hid, sig_out, c_in = 64, 16, 31
+    sizes = [feat_dim * hid, sig_out * hid, c_in * hid, hid * hid, hid * 3]
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    zero = int(off[5] + (-off[5]) % 8)
+    n64 = np.arange(hid)[None, :]
+    # w0: layout column -> the A fragment's column of its k-block
+    col = np.arange(rows.size)
+    b, t, e = col // 32, col % 32 // 8, col % 8
+    kpos = 32 * b + 16 * (e // 4) + 2 * t + e % 2 + 8 * (e // 2 % 2)
+    iseg = np.where(rows[:, None] >= 0, off[0] + rows[:, None] * hid + n64,
+                    zero)                      # w0's rows in segment order
+    i0 = np.full((rows.size, hid), zero, dtype=np.int64)
+    i0[kpos] = iseg
+    # w1 [64, 16] from w1^T [16, 64]
+    i1 = off[1] + np.arange(sig_out)[None, :] * hid + np.arange(hid)[:, None]
+    # wc0 [32, 64]: SH rows in the threads' order, a zero row, the geo rows
+    ic0 = np.full((32, hid), zero, dtype=np.int64)
+    for tq in range(4):
+        for c in range(4):
+            ic0[2 * tq + c % 2 + 8 * (c // 2)] = off[2] + (4 * tq + c) * hid \
+                + n64[0]
+    ic0[17:32] = off[2] + (16 + np.arange(15))[:, None] * hid + n64
+    # wc1 [64, 64] from wc1^T
+    ic1 = off[3] + n64 * hid + np.arange(hid)[:, None]
+    # wc2 [64, 16] from [64, 3]
+    ic2 = np.full((hid, 16), zero, dtype=np.int64)
+    ic2[:, :3] = off[4] + np.arange(hid)[:, None] * 3 + np.arange(3)[None, :]
+    return (i0, i1, ic0, ic1, ic2), iseg, kpos, zero
+
+
 @functools.lru_cache(maxsize=16)
 def tile_layout(cfg: CPConfig):
     """TileLayout of `cfg`, or None for a config the kernels do not take:
@@ -285,36 +334,11 @@ def tile_layout(cfg: CPConfig):
     if n_blocks > _MAX_BLOCKS:
         return None
     rows = np.asarray(rows, dtype=np.int64)
-
-    # element indices into `flat` (see pack_tables); `zero`: the pad behind it
-    hid, sig_out, c_in = 64, 16, 31
-    sizes = [cfg.feat_dim * hid, sig_out * hid, c_in * hid, hid * hid,
-             hid * 3]
-    off = np.concatenate([[0], np.cumsum(sizes)])
-    zero = int(off[5] + (-off[5]) % 8)
-    n64 = np.arange(hid)[None, :]
-    # w0: layout column -> the A fragment's column of its k-block
+    (i0, i1, ic0, ic1, ic2), iseg, kpos, zero = _tower_indices(rows,
+                                                               cfg.feat_dim)
+    hid = 64
     col = np.arange(32 * n_blocks)
-    b, t, e = col // 32, col % 32 // 8, col % 8
-    kpos = 32 * b + 16 * (e // 4) + 2 * t + e % 2 + 8 * (e // 2 % 2)
-    iseg = np.where(rows[:, None] >= 0, off[0] + rows[:, None] * hid + n64,
-                    zero)                      # w0's rows in segment order
-    i0 = np.full((32 * n_blocks, hid), zero, dtype=np.int64)
-    i0[kpos] = iseg
-    # w1 [64, 16] from w1^T [16, 64]
-    i1 = off[1] + np.arange(sig_out)[None, :] * hid + np.arange(hid)[:, None]
-    # wc0 [32, 64]: SH rows in the threads' order, a zero row, the geo rows
-    ic0 = np.full((32, hid), zero, dtype=np.int64)
-    for tq in range(4):
-        for c in range(4):
-            ic0[2 * tq + c % 2 + 8 * (c // 2)] = off[2] + (4 * tq + c) * hid \
-                + n64[0]
-    ic0[17:32] = off[2] + (16 + np.arange(15))[:, None] * hid + n64
-    # wc1 [64, 64] from wc1^T
-    ic1 = off[3] + n64 * hid + np.arange(hid)[:, None]
-    # wc2 [64, 16] from [64, 3]
-    ic2 = np.full((hid, 16), zero, dtype=np.int64)
-    ic2[:, :3] = off[4] + np.arange(hid)[:, None] * 3 + np.arange(3)[None, :]
+    b = col // 32
     mats = [_frag_index(i) for i in (i0, i1, ic0, ic1, ic2)]
     w_off = np.concatenate([[0], np.cumsum([m.size for m in mats])])[:5]
     # the chain's B operands: the transposes, w0^T's columns regrouped
@@ -680,6 +704,190 @@ def field_forward(params, cfg: CPConfig, x3, d3, lod_skip=(),
             raise ValueError(f"unsupported device {x3.device}")
         return _launch(tables, cfg, x3, d3, lod_skip, density_only,
                        _feature_buffer(cfg, x3, parts))
+
+
+# ------------------------------------------------------- hash grid (K5)
+# the hash-grid field kernel's grid: 16 levels of 2 features over 3-D points,
+# one k-block of the first sigma product (csrc/field_fwd_body.cuh kHashLevels)
+_HASH_GRID = dict(input_dim=3, num_levels=16, level_dim=2,
+                  align_corners=False, interpolation="linear")
+
+
+def _hash_levels(gc: GridEncodeConfig):
+    """Per level of the grid (scale, res, s1, s2, size, offset, hashed), as
+    grid_encode indexes it: the tiled index x + s1 y + s2 z (strides of the
+    axes whose running stride fits the level's rows, 0 for the others)
+    while it fits, else, on a hash grid, the prime-XOR hash."""
+    out = []
+    for lvl in range(gc.num_levels):
+        size = gc.offsets[lvl + 1] - gc.offsets[lvl]
+        res_stride = gc.resolutions[lvl] + (0 if gc.align_corners else 1)
+        strides, stride = [], 1
+        for _ in range(gc.input_dim):
+            if stride > size:
+                break
+            strides.append(stride)
+            stride *= res_stride
+        strides += [0] * (3 - len(strides))
+        out.append((gc.level_scale(lvl), gc.resolutions[lvl], strides[1],
+                    strides[2], size, gc.offsets[lvl],
+                    int(gc.gridtype == HASH and stride > size)))
+    return out
+
+
+def _check_hash_cfg(cfg: NGPConfig):
+    """Raise unless K5 takes the field: the kernel's towers, a 3-D grid of
+    16 linear levels of 2 features, each level's modulo a power-of-two mask
+    (hashed) or one subtraction (tiled; csrc/hash_field_fwd.cu)."""
+    for k, v in _KERNEL_TOWERS.items():
+        if getattr(cfg, k) != v:
+            raise NotImplementedError(
+                f"the hash field kernel is built for {k}={v}, got "
+                f"{getattr(cfg, k)}")
+    gc = cfg.grid_cfg
+    for k, v in _HASH_GRID.items():
+        if getattr(gc, k) != v:
+            raise NotImplementedError(
+                f"the hash field kernel is built for a grid of {k}={v}, got "
+                f"{getattr(gc, k)}")
+    for _, res, s1, s2, size, _, hashed in _hash_levels(gc):
+        if (size & (size - 1)) if hashed else \
+                (res + 1) * (1 + s1 + s2) >= 2 * size:
+            raise NotImplementedError(
+                f"the hash field kernel takes no level of {size} rows at "
+                f"resolution {res} ({'hashed' if hashed else 'tiled'})")
+
+
+@functools.lru_cache(maxsize=16)
+def hash_tile_layout(cfg: NGPConfig):
+    """(index, meta) of K5 for `cfg`, which _check_hash_cfg takes: the gather
+    index of wfwd (as TileLayout.index: the first sigma matrix's 32 rows in
+    their own order, thread t's segment being levels 4t..4t+3) and the int64
+    meta of csrc/hash_field_fwd.cu."""
+    _check_hash_cfg(cfg)
+    mats, *_ = _tower_indices(np.arange(32, dtype=np.int64), 32)
+    mats = [_frag_index(i) for i in mats]
+    w_off = np.concatenate([[0], np.cumsum([m.size for m in mats])])[:5]
+    index = np.concatenate(mats)
+    meta = [0, 0, 0, 32, 0] + [0] * 5 + [1, int(index.size)] \
+        + [int(o) for o in w_off] + [SEG_HASH]
+    for t in range(4):
+        meta += [SEG_HASH, 4 * t, 0, 0, 0, 0, 0]
+    for scale, res, s1, s2, size, off, hashed in _hash_levels(cfg.grid_cfg):
+        bits = int(np.asarray(scale, np.float32).view(np.uint32))
+        meta += [bits, res, s1, s2, size, off, hashed]
+    return index, tuple(meta)
+
+
+@torch.no_grad()
+def pack_hash_tables(params, cfg: NGPConfig) -> FieldTables:
+    """K5's operands of an Instant-NGP field's params: the bf16 table [rows,
+    2] (plain["grid"], which is also tab), the bf16 towers, and wfwd, the
+    five matrices packed as for K1 (empty for a config that K5 does not
+    take; the launch raises for it)."""
+    bf = torch.bfloat16
+    plain = {"grid": params["grid"].to(bf).contiguous(),
+             "sigma_mlp": {"w": [w.to(bf) for w in params["sigma_mlp"]["w"]]},
+             "color_mlp": {"w": [w.to(bf) for w in params["color_mlp"]["w"]]}}
+    tab = plain["grid"]
+    try:
+        index, meta = hash_tile_layout(cfg)
+    except NotImplementedError:
+        return FieldTables(plain=plain, tab=tab, meta=[],
+                           wfwd=tab.new_zeros(0))
+    ws, wc = plain["sigma_mlp"]["w"], plain["color_mlp"]["w"]
+    flat = torch.cat([m.contiguous().reshape(-1) for m in (
+        ws[0], ws[1].t(), wc[0], wc[1].t(), wc[2])] + [tab.new_zeros(16)])
+    dev = torch.from_numpy(index).to(tab.device)
+    return FieldTables(plain=plain, tab=tab, meta=list(meta),
+                       wfwd=flat[dev])
+
+
+def hash_field_forward_plain(tables: FieldTables, cfg: NGPConfig, x3, d3,
+                             density_only=False, chunk: int = 1 << 18):
+    """Plain PyTorch version of K5, in chunks of `chunk` samples: grid_encode
+    on the bf16 table and the towers of models/ngp.py, which round the
+    features, weights and hidden activations to bf16 as the kernel does."""
+    m = x3.shape[1]
+    out = x3.new_zeros((4, m))
+    p = {"grid": tables.plain["grid"].float(),
+         "sigma_mlp": tables.plain["sigma_mlp"],
+         "color_mlp": tables.plain["color_mlp"]}
+    x = x3.t()
+    for i in range(0, m, chunk):
+        sigma, geo = ngp_density(p, cfg, x[i:i + chunk])
+        out[0, i:i + chunk] = sigma
+        if not density_only:
+            rgb = ngp_color(p, cfg, d3.t()[i:i + chunk], geo)
+            out[1:4, i:i + chunk] = rgb.t()
+    return out
+
+
+def _launch_hash(tables: FieldTables, cfg: NGPConfig, x3, d3, density_only,
+                 feats=None):
+    from .build import load_library
+    hash_tile_layout(cfg)              # raises for a config K5 does not take
+    for name, t in (("table", tables.tab), ("weights", tables.wfwd)):
+        if t.device != x3.device or t.dtype != torch.bfloat16:
+            raise ValueError(f"packed {name} must be bf16 on {x3.device}, "
+                             f"got {t.dtype} on {t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"packed {name} must be 16-byte aligned")
+    m = x3.shape[1]
+    out = torch.empty((4, m), dtype=torch.float32, device=x3.device)
+    if m == 0:
+        return out
+    lib = load_library()
+    meta = (ctypes.c_longlong * len(tables.meta))(*tables.meta)
+    stream = torch.cuda.current_stream(x3.device).cuda_stream
+    rc = lib.sdn_hash_field_fwd(
+        x3.data_ptr(), (x3 if d3 is None else d3).data_ptr(), m,
+        tables.tab.data_ptr(), tables.wfwd.data_ptr(), meta,
+        float(cfg.bound), int(bool(density_only)), out.data_ptr(),
+        None if feats is None else feats.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"hash field kernel launch failed: CUDA error "
+                           f"{rc}")
+    profiling.count("k5.calls")
+    return out
+
+
+def hash_field_forward(params, cfg: NGPConfig, x3, d3, density_only=False,
+                       parts=None):
+    """The Instant-NGP field forward on planar samples (K5 on the card).
+
+    Args:
+      params: params dict or FieldTables (see pack_hash_tables).
+      x3, d3: [3, M] f32 contiguous positions and unit directions on one
+        device. d3 may be None when density_only.
+      density_only: compute sigma only; rows 1-3 of the output are zero.
+      parts: an optional dict that receives "features", the kernel's input
+        to the first sigma product, bf16 [M, 32] (CUDA only), for holding it
+        against the plain grid encoding.
+
+    Returns out [4, M] f32, rows (sigma, r, g, b).
+    """
+    tables = params if isinstance(params, FieldTables) \
+        else pack_hash_tables(params, cfg)
+    _check_samples(x3, d3, density_only)
+    m = x3.shape[1]
+    with profiling.span("k5"):
+        profiling.count("k5.samples", m)
+        if density_only:
+            profiling.count("k5.density_samples", m)
+        if x3.device.type == "cpu":
+            if parts is not None:
+                raise ValueError("parts holds the kernel's features: on the "
+                                 "CPU call grid_encode instead")
+            return hash_field_forward_plain(tables, cfg, x3, d3,
+                                            density_only)
+        if x3.device.type != "cuda":
+            raise ValueError(f"unsupported device {x3.device}")
+        feats = None
+        if parts is not None:
+            feats = parts["features"] = torch.zeros(
+                (m, 32), dtype=torch.bfloat16, device=x3.device)
+        return _launch_hash(tables, cfg, x3, d3, density_only, feats)
 
 
 # ------------------------------------------------------------------ dynamic

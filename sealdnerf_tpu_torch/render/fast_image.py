@@ -18,8 +18,13 @@ surface dropped, judged by sigma taps along the tile's four corner rays),
 then the tiles sorted by their interval count and rendered in buckets, each
 with its own interval budget (`splits`); a tile over its bucket's budget is
 subsampled over its whole depth (ops/marching_dense.py:subsample_intervals).
-A bucket whose tiles hold no interval is background without a field call:
-the sorted counts come to the host once per frame to decide it.
+A tile that holds no interval is background without a field call: the
+sorted counts come to the host once per frame, each bucket renders its
+tiles from the first that holds an interval on, in whole groups of
+LIVE_TILE_GROUP tiles (an empty bucket renders none), and adjacent buckets
+of one budget render in one call. So a frame costs what its occupied tiles
+cost: a few more occupied tiles than a bucket's share bring in neither the
+bucket's whole budget nor a call of its own.
 
 Row bands (make_sharded_image_renderer): on a mesh of N ranks each rank
 renders rh / N rows of the frame through either renderer, with the
@@ -36,7 +41,7 @@ The renderers take the planar forward only: (params, x3 [3, M], d3 [3, M],
 
 While a profiler session records, the phases of a frame are the spans
 sdn.frame.march, sdn.frame.trim, sdn.frame.order, sdn.frame.bucket (one a
-bucket rendered) and sdn.frame.stitch (utils/profiling.py), and each wait
+run of buckets rendered) and sdn.frame.stitch (utils/profiling.py), and each wait
 of the host for the card is counted in "host_syncs" where it is made.
 """
 
@@ -57,6 +62,10 @@ from ..utils import profiling
 # the reference's default bucket ladder: (share of the tiles, divisor of the
 # interval budget), emptiest tiles first; the last split takes the rest
 DEFAULT_SPLITS = ((0.55, 4), (0.30, 2), (1.0, 1))
+
+# a bucket renders its occupied tiles in whole groups of this many, so that
+# a frame's field calls take few distinct sizes
+LIVE_TILE_GROUP = 64
 
 
 def _march_tiles(to, td, tnear, tfar, occ_m, cfg: DenseMarchConfig,
@@ -338,7 +347,10 @@ def render_image_bucketed(params, occ_m, pose, intr, rh: int, rw: int,
     the tiles, divisor of the interval budget), ...) from the emptiest
     tiles on. Because the counts ascend, only the tiles at a bucket's top
     can exceed its budget, and those are subsampled over their depth; the
-    last bucket keeps the full budget. Pixels travel with their tile.
+    last bucket keeps the full budget. A bucket's empty tiles below its
+    first group of occupied ones are background without a field call, and
+    adjacent buckets of one budget render in one call. Pixels travel with
+    their tile.
     mesh: the frame is a row band of a mesh's frame (make_sharded_image_
     renderer), whose tiles are sorted and bucketed as the whole frame's.
     """
@@ -378,22 +390,33 @@ def render_image_bucketed(params, occ_m, pose, intr, rh: int, rw: int,
         dt_s = iv_dt[order] if iv_dt is not None else None
         bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
 
-    img_parts, dep_parts = [], []
+    # the counts ascend in this order: the tiles before the first that holds
+    # an interval are empty. Each bucket renders its tiles from there on, in
+    # whole groups; the runs of adjacent buckets with one budget are one
+    # call, so that a few occupied tiles more do not add a bucket's work.
+    first_live = int((counts_sorted == 0).sum())
+    runs = []                                   # (start, end, budget)
     for s0, s1, sc_b in bounds:
-        nb = s1 - s0
-        if nb == 0:
+        live = s1 - min(max(s0, first_live), s1)
+        a = s1 - min(s1 - s0, -(-live // LIVE_TILE_GROUP) * LIVE_TILE_GROUP)
+        if a == s1:
             continue
-        if int(counts_sorted[s1 - 1]) == 0:
-            # every tile of the bucket is empty: background and zero depth,
-            # what compositing zero weights gives
-            img_parts.append(bg.clamp(0.0, 1.0).expand(nb * tp2, 3))
-            dep_parts.append(torch.zeros(nb * tp2, device=dev))
-            continue
+        if runs and runs[-1][1] == a and runs[-1][2] == sc_b:
+            runs[-1] = (runs[-1][0], s1, sc_b)
+        else:
+            runs.append((a, s1, sc_b))
+    img_parts, dep_parts = [], []
+    n_empty = runs[0][0] if runs else n_tiles
+    if n_empty:
+        # background and zero depth, what compositing zero weights gives
+        img_parts.append(bg.clamp(0.0, 1.0).expand(n_empty * tp2, 3))
+        dep_parts.append(torch.zeros(n_empty * tp2, device=dev))
+    for a, b, sc_b in runs:
         with profiling.span("frame.bucket"):
             image, depth = _render_bucket(
-                params, o, te_s[s0:s1], iv_s[s0:s1], far_s[s0:s1],
-                None if dt_s is None else dt_s[s0:s1],
-                rd_tiles[:, s0:s1], sc_b, tp2, cfg, forward_fn, bg,
+                params, o, te_s[a:b], iv_s[a:b], far_s[a:b],
+                None if dt_s is None else dt_s[a:b],
+                rd_tiles[:, a:b], sc_b, tp2, cfg, forward_fn, bg,
                 density_scale, t_thresh, extra)
         img_parts.append(image)
         dep_parts.append(depth)

@@ -2,7 +2,9 @@
 training and serving of the static field and of the time-conditioned one,
 on Trainer's host loop (train/trainer.py: epochs, evaluate and test,
 checkpoints, the optimizer and the EMA), as the reference's FastTrainer
-subclasses its Trainer.
+subclasses its Trainer. It also takes the static Instant-NGP field without
+its background sphere (models/api.py's NGPField with bg_radius <= 0;
+below).
 
 Training: a plain per-step loop (the reference's fori_loop segments only
 amortised host-device transfers). One step refreshes the occupancy grid
@@ -68,6 +70,17 @@ are those of a preloaded run of the same seed. train_gui runs steps for the
 GUI. Time-conditioned fields serve and train at bound <= 1 only, as in the
 reference.
 
+The Instant-NGP field runs on the same march, grid and renderers: its
+frames, the trim's taps and the grid's density queries through K5
+(ops/field.py:hash_field_forward), its training steps through the plain
+field under autograd (models/ngp.py: grid_encode's gather and index_add
+backward; no backward kernel yet), with the hash table's TV term when
+tv_weight > 0 at the points Trainer draws. What only the CP field has is
+skipped: the coarse-to-fine ramp, the LOD preview's skipped line scales
+(the preview renders the full field on its ladder) and the checkpoint's
+shapes read back by config_from_params (a checkpoint's params are checked
+against the field, as Trainer checks them).
+
 On a mesh of N ranks (Trainer's data parallelism) a step is Trainer's: each
 rank draws num_rays / N rays and its deform-regulariser points from its own
 stream, and the gradients and the loss are averaged before Adam. The grid
@@ -86,10 +99,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.cp import CPConfig, CPDNeRFConfig, _params_version, \
-    config_from_params
+from ..models.api import NGPField
+from ..models.cp import CPConfig, CPDNeRFConfig, config_from_params
+from ..models.params import params_version
 from ..ops.field import (dyn_field_forward, dyn_field_train_forward,
-                         field_forward, field_train_forward)
+                         field_forward, field_train_forward,
+                         hash_field_forward)
 from ..ops.freq_encode import freq_output_dim
 from ..ops.marching_dense import DenseMarchConfig, downsample_occ
 from ..render.fast import render_dense
@@ -144,13 +159,23 @@ def tile_fits(tile_px: int, pose, intrinsics, cfg: DenseMarchConfig,
 
 
 class FastTrainer(Trainer):
-    """The CP field's trainer: Trainer's host loop (train, evaluate, test,
-    checkpoints, the optimizer and the EMA) around the dense march and the
-    kernels."""
+    """The CP and Instant-NGP fields' trainer: Trainer's host loop (train,
+    evaluate, test, checkpoints, the optimizer and the EMA) around the dense
+    march and the kernels."""
 
     def _check_field(self, field, opt, time_conditioned: bool):
+        if isinstance(field, NGPField):
+            if time_conditioned:
+                raise ValueError("the Instant-NGP field is static")
+            if field.cfg.bg_radius > 0:
+                raise NotImplementedError(
+                    "FastTrainer takes the Instant-NGP field without its "
+                    "background sphere (bg_radius <= 0); Trainer takes it "
+                    "with one")
+            return
         if not isinstance(field.cfg, CPConfig):
-            raise NotImplementedError("only the CP field is ported")
+            raise NotImplementedError("FastTrainer takes the CP field and "
+                                      "the Instant-NGP field")
         if time_conditioned != isinstance(field.cfg, CPDNeRFConfig):
             raise ValueError("time_conditioned goes with a CPDNeRFConfig "
                              "field, and only with one")
@@ -161,6 +186,7 @@ class FastTrainer(Trainer):
 
     def _configure(self):
         opt = self.opt
+        self._hash = isinstance(self.field, NGPField)
         cascades = cascades_for(opt.bound)
         # the kept-interval budget grows with the cascades: each cascade's
         # band of geometry takes its own slots (the reference measured 12
@@ -183,6 +209,9 @@ class FastTrainer(Trainer):
         self._infer_cache = None    # (key, annealed inference params)
 
     def _adopt_params(self, params, path: str):
+        if self._hash:
+            super()._adopt_params(params, path)
+            return
         cfg = config_from_params(params, self.field.cfg)
         if isinstance(cfg, CPDNeRFConfig) != self.time_conditioned:
             raise ValueError(
@@ -212,7 +241,7 @@ class FastTrainer(Trainer):
             else self.params
         if self._anneal_mask is None:
             return params
-        key = (_params_version(params), self.global_step)
+        key = (params_version(params), self.global_step)
         if self._infer_cache is None or self._infer_cache[0] != key:
             with torch.no_grad():
                 self._infer_cache = (
@@ -268,6 +297,10 @@ class FastTrainer(Trainer):
         tables = self.field.kernel_tables(params)
         cfg = self.field.cfg
 
+        if self._hash:
+            return lambda pts: hash_field_forward(
+                tables, cfg, pts.t().contiguous(), None,
+                density_only=True)[0]
         if self.time_conditioned:
             return lambda pts, t: dyn_field_forward(
                 tables, cfg, pts.t().contiguous(), None, t,
@@ -278,8 +311,11 @@ class FastTrainer(Trainer):
     def _render_forward(self, lod: bool = False):
         """The renderers' forward_fn: (tables, x3, d3[, t]) -> out. lod=True:
         the LOD preview's, which skips the line scales with res >=
-        opt.preview_lod_min_res inside the kernel."""
+        opt.preview_lod_min_res inside the kernel (the Instant-NGP field
+        has no line scales: its preview reads the full field)."""
         cfg = self.field.cfg
+        if self._hash:
+            return lambda tabs, x3, d3: hash_field_forward(tabs, cfg, x3, d3)
         skip = ()
         if lod and self.opt.preview_lod_min_res > 0:
             skip = tuple(s for s, (res, _) in enumerate(cfg.scales)
@@ -450,7 +486,10 @@ class FastTrainer(Trainer):
     # --------------------------------------------------------- training
     def _train_forward(self, params, x, d, *t, plain=False):
         """render_dense's forward_fn: K1 forward and K2 backward, or with a
-        time t K3 and K4 (or their plain versions)."""
+        time t K3 and K4 (or their plain versions); the Instant-NGP field's
+        plain forward under autograd."""
+        if self._hash:
+            return self.field.forward(params, x, d)
         x3, d3 = x.t().contiguous(), d.t().contiguous()
         tables = self.field.kernel_tables(params)
         if t:
@@ -484,13 +523,14 @@ class FastTrainer(Trainer):
         return batch + (x_reg,)
 
     def loss_on(self, rays_o, rays_d, gt, bg, noise=None, t=None, x_reg=None,
-                plain: bool = False, params=None):
+                plain: bool = False, params=None, x_tv=None):
         """MSE of render_dense through the field's kernels (plain=True: their
         plain versions) on the current occupancy -> (loss, n_samples),
         differentiable in the params. A time-conditioned field renders at
         time t on the occupancy of t's bin, through `params` (None: the
         current params annealed at the current step), and with x_reg adds
-        deform_zero_reg * mean(deform_raw(x_reg, 0)^2)."""
+        deform_zero_reg * mean(deform_raw(x_reg, 0)^2). x_tv: points [N, 3]
+        in [0, 1] of the Instant-NGP table's TV term (Trainer's)."""
         fwd = self._train_forward if not plain else \
             lambda p, x, d, *tt: self._train_forward(p, x, d, *tt, plain=True)
         occ_m, extra = self._occ_m, ()
@@ -512,6 +552,9 @@ class FastTrainer(Trainer):
                 self.opt.deform_zero_reg > 0:
             h0 = self.field.deform_raw(params, x_reg, 0.0)
             loss = loss + self.opt.deform_zero_reg * torch.mean(h0 ** 2)
+        if x_tv is not None:
+            loss = loss + self.opt.tv_weight * self.field.tv_loss(params,
+                                                                  x_tv)
         return loss, res["n_samples"]
 
     def train_step(self, data, h: int, w: int):
@@ -527,8 +570,13 @@ class FastTrainer(Trainer):
                 self.refresh_grid()
             with profiling.span("step.sample"):
                 batch = self.sample_batch(data, h, w)
+                tv = {}
+                if self._hash and self.opt.tv_weight > 0:
+                    tv["x_tv"] = torch.rand((self.n_local_rays, 3),
+                                            generator=self.rank_generator,
+                                            device=self.device)
             with profiling.span("step.forward"):
-                loss, n_samples = self.loss_on(*batch, params=params)
+                loss, n_samples = self.loss_on(*batch, params=params, **tv)
             with profiling.span("step.backward"):
                 self.optimizer.zero_grad(set_to_none=True)
                 loss.backward()

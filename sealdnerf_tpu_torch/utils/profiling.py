@@ -40,12 +40,14 @@ The spans (in the trace as "sdn.<name>"), their phases and the counters:
   (the buckets back to the frame's pixels) and frame.fetch (image and
   depth to the host);
 - composite: the dense compositing of frames and training steps;
-- k1, k2, k3, k4: one call of the field's forward, backward, dynamic
-  forward and dynamic backward (ops/field.py);
+- k1, k2, k3, k4, k5: one call of the field's forward, backward, dynamic
+  forward and dynamic backward, and of the Instant-NGP hash-grid field's
+  forward (ops/field.py);
 - step: a FastTrainer training step, with step.sample, step.forward,
   step.backward and step.update inside it; grid.refresh and grid.rebuild.
-- counters: k1.calls .. k4.calls (the calls that reached the kernel),
-  k1.samples .. k4.samples (their samples), host_syncs, fetch_bytes (what
+- counters: k1.calls .. k5.calls (the calls that reached the kernel),
+  k1.samples .. k5.samples (their samples), k5.density_samples (those of
+  K5's density-only calls), host_syncs, fetch_bytes (what
   a frame copies from the card to the host), fetch_pinned_bytes (the part
   of it that fetch_frame copied into page-locked memory).
 

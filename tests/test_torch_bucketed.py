@@ -198,6 +198,46 @@ def test_over_budget_occupancy_subsamples_like_the_reference():
     assert np.abs(img_b - img_t).mean() < 0.01
 
 
+@pytest.mark.parametrize("group", [1, 3])
+@pytest.mark.parametrize("splits", [SPLITS, ((0.55, 4), (0.30, 1), (1.0, 1))])
+def test_empty_tiles_take_no_field_call(monkeypatch, group, splits):
+    """A bucket renders its tiles from the first occupied one on, in whole
+    groups of LIVE_TILE_GROUP, and adjacent buckets of one budget in one
+    call: the field sees just those tiles' samples, in one call a run, and
+    the frame equals the reference's, which renders every tile of a bucket
+    that holds an interval."""
+    occ = _ball_occ(16, r=0.3)
+    cfgs = _cfgs(**BALL_CFG)
+    pose, intr = _cam(32, 32)
+    counts, _ = _tile_counts_and_budgets(occ, cfgs[1], 32, 32, 4, pose, intr,
+                                         splits)
+    first_live = int((counts == 0).sum())
+    bounds = tfi.bucket_bounds(counts.size, 8, splits)
+    want, budgets = 0, []
+    for s0, s1, sc_b in bounds:
+        live = s1 - min(max(s0, first_live), s1)
+        n = min(s1 - s0, -(-live // group) * group)
+        want += n * 16 * sc_b * 2
+        if n and not (budgets and budgets[-1] == sc_b):
+            budgets.append(sc_b)
+    # some bucket holds empty tiles under its occupied ones
+    assert 0 < want < sum((s1 - s0) * 16 * sc_b * 2 for s0, s1, sc_b in
+                          bounds)
+    seen = []
+
+    def ball(params, x3, d3):
+        seen.append(x3.shape[1])
+        return _ball_t(params, x3, d3)
+    monkeypatch.setattr(tfi, "LIVE_TILE_GROUP", group)
+    img_j, dep_j, img_b, dep_b, _, _ = _both(
+        occ, cfgs, (_ball_j, ball), 32, 32, 4, pose, intr,
+        [0.1, 0.2, 0.3], splits=splits)
+    # the bucketed frame's calls, then the tiled frame's one
+    assert sum(seen[:-1]) == want and len(seen) - 1 == len(budgets)
+    np.testing.assert_allclose(img_b, img_j, atol=IMG_ATOL)
+    np.testing.assert_allclose(dep_b, dep_j, atol=DEP_ATOL)
+
+
 def test_cascade_bucketed_matches_reference():
     """bound 2, two cascades, dt_gamma 1/128: the bucketed frame of the two
     balls equals the reference's, and lies near the tiled one (truncation

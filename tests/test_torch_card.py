@@ -1147,3 +1147,127 @@ def test_steady_frames_fetch_from_the_host_cache(card, tmp_path):
         out = frame(20.0 + 10.0 * i)
     assert np.isfinite(out[0]).all()
     assert blocks() == before
+
+
+# ----------------------------------------------- K5: the hash-grid field
+def _hash_tables(card, seed=0):
+    """K5's operands at the published widths (Instant-NGP at bound 1: 16
+    levels of 2 features, 2^19 rows a level, 64-wide towers) on a table of
+    N(0, 0.5) entries: the seeded U(+-1e-4) table leaves the features at
+    ~1e-4, which would hide a misread corner."""
+    from sealdnerf_tpu_torch.models.ngp import NGPConfig, init_ngp
+    from sealdnerf_tpu_torch.ops.field import pack_hash_tables
+    cfg = NGPConfig(bound=1.0)
+    params = init_ngp(torch.Generator().manual_seed(seed), cfg, card)
+    params["grid"] = torch.randn(
+        params["grid"].shape, device=card,
+        generator=torch.Generator(card).manual_seed(seed + 1)) * 0.5
+    return cfg, pack_hash_tables(params, cfg)
+
+
+@pytest.mark.parametrize("kw", [{}, {"density_only": True}])
+@pytest.mark.parametrize("m", [(1 << 20) + 37, 1, 255])
+def test_hash_field_kernel_matches_plain(card, m, kw):
+    """K5 against its plain version (grid_encode on the bf16 table and the
+    towers with the kernel's roundings) at the published widths, on 2^20 +
+    37 random samples, some outside the box (encoded to zero), and on
+    ragged counts: the reference's kernel tolerances (bf16 roundings that an
+    f32 sum in another order may flip)."""
+    from sealdnerf_tpu_torch.ops.field import (hash_field_forward,
+                                               hash_field_forward_plain)
+    cfg, tables = _hash_tables(card)
+    rng = np.random.default_rng(2)
+    x3 = rng.uniform(-1.02, 1.02, (3, m)).astype(np.float32)
+    d3 = rng.normal(size=(3, m)).astype(np.float32)
+    d3 /= np.linalg.norm(d3, axis=0, keepdims=True)
+    x3, d3 = torch.from_numpy(x3).to(card), torch.from_numpy(d3).to(card)
+    before = _calls(5)
+    out = hash_field_forward(tables, cfg, x3, d3, **kw).cpu()
+    assert _calls(5) == before + 1
+    ref = hash_field_forward_plain(tables, cfg, x3, d3, **kw).cpu()
+    np.testing.assert_allclose(out[0], ref[0], **SIGMA_TOL)
+    np.testing.assert_allclose(out[1:], ref[1:], **RGB_TOL)
+    x0 = torch.zeros((3, 0), device=card)
+    assert hash_field_forward(tables, cfg, x0, x0).shape == (4, 0)
+
+
+def test_hash_field_kernel_features_are_the_plain_ones(card):
+    """What K5 feeds its first product is grid_encode's encoding on the bf16
+    table, rounded to bf16: the kernel sums a level's 8 corners in f32 in
+    corner order, so an f32 sum in another order may round a feature to the
+    neighbouring bf16 value (at most one in a thousand here, 2^-7 relative
+    apart)."""
+    from sealdnerf_tpu_torch.ops.field import hash_field_forward
+    from sealdnerf_tpu_torch.ops.grid_encode import grid_encode
+    cfg, tables = _hash_tables(card)
+    x3 = torch.rand((3, 1 << 16), device=card,
+                    generator=torch.Generator(card).manual_seed(3)) * 2 - 1
+    parts = {}
+    hash_field_forward(tables, cfg, x3, None, density_only=True, parts=parts)
+    want = grid_encode((x3.t() + 1.0) / 2.0, tables.plain["grid"].float(),
+                       cfg.grid_cfg).to(torch.bfloat16).float()
+    got = parts["features"].float()
+    assert int((got != want).sum()) <= got.numel() // 1000
+    rel = (got - want).abs() / want.abs().clamp(min=1e-3)
+    assert float(rel.max()) <= 2.0 ** -7
+
+
+def test_hash_field_kernel_time_within_its_bound(card):
+    """K5 alone on 2^20 random samples takes at least the least time that
+    nerfbench/work_hash.py gives its work (its roofline share at most 100
+    %): the count of its bytes and operations is no more than it does."""
+    import time as _time
+    from nerfbench import work_hash
+    from sealdnerf_tpu_torch.ops.field import hash_field_forward
+    cfg, tables = _hash_tables(card)
+    fc = {k: getattr(cfg, k) for k in (
+        "bound", "num_levels", "level_dim", "base_resolution",
+        "log2_hashmap_size", "gridtype", "num_layers", "hidden_dim",
+        "geo_feat_dim", "num_layers_color", "hidden_dim_color", "sh_degree")}
+    fc["desired_resolution"] = cfg.grid_cfg.desired_resolution
+    m = 1 << 20
+    x3 = torch.rand((3, m), device=card) * 2 - 1
+    d3 = torch.nn.functional.normalize(torch.randn((3, m), device=card),
+                                       dim=0)
+    for kw in ({}, {"density_only": True}):
+        hash_field_forward(tables, cfg, x3, d3, **kw)
+        torch.cuda.synchronize()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        for _ in range(10):
+            hash_field_forward(tables, cfg, x3, d3, **kw)
+        ev1.record()
+        torch.cuda.synchronize()
+        s = ev0.elapsed_time(ev1) / 10 * 1e-3
+        bound = work_hash.bound_seconds(fc, 1, m, m if kw else 0)
+        print(f"K5 {kw}: {s * 1e3:.3f} ms, bound {bound * 1e3:.4f} ms "
+              f"({100 * bound / s:.1f} %) at {_time.strftime('%H:%M')}")
+        assert 0 < bound <= s
+
+
+def test_fast_trainer_ngp_frame_through_k5(card, tmp_path):
+    """main_nerf's route for --backbone ngp on the card: FastTrainer serves
+    the seeded Instant-NGP field's GUI frame through K5, and the frame
+    through K5's plain version is the same to 40 dB."""
+    from sealdnerf_tpu_torch.train import fast
+    from sealdnerf_tpu_torch.ops.field import hash_field_forward_plain
+    opt = postprocess(base_parser().parse_args(
+        ["synthetic", "-O", "--backbone", "ngp", "--bound", "1",
+         "--dt_gamma", "0", "--workspace", str(tmp_path), "--ckpt",
+         "scratch"]))
+    tr, _ = build_trainer(opt)
+    assert type(tr) is fast.FastTrainer
+    _, train, val = make_synthetic_scene(n_train=4, n_val=1, res=64)
+    tr.train_gui(train.device(card), 64, 64, step=32)
+    before = _calls(5)
+    got = tr.test_gui(val.poses[0], val.intrinsics, 64, 64)["image"]
+    assert _calls(5) > before
+    orig = fast.hash_field_forward
+    try:
+        fast.hash_field_forward = lambda tabs, cfg, x3, d3, **kw: \
+            hash_field_forward_plain(tabs, cfg, x3, d3, **kw)
+        want = tr.test_gui(val.poses[0], val.intrinsics, 64, 64)["image"]
+    finally:
+        fast.hash_field_forward = orig
+    mse = float(np.mean((np.asarray(got) - np.asarray(want)) ** 2))
+    assert mse == 0 or -10 * np.log10(mse) >= 40.0

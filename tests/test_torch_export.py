@@ -13,9 +13,11 @@ test(write_video=...), train_gui and test_gui. Tolerances:
 - test(write_video=True) writes the PNGs and, with an importable encoder
   (monkeypatched), the mp4 at 25 fps; without one it logs and keeps the
   PNGs;
-- train_gui and test_gui on both trainers with --device cpu: the steps
-  taken, a finite loss, the lr of current_lr(), downscale snapped to 1, 2,
-  4 or 8, depth always from Trainer.test_gui.
+- train_gui and test_gui on both trainers with --device cpu (FastTrainer
+  on the CP and the Instant-NGP fields, Trainer on the Instant-NGP field
+  with its background sphere): the steps taken, a finite loss, the lr of
+  current_lr(), downscale snapped to 1, 2, 4 or 8, depth always from
+  Trainer.test_gui.
 """
 
 import os
@@ -173,15 +175,18 @@ def test_test_writes_video_when_an_encoder_imports(tmp_path, monkeypatch,
     assert all(f.endswith(".png") for f in os.listdir(tmp_path / "r2"))
 
 
-@pytest.mark.parametrize("backbone", ["cp", "ngp"])
+@pytest.mark.parametrize("backbone", ["cp", "ngp", "ngp_bg"])
 def test_train_gui_and_test_gui(tmp_path, backbone):
     """Both trainers as --device cpu builds them (narrow), on the GUI's
-    calls."""
+    calls: FastTrainer on the CP field and on the Instant-NGP field, Trainer
+    on the Instant-NGP field with its background sphere."""
     argv = ["synthetic", "-O", "--device", "cpu", "--workspace",
             str(tmp_path), "--ckpt", "scratch", "--num_rays", "128",
-            "--backbone", backbone]
+            "--backbone", backbone[:3]]
     if backbone == "cp":
         argv += ["--bound", "1", "--dt_gamma", "0"]
+    if backbone == "ngp_bg":
+        argv += ["--bg_radius", "1"]
     opt = cli.postprocess(cli.base_parser().parse_args(argv))
     if backbone == "cp":
         # the CLI's options on a narrow field
@@ -191,7 +196,9 @@ def test_train_gui_and_test_gui(tmp_path, backbone):
             opt, grid_size=32, march_res=16), field,
             workspace=str(tmp_path), use_checkpoint="scratch", device="cpu")
     else:
-        tr, _ = cli.build_trainer(opt, grid_size=16, max_steps=256)
+        tr, _ = cli.build_trainer(opt, grid_size=16, march_res=8,
+                                  max_steps=256)
+    assert type(tr) is (Trainer if backbone == "ngp_bg" else FastTrainer)
     _, train, val = make_synthetic_scene(n_train=3, n_val=1, res=32)
     data = train.device("cpu")
     out = tr.train_gui(data, step=5, h=32, w=32)
@@ -208,7 +215,7 @@ def test_train_gui_and_test_gui(tmp_path, backbone):
     frame = tr.test_gui(val.poses[0], val.intrinsics, 32, 32, downscale=1,
                         need_depth=False)
     assert frame["image"].shape == (32, 32, 3)
-    if backbone == "cp":
+    if backbone != "ngp_bg":
         assert frame["depth"] is None          # FastTrainer's LOD preview
     else:
         assert frame["depth"].shape == (32, 32)   # Trainer: always

@@ -49,6 +49,7 @@ from sealdnerf_tpu_torch.models import dnerf as td
 from sealdnerf_tpu_torch.models import ngp as tn
 from sealdnerf_tpu_torch.models.api import make_dnerf_field, make_ngp_field
 from sealdnerf_tpu_torch.models.params import param_leaves, params_from_jax
+from sealdnerf_tpu_torch.train.fast import FastTrainer
 from sealdnerf_tpu_torch.train.trainer import Trainer, TrainOptions
 
 NARROW = dict(num_levels=4, log2_hashmap_size=12)
@@ -303,13 +304,15 @@ def _narrow_cli(monkeypatch, module):
                         functools.partial(td.DNeRFConfig, **DYN_NARROW))
     monkeypatch.setattr(module, "build_trainer", lambda opt, **kw:
                         cli.build_trainer(opt, **kw, grid_size=32,
-                                          segment_steps=16))
+                                          march_res=16, segment_steps=16))
 
 
 def test_main_nerf_ngp_on_the_cpu(tmp_path, monkeypatch):
     """`main_nerf synthetic -O --backbone ngp --device cpu` (bound 2,
-    dt_gamma 1/128) trains, evaluates and writes its frames; --test serves
-    its checkpoint."""
+    dt_gamma 1/128) trains, evaluates and writes its frames on FastTrainer
+    (the cascade march over both cascades; K5's plain version serves the
+    frames); --test serves its checkpoint, and main_SealNeRF's teacher
+    (Trainer) and student (StudentTrainer) take it over."""
     _narrow_cli(monkeypatch, main_nerf)
     ws = str(tmp_path)
     base = ["synthetic", "-O", "--backbone", "ngp", "--device", "cpu",
@@ -317,8 +320,8 @@ def test_main_nerf_ngp_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(main_nerf, "MESH_RESOLUTION", 32)
     tr = main_nerf.main(base + ["--ckpt", "scratch", "--iters", "16",
                                 "--num_rays", "64"])
-    assert type(tr) is Trainer and tr.global_step == 48
-    assert tr.march.cascades == 2 and tr.march.dt_gamma == 1 / 128
+    assert type(tr) is FastTrainer and tr.global_step == 48
+    assert tr.march_cfg.cascades == 2 and tr.march_cfg.dt_gamma == 1 / 128
     assert len([f for f in os.listdir(os.path.join(ws, "results"))
                 if f.endswith(".png")]) == 6
     assert os.listdir(os.path.join(ws, "meshes")) == ["ngp_1.ply"]

@@ -181,11 +181,18 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
         opt = postprocess(base_parser().parse_args(base + flag))
         tr, _ = build_trainer(opt)
         assert getattr(tr.opt, want[0]) == want[1], flag
-    # the Instant-NGP backbone is ported (--backbone ngp builds Trainer);
-    # the CP backbone with a background sphere still exits
+    # the Instant-NGP backbone is ported (--backbone ngp builds the port's
+    # FastTrainer, and Trainer with the background sphere); the CP backbone
+    # with a background sphere still exits
     opt = postprocess(base_parser().parse_args(
         ["synthetic", "--test", "--device", "cpu", "--backbone", "ngp",
          "--workspace", str(tmp_path), "--ckpt", "scratch"]))
+    assert type(build_trainer(opt, grid_size=32, march_res=16)[0]) \
+        .__name__ == "FastTrainer"
+    opt = postprocess(base_parser().parse_args(
+        ["synthetic", "--test", "--device", "cpu", "--backbone", "ngp",
+         "--bg_radius", "1", "--workspace", str(tmp_path), "--ckpt",
+         "scratch"]))
     assert type(build_trainer(opt, grid_size=32)[0]).__name__ == "Trainer"
     opt = postprocess(base_parser().parse_args(
         ["synthetic", "--test", "--device", "cpu", "--backbone", "cp",
